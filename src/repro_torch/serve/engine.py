@@ -1,0 +1,78 @@
+"""Serving engine: batched prefill + decode with KV caches.
+
+Counterpart of ``src/repro/serve/engine.py`` (``make_serve_fns`` :29,
+``sample_token`` :79, ``generate`` :85). PyTorch runs eagerly, so the two
+step functions are plain callables (the JAX package jits them) and the
+policy scope is entered on every call. Caches are allocated once at
+``max_len = prompt + max_new`` and updated in place.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import tsmm
+from repro_torch.models import model
+
+
+def make_serve_fns(cfg, policy: "tsmm.GemmPolicy | None" = None):
+    """Build (prefill_step, decode_step).
+
+    ``policy`` pins a GemmPolicy scope around both steps (e.g.
+    ``GemmPolicy(mode="dense")`` for an A/B arm).
+    """
+    def _scope():
+        return (tsmm.policy(policy) if policy is not None
+                else contextlib.nullcontext())
+
+    def prefill_step(params, batch, cache):
+        with _scope():
+            return model.prefill(params, cfg, batch, cache)
+
+    def decode_step(params, tokens, pos, cache):
+        with _scope():
+            return model.decode_step(params, cfg, tokens, pos, cache)
+
+    return prefill_step, decode_step
+
+
+def sample_token(generator, logits, temperature: float = 0.0):
+    """Greedy at ``temperature <= 0``, else a draw from softmax(logits / T)
+    with ``generator`` (on the logits' device). Returns (B,) int64."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def generate(params, cfg, prompts, max_new: int, *, generator=None,
+             temperature: float = 0.0, policy=None, device=None):
+    """prompts: (B, S) int. Returns (B, max_new) generated tokens.
+
+    Runs on ``device`` (the card unless the caller passes one), where
+    ``params`` and ``prompts`` must already lie. ``generator`` drives
+    sampling (default: one seeded with 0 on that device).
+    """
+    dev = resolve_device(device)
+    for name, t in (("params", next(params.parameters())),
+                    ("prompts", prompts)):
+        if t.device != dev:
+            raise ValueError(f"generate runs on {dev} but {name} lie on "
+                             f"{t.device}")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    prefill_step, decode_step = make_serve_fns(cfg, policy=policy)
+
+    b, s0 = prompts.shape
+    cache = model.init_cache(cfg, b, s0 + max_new, device=dev)
+    logits, cache = prefill_step(params, {"tokens": prompts}, cache)
+    tok = sample_token(generator, logits, temperature)[:, None]
+    toks = [tok]
+    for i in range(1, max_new):
+        logits, cache = decode_step(params, tok, s0 + i - 1, cache)
+        tok = sample_token(generator, logits, temperature)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, dim=1)

@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: no JAX, no JAX package, no silent CPU.
+
+Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports neither
+``jax`` nor ``repro`` (an AST scan, plus a subprocess that imports each
+module with both blocked). Entry points called without ``device=`` on a
+machine with no card raise instead of running on the CPU, and
+``chip_smoke.py`` exits non-zero with no result line there, and also when
+it stands alone in a directory without the rest of the repository.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
+        ".__init__") for p in PKG.rglob("*.py"))
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_modules_import_with_jax_and_repro_blocked():
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"for mod in {MODULES!r}:\n"
+            "    importlib.import_module(mod)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 15
+
+
+def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.configs import registry
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_config("chatglm3-6b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(cfg, {})
+    params = model.init(cfg, device="cpu")
+    prompts = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.generate(params, cfg, prompts, 2)
+    assert engine.generate(params, cfg, prompts, 2, device="cpu").shape \
+        == (1, 2)
+
+
+def _smoke(cwd, claim_a_card=False):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    # claim_a_card: pretend a card is present, to reach the checks after
+    # the first one.
+    code = ("import runpy, torch\n"
+            f"if {claim_a_card!r}:\n"
+            "    torch.cuda.is_available = lambda: True\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _smoke(tmp_path, claim_a_card=True)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "src/repro_torch is missing" in out.stderr
