@@ -15,7 +15,13 @@ printing no result, when no CUDA card is present or any phase fails.
    bf16, at the chatglm3, paper and ragged shapes; one JSON line per case
    with the kernel's, the plain version's and one ``torch.matmul``'s median
    time (CUDA events), the bound, and the worst error. Each kernel must
-   also give bit-identical results on a second launch. Tolerances are the
+   also give bit-identical results on a second launch. The split kernels
+   (tsm2r_split, tsmt_split) are held against their plain (S, ., .) f32
+   partials at the PowerSGD, paper and chatglm3 shapes with a pinned S,
+   and sum_partials against an f32 sum; their lines add ``op_ms`` (split
+   kernel plus epilogue) and ``seq_ms`` (the sequential kernel on the same
+   product); ``library_ms`` is one ``torch.matmul`` of the whole product
+   (``torch.sum`` for sum_partials). Tolerances are the
    JAX kernel tests' (f32 rtol=1e-3, atol=1e-4; bf16 rtol=atol=2e-2). Those
    were set for reductions of up to ~2048 terms; for a deeper f32 reduction
    atol grows by sqrt(depth / 1024), because the rounding error of an f32
@@ -23,9 +29,14 @@ printing no result, when no CUDA card is present or any phase fails.
    in different orders differ by that much near zero. bf16 keeps 2e-2 as
    it is: both sides round their f32 sums to bf16, and one bf16 step is at
    most 2^-7 of the value.
-3. Dispatch (the main path starts; every launch count is set to 0 just
-   before it): the quickstart's shapes through ``tsmm``/``tsmm_t`` must
-   route to tsm2r, tsm2l and tsmt on executor ``cuda``.
+3. Dispatch (the serving main path starts; every launch count is set to
+   0 just before it): under ``split="never"`` the quickstart's shapes
+   through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
+   executor ``cuda``. Under ``"auto"`` the paper's ``[16384^2]·[16384,16]``
+   and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
+   launch tsm2r_split (with sum_partials) and tsmt_split; under
+   ``"never"`` the sequential kernels. The Python mirror of the tile
+   table (``core/perf_model.py``) must equal the C grid query.
 4. Serve (main path): chatglm3-6b at its published width and depth, bf16,
    random weights from a seeded generator; 4 prompts of 2048 tokens answered
    with 16 greedy tokens, then a sampled run, then once more step by step
@@ -39,9 +50,26 @@ printing no result, when no CUDA card is present or any phase fails.
    Then one prefill and two decode steps are traced with
    ``torch.profiler``: device time by kernel and by category, the number
    of device kernels, and the device's busy share of the unprofiled time.
-5. A ``{"kernels": [...]}`` line: every ported kernel with its launches on
-   the main path and its numbers at the main path's shape and dtype.
-6. Last line: ``{"ok": true, "device": {...}}``.
+5. Grad: each op's autograd on the card (the backward re-dispatches
+   through ``tsmm``) against autograd through its plain version, f32, at
+   the kernel tolerances; a directional finite difference of a
+   tsm2l-routed loss against a float64 oracle (rtol 1e-2).
+6. Train (the training main path; counts zeroed before it, read after):
+   chatglm3-6b at its published width with 4 layers, bf16 parameters
+   from seed 0, PowerSGD rank 4, 4 microbatches of 2 x 2048 tokens, 3
+   steps of ``train_step.make_train_step``. Every step must be
+   ``step_ok``, compress exactly embed and lm_head, launch tsm2r exactly
+   34 times (wk, wv x 4 layers x 4 microbatches + 2 P projections) and
+   tsmt_split exactly twice with S > 1 (the Q projections) and the
+   sequential tsmt never; every backward GEMM of wk/wv goes to
+   ``torch-dense``. A ``policy(mode="dense")`` arm from the same state and
+   batch must match the first step's loss, grad norm and compressed
+   embed/lm_head gradients within normalised error 5e-2. Prints step
+   time, tokens/s, peak memory, and a profiled fourth step's device busy
+   share and device time by kernel.
+7. A ``{"kernels": [...]}`` line: every ported kernel with its launches on
+   the two main paths and its numbers at its main-path shape and dtype.
+8. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -62,6 +90,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,            # dense tensor-core bf16
 TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 LOGIT_TOL = 5e-2
 BATCH, PROMPT, NEW = 4, 2048, 16
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
+KERNEL_NAMES = ("tsm2r_split", "tsmt_split", "tsm2r", "tsm2l", "tsmt",
+                "sum_partials")
 
 
 def emit(obj) -> None:
@@ -113,56 +144,352 @@ def normalised_err(got, want) -> float:
                  / want.float().abs().max())
 
 
+def category(name: str) -> str:
+    for kern in KERNEL_NAMES:
+        if f"{kern}_kernel" in name:
+            return kern
+    if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+        return "library GEMM"
+    return "other"
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` and return the device time by
+    kernel and by category and the number of device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel, by_cat, n_kernels = {}, {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        us = e.time_range.elapsed_us()
+        by_kernel[e.name] = by_kernel.get(e.name, 0) + us
+        cat = category(e.name)
+        by_cat[cat] = by_cat.get(cat, 0) + us
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_busy_ms": sum(by_kernel.values()) / 1e3,
+            "device_kernels": n_kernels,
+            "by_category_ms": {k: v / 1e3 for k, v in sorted(
+                by_cat.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top]}
+
+
+def split_kernel_phase(dev, uniform, gpu) -> dict:
+    """Each split kernel and sum_partials against its plain version at the
+    main path's, the paper's and the chatglm3 shapes, f32 and bf16, with
+    bit-identical repeats. Returns the record of each kernel's main-path
+    case."""
+    from repro_torch.kernels import ref, reduce
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    cases = {   # (m, d1, d2, S); tsm2r (m, k, n), tsmt (m, a, b)
+        "tsmt_split": [(65024, 4096, 4, 8), (1 << 20, 128, 4, 32),
+                       (65536, 256, 256, 2)],
+        "tsm2r_split": [(16384, 16384, 16, 2), (8192, 4096, 256, 4)],
+    }
+    main_case = {"tsmt_split": ((65024, 4096, 4, 8), torch.float32),
+                 "tsm2r_split": ((16384, 16384, 16, 2), torch.float32),
+                 "sum_partials": ((2, 16384, 16), torch.float32)}
+    measured, bad = {}, []
+    for name, shapes in cases.items():
+        mm = name == "tsm2r_split"
+        kern = k_tsm2r.tsm2r_split if mm else k_tsmt.tsmt_split
+        plain = ref.tsm2r_split_ref if mm else ref.tsmt_split_ref
+        seq = k_tsm2r.tsm2r if mm else k_tsmt.tsmt
+        block = 32 if mm else 8
+        for m, d1, d2, S in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = uniform((m, d1), dtype)
+                y = uniform((d1, d2) if mm else (m, d2), dtype)
+                got = kern(x, y, S, block)
+                again = kern(x, y, S, block)
+                torch.cuda.synchronize()
+                want = plain(x, y, S, block)
+                depth = ref.split_len(d1 if mm else m, S, block)
+                # Both sides sum the same products in f32 (the partials
+                # are f32 at either input dtype): f32 tolerances.
+                rtol, atol = TOL[torch.float32]
+                atol *= max(1.0, (depth / 1024) ** 0.5)
+                err = (got - want).abs()
+                same = torch.equal(got, again)
+                ok = same and bool((err <= atol + rtol * want.abs()).all())
+                b_ms, b_by = bound(x, y, got, 2 * m * d1 * d2)
+                lib = ((lambda: torch.matmul(x, y)) if mm
+                       else (lambda: torch.matmul(x.t(), y)))
+                rec = {"phase": "kernel", "kernel": name,
+                       "shape": [m, d1, d2], "splits": S,
+                       "dtype": str(dtype)[6:],
+                       "kernel_ms": time_ms(lambda: kern(x, y, S, block)),
+                       "op_ms": time_ms(lambda: reduce.reduce_partials(
+                           kern(x, y, S, block), dtype)),
+                       "seq_ms": time_ms(lambda: seq(x, y)),
+                       "plain_ms": time_ms(lambda: plain(x, y, S, block)),
+                       "library_ms": time_ms(lib),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "max_err": float(err.max()), "rtol": rtol,
+                       "atol": atol, "deterministic": same, "ok": ok,
+                       "gpu": gpu}
+                emit(rec)
+                if not ok:
+                    bad.append(f"{name} {m}x{d1}x{d2} S={S} {dtype}")
+                if main_case[name] == ((m, d1, d2, S), dtype):
+                    measured[name] = rec
+                del x, y, got, again, want, err
+                torch.cuda.empty_cache()
+    for S, rows, cols in [(2, 16384, 16), (8, 4096, 4), (32, 128, 4)]:
+        p = uniform((S, rows, cols), torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = reduce.sum_partials(p, dtype)
+            again = reduce.sum_partials(p, dtype)
+            torch.cuda.synchronize()
+            want = ref.sum_partials_ref(p, dtype)
+            rtol, atol = TOL[dtype]
+            err = (got.float() - want.float()).abs()
+            same = torch.equal(got, again)
+            ok = same and bool(
+                (err <= atol + rtol * want.float().abs()).all())
+            nbytes = p.numel() * 4 + got.numel() * got.element_size()
+            rec = {"phase": "kernel", "kernel": "sum_partials",
+                   "shape": [S, rows, cols], "dtype": str(dtype)[6:],
+                   "kernel_ms": time_ms(lambda: reduce.sum_partials(p,
+                                                                    dtype)),
+                   "op_ms": None, "seq_ms": None,
+                   "plain_ms": time_ms(lambda: ref.sum_partials_ref(p,
+                                                                    dtype)),
+                   "library_ms": time_ms(lambda: torch.sum(p, dim=0)),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "max_err": float(err.max()),
+                   "rtol": rtol, "atol": atol, "deterministic": same,
+                   "ok": ok, "gpu": gpu}
+            emit(rec)
+            if not ok:
+                bad.append(f"sum_partials {S}x{rows}x{cols} {dtype}")
+            if main_case["sum_partials"] == ((S, rows, cols), dtype):
+                measured["sum_partials"] = rec
+    check(not bad, f"split kernel phase mismatch in {bad}")
+    return measured
+
+
+def grad_phase(dev, uniform, gpu) -> None:
+    """Autograd through each op on the card (the backward re-dispatches
+    through tsmm and its kernels) against autograd through the op's plain
+    version; then a directional finite difference of a tsm2l-routed loss
+    against a float64 oracle."""
+    from repro_torch.core import tsmm
+    from repro_torch.kernels import ops, ref
+
+    rtol, atol = TOL[torch.float32]
+    atol *= 2.0        # the deepest backward reduction is m = 4096 terms
+    for op, sx, sy, sct in [("tsm2r", (4096, 2048), (2048, 8), (4096, 8)),
+                            ("tsm2l", (4096, 16), (16, 8), (4096, 8)),
+                            ("tsmt", (4096, 32), (4096, 8), (32, 8))]:
+        x, y = uniform(sx, torch.float32), uniform(sy, torch.float32)
+        ct = uniform(sct, torch.float32)
+        grads = []
+        for fn in (getattr(ops, op), getattr(ref, f"{op}_ref")):
+            xa = x.clone().requires_grad_(True)
+            ya = y.clone().requires_grad_(True)
+            with tsmm.record_dispatches() as log:
+                out = fn(xa, ya)
+                out.backward(ct)
+            grads.append((out.detach(), xa.grad, ya.grad, log))
+        (out, dx, dy, log), (r_out, r_dx, r_dy, _) = grads
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in
+                ((out, r_out), (dx, r_dx), (dy, r_dy))]
+        ok = all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in
+                 ((out, r_out), (dx, r_dx), (dy, r_dy)))
+        routes = [(e.entry, e.kind, e.executor) for e in log]
+        emit({"phase": "grad", "op": op, "shapes": [sx, sy],
+              "max_err_out_dx_dy": errs, "backward_routes": routes,
+              "rtol": rtol, "atol": atol, "ok": ok, "gpu": gpu})
+        check(ok, f"grad phase mismatch for {op}: {errs}")
+        check(len(routes) == 2 and all(r[2] in ("cuda", "torch-dense")
+                                       for r in routes),
+              f"grad phase backward routes {routes}")
+
+    m, k, n = 2048, 8, 8
+    a, b = uniform((m, k), torch.float32), uniform((k, n), torch.float32)
+    direction = uniform((m, k), torch.float32) / m
+
+    def oracle(a64):
+        return float(torch.tanh(a64 @ b.double()).sum())
+
+    eps = 1e-2
+    fd = (oracle(a.double() + eps * direction.double())
+          - oracle(a.double() - eps * direction.double())) / (2 * eps)
+    aa = a.clone().requires_grad_(True)
+    with tsmm.record_dispatches() as log:
+        torch.tanh(tsmm.tsmm(aa, b)).sum().backward()
+    analytic = float((aa.grad.double() * direction.double()).sum())
+    ok = (log[0].kind == "tsm2l" and log[0].executor == "cuda"
+          and abs(analytic - fd) <= 1e-2 * abs(fd))
+    emit({"phase": "grad", "op": "finite_difference", "shape": [m, k, n],
+          "fd": fd, "analytic": analytic, "rtol": 1e-2, "ok": ok,
+          "gpu": gpu})
+    check(ok, f"directional finite difference {analytic} vs {fd}")
+
+
+def train_phase(dev, gpu, counts, zero_counts) -> dict:
+    """Train chatglm3-6b at its published width with TRAIN_LAYERS layers:
+    a dense arm's first step, then the kernel arm's TRAIN_STEPS steps (the
+    training main path: counts zeroed before, read after), then one
+    profiled step. Returns the main path's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core import tsmm
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw, powersgd, schedule
+    from repro_torch.train import train_step
+
+    cfg = dataclasses.replace(registry.get_config("chatglm3-6b"),
+                              n_layers=TRAIN_LAYERS)
+    n_micro = cfg.microbatch
+    dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH,
+                               vocab_size=cfg.vocab_size)
+    opt = adamw.AdamWConfig(
+        lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
+        weight_decay=0.1)
+    ps = powersgd.PowerSGDConfig(rank=4)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long)
+                for k, v in pipeline.batch_for_step(dcfg, i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    heads = ("embed.table", "lm_head.table")
+    captured = {}
+
+    def make_step(tag):
+        def transform(grads, st):
+            out, st, met = powersgd.compress_tree(ps, grads, st)
+            if tag not in captured:   # the first step's compressed grads
+                captured[tag] = {n: out[n].detach().clone() for n in heads}
+            return out, st, met
+        return train_step.make_train_step(cfg, opt, n_micro=n_micro,
+                                          grad_transform=transform)
+
+    def fresh_state():
+        state = train_step.init_train_state(0, cfg, opt, device=dev)
+        state["extra"] = powersgd.init(ps, state["params"])
+        return state
+
+    # The dense arm: the same state and batch as the kernel arm's first
+    # step, every GEMM on torch.matmul.
+    state = fresh_state()
+    with tsmm.policy(mode="dense"), tsmm.record_dispatches() as log:
+        _, m = make_step("dense")(state, batches[0])
+    check(log and all(e.executor == "torch-dense" for e in log),
+          "train dense arm routes")
+    dense = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del state, m, log
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fresh_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    check(sorted(state["extra"]) == list(heads),
+          f"compressed leaves {sorted(state['extra'])}")
+    step = make_step("kernel")
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    mb_tokens = tokens // n_micro
+    per_step_tsm2r = 2 * TRAIN_LAYERS * n_micro + 2
+    zero_counts()
+    step_ms, per_step, records = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tsmm.record_dispatches() as log:
+            state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        grown = {n: v - before[n] for n, v in counts().items()}
+        per_step.append(grown)
+        tsmt_splits = [lm.splits for e in log if e.kind == "tsmt"
+                       for lm in e.launches if lm.kind == "tsmt"]
+        bwd = [e for e in log if (e.entry, e.shape) in {
+            ("mm", (mb_tokens, kv, cfg.d_model)),       # da = ct w^T
+            ("mmt", (mb_tokens, cfg.d_model, kv))}]     # dw = x^T ct
+        rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                        "accuracy", "powersgd_compression")}
+        rec.update(step=i + 1, step_ok=bool(m["step_ok"]), launches=grown,
+                   tsmt_splits=tsmt_splits, ms=step_ms[-1])
+        records.append(rec)
+        check(rec["step_ok"], f"train step {i + 1} not ok: {rec}")
+        check(grown["tsm2r"] == per_step_tsm2r,
+              f"tsm2r launches in step {i + 1}: {grown['tsm2r']}")
+        check(grown["tsmt_split"] == 2 and grown["tsmt"] == 0
+              and len(tsmt_splits) == 2 and min(tsmt_splits) > 1,
+              f"tsmt launches in step {i + 1}: {grown} S={tsmt_splits}")
+        check(len(bwd) == 2 * 2 * TRAIN_LAYERS * n_micro
+              and all(e.executor == "torch-dense" for e in bwd),
+              f"wk/wv backward routes in step {i + 1}: {len(bwd)}")
+        del log, m
+    main_train = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # The main path ends here; what follows checks it and measures it.
+    head_err = {n: normalised_err(captured["kernel"][n],
+                                  captured["dense"][n]) for n in heads}
+    loss_err = abs(records[0]["loss"] - dense["loss"]) / abs(dense["loss"])
+    gnorm_err = (abs(records[0]["grad_norm"] - dense["grad_norm"])
+                 / dense["grad_norm"])
+    check(max(head_err.values()) <= LOGIT_TOL and loss_err <= LOGIT_TOL
+          and gnorm_err <= LOGIT_TOL,
+          f"train kernel vs dense arm: loss {loss_err} grad norm "
+          f"{gnorm_err} compressed grads {head_err}")
+    captured.update(kernel=None, dense=None)   # free; capture no more
+    prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
+    mid_ms = statistics.median(step_ms)
+    emit({"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+          "params": n_params, "dtype": cfg.dtype, "n_micro": n_micro,
+          "tokens_per_step": tokens, "init_s": init_s, "steps": records,
+          "step_ms": step_ms, "median_step_ms": mid_ms,
+          "tokens_per_s": tokens / mid_ms * 1e3, "peak_mem_gb": peak_gb,
+          "dense_arm": dense, "dense_arm_loss_err": loss_err,
+          "dense_arm_grad_norm_err": gnorm_err,
+          "dense_arm_compressed_grad_err": head_err,
+          "tsm2r_launches_per_step": per_step_tsm2r, "gpu": gpu})
+    emit({"phase": "profile", "window": "train step", **prof,
+          "unprofiled_ms": mid_ms,
+          "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
+    del state, batches
+    torch.cuda.empty_cache()
+    return main_train
+
+
 def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
                   gpu) -> None:
     """Trace one prefill and two decode steps with ``torch.profiler`` and
     print, per window, the device time by kernel and by category and the
     device's busy share of the same work's unprofiled time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def category(name):
-        for kern in ("tsm2r", "tsm2l", "tsmt"):
-            if f"{kern}_kernel" in name:
-                return kern
-        if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass",
-                                   "nvjet")):
-            return "library GEMM"
-        return "other"
-
     prefill_step, decode_step = engine.make_serve_fns(cfg)
     for window in ("prefill", "decode"):
         cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
         if window == "decode":
             _, cache = prefill_step(params, {"tokens": prompts}, cache)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            if window == "prefill":
-                prefill_step(params, {"tokens": prompts}, cache)
-            else:
-                for i in (1, 2):
-                    decode_step(params, out[:, i - 1:i], PROMPT + i - 1,
-                                cache)
-            torch.cuda.synchronize()
-        by_kernel, by_cat, n_kernels = {}, {}, 0
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            n_kernels += 1
-            us = e.time_range.elapsed_us()
-            by_kernel[e.name] = by_kernel.get(e.name, 0) + us
-            cat = category(e.name)
-            by_cat[cat] = by_cat.get(cat, 0) + us
-        busy_ms = sum(by_kernel.values()) / 1e3
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-        emit({"phase": "profile", "window": window,
-              "device_busy_ms": busy_ms, "device_kernels": n_kernels,
+        if window == "prefill":
+            rec = device_profile(
+                lambda: prefill_step(params, {"tokens": prompts}, cache))
+        else:
+            rec = device_profile(lambda: [
+                decode_step(params, out[:, i - 1:i], PROMPT + i - 1, cache)
+                for i in (1, 2)])
+        emit({"phase": "profile", "window": window, **rec,
               "unprofiled_ms": step_ms[window],
-              "busy_share": busy_ms / step_ms[window],
-              "by_category_ms": {k: v / 1e3 for k, v in sorted(
-                  by_cat.items(), key=lambda kv: -kv[1])},
-              "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top],
+              "busy_share": rec["device_busy_ms"] / step_ms[window],
               "gpu": gpu})
         del cache
 
@@ -178,7 +505,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import reduce as k_reduce
     from repro_torch.kernels import tsm2l as k_tsm2l
     from repro_torch.kernels import tsm2r as k_tsm2r
     from repro_torch.kernels import tsmt as k_tsmt
@@ -212,10 +541,10 @@ def main() -> int:
         x = torch.rand(shape, generator=gen, device=dev) * 2 - 1
         return x.to(dtype)
 
-    kernels = {
-        "tsm2r": (ops.tsm2r, ref.tsm2r_ref, torch.matmul, "mm"),
-        "tsm2l": (ops.tsm2l, ref.tsm2l_ref, torch.matmul, "mm"),
-        "tsmt": (ops.tsmt, ref.tsmt_ref,
+    kernels = {     # the sequential kernels' wrappers: no split resolution
+        "tsm2r": (k_tsm2r.tsm2r, ref.tsm2r_ref, torch.matmul, "mm"),
+        "tsm2l": (k_tsm2l.tsm2l, ref.tsm2l_ref, torch.matmul, "mm"),
+        "tsmt": (k_tsmt.tsmt, ref.tsmt_ref,
                  lambda x, y: torch.matmul(x.t(), y), "mmt"),
     }
     # (m, d1, d2): tsm2r/tsm2l (m, k, n); tsmt (m, a, b). Besides the main
@@ -271,11 +600,27 @@ def main() -> int:
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
+    measured.update(split_kernel_phase(dev, uniform, gpu))
 
-    # -- 3. dispatch (main path starts: counts zeroed) ---------------------
-    counters = {"tsm2r": k_tsm2r, "tsm2l": k_tsm2l, "tsmt": k_tsmt}
-    for mod in counters.values():
-        mod.launches = 0
+    # -- 3. dispatch (serving main path starts: counts zeroed) -------------
+    counters = {"tsm2r": (k_tsm2r, "launches"),
+                "tsm2l": (k_tsm2l, "launches"),
+                "tsmt": (k_tsmt, "launches"),
+                "tsm2r_split": (k_tsm2r, "split_launches"),
+                "tsmt_split": (k_tsmt, "split_launches"),
+                "sum_partials": (k_reduce, "launches")}
+
+    def counts():
+        return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def expect(**nonzero):
+        return {n: nonzero.get(n, 0) for n in counters}
+
+    zero_counts()
     a, b = uniform((4096, 4096), torch.float32), uniform((4096, 8),
                                                          torch.float32)
     a2, b2 = uniform((102400, 4), torch.float32), uniform((4, 4),
@@ -283,7 +628,7 @@ def main() -> int:
     a4 = uniform((8, 512, 4), torch.float32)
     x, y = uniform((65536, 128), torch.float32), uniform((65536, 4),
                                                          torch.float32)
-    with tsmm.record_dispatches() as log:
+    with tsmm.policy(split="never"), tsmm.record_dispatches() as log:
         outs = [tsmm.tsmm(a, b), tsmm.tsmm(a2, b2), tsmm.tsmm(a4, b2),
                 tsmm.tsmm_t(x, y)]
     torch.cuda.synchronize()
@@ -295,11 +640,57 @@ def main() -> int:
                     ("tsmt", "cuda")], f"dispatch routes {kinds}")
     for got, want in zip(outs, wants):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
-    grown = {n: mod.launches for n, mod in counters.items()}
-    check(grown == {"tsm2r": 1, "tsm2l": 2, "tsmt": 1},
+    grown = counts()
+    check(grown == expect(tsm2r=1, tsm2l=2, tsmt=1),
           f"dispatch launches {grown}")
     emit({"phase": "dispatch", "routes": kinds, "launches": grown})
     del a, b, a2, b2, a4, x, y, outs, wants
+
+    # Split-K: "auto" splits the paper's TSM2R (128 row tiles) and
+    # PowerSGD's TSMT (32 output tiles); "never" keeps them sequential.
+    a, b = uniform((16384, 16384), torch.float32), uniform((16384, 16),
+                                                           torch.float32)
+    x, y = uniform((65024, 4096), torch.float32), uniform((65024, 4),
+                                                          torch.float32)
+    for split in ("auto", "never"):
+        before = counts()
+        with tsmm.policy(split=split), tsmm.record_dispatches() as log:
+            outs = [tsmm.tsmm(a, b), tsmm.tsmm_t(x, y)]
+        torch.cuda.synchronize()
+        grown = {n: v - before[n] for n, v in counts().items()}
+        resolved = [[(lm.kind, lm.splits) for lm in e.launches] for e in log]
+        if split == "auto":
+            ok = (grown == expect(tsm2r_split=1, tsmt_split=1,
+                                sum_partials=1)
+                  and resolved[0][0][1] > 1 and resolved[1][0][1] > 1
+                  and resolved[0][-1][0] == "reduce")
+        else:
+            ok = grown == expect(tsm2r=1, tsmt=1)
+        emit({"phase": "dispatch", "split": split, "resolved": resolved,
+              "launches": grown})
+        check(ok, f"split={split} dispatch: {resolved} {grown}")
+        for got, ref_out in zip(outs, (ref.tsm2r_ref(a, b),
+                                       ref.tsmt_ref(x, y))):
+            rtol, atol = TOL[torch.float32]
+            torch.testing.assert_close(got, ref_out, rtol=rtol,
+                                       atol=atol * 8)   # 16384-65024 terms
+    del a, b, x, y, outs
+    mirror = {}
+    for name, grid_fn, shapes in [
+            ("tsm2r_split", perf_model.tsm2r_grid,
+             [(16384, 16384, 16), (8192, 4096, 256), (1000, 777, 17),
+              (4096, 4096, 1)]),
+            ("tsmt_split", perf_model.tsmt_grid,
+             [(65024, 4096, 4), (1 << 20, 128, 4), (65536, 256, 256),
+              (10000, 300, 20), (4099, 100, 5)])]:
+        for shape in shapes:
+            for splits in (1, 8):
+                c_grid = _build.grid(name, *shape, splits)
+                mirror[f"{name}{list(shape)}S{splits}"] = c_grid
+                check(c_grid == grid_fn(*shape, splits),
+                      f"tile mirror {name} {shape}: C {c_grid} vs Python "
+                      f"{grid_fn(*shape, splits)}")
+    emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
 
     # -- 4. serve chatglm3-6b (main path continues) ------------------------
     cfg = registry.get_config("chatglm3-6b")
@@ -359,9 +750,11 @@ def main() -> int:
     decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
     del cache
     # The main path ends here; what follows only checks it.
-    main_launches = {n: mod.launches for n, mod in counters.items()}
-    check(main_launches == {"tsm2r": 1 + 3 * per_prefill, "tsm2l": 2,
-                            "tsmt": 1}, f"main path launches {main_launches}")
+    main_launches = counts()
+    check(main_launches == expect(tsm2r=2 + 3 * per_prefill, tsm2l=2, tsmt=2,
+                                tsm2r_split=1, tsmt_split=1,
+                                sum_partials=1),
+          f"main path launches {main_launches}")
 
     dense_prefill, _ = engine.make_serve_fns(
         cfg, policy=tsmm.GemmPolicy(mode="dense"))
@@ -396,20 +789,39 @@ def main() -> int:
           "gpu": gpu})
     profile_serve(engine, model, params, cfg, prompts, out, dev,
                   {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu)
+    del params, prompts, out, step_logits, dense_logits, forced, full
+    torch.cuda.empty_cache()
 
-    # -- 5. kernels line ---------------------------------------------------
+    # -- 5. grad -----------------------------------------------------------
+    grad_phase(dev, uniform, gpu)
+
+    # -- 6. train chatglm3-6b (the training main path) ---------------------
+    train_launches = train_phase(dev, gpu, counts, zero_counts)
+    for name in ("tsm2r", "tsmt_split"):
+        check(train_launches[name] > 0,
+              f"{name} was not launched on the training main path")
+
+    # -- 7. kernels line ---------------------------------------------------
     replaces = {"tsm2r": "src/repro/kernels/tsm2r.py:62",
                 "tsm2l": "src/repro/kernels/tsm2l.py:48",
-                "tsmt": "src/repro/kernels/tsmt.py:63"}
+                "tsmt": "src/repro/kernels/tsmt.py:63",
+                "tsm2r_split": "src/repro/kernels/tsm2r.py:112",
+                "tsmt_split": "src/repro/kernels/tsmt.py:115",
+                "sum_partials": "src/repro/kernels/reduce.py:45"}
+    sources = {"sum_partials": "reduce"}
     line = []
     for name in counters:
         rec = measured[name]
         check(main_launches[name] > 0,
-              f"{name} was not launched on the main path")
+              f"{name} was not launched on the serving main path")
         line.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": main_launches[name],
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{sources.get(name, name)}.cu",
+            "replaces": replaces[name],
+            "launches": main_launches[name] + train_launches[name],
+            "launches_serve": main_launches[name],
+            "launches_train": train_launches[name],
             "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -12,7 +12,7 @@ CONFIG = ModelConfig(
     n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2, d_ff=13696,
     vocab_size=65024, head_dim=128,
     rope_fraction=0.5, qkv_bias=True,
-    dtype="bfloat16",
+    dtype="bfloat16", microbatch=4,
 )
 
 

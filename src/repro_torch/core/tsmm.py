@@ -1,6 +1,7 @@
 """Shape-dispatched tall-and-skinny matmul behind a scoped ``GemmPolicy``.
 
-Counterpart of ``src/repro/core/tsmm.py``, with what serving needs.
+Counterpart of ``src/repro/core/tsmm.py``, with what serving and
+single-process training need.
 ``tsmm(a, b)`` classifies ``A[..., m, k] @ B[k, n]`` (leading dims collapse
 into the tall dim) and routes to:
 
@@ -18,10 +19,16 @@ Executors:
 * ``torch-ref``   -- their plain versions, selected only for CPU tensors,
 * ``torch-dense`` -- ``torch.matmul``, the analogue of ``dense-xla``.
 
-Only the sequential kernels exist in this package: dispatch never splits
-(the JAX package also never splits under its default single-core spec).
-The classifier thresholds keep the JAX package's defaults, so both packages
-classify every shape the same way.
+``GemmPolicy.split`` drives the split-reduction (split-K) kernels of
+tsm2r and tsmt: "auto" lets the occupancy-aware chooser of
+``core/perf_model.py`` pick S (it splits where the output tiles alone
+leave SMs of the card idle), an int pins S, "never" keeps the sequential
+kernels. The classifier thresholds keep the JAX package's defaults, so
+both packages classify every shape the same way.
+
+Both entries are differentiable: the ops they dispatch to are
+``torch.autograd.Function``s whose backward re-enters this dispatcher under
+``backward_policy`` of the caller's scope.
 """
 
 from __future__ import annotations
@@ -33,18 +40,22 @@ import math
 
 import torch
 
+from repro_torch.core import perf_model
 from repro_torch.kernels import ops
 
 __all__ = [
     "GemmPolicy",
     "policy",
     "current_policy",
+    "backward_policy",
     "classify_gemm",
     "classify_gemm_t",
     "tsmm",
     "tsmm_t",
     "record_dispatches",
     "DispatchEvent",
+    "LaunchMeta",
+    "note_launch",
 ]
 
 # Classifier threshold defaults, the JAX package's (core/tsmm.py:124-128).
@@ -70,6 +81,11 @@ class GemmPolicy:
     entry on auto. The five thresholds are those of the JAX package's
     policy (see its docstring for their derivation). ``executor`` pins a
     registered backend by name.
+
+    ``split``: "auto" (the chooser picks S per shape), a positive int (that
+    S for every tsm2r/tsmt in scope; 1 = sequential) or "never" (the
+    sequential kernels everywhere). ``spec``: the card the chooser models
+    (a card's own SM count replaces ``n_sms`` for CUDA tensors).
     """
 
     mode: str = "auto"
@@ -79,8 +95,17 @@ class GemmPolicy:
     max_skinny_t: int = MAX_SKINNY_T
     skinny_ratio_t: int = SKINNY_RATIO_T
     executor: str | None = None
+    split: str | int = "auto"
+    spec: perf_model.GPUSpec = perf_model.H100
 
     def __post_init__(self):
+        s = self.split
+        if not (s in ("auto", "never")
+                or (isinstance(s, int) and not isinstance(s, bool)
+                    and s >= 1)):
+            raise ValueError(
+                f"unknown GemmPolicy split {self.split!r}: valid values are "
+                "'auto', 'never', or a positive int split factor")
         if self.mode not in _ALL_MODES:
             raise ValueError(
                 f"unknown GemmPolicy mode {self.mode!r}: valid modes are "
@@ -115,6 +140,19 @@ def policy(base: GemmPolicy | None = None, /, **overrides):
         _POLICY_VAR.reset(token)
 
 
+def backward_policy(p: GemmPolicy) -> GemmPolicy:
+    """Policy for the backward's re-dispatch: the caller's scope, minus a
+    forward-kind force and any executor pin (cotangent shapes classify for
+    themselves). An int ``split`` was chosen for the forward shape, so it
+    goes back to "auto"; "never" and a "dense" mode are scope-wide intent
+    and stay."""
+    mode = p.mode if p.mode in ("auto", "dense") else "auto"
+    split = "auto" if isinstance(p.split, int) else p.split
+    if mode == p.mode and p.executor is None and split == p.split:
+        return p
+    return dataclasses.replace(p, mode=mode, executor=None, split=split)
+
+
 # ---------------------------------------------------------------------------
 # Shape classification
 # ---------------------------------------------------------------------------
@@ -146,18 +184,45 @@ def classify_gemm_t(m: int, a_dim: int, b_dim: int,
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class LaunchMeta:
+    """One kernel launch a dispatch resolved to: ``kind`` ("tsm2r",
+    "tsm2l", "tsmt" or "reduce" for the partials epilogue), ``grid`` (the
+    CUDA grid from ``perf_model``'s mirror of the tile table; the
+    (S, rows, cols) partials shape for "reduce"; empty for tsm2l, whose
+    grid follows the card's occupancy) and the resolved ``splits``."""
+
+    kind: str
+    grid: tuple
+    splits: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class DispatchEvent:
     """One routing decision: which entry, classified kind, chosen executor,
     and the (tall, minor, minor) shape it was made for. Emitted on every
-    call (PyTorch runs eagerly; there is no trace to cache)."""
+    call (PyTorch runs eagerly; there is no trace to cache). ``split`` is
+    the policy's split knob; ``launches`` the kernel launches the call
+    resolved to (empty on the dense path)."""
 
     entry: str       # "mm" (A @ B) | "mmt" (X^T Y)
     kind: str        # "tsm2r" | "tsm2l" | "tsmt" | "dense"
     executor: str    # registry key
     shape: tuple[int, int, int]
+    split: str | int = "auto"
+    launches: tuple = ()       # of LaunchMeta
 
 
 _LISTENERS: list = []
+# Per-dispatch LaunchMeta collectors, pushed around an executor while a
+# spy listens; ``kernels/ops.py`` reports into the innermost one.
+_LAUNCH_NOTES: list = []
+
+
+def note_launch(kind: str, grid, splits: int = 1) -> None:
+    """Record one resolved kernel launch onto the current dispatch's event
+    (a no-op outside a listened-to dispatch)."""
+    if _LAUNCH_NOTES:
+        _LAUNCH_NOTES[-1].append(LaunchMeta(kind, tuple(grid), splits))
 
 
 @contextlib.contextmanager
@@ -171,11 +236,23 @@ def record_dispatches():
         _LISTENERS.remove(log.append)
 
 
-def _notify(entry: str, kind: str, executor: str, shape) -> None:
-    if _LISTENERS:
-        ev = DispatchEvent(entry, kind, executor, tuple(shape))
-        for cb in tuple(_LISTENERS):
-            cb(ev)
+def _dispatch(entry: str, kind: str, executor: str, shape, p: GemmPolicy,
+              run):
+    """Run the executor, then emit the spy event with the launches it
+    noted. Without listeners this is just ``run()``."""
+    if not _LISTENERS:
+        return run()
+    notes: list = []
+    _LAUNCH_NOTES.append(notes)
+    try:
+        out = run()
+    finally:
+        _LAUNCH_NOTES.pop()
+    ev = DispatchEvent(entry, kind, executor, tuple(shape), p.split,
+                       tuple(notes))
+    for cb in tuple(_LISTENERS):
+        cb(ev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +272,9 @@ def _exec_dense(entry, kind, a, b, p):
 
 def _exec_ops(entry, kind, a, b, p):
     if kind == "tsm2r":
-        return ops.tsm2r(a, b)
+        return ops.tsm2r(a, b, policy=p)
     if kind == "tsm2l":
-        return ops.tsm2l(a, b)
+        return ops.tsm2l(a, b, policy=p)
     if kind == "tsmt":
         return ops.tsmt(a, b, policy=p)
     return _exec_dense(entry, kind, a, b, p)
@@ -279,13 +356,14 @@ def tsmm(a: torch.Tensor, b: torch.Tensor, *, mode: str | None = None,
     kind = forced if forced is not None else classify_gemm(m_tall, k, n, p)
     name = _select_executor(kind, a.device, p)
     ex = _EXECUTORS[name]
-    if a.dim() > 2 and name != "torch-dense":
-        out = ex("mm", kind, a.reshape(m_tall, k), b, p).reshape(
-            *a.shape[:-1], n)
-    else:
-        out = ex("mm", kind, a, b, p)
-    _notify("mm", kind, name, (m_tall, k, n))
-    return out
+
+    def run():
+        if a.dim() > 2 and name != "torch-dense":
+            return ex("mm", kind, a.reshape(m_tall, k), b, p).reshape(
+                *a.shape[:-1], n)
+        return ex("mm", kind, a, b, p)
+
+    return _dispatch("mm", kind, name, (m_tall, k, n), p, run)
 
 
 def tsmm_t(x: torch.Tensor, y: torch.Tensor, *, mode: str | None = None,
@@ -307,6 +385,5 @@ def tsmm_t(x: torch.Tensor, y: torch.Tensor, *, mode: str | None = None,
     kind = (forced if forced is not None
             else classify_gemm_t(m_tall, a_dim, b_dim, p))
     name = _select_executor(kind, x.device, p)
-    out = _EXECUTORS[name]("mmt", kind, x, y, p)
-    _notify("mmt", kind, name, (m_tall, a_dim, b_dim))
-    return out
+    return _dispatch("mmt", kind, name, (m_tall, a_dim, b_dim), p,
+                     lambda: _EXECUTORS[name]("mmt", kind, x, y, p))

@@ -18,9 +18,13 @@ takes seconds):
 * A failed build raises ``RuntimeError`` with nvcc's output. Nothing falls
   back to the plain PyTorch versions: those run only for CPU tensors.
 
-Every launcher has the C signature
-``int <kernel>_<f32|bf16>(const void*, const void*, void*, int, int, int,
-void* stream)`` and returns the ``cudaError_t`` of its launch.
+Every launcher ``<kernel>_<f32|bf16>`` returns the ``cudaError_t`` of its
+launch; its C signature is ``SIGNATURES[kernel]``: two inputs, one output
+and three dims for the sequential kernels; the same plus ``splits`` and
+the slice length for the split kernels; one input, one output, ``splits``,
+rows, cols and rows per block for ``reduce``. The split libraries also
+export ``<kernel>_grid(int, int, int, int, int* out)``, the launch grid
+their tile table gives (``grid``).
 """
 
 from __future__ import annotations
@@ -35,11 +39,16 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("tsm2r", "tsm2l", "tsmt")
+KERNELS = ("tsm2r", "tsm2l", "tsmt", "tsm2r_split", "tsmt_split", "reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SEQ = [_P, _P, _P, _I, _I, _I, _P]
+_SPLIT = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+SIGNATURES = {"tsm2r": _SEQ, "tsm2l": _SEQ, "tsmt": _SEQ,
+              "tsm2r_split": _SPLIT, "tsmt_split": _SPLIT,
+              "reduce": [_P, _P, _I, _I, _I, _I, _P]}
+_GRID_QUERIES = ("tsm2r_split", "tsmt_split")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -122,7 +131,11 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             for dt in ("f32", "bf16"):
                 fn = getattr(lib, f"{name}_{dt}")
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = SIGNATURES[name]
+                fn.restype = ctypes.c_int
+            if name in _GRID_QUERIES:
+                fn = getattr(lib, f"{name}_grid")
+                fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
                 fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
@@ -131,3 +144,13 @@ def library(name: str) -> ctypes.CDLL:
 def launcher(name: str, dtype_tag: str):
     """The C launcher ``<name>_<dtype_tag>`` ("f32" or "bf16")."""
     return getattr(library(name), f"{name}_{dtype_tag}")
+
+
+def grid(name: str, m: int, d1: int, d2: int, splits: int) -> tuple:
+    """The launch grid the split kernel ``name`` uses for (m, d1, d2) and
+    ``splits``, as its library computes it from the tile table."""
+    out = (ctypes.c_int * 3)()
+    err = getattr(library(name), f"{name}_grid")(m, d1, d2, splits, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_grid failed: {err}")
+    return tuple(out)

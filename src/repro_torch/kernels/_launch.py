@@ -33,15 +33,19 @@ def check(name: str, x: torch.Tensor, y: torch.Tensor, contract: str) -> None:
         raise ValueError(f"{name} dims must fit a 32-bit int")
 
 
-def launch(name: str, x: torch.Tensor, y: torch.Tensor, out: torch.Tensor,
-           dims: tuple[int, int, int]) -> None:
-    """Launch ``<name>_<dtype>`` on the current stream of x's device and
-    raise on a non-zero cudaError_t. x, y and out lie on one CUDA device."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} kernel needs CUDA tensors; got {x.device}")
-    fn = _build.launcher(name, _DTYPE_TAG[x.dtype])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), *dims, stream)
+def launch(name: str, dtype: torch.dtype, *args) -> None:
+    """Launch ``<name>_<dtype tag>`` with ``args`` (tensors, passed as their
+    data pointers, and ints) on the current stream of the first tensor's
+    device, and raise on a non-zero cudaError_t. Every tensor lies on that
+    one CUDA device."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors; got {dev}")
+    fn = _build.launcher(name, _DTYPE_TAG[dtype])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+              for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*c_args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

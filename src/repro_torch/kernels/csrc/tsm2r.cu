@@ -14,7 +14,9 @@
 // while the current tile is multiplied out of shared memory. The paper keeps
 // all n outputs of a row in one thread; that only fits n <= ~16, so the n
 // columns are spread over the block's threads and over a column grid
-// dimension (n / BN blocks), each of which streams its rows of A once.
+// dimension (n / BN blocks), each of which streams its rows of A once. The
+// block body and the tile table live in common.cuh, shared with
+// tsm2r_split.cu.
 // Ragged m, k, n are masked on load and store. Accumulation is f32, in two
 // levels (each BK tile is summed apart, then added to the running sum), so
 // the rounding error grows with sqrt(BK) + sqrt(k / BK), not sqrt(k).
@@ -23,100 +25,24 @@
 
 namespace {
 
-using tsm2x::from_f32;
-using tsm2x::to_f32;
-
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     tsm2r_kernel(const T* __restrict__ A, const T* __restrict__ B,
                  T* __restrict__ C, int m, int k, int n) {
-  constexpr int RT = BM / TM;  // threads along rows
-  constexpr int CT = BN / TN;  // threads along columns
-  constexpr int NT = RT * CT;
-  constexpr int LDA = BK + 1;  // odd stride: row reads hit distinct banks
-  constexpr int A_PER = BM * BK / NT;
-  constexpr int B_PER = BK * BN / NT;
-  static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0, "tile/threads");
-
-  __shared__ float As[BM * LDA];
-  __shared__ float Bs[BK * BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % CT, ty = tid / CT;
-  const long row0 = (long)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-
-  // The prefetch registers hold the raw input type and are converted only
-  // when stored to shared memory: a conversion right after the load would
-  // make the warp wait for the load before the FMAs it should overlap.
-  T ra[A_PER], rb[B_PER];
-  const T zero = from_f32<T>(0.f);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // Prefetch of tile k0 into registers (masked: zero padding is exact).
-#define TSM2R_FETCH(k0)                                                  \
-  {                                                                      \
-    _Pragma("unroll") for (int p = 0; p < A_PER; ++p) {                  \
-      const int idx = tid + p * NT, r = idx / BK, c = idx % BK;          \
-      const long gr = row0 + r;                                          \
-      const int gc = (k0) + c;                                           \
-      ra[p] = (gr < m && gc < k) ? A[gr * k + gc] : zero;                \
-    }                                                                    \
-    _Pragma("unroll") for (int p = 0; p < B_PER; ++p) {                  \
-      const int idx = tid + p * NT, r = idx / BN, c = idx % BN;          \
-      const int gr = (k0) + r, gc = col0 + c;                            \
-      rb[p] = (gr < k && gc < n) ? B[(long)gr * n + gc] : zero;          \
-    }                                                                    \
-  }
-
-  TSM2R_FETCH(0);
-  for (int k0 = 0; k0 < k; k0 += BK) {
-#pragma unroll
-    for (int p = 0; p < A_PER; ++p) {
-      const int idx = tid + p * NT;
-      As[(idx / BK) * LDA + idx % BK] = to_f32(ra[p]);
-    }
-#pragma unroll
-    for (int p = 0; p < B_PER; ++p) Bs[tid + p * NT] = to_f32(rb[p]);
-    __syncthreads();
-    if (k0 + BK < k) TSM2R_FETCH(k0 + BK);  // in flight during the FMAs
-    tsm2x::tile_into<TM, TN, RT, CT>(acc, As, LDA, Bs, BN, ty, tx, BK);
-    __syncthreads();
-  }
-#undef TSM2R_FETCH
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long gr = row0 + ty + i * RT;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + tx + j * CT;
-      if (gc < n) C[gr * n + gc] = from_f32<T>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-int launch(const T* a, const T* b, T* c, int m, int k, int n,
-           cudaStream_t stream) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  tsm2r_kernel<T, BM, BN, BK, TM, TN><<<grid, NT, 0, stream>>>(a, b, c, m, k,
-                                                               n);
-  return (int)cudaGetLastError();
+  tsm2x::tsm2r_block<T, T, BM, BN, BK, TM, TN>(A, B, C, m, k, n, 0, k);
 }
 
 template <typename T>
 int dispatch(const T* a, const T* b, T* c, int m, int k, int n,
              cudaStream_t stream) {
-  if (n <= 16)  // skinny: 128 rows x 16 columns per block
-    return launch<T, 128, 16, 32, 2, 4>(a, b, c, m, k, n, stream);
-  return launch<T, 64, 64, 32, 4, 4>(a, b, c, m, k, n, stream);
+  return tsm2x::with_tsm2r_tile(n, [&](auto tile) {
+    using Tl = decltype(tile);
+    constexpr int NT = (Tl::BM / Tl::TM) * (Tl::BN / Tl::TN);
+    dim3 grid((m + Tl::BM - 1) / Tl::BM, (n + Tl::BN - 1) / Tl::BN);
+    tsm2r_kernel<T, Tl::BM, Tl::BN, Tl::BK, Tl::TM, Tl::TN>
+        <<<grid, NT, 0, stream>>>(a, b, c, m, k, n);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

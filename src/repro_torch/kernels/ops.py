@@ -1,19 +1,37 @@
-"""Forward entries for the TSM2X kernels.
+"""Differentiable entries for the TSM2X kernels, with split-K resolution.
 
-Counterpart of ``src/repro/kernels/ops.py`` (``tsm2r`` :426, ``tsm2l`` :486,
-``tsmt`` :571), forward only. The CUDA kernels mask ragged m, k, n
-themselves, so nothing is padded here (the JAX package's ``_pad_to``), and
-block sizes are fixed per tile shape inside each kernel, so there is no
-parameter resolution. Operands are made contiguous (a no-op when they
-already are) and handed to the per-kernel wrappers, which run the plain
-version for CPU tensors and launch the kernel for CUDA tensors.
+Counterpart of ``src/repro/kernels/ops.py`` (split resolution :156-267,
+``tsm2r`` :354-438, ``tsm2l`` :445-492, ``tsmt`` :499-595).
+
+Split resolution: ``splits=`` per call beats ``GemmPolicy.split`` (an int
+pin, or "never" for S = 1), which beats the occupancy-aware chooser of
+``core/perf_model.py`` ("auto"). S is then clamped so every slice owns at
+least one block of the reduction (``TSM2R_BLOCK_K`` k rows, ``TSMT_BLOCK_M``
+m rows). Past S = 1 the split kernel writes (S, ...) f32 partials and
+``reduce.reduce_partials`` sums them. The reduction is cut into S
+contiguous slices of whole blocks, as the JAX package pads it to; the
+kernels mask ragged edges themselves, so nothing is copied to pad
+(the JAX package's ``_pad_to``). Operands are made contiguous (a no-op
+when they already are) and handed to the per-kernel wrappers, which run
+the plain versions for CPU tensors and launch the kernels for CUDA
+tensors.
+
+Each entry is a ``torch.autograd.Function`` whose backward sends the
+cotangent GEMMs back through ``core.tsmm`` under
+``tsmm.backward_policy`` of the policy captured at forward time, as the
+JAX package's custom VJPs do (the VJP of one tall-and-skinny class lands
+in another):
+
+    tsm2r/tsm2l:  C = A B        Abar = Chat B^T,  Bbar = A^T Chat (tsmm_t)
+    tsmt:         C = X^T Y      Xbar = Y Chat^T,  Ybar = X Chat
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.core import perf_model
+from repro_torch.kernels import reduce, ref
 from repro_torch.kernels import tsm2l as _tsm2l
 from repro_torch.kernels import tsm2r as _tsm2r
 from repro_torch.kernels import tsmt as _tsmt
@@ -24,27 +42,189 @@ from repro_torch.kernels import tsmt as _tsmt
 TSMT_MAX_B = 512
 
 
-def tsm2r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C[m,n] = A[m,k] @ B[k,n], m ~ k >> n. The paper's TSM2R."""
-    return _tsm2r.tsm2r(a.contiguous(), b.contiguous())
+def _dispatcher():
+    # Deferred: core.tsmm imports this module.
+    from repro_torch.core import tsmm
+    return tsmm
 
 
-def tsm2l(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C[m,n] = A[m,k] @ B[k,n], m >> k ~ n. The paper's TSM2L."""
+def _policy_split(policy) -> int | None:
+    """The policy's split pin as an int, or None for "auto"."""
+    s = policy.split
+    if s == "never":
+        return 1
+    if s == "auto":
+        return None
+    return int(s)
+
+
+def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
+                   splits: int | None = None,
+                   device: torch.device | None = None) -> dict:
+    """The launch parameters dispatch would use, without running: for
+    tsm2r ``{"splits", "block_k"}``, for tsmt ``{"splits", "block_m"}``,
+    for tsm2l ``{}`` (it has no reduction to split). ``(d1, d2)`` are
+    ``(k, n)`` for tsm2r/tsm2l, ``(a, b)`` for tsmt. ``device`` is where
+    the operands lie: on a card the chooser counts blocks against its own
+    SM count; on the CPU, where the plain versions have no SMs to occupy,
+    "auto" resolves to S = 1 (pins still split). Without ``device`` the
+    chooser models ``policy.spec``."""
+    if kind == "tsm2l":
+        return {}
+    if kind not in ("tsm2r", "tsmt"):
+        raise ValueError(f"unknown kernel kind {kind!r}: valid kinds are "
+                         "tsm2r, tsm2l, tsmt")
+    if splits is None:
+        splits = _policy_split(policy)
+    if kind == "tsm2r":
+        depth, block, choose = (d1, perf_model.TSM2R_BLOCK_K,
+                                perf_model.choose_splits_tsm2r)
+    else:
+        depth, block, choose = (m, perf_model.TSMT_BLOCK_M,
+                                perf_model.choose_splits_tsmt)
+    if splits is None and device is not None and device.type == "cpu":
+        splits = 1
+    if splits is None:
+        spec = policy.spec
+        if device is not None:
+            spec = perf_model.device_spec(spec, device)
+        splits = choose(m, d1, d2, spec, dtype)
+    # Each slice must own >= one block: past that, slices are pure padding.
+    splits = max(1, min(int(splits), perf_model.max_splits(depth, block)))
+    # Whole-block slices may cover the depth in fewer than S; drop the
+    # slices that would be empty.
+    splits = max(1, -(-depth // ref.split_len(depth, splits, block)))
+    key = "block_k" if kind == "tsm2r" else "block_m"
+    return {"splits": splits, key: block}
+
+
+def _resolve(kind, x, d1, d2, splits, policy):
+    return resolve_params(kind, x.shape[0], d1, d2, x.dtype, policy,
+                          splits=splits, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Forward implementations
+# ---------------------------------------------------------------------------
+
+def _tsm2r_impl(a, b, splits, policy):
+    tsmm = _dispatcher()
+    a, b = a.contiguous(), b.contiguous()
+    (m, k), n = a.shape, b.shape[1]
+    p = _resolve("tsm2r", a, k, n, splits, policy)
+    s = p["splits"]
+    tsmm.note_launch("tsm2r", perf_model.tsm2r_grid(m, k, n, s), s)
+    if s == 1:
+        return _tsm2r.tsm2r(a, b)
+    parts = _tsm2r.tsm2r_split(a, b, s, p["block_k"])
+    return _epilogue(parts, a.dtype)
+
+
+def _tsmt_impl(x, y, splits, policy):
+    tsmm = _dispatcher()
+    x, y = x.contiguous(), y.contiguous()
+    (m, a), b = x.shape, y.shape[1]
+    p = _resolve("tsmt", x, a, b, splits, policy)
+    s = p["splits"]
+    tsmm.note_launch("tsmt", perf_model.tsmt_grid(m, a, b, s), s)
+    if s == 1:
+        return _tsmt.tsmt(x, y)
+    parts = _tsmt.tsmt_split(x, y, s, p["block_m"])
+    return _epilogue(parts, x.dtype)
+
+
+def _epilogue(parts, out_dtype):
+    s, rows, cols = parts.shape
+    if reduce.epilogue_block_r(s, rows, cols) is not None:
+        _dispatcher().note_launch("reduce", (s, rows, cols), s)
+    return reduce.reduce_partials(parts, out_dtype)
+
+
+def _tsm2l_impl(a, b):
+    _dispatcher().note_launch("tsm2l", (), 1)
     return _tsm2l.tsm2l(a.contiguous(), b.contiguous())
 
 
-def tsmt(x: torch.Tensor, y: torch.Tensor, *, policy=None) -> torch.Tensor:
-    """C[a,b] = X[m,a]^T @ Y[m,b], m >> a, b.
+# ---------------------------------------------------------------------------
+# Autograd: the backward re-dispatches through tsmm
+# ---------------------------------------------------------------------------
+
+class _MatMul(torch.autograd.Function):
+    """C = A @ B through tsm2r or tsm2l; the backward as the JAX VJPs:
+    ``da = tsmm(ct, b^T)``, ``db = tsmm_t(a, ct)``."""
+
+    @staticmethod
+    def forward(ctx, a, b, kind, splits, policy):
+        ctx.save_for_backward(a, b)
+        ctx.policy = policy
+        if kind == "tsm2l":
+            return _tsm2l_impl(a, b)
+        return _tsm2r_impl(a, b, splits, policy)
+
+    @staticmethod
+    def backward(ctx, ct):
+        a, b = ctx.saved_tensors
+        tsmm = _dispatcher()
+        bp = tsmm.backward_policy(ctx.policy)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = tsmm.tsmm(ct, b.transpose(0, 1), policy=bp).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = tsmm.tsmm_t(a, ct, policy=bp).to(b.dtype)
+        return da, db, None, None, None
+
+
+class _MatMulT(torch.autograd.Function):
+    """C = X^T @ Y through tsmt; the backward as the JAX VJP:
+    ``dx = tsmm(y, ct^T)``, ``dy = tsmm(x, ct)``."""
+
+    @staticmethod
+    def forward(ctx, x, y, splits, policy):
+        ctx.save_for_backward(x, y)
+        ctx.policy = policy
+        return _tsmt_impl(x, y, splits, policy)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, y = ctx.saved_tensors
+        tsmm = _dispatcher()
+        bp = tsmm.backward_policy(ctx.policy)
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = tsmm.tsmm(y, ct.transpose(0, 1), policy=bp).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dy = tsmm.tsmm(x, ct, policy=bp).to(y.dtype)
+        return dx, dy, None, None
+
+
+def _policy(policy):
+    return policy if policy is not None else _dispatcher().current_policy()
+
+
+def tsm2r(a: torch.Tensor, b: torch.Tensor, *, splits: int | None = None,
+          policy=None) -> torch.Tensor:
+    """C[m,n] = A[m,k] @ B[k,n], m ~ k >> n. The paper's TSM2R.
+    Differentiable. ``splits=`` pins the split factor for this call
+    (S = 1 is the sequential kernel)."""
+    return _MatMul.apply(a, b, "tsm2r", splits, _policy(policy))
+
+
+def tsm2l(a: torch.Tensor, b: torch.Tensor, *, policy=None) -> torch.Tensor:
+    """C[m,n] = A[m,k] @ B[k,n], m >> k ~ n. The paper's TSM2L.
+    Differentiable."""
+    return _MatMul.apply(a, b, "tsm2l", None, _policy(policy))
+
+
+def tsmt(x: torch.Tensor, y: torch.Tensor, *, splits: int | None = None,
+         policy=None) -> torch.Tensor:
+    """C[a,b] = X[m,a]^T @ Y[m,b], m >> a, b. Differentiable.
 
     Raises ``ValueError`` when the small output dim b exceeds
     ``TSMT_MAX_B``, or the scope's ``max_skinny_t`` when a policy raised the
     classifier past it, as the JAX entry does; reorient the operands
     (``tsmt(y, x).T``) or dispatch through ``tsmm.tsmm_t``.
     """
-    from repro_torch.core import tsmm   # deferred: tsmm imports this module
-
-    p = policy if policy is not None else tsmm.current_policy()
+    p = _policy(policy)
     limit = max(TSMT_MAX_B, p.max_skinny_t)
     if y.dim() == 2 and y.shape[1] > limit:
         raise ValueError(
@@ -52,7 +232,7 @@ def tsmt(x: torch.Tensor, y: torch.Tensor, *, policy=None) -> torch.Tensor:
             f"({limit}). Orient the operands so the larger output dim comes "
             "first (C = tsmt(y, x).T), or dispatch through tsmm.tsmm_t, "
             "which classifies such shapes dense.")
-    return _tsmt.tsmt(x.contiguous(), y.contiguous())
+    return _MatMulT.apply(x, y, splits, p)
 
 
 # Re-exported plain versions, as the JAX entry re-exports its oracles.

@@ -30,6 +30,6 @@ def tsm2l(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    _launch.launch("tsm2l", a, b, out, (m, k, n))
+    _launch.launch("tsm2l", a.dtype, a, b, out, m, k, n)
     launches += 1
     return out

@@ -8,8 +8,15 @@ kernel stages B and the next A tile through registers and shared memory
 (paper Algorithm 4) and spreads the n columns over threads and a column
 grid dimension, streaming A once per column tile; see the source's note.
 
-CPU tensors take the plain version (``ref.tsm2r_ref``); CUDA tensors
-launch the kernel or raise.
+``tsm2r_split`` replaces ``tsm2r.py::tsm2r_pallas_split`` with
+``csrc/tsm2r_split.cu``: the same block body over one of S contiguous k
+slices per grid z index, writing (S, m, n) f32 partials. It is bound by
+the bytes of A plus the partials' round trip, and pays off where the
+output tiles alone leave SMs idle (the paper's [16384^2]·[16384,16] has
+128 row tiles for 132 SMs); ``kernels/reduce.py`` sums the partials.
+
+CPU tensors take the plain versions (``ref.tsm2r_ref``,
+``ref.tsm2r_split_ref``); CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import torch
 
 from repro_torch.kernels import _launch, ref
 
-launches = 0   # kernel launches; chip_smoke.py resets and reads it
+launches = 0         # tsm2r kernel launches; chip_smoke.py resets and reads
+split_launches = 0   # tsm2r_split kernel launches, likewise
 
 
 def tsm2r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -30,6 +38,24 @@ def tsm2r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    _launch.launch("tsm2r", a, b, out, (m, k, n))
+    _launch.launch("tsm2r", a.dtype, a, b, out, m, k, n)
     launches += 1
+    return out
+
+
+def tsm2r_split(a: torch.Tensor, b: torch.Tensor, splits: int,
+                block_k: int) -> torch.Tensor:
+    """(S, m, n) f32 partials of A @ B over S contiguous k slices of
+    ``ref.split_len(k, S, block_k)`` rows each."""
+    global split_launches
+    _launch.check("tsm2r_split", a, b, "mm")
+    if a.device.type == "cpu":
+        return ref.tsm2r_split_ref(a, b, splits, block_k)
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    _launch.launch("tsm2r_split", a.dtype, a, b, out, m, k, n, splits,
+                   ref.split_len(k, splits, block_k))
+    split_launches += 1
     return out

@@ -3,13 +3,20 @@
 Replaces the TPU kernel ``src/repro/kernels/tsmt.py::tsmt_pallas`` with the
 CUDA kernel in ``csrc/tsmt.cu``. On the H100 it is bound by the bytes of X
 and Y; with a, b <= 16 its output is one tile, so the sequential kernel
-runs on one or a few SMs and reaches a small share of that bound until the
-split-reduction kernel is ported. One block per output tile loops over all
-of m and sums its thread groups' partials in a fixed order, so results are
-bit-identical from run to run (no atomics); see the source's note.
+runs on one or a few SMs and reaches a small share of that bound. One
+block per output tile loops over all of m and sums its thread groups'
+partials in a fixed order, so results are bit-identical from run to run
+(no atomics); see the source's note.
 
-CPU tensors take the plain version (``ref.tsmt_ref``); CUDA tensors launch
-the kernel or raise.
+``tsmt_split`` replaces ``tsmt.py::tsmt_pallas_split`` with
+``csrc/tsmt_split.cu``: the same block body over one of S contiguous m
+slices per grid z index, writing (S, a, b) f32 partials. It is bound by
+the bytes of X and Y; splitting m multiplies the blocks by S, so at
+PowerSGD's Q projection (32 output tiles) the whole card pulls from
+memory. ``kernels/reduce.py`` sums the partials.
+
+CPU tensors take the plain versions (``ref.tsmt_ref``,
+``ref.tsmt_split_ref``); CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import torch
 
 from repro_torch.kernels import _launch, ref
 
-launches = 0   # kernel launches; chip_smoke.py resets and reads it
+launches = 0         # tsmt kernel launches; chip_smoke.py resets and reads
+split_launches = 0   # tsmt_split kernel launches, likewise
 
 
 def tsmt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -30,6 +38,24 @@ def tsmt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((a, b), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch.launch("tsmt", x, y, out, (m, a, b))
+    _launch.launch("tsmt", x.dtype, x, y, out, m, a, b)
     launches += 1
+    return out
+
+
+def tsmt_split(x: torch.Tensor, y: torch.Tensor, splits: int,
+               block_m: int) -> torch.Tensor:
+    """(S, a, b) f32 partials of X^T Y over S contiguous m slices of
+    ``ref.split_len(m, S, block_m)`` rows each."""
+    global split_launches
+    _launch.check("tsmt_split", x, y, "mmt")
+    if x.device.type == "cpu":
+        return ref.tsmt_split_ref(x, y, splits, block_m)
+    (m, a), b = x.shape, y.shape[1]
+    out = torch.empty((splits, a, b), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    _launch.launch("tsmt_split", x.dtype, x, y, out, m, a, b, splits,
+                   ref.split_len(m, splits, block_m))
+    split_launches += 1
     return out

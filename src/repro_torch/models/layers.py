@@ -4,8 +4,9 @@ Counterpart of ``src/repro/models/layers.py``. Parameters live in small
 ``nn.Module``s whose attribute names are the JAX pytree's keys; the
 functions take tensors (or such a module) as the JAX functions take their
 params dicts. Weight layout is ``w[in_dim, out_dim]`` as in the JAX
-package. Norms run in f32 whatever the activation dtype. Parameters carry
-no gradient: this package serves.
+package. Norms run in f32 whatever the activation dtype. Parameters are
+made without ``requires_grad`` (serving); the training state turns it on
+(``train.train_step.init_train_state``, ``convert.state_from_jax``).
 """
 
 from __future__ import annotations

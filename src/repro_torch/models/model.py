@@ -1,11 +1,15 @@
 """LM assembly for the dense family.
 
 Counterpart of ``src/repro/models/model.py`` (``segments`` :40, ``init``
-:73, ``forward`` :219, ``init_cache`` :282, ``prefill`` :308,
-``decode_step`` :361). Where JAX stacks a segment's layers on a leading
-axis and ``lax.scan``s over them, the port keeps them in an
-``nn.ModuleList`` and walks it with a Python loop. The cache is a list of
+:73, ``forward`` :219, ``unembed_fn`` :225, ``init_cache`` :282,
+``prefill`` :308, ``decode_step`` :361). Where JAX stacks a segment's
+layers on a leading axis and ``lax.scan``s over them, the port keeps them
+in an ``nn.ModuleList`` and walks it with a Python loop. The cache is a list of
 per-layer ``{"k", "v"}`` tensors, updated in place.
+
+``forward_hidden`` and ``forward`` are differentiable (the training path
+runs them under autograd; parameters that require grad get gradients),
+while ``prefill`` and ``decode_step`` serve under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -65,9 +69,10 @@ def _logits(params: LM, cfg, x):
                           blocks.norm_apply(cfg, params.final_norm, x))
 
 
-@torch.inference_mode()
 def forward_hidden(params: LM, cfg, batch):
-    """Backbone only: returns (hidden (B,S,d), metrics)."""
+    """Backbone only: returns (hidden (B,S,d), metrics). The training path
+    computes the head inside ``losses.chunked_lm_loss`` to bound the live
+    logits."""
     x = layers.embed(params.embed.table, batch["tokens"])
     for seg in segments(cfg):
         for lp in params.layers:
@@ -75,11 +80,15 @@ def forward_hidden(params: LM, cfg, batch):
     return x, {}
 
 
-@torch.inference_mode()
 def forward(params: LM, cfg, batch):
     """Returns (logits f32 (B,S,V), metrics)."""
     x, metrics = forward_hidden(params, cfg, batch)
     return _logits(params, cfg, x), metrics
+
+
+def unembed_fn(params: LM, cfg):
+    """Closure for the sequence-chunked loss: x_chunk -> logits_chunk."""
+    return lambda xc: _logits(params, cfg, xc)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, *, device=None):

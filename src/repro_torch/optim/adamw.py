@@ -1,0 +1,75 @@
+"""AdamW over a dict of named parameters.
+
+Counterpart of ``src/repro/optim/adamw.py`` (``AdamWConfig`` :24, ``init``
+:40, ``global_norm`` :53, ``update`` :58): f32 moments, global-norm
+clipping, decoupled weight decay, bias correction, parameters cast back to
+their dtype. The JAX package returns new arrays; this port updates the
+parameters and moments in place, which saves a copy of the whole state
+(10.8 GB of moments alone at chatglm3-6b's width and 4 layers).
+``bfloat16`` moments (``state_dtype``) wait for the slice that needs them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: Callable[[torch.Tensor], torch.Tensor] | float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def init(cfg: AdamWConfig, params) -> dict:
+    """``{"step": 0-d int32, "moments": {name: {"m", "v"}}}`` with f32
+    zeros, on the parameters' device."""
+    del cfg
+    named = dict(params.named_parameters())
+    dev = next(iter(named.values())).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "moments": {n: {"m": torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device),
+                            "v": torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device)}
+                        for n, p in named.items()}}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum over tensors of their f32 sums of squares."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                          for t in tensors))
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params, grads: dict, state: dict):
+    """One AdamW step in place. ``grads`` maps parameter names to
+    gradients. Returns (params, state, metrics)."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads.values())
+    one = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    clip = (torch.minimum(one, cfg.grad_clip / (gnorm + 1e-9))
+            if cfg.grad_clip else one)
+    lr = (cfg.lr(step) if callable(cfg.lr)
+          else torch.tensor(cfg.lr, dtype=torch.float32, device=one.device))
+    stepf = step.float()
+    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=one.device), stepf)
+    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=one.device), stepf)
+    for name, p in params.named_parameters():
+        g = grads[name].float() * clip
+        mom = state["moments"][name]
+        m, v = mom["m"], mom["v"]
+        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(torch.square(g) * (1 - cfg.b2))
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr, "clip_coef": clip}

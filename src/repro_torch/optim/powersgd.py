@@ -1,0 +1,193 @@
+"""PowerSGD gradient compression (Vogels et al., NeurIPS'19) on the TSM2X
+kernels.
+
+Counterpart of the replicated half of ``src/repro/optim/powersgd.py``
+(``PowerSGDConfig`` :61, ``init`` :101, ``_orthonormalize`` :112,
+``compress_one`` :151, ``compress_tree`` :296), on one process
+(``psum=None``). Each eligible gradient G (d1 x d2) is compressed to rank
+r:
+
+    P = G @ Q          # (d1, r)  -- tsm2r
+    Q' = G^T @ P_orth  # (d2, r)  -- tsmt; on the H100 its 32 output tiles
+                       #             (d2 = 4096, r = 4) leave SMs idle, so
+                       #             "auto" runs the split kernel
+
+with error feedback. Both projections go through ``core.tsmm`` and follow
+the active ``tsmm.policy(...)`` scope (or ``policy=``).
+
+Which leaves compress is decided on the JAX package's layout, where a
+segment's layers are stacked on a leading axis: a leaf is eligible when
+its JAX shape is 2-D with at least ``min_size`` elements. Layer weights
+are 3-D there and stay dense; a per-layer vector (norm scale, bias) is a
+2-D ``(L, d)`` leaf there and is compressed as that stacked matrix here
+too. State is keyed by the JAX leaf path (``embed.table``,
+``segments.0.attn.bq``), so ``convert.state_from_jax`` carries it over.
+
+Deliberate differences from the JAX package:
+
+* Q's initial draw: JAX seeds it from Python's ``hash(str(path))``, which
+  changes from process to process; this port seeds a ``torch.Generator``
+  from ``zlib.crc32`` of the leaf path and ``seed``, so an init repeats.
+  Parity tests carry Q across from JAX instead of comparing inits.
+* ``_orthonormalize``'s fresh direction for a degenerate column comes from
+  a generator seeded with the column index, not ``jax.random.PRNGKey(i)``:
+  the two agree only while no column degenerates.
+* ``orth="tsqr"`` and ``compress="int8"`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import torch
+
+from repro_torch.core import tsmm
+
+_ORTH_MODES = ("gram_schmidt", "tsqr")
+_COMPRESS_MODES = ("none", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerSGDConfig:
+    rank: int = 4
+    min_size: int = 256 * 256      # params smaller than this stay dense
+    ef_decay: float = 1.0          # error-feedback retention
+    orth: str = "gram_schmidt"
+    compress: str = "none"
+
+    def __post_init__(self):
+        if self.orth not in _ORTH_MODES:
+            raise ValueError(
+                f"unknown PowerSGDConfig orth {self.orth!r}: valid values "
+                f"are {', '.join(_ORTH_MODES)}")
+        if self.compress not in _COMPRESS_MODES:
+            raise ValueError(
+                f"unknown PowerSGDConfig compress {self.compress!r}: valid "
+                f"values are {', '.join(_COMPRESS_MODES)}")
+        if self.orth != "gram_schmidt":
+            raise NotImplementedError(
+                f"PowerSGDConfig orth={self.orth!r} is not ported yet "
+                "(it needs the tall-skinny QR slice)")
+        if self.compress != "none":
+            raise NotImplementedError(
+                f"PowerSGDConfig compress={self.compress!r} is not ported "
+                "yet (it needs the int8 slice)")
+
+
+def jax_path(name: str) -> tuple[str, int | None]:
+    """The JAX leaf path of a port parameter name and the layer index
+    within it: ``layers.3.attn.bq`` -> (``segments.0.attn.bq``, 3),
+    ``embed.table`` -> (``embed.table``, None)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ".".join(["segments", "0", *parts[2:]]), int(parts[1])
+    return name, None
+
+
+def jax_leaves(named: dict) -> dict:
+    """Group port parameter names by JAX leaf path, each group in layer
+    order: ``{path: [name, ...]}``."""
+    groups: dict = {}
+    for name in named:
+        path, i = jax_path(name)
+        groups.setdefault(path, []).append((i, name))
+    return {path: [n for _, n in sorted(g, key=lambda t: t[0] or 0)]
+            for path, g in groups.items()}
+
+
+def _jax_shape(named: dict, names: list) -> tuple:
+    shape = tuple(named[names[0]].shape)
+    return shape if jax_path(names[0])[1] is None else (len(names), *shape)
+
+
+def init(cfg: PowerSGDConfig, params, seed: int = 0) -> dict:
+    """Per-leaf state for the compressible leaves: the error-feedback
+    buffer and a warm-started Q, ``{path: {"err", "q"}}``."""
+    named = dict(params.named_parameters())
+    state = {}
+    for path, names in jax_leaves(named).items():
+        shape = _jax_shape(named, names)
+        if len(shape) != 2 or shape[0] * shape[1] < cfg.min_size:
+            continue
+        dev = named[names[0]].device
+        gen = torch.Generator(device=dev).manual_seed(
+            zlib.crc32(path.encode()) ^ seed)
+        q = torch.randn((shape[1], cfg.rank), generator=gen, device=dev)
+        state[path] = {"err": torch.zeros(shape, device=dev), "q": q}
+    return state
+
+
+def _orthonormalize(m: torch.Tensor) -> torch.Tensor:
+    """Gram-Schmidt on a skinny (d, r): r is tiny so the loop unrolls.
+
+    A degenerate column (zero, or dependent on the columns before it: the
+    projection residual keeps under 1e-4 of its norm) is replaced by a
+    fresh direction drawn from a generator seeded with the column index,
+    projected against the basis so far. Selection is by ``torch.where``, so
+    nothing waits on the card."""
+    d = m.shape[0]
+    tiny = torch.finfo(torch.float32).tiny
+    cols = []
+    for i in range(m.shape[1]):
+        c = m[:, i]
+        norm0 = torch.linalg.vector_norm(c)
+        gen = torch.Generator(device=m.device).manual_seed(i)
+        fresh = torch.randn((d,), generator=gen, device=m.device,
+                            dtype=m.dtype)
+        for prev in cols:
+            c = c - torch.dot(prev, c) * prev
+            fresh = fresh - torch.dot(prev, fresh) * prev
+        resid = torch.linalg.vector_norm(c)
+        degenerate = resid <= 1e-4 * norm0 + tiny
+        unit = c / torch.clamp(resid, min=tiny)
+        fresh_unit = fresh / torch.clamp(torch.linalg.vector_norm(fresh),
+                                         min=tiny)
+        cols.append(torch.where(degenerate, fresh_unit, unit))
+    return torch.stack(cols, dim=1)
+
+
+@torch.no_grad()
+def compress_one(cfg: PowerSGDConfig, grad, st, *, policy=None):
+    """The protocol on one process:
+
+        P = (G+e) Q_prev ; P = orth(P)
+        Q = (G+e)^T P
+        approx = P Q^T   ; e = (G+e) - approx
+    """
+    g = grad.float() + st["err"] * cfg.ef_decay
+    p = tsmm.tsmm(g, st["q"], policy=policy)                      # TSM2R
+    p = _orthonormalize(p)
+    q = tsmm.tsmm_t(g, p, policy=policy)                          # TSMT
+    approx = p @ q.transpose(0, 1)
+    err = g - approx
+    return approx, dict(st, err=err, q=q)
+
+
+@torch.no_grad()
+def compress_tree(cfg: PowerSGDConfig, grads: dict, state: dict, *,
+                  policy=None):
+    """Compress each eligible gradient and decompress it in place of the
+    original; the rest pass through (one process: nothing to reduce).
+    ``grads`` maps port parameter names to gradients. Returns
+    (grads, state, metrics)."""
+    out, new_state = dict(grads), dict(state)
+    bytes_dense = bytes_sent = 0
+    for path, names in jax_leaves(grads).items():
+        size = sum(grads[n].numel() for n in names)
+        bytes_dense += size * 4
+        st = state.get(path)
+        if st is None:
+            bytes_sent += size * 4
+            continue
+        stacked = jax_path(names[0])[1] is not None
+        g = (torch.stack([grads[n] for n in names]) if stacked
+             else grads[names[0]])
+        approx, new_state[path] = compress_one(cfg, g, st, policy=policy)
+        bytes_sent += (new_state[path]["q"].numel()
+                       + approx.shape[0] * cfg.rank) * 4
+        approx = approx.to(g.dtype)
+        for i, n in enumerate(names):
+            out[n] = approx[i] if stacked else approx
+    metrics = {"powersgd_compression": bytes_dense / max(bytes_sent, 1)}
+    return out, new_state, metrics

@@ -79,6 +79,38 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         == (1, 2)
 
 
+def test_training_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.convert import state_from_jax
+    from repro_torch.optim import adamw, powersgd
+    from repro_torch.train import train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_config("chatglm3-6b", smoke=True)
+    opt = adamw.AdamWConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.init_train_state(0, cfg, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_jax(cfg, {"params": {}})
+    state = train_step.init_train_state(0, cfg, opt, device="cpu")
+    assert all(p.requires_grad and p.device.type == "cpu"
+               for p in state["params"].parameters())
+    extra = powersgd.init(powersgd.PowerSGDConfig(min_size=1024),
+                          state["params"])
+    assert sorted(extra) == ["embed.table", "lm_head.table"]
+    assert all(t.device.type == "cpu" for st in extra.values()
+               for t in st.values())
+
+
+def test_new_modules_are_scanned():
+    for mod in ("repro_torch.core.perf_model", "repro_torch.kernels.reduce",
+                "repro_torch.models.losses", "repro_torch.optim.adamw",
+                "repro_torch.optim.powersgd", "repro_torch.optim.schedule",
+                "repro_torch.train.train_step",
+                "repro_torch.data.pipeline"):
+        assert mod in MODULES
+
+
 def _smoke(cwd, claim_a_card=False):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
