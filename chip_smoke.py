@@ -17,7 +17,10 @@ printing no result, when no CUDA card is present or any phase fails.
    time (CUDA events), the bound, and the worst error. Each kernel must
    also give bit-identical results on a second launch. The split kernels
    (tsm2r_split, tsmt_split) are held against their plain (S, ., .) f32
-   partials at the PowerSGD, paper and chatglm3 shapes with a pinned S,
+   partials at the PowerSGD, paper and chatglm3 shapes with a pinned S
+   (tsmt_split at b = 256 also at S = 1, against the sequential kernel on
+   the same rows, and at S = 16, the chooser's pick before it was kept to
+   outputs at most 16 wide),
    and sum_partials against an f32 sum; their lines add ``op_ms`` (split
    kernel plus epilogue) and ``seq_ms`` (the sequential kernel on the same
    product); ``library_ms`` is one ``torch.matmul`` of the whole product
@@ -29,15 +32,18 @@ printing no result, when no CUDA card is present or any phase fails.
    in different orders differ by that much near zero. bf16 keeps 2e-2 as
    it is: both sides round their f32 sums to bf16, and one bf16 step is at
    most 2^-7 of the value.
-3. Dispatch (the serving main path starts; every launch count is set to
-   0 just before it): under ``split="never"`` the quickstart's shapes
+   tsm2r is also held at the training path's shapes: the wk/wv forward of
+   a 4096-token microbatch and PowerSGD's P projection.
+3. Dispatch (a path of its own: every launch count is set to 0 just
+   before it and read just after): under ``split="never"`` the quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
    executor ``cuda``. Under ``"auto"`` the paper's ``[16384^2]·[16384,16]``
    and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
    launch tsm2r_split (with sum_partials) and tsmt_split; under
    ``"never"`` the sequential kernels. The Python mirror of the tile
    table (``core/perf_model.py``) must equal the C grid query.
-4. Serve (main path): chatglm3-6b at its published width and depth, bf16,
+4. Serve (the serving main path; counts zeroed before it, read after):
+   chatglm3-6b at its published width and depth, bf16,
    random weights from a seeded generator; 4 prompts of 2048 tokens answered
    with 16 greedy tokens, then a sampled run, then once more step by step
    for times (the main path ends here and the launch counts are read). Each
@@ -68,7 +74,9 @@ printing no result, when no CUDA card is present or any phase fails.
    time, tokens/s, peak memory, and a profiled fourth step's device busy
    share and device time by kernel.
 7. A ``{"kernels": [...]}`` line: every ported kernel with its launches on
-   the two main paths and its numbers at its main-path shape and dtype.
+   each of the three paths (dispatch, serve, train) and its numbers at its
+   main-path shape and dtype; tsm2r adds its numbers at the training
+   shapes.
 8. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -192,7 +200,8 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
 
     cases = {   # (m, d1, d2, S); tsm2r (m, k, n), tsmt (m, a, b)
         "tsmt_split": [(65024, 4096, 4, 8), (1 << 20, 128, 4, 32),
-                       (65536, 256, 256, 2)],
+                       (65536, 256, 256, 1), (65536, 256, 256, 2),
+                       (65536, 256, 256, 16)],
         "tsm2r_split": [(16384, 16384, 16, 2), (8192, 4096, 256, 4)],
     }
     main_case = {"tsmt_split": ((65024, 4096, 4, 8), torch.float32),
@@ -229,7 +238,7 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                        "dtype": str(dtype)[6:],
                        "kernel_ms": time_ms(lambda: kern(x, y, S, block)),
                        "op_ms": time_ms(lambda: reduce.reduce_partials(
-                           kern(x, y, S, block), dtype)),
+                           kern(x, y, S, block), dtype)[0]),
                        "seq_ms": time_ms(lambda: seq(x, y)),
                        "plain_ms": time_ms(lambda: plain(x, y, S, block)),
                        "library_ms": time_ms(lib),
@@ -551,8 +560,9 @@ def main() -> int:
     # path's and the paper's shapes: ragged m, k, n and n = 1, and for
     # tsm2l a k past the resident B tile (B staged chunk by chunk).
     cases = {
-        "tsm2r": [(8192, 4096, 256), (16384, 16384, 16), (1000, 777, 16),
-                  (4096, 4096, 8), (512, 512, 1)],
+        "tsm2r": [(8192, 4096, 256), (4096, 4096, 256), (65024, 4096, 4),
+                  (16384, 16384, 16), (1000, 777, 16), (4096, 4096, 8),
+                  (512, 512, 1)],
         "tsm2l": [(1 << 20, 16, 16), (102400, 4, 4), (10000, 300, 20),
                   (5000, 77, 1)],
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
@@ -562,7 +572,11 @@ def main() -> int:
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
                  "tsm2l": ((102400, 4, 4), torch.float32),
                  "tsmt": ((65536, 128, 4), torch.float32)}
-    measured, bad = {}, []
+    # tsm2r on the training path: wk/wv forward of a 4096-token microbatch
+    # (bf16) and PowerSGD's P = G Q of embed and lm_head (f32).
+    train_cases = {"tsm2r": [((4096, 4096, 256), torch.bfloat16),
+                             ((65024, 4096, 4), torch.float32)]}
+    measured, at_train, bad = {}, {}, []
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -597,12 +611,14 @@ def main() -> int:
                     bad.append(f"{name} {m}x{d1}x{d2} {dtype}")
                 if main_case[name] == ((m, d1, d2), dtype):
                     measured[name] = rec
+                if ((m, d1, d2), dtype) in train_cases.get(name, ()):
+                    at_train.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
     measured.update(split_kernel_phase(dev, uniform, gpu))
 
-    # -- 3. dispatch (serving main path starts: counts zeroed) -------------
+    # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
                 "tsm2l": (k_tsm2l, "launches"),
                 "tsmt": (k_tsmt, "launches"),
@@ -691,8 +707,14 @@ def main() -> int:
                       f"tile mirror {name} {shape}: C {c_grid} vs Python "
                       f"{grid_fn(*shape, splits)}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
+    dispatch_launches = counts()
+    check(dispatch_launches == expect(tsm2r=2, tsm2l=2, tsmt=2,
+                                      tsm2r_split=1, tsmt_split=1,
+                                      sum_partials=1),
+          f"dispatch path launches {dispatch_launches}")
 
-    # -- 4. serve chatglm3-6b (main path continues) ------------------------
+    # -- 4. serve chatglm3-6b (the serving main path) ----------------------
+    zero_counts()
     cfg = registry.get_config("chatglm3-6b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -750,11 +772,9 @@ def main() -> int:
     decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
     del cache
     # The main path ends here; what follows only checks it.
-    main_launches = counts()
-    check(main_launches == expect(tsm2r=2 + 3 * per_prefill, tsm2l=2, tsmt=2,
-                                tsm2r_split=1, tsmt_split=1,
-                                sum_partials=1),
-          f"main path launches {main_launches}")
+    serve_launches = counts()
+    check(serve_launches == expect(tsm2r=3 * per_prefill),
+          f"serving main path launches {serve_launches}")
 
     dense_prefill, _ = engine.make_serve_fns(
         cfg, policy=tsmm.GemmPolicy(mode="dense"))
@@ -812,20 +832,28 @@ def main() -> int:
     line = []
     for name in counters:
         rec = measured[name]
-        check(main_launches[name] > 0,
-              f"{name} was not launched on the serving main path")
+        check(dispatch_launches[name] > 0,
+              f"{name} was not launched on the dispatch path")
         line.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/"
                       f"{sources.get(name, name)}.cu",
             "replaces": replaces[name],
-            "launches": main_launches[name] + train_launches[name],
-            "launches_serve": main_launches[name],
+            "launches": (dispatch_launches[name] + serve_launches[name]
+                         + train_launches[name]),
+            "launches_dispatch": dispatch_launches[name],
+            "launches_serve": serve_launches[name],
             "launches_train": train_launches[name],
             "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": rec["shape"], "dtype": rec["dtype"]})
+            "shape": rec["shape"], "dtype": rec["dtype"],
+            "at_train_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                for r in at_train.get(name, ())]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -115,9 +115,16 @@ def split_partials_bytes(splits: int, rows: int, cols: int) -> int:
     return 2 * splits * rows * cols * 4
 
 
-def _epilogue_launches(splits: int, rows: int, cols: int) -> int:
-    from repro_torch.kernels import reduce   # deferred: kernels import torch
-    return int(reduce.epilogue_block_r(splits, rows, cols) is not None)
+# Below this many f32 partial elements the split epilogue is a plain sum,
+# above it the sum_partials kernel (the JAX package's threshold: 1 MiB of
+# partials covers every skinny-output case).
+JNP_REDUCE_MAX_ELEMS = 1 << 18
+
+
+def reduce_kernel_runs(splits: int, rows: int, cols: int) -> bool:
+    """Whether the epilogue of an S-way split launches the sum_partials
+    kernel (``kernels/reduce.py`` runs it exactly then)."""
+    return splits > 1 and splits * rows * cols > JNP_REDUCE_MAX_ELEMS
 
 
 def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
@@ -133,7 +140,7 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     occ = occupancy(gm * gn * splits, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
     t_comp = 2.0 * m * k * n / (spec.peak_flops_f32 * occ)
-    launches = 1 + (_epilogue_launches(splits, m, n) if splits > 1 else 0)
+    launches = 1 + reduce_kernel_runs(splits, m, n)
     return max(t_mem, t_comp) + launches * spec.launch_s
 
 
@@ -150,7 +157,7 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
     occ = occupancy(ga * gb * splits, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
     t_comp = 2.0 * m * a * bdim / (spec.peak_flops_f32 * occ)
-    launches = 1 + (_epilogue_launches(splits, a, bdim) if splits > 1 else 0)
+    launches = 1 + reduce_kernel_runs(splits, a, bdim)
     return max(t_mem, t_comp) + launches * spec.launch_s
 
 
@@ -162,6 +169,14 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
 # n_sms slices to occupy a 132-SM card (the JAX package's 1..16 was sized
 # for a 2-core TPU).
 SPLIT_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128)
+# Splitting is offered only for the narrow tiles (output width <= 16),
+# where the card ran the split kernels faster than the sequential ones
+# (PERF.md: tsmt 5.2x at b = 4, 22x at one tile). The split TSMT's 64 x 64
+# tile runs each row about 3.8x slower than the sequential kernel (its
+# build issues the loads of a row one after another), so a split of a wide
+# output pays only past S ~ 4, and the split TSM2R's 64 x 64 tile ran no
+# faster at S = 4; wider outputs stay sequential until that is fixed.
+SPLIT_MAX_WIDTH = 16
 _TIE_EPS = 1e-12
 
 
@@ -182,14 +197,14 @@ def _argmin(scored) -> int:
 
 def choose_splits_tsm2r(m: int, k: int, n: int, spec: GPUSpec = H100,
                         dtype=torch.float32) -> int:
-    cap = max_splits(k, TSM2R_BLOCK_K)
+    cap = max_splits(k, TSM2R_BLOCK_K) if n <= SPLIT_MAX_WIDTH else 1
     return _argmin([(tsm2r_model_time(m, k, n, spec, dtype, splits=s), s)
                     for s in SPLIT_CANDIDATES if s <= cap])
 
 
 def choose_splits_tsmt(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                        dtype=torch.float32) -> int:
-    cap = max_splits(m, TSMT_BLOCK_M)
+    cap = max_splits(m, TSMT_BLOCK_M) if bdim <= SPLIT_MAX_WIDTH else 1
     return _argmin([(tsmt_model_time(m, a, bdim, spec, dtype, splits=s), s)
                     for s in SPLIT_CANDIDATES if s <= cap])
 

@@ -21,10 +21,10 @@ Executors:
 
 ``GemmPolicy.split`` drives the split-reduction (split-K) kernels of
 tsm2r and tsmt: "auto" lets the occupancy-aware chooser of
-``core/perf_model.py`` pick S (it splits where the output tiles alone
-leave SMs of the card idle), an int pins S, "never" keeps the sequential
-kernels. The classifier thresholds keep the JAX package's defaults, so
-both packages classify every shape the same way.
+``core/perf_model.py`` pick S (it splits outputs at most 16 wide where
+their tiles alone leave SMs of the card idle), an int pins S, "never"
+keeps the sequential kernels. The classifier thresholds keep the JAX
+package's defaults, so both packages classify every shape the same way.
 
 Both entries are differentiable: the ops they dispatch to are
 ``torch.autograd.Function``s whose backward re-enters this dispatcher under
@@ -40,7 +40,6 @@ import math
 
 import torch
 
-from repro_torch.core import perf_model
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -84,8 +83,8 @@ class GemmPolicy:
 
     ``split``: "auto" (the chooser picks S per shape), a positive int (that
     S for every tsm2r/tsmt in scope; 1 = sequential) or "never" (the
-    sequential kernels everywhere). ``spec``: the card the chooser models
-    (a card's own SM count replaces ``n_sms`` for CUDA tensors).
+    sequential kernels everywhere). The chooser models the card the
+    operands lie on (``perf_model.device_spec``).
     """
 
     mode: str = "auto"
@@ -96,7 +95,6 @@ class GemmPolicy:
     skinny_ratio_t: int = SKINNY_RATIO_T
     executor: str | None = None
     split: str | int = "auto"
-    spec: perf_model.GPUSpec = perf_model.H100
 
     def __post_init__(self):
         s = self.split

@@ -3,9 +3,9 @@
 Counterpart of ``src/repro/kernels/ops.py`` (split resolution :156-267,
 ``tsm2r`` :354-438, ``tsm2l`` :445-492, ``tsmt`` :499-595).
 
-Split resolution: ``splits=`` per call beats ``GemmPolicy.split`` (an int
-pin, or "never" for S = 1), which beats the occupancy-aware chooser of
-``core/perf_model.py`` ("auto"). S is then clamped so every slice owns at
+Split resolution: ``GemmPolicy.split`` pins S (an int, or "never" for
+S = 1), else the occupancy-aware chooser of ``core/perf_model.py`` picks
+it ("auto"). S is then clamped so every slice owns at
 least one block of the reduction (``TSM2R_BLOCK_K`` k rows, ``TSMT_BLOCK_M``
 m rows). Past S = 1 the split kernel writes (S, ...) f32 partials and
 ``reduce.reduce_partials`` sums them. The reduction is cut into S
@@ -59,7 +59,6 @@ def _policy_split(policy) -> int | None:
 
 
 def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
-                   splits: int | None = None,
                    device: torch.device | None = None) -> dict:
     """The launch parameters dispatch would use, without running: for
     tsm2r ``{"splits", "block_k"}``, for tsmt ``{"splits", "block_m"}``,
@@ -68,14 +67,13 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     the operands lie: on a card the chooser counts blocks against its own
     SM count; on the CPU, where the plain versions have no SMs to occupy,
     "auto" resolves to S = 1 (pins still split). Without ``device`` the
-    chooser models ``policy.spec``."""
+    chooser models the data sheet's H100 (``perf_model.H100``)."""
     if kind == "tsm2l":
         return {}
     if kind not in ("tsm2r", "tsmt"):
         raise ValueError(f"unknown kernel kind {kind!r}: valid kinds are "
                          "tsm2r, tsm2l, tsmt")
-    if splits is None:
-        splits = _policy_split(policy)
+    splits = _policy_split(policy)
     if kind == "tsm2r":
         depth, block, choose = (d1, perf_model.TSM2R_BLOCK_K,
                                 perf_model.choose_splits_tsm2r)
@@ -85,7 +83,7 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     if splits is None and device is not None and device.type == "cpu":
         splits = 1
     if splits is None:
-        spec = policy.spec
+        spec = perf_model.H100
         if device is not None:
             spec = perf_model.device_spec(spec, device)
         splits = choose(m, d1, d2, spec, dtype)
@@ -98,20 +96,20 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     return {"splits": splits, key: block}
 
 
-def _resolve(kind, x, d1, d2, splits, policy):
+def _resolve(kind, x, d1, d2, policy):
     return resolve_params(kind, x.shape[0], d1, d2, x.dtype, policy,
-                          splits=splits, device=x.device)
+                          device=x.device)
 
 
 # ---------------------------------------------------------------------------
 # Forward implementations
 # ---------------------------------------------------------------------------
 
-def _tsm2r_impl(a, b, splits, policy):
+def _tsm2r_impl(a, b, policy):
     tsmm = _dispatcher()
     a, b = a.contiguous(), b.contiguous()
     (m, k), n = a.shape, b.shape[1]
-    p = _resolve("tsm2r", a, k, n, splits, policy)
+    p = _resolve("tsm2r", a, k, n, policy)
     s = p["splits"]
     tsmm.note_launch("tsm2r", perf_model.tsm2r_grid(m, k, n, s), s)
     if s == 1:
@@ -120,11 +118,11 @@ def _tsm2r_impl(a, b, splits, policy):
     return _epilogue(parts, a.dtype)
 
 
-def _tsmt_impl(x, y, splits, policy):
+def _tsmt_impl(x, y, policy):
     tsmm = _dispatcher()
     x, y = x.contiguous(), y.contiguous()
     (m, a), b = x.shape, y.shape[1]
-    p = _resolve("tsmt", x, a, b, splits, policy)
+    p = _resolve("tsmt", x, a, b, policy)
     s = p["splits"]
     tsmm.note_launch("tsmt", perf_model.tsmt_grid(m, a, b, s), s)
     if s == 1:
@@ -134,10 +132,10 @@ def _tsmt_impl(x, y, splits, policy):
 
 
 def _epilogue(parts, out_dtype):
-    s, rows, cols = parts.shape
-    if reduce.epilogue_block_r(s, rows, cols) is not None:
-        _dispatcher().note_launch("reduce", (s, rows, cols), s)
-    return reduce.reduce_partials(parts, out_dtype)
+    out, kernel = reduce.reduce_partials(parts, out_dtype)
+    if kernel:
+        _dispatcher().note_launch("reduce", parts.shape, parts.shape[0])
+    return out
 
 
 def _tsm2l_impl(a, b):
@@ -154,12 +152,12 @@ class _MatMul(torch.autograd.Function):
     ``da = tsmm(ct, b^T)``, ``db = tsmm_t(a, ct)``."""
 
     @staticmethod
-    def forward(ctx, a, b, kind, splits, policy):
+    def forward(ctx, a, b, kind, policy):
         ctx.save_for_backward(a, b)
         ctx.policy = policy
         if kind == "tsm2l":
             return _tsm2l_impl(a, b)
-        return _tsm2r_impl(a, b, splits, policy)
+        return _tsm2r_impl(a, b, policy)
 
     @staticmethod
     def backward(ctx, ct):
@@ -171,7 +169,7 @@ class _MatMul(torch.autograd.Function):
             da = tsmm.tsmm(ct, b.transpose(0, 1), policy=bp).to(a.dtype)
         if ctx.needs_input_grad[1]:
             db = tsmm.tsmm_t(a, ct, policy=bp).to(b.dtype)
-        return da, db, None, None, None
+        return da, db, None, None
 
 
 class _MatMulT(torch.autograd.Function):
@@ -179,10 +177,10 @@ class _MatMulT(torch.autograd.Function):
     ``dx = tsmm(y, ct^T)``, ``dy = tsmm(x, ct)``."""
 
     @staticmethod
-    def forward(ctx, x, y, splits, policy):
+    def forward(ctx, x, y, policy):
         ctx.save_for_backward(x, y)
         ctx.policy = policy
-        return _tsmt_impl(x, y, splits, policy)
+        return _tsmt_impl(x, y, policy)
 
     @staticmethod
     def backward(ctx, ct):
@@ -194,29 +192,27 @@ class _MatMulT(torch.autograd.Function):
             dx = tsmm.tsmm(y, ct.transpose(0, 1), policy=bp).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dy = tsmm.tsmm(x, ct, policy=bp).to(y.dtype)
-        return dx, dy, None, None
+        return dx, dy, None
 
 
 def _policy(policy):
     return policy if policy is not None else _dispatcher().current_policy()
 
 
-def tsm2r(a: torch.Tensor, b: torch.Tensor, *, splits: int | None = None,
-          policy=None) -> torch.Tensor:
+def tsm2r(a: torch.Tensor, b: torch.Tensor, *, policy=None) -> torch.Tensor:
     """C[m,n] = A[m,k] @ B[k,n], m ~ k >> n. The paper's TSM2R.
-    Differentiable. ``splits=`` pins the split factor for this call
-    (S = 1 is the sequential kernel)."""
-    return _MatMul.apply(a, b, "tsm2r", splits, _policy(policy))
+    Differentiable. The policy's ``split`` pins the split factor (S = 1 is
+    the sequential kernel)."""
+    return _MatMul.apply(a, b, "tsm2r", _policy(policy))
 
 
 def tsm2l(a: torch.Tensor, b: torch.Tensor, *, policy=None) -> torch.Tensor:
     """C[m,n] = A[m,k] @ B[k,n], m >> k ~ n. The paper's TSM2L.
     Differentiable."""
-    return _MatMul.apply(a, b, "tsm2l", None, _policy(policy))
+    return _MatMul.apply(a, b, "tsm2l", _policy(policy))
 
 
-def tsmt(x: torch.Tensor, y: torch.Tensor, *, splits: int | None = None,
-         policy=None) -> torch.Tensor:
+def tsmt(x: torch.Tensor, y: torch.Tensor, *, policy=None) -> torch.Tensor:
     """C[a,b] = X[m,a]^T @ Y[m,b], m >> a, b. Differentiable.
 
     Raises ``ValueError`` when the small output dim b exceeds
@@ -232,7 +228,7 @@ def tsmt(x: torch.Tensor, y: torch.Tensor, *, splits: int | None = None,
             f"({limit}). Orient the operands so the larger output dim comes "
             "first (C = tsmt(y, x).T), or dispatch through tsmm.tsmm_t, "
             "which classifies such shapes dense.")
-    return _MatMulT.apply(x, y, splits, p)
+    return _MatMulT.apply(x, y, p)
 
 
 # Re-exported plain versions, as the JAX entry re-exports its oracles.

@@ -22,11 +22,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import perf_model
 from repro_torch.kernels import _launch, ref
 
-# Below this many f32 partial elements the plain sum runs (the JAX
-# package's threshold: 1 MiB of partials covers every skinny-output case).
-JNP_REDUCE_MAX_ELEMS = 1 << 18
+# Below this many f32 partial elements the plain sum runs (kept in
+# ``core/perf_model.py``, whose modelled times count the epilogue launch).
+JNP_REDUCE_MAX_ELEMS = perf_model.JNP_REDUCE_MAX_ELEMS
 # Output elements one CUDA block of the kernel sums: block_r rows of all
 # cols.
 REDUCE_BLOCK_ELEMS = 4096
@@ -38,7 +39,7 @@ def epilogue_block_r(s: int, rows: int, cols: int) -> int | None:
     """Rows per CUDA block the kernel epilogue launches with, or None when
     the plain ``torch.sum`` path runs (one slice, or a small stack). The
     kernel's grid is ``ceil(rows / block_r)`` blocks."""
-    if s == 1 or s * rows * cols <= JNP_REDUCE_MAX_ELEMS:
+    if not perf_model.reduce_kernel_runs(s, rows, cols):
         return None
     return block_r_for(rows, cols)
 
@@ -71,13 +72,15 @@ def sum_partials(p: torch.Tensor, out_dtype) -> torch.Tensor:
     return out
 
 
-def reduce_partials(p: torch.Tensor, out_dtype) -> torch.Tensor:
+def reduce_partials(p: torch.Tensor,
+                    out_dtype) -> tuple[torch.Tensor, bool]:
     """Sum the ``(S, rows, cols)`` partials stack to ``(rows, cols)``:
     the kernel above ``JNP_REDUCE_MAX_ELEMS`` elements, else a plain f32
-    sum."""
+    sum. Returns the sum and whether the kernel ran (the dispatcher notes
+    that launch)."""
     s, rows, cols = p.shape
     if s == 1:
-        return p[0].to(out_dtype)
+        return p[0].to(out_dtype), False
     if epilogue_block_r(s, rows, cols) is None:
-        return torch.sum(p, dim=0, dtype=torch.float32).to(out_dtype)
-    return sum_partials(p, out_dtype)
+        return torch.sum(p, dim=0, dtype=torch.float32).to(out_dtype), False
+    return sum_partials(p, out_dtype), True

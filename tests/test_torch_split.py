@@ -128,12 +128,16 @@ def test_policy_knob_and_per_call_pin():
         tsmm.tsmm_t(x, y)
     assert [e.split for e in log] == [4] and _splits(log, "tsmt") == [4]
     assert log[0].launches[0].grid == (1, 1, 4)
-    with tsmm.policy(split=8):      # the per-call pin wins
+    with tsmm.policy(split=8):      # a per-call policy beats the scope's
+        pin = tsmm.GemmPolicy(split=2)
         assert ops.resolve_params("tsmt", 4096, 64, 8, torch.float32,
-                                  tsmm.current_policy(),
-                                  splits=2)["splits"] == 2
-        torch.testing.assert_close(ops.tsmt(x, y, splits=2),
-                                   ref.tsmt_ref(x, y), rtol=1e-4, atol=1e-4)
+                                  pin)["splits"] == 2
+        with tsmm.record_dispatches() as log:
+            got = tsmm.tsmm_t(x, y, policy=pin)
+        assert _splits(log, "tsmt") == [2]
+        torch.testing.assert_close(got, ref.tsmt_ref(x, y), rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(ops.tsmt(x, y, policy=pin), got)
     with tsmm.policy(split="never"), tsmm.record_dispatches() as log:
         tsmm.tsmm_t(x, y)
     assert _splits(log, "tsmt") == [1]
@@ -181,7 +185,7 @@ def test_backward_policy_split(split, want):
 @pytest.mark.parametrize("kind,shape,split", [
     ("tsmt", (65024, 4096, 4), True),     # PowerSGD Q of chatglm3's embed
     ("tsmt", (1 << 20, 128, 4), True),    # one output tile
-    ("tsmt", (65536, 256, 256), True),    # 16 tiles of 64 x 64
+    ("tsmt", (65536, 256, 256), False),   # 64 x 64 tiles: never split
     ("tsmt", (65536, 4096, 256), False),  # 256 tiles
     ("tsm2r", (8192, 4096, 256), False),  # chatglm3's wk/wv prefill
     ("tsm2r", (65024, 4096, 4), False),   # PowerSGD P of chatglm3's embed
@@ -197,8 +201,9 @@ def test_chooser_at_132_sms(kind, shape, split):
             else perf_model.tsm2r_grid)(*shape, s)
     if split:   # a split fills the card; a sequential grid already does
         assert grid[0] * grid[1] * s >= perf_model.H100.n_sms // 2
-    else:
-        assert grid[0] * grid[1] >= perf_model.H100.n_sms
+    else:       # or its output is wider than the split kernels are run at
+        assert (grid[0] * grid[1] >= perf_model.H100.n_sms
+                or shape[2] > perf_model.SPLIT_MAX_WIDTH)
 
 
 def test_chooser_ties_go_to_one_slice():
@@ -207,3 +212,7 @@ def test_chooser_ties_go_to_one_slice():
     assert perf_model.occupancy(33) == 33 / 132
     assert perf_model.split_partials_bytes(1, 10, 10) == 0
     assert perf_model.split_partials_bytes(4, 10, 10) == 2 * 4 * 100 * 4
+    # The epilogue's kernel runs only past the plain sum's threshold.
+    assert not perf_model.reduce_kernel_runs(1, 1 << 20, 16)
+    assert not perf_model.reduce_kernel_runs(4, 256, 256)
+    assert perf_model.reduce_kernel_runs(2, 16384, 16)
