@@ -8,9 +8,10 @@ itself), imports neither JAX nor the JAX package, and exits non-zero,
 printing no result, when no CUDA card is present or any phase fails.
 
 1. Build: every kernel from ``src/repro_torch/kernels/csrc/`` (one nvcc per
-   source, all started together); prints the build time, the card's name
-   and power limit, and the matmul precision flags (TF32 and reduced
-   precision bf16 reductions off, so the plain versions are exact f32 sums).
+   source, all started together: eleven libraries); prints the build time,
+   the card's name and power limit, and the matmul precision flags (TF32
+   and reduced precision bf16 reductions off, so the plain versions are
+   exact f32 sums).
 2. Kernels: each kernel against its plain version on the card, f32 and
    bf16, at the chatglm3, paper and ragged shapes; one JSON line per case
    with the kernel's, the plain version's and one ``torch.matmul``'s median
@@ -34,14 +35,34 @@ printing no result, when no CUDA card is present or any phase fails.
    most 2^-7 of the value.
    tsm2r is also held at the training path's shapes: the wk/wv forward of
    a 4096-token microbatch and PowerSGD's P projection.
+   The five int8 kernels are held against their plain versions on the
+   same int8 operands and scales (quantized on the card by
+   ``kernels/quant.py``), with f32 and bf16 outputs (the split ones write
+   f32 partials), at their main-path shapes, a ragged shape, and a deep
+   case whose reduction (over 133,143 terms of one sign, codes near 127)
+   would overflow one int32 sum; at the same tolerances, since the integer
+   sums are exact and only the folds round; bit-identical repeats. At the
+   main-path shapes they are timed beside their plain version,
+   ``torch._int_mm`` followed by the scale fold (``library_ms``; null where
+   it refuses the shape or, for TSMT, where the scales vary along the
+   reduction) and one ``torch.matmul`` of the dequantized operands in the
+   caller's dtype (``library_dq_ms``). Then the whole ``tsmm``/``tsmm_t``
+   op under ``quant="int8"`` is held against the f32 product (the JAX
+   ``test_quant.py`` max-norm relative criterion: 5%, 6% for bf16) and
+   timed.
 3. Dispatch (a path of its own: every launch count is set to 0 just
    before it and read just after): under ``split="never"`` the quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
    executor ``cuda``. Under ``"auto"`` the paper's ``[16384^2]·[16384,16]``
    and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
    launch tsm2r_split (with sum_partials) and tsmt_split; under
-   ``"never"`` the sequential kernels. The Python mirror of the tile
-   table (``core/perf_model.py``) must equal the C grid query.
+   ``"never"`` the sequential kernels. The same under ``quant="int8"``:
+   "never" routes the quickstart's shapes to tsm2r_q8, tsm2l_q8 and
+   tsmt_q8; "auto" resolves PowerSGD's TSMT and ``[4096,65536]·[65536,16]``
+   (32 row tiles) to S > 1 on tsmt_q8_split and tsm2r_q8_split, and the
+   paper's TSM2R to what the int8 chooser picks. The Python mirror of the
+   tile table (``core/perf_model.py``) must equal the C grid query of all
+   four split libraries.
 4. Serve (the serving main path; counts zeroed before it, read after):
    chatglm3-6b at its published width and depth, bf16,
    random weights from a seeded generator; 4 prompts of 2048 tokens answered
@@ -56,11 +77,26 @@ printing no result, when no CUDA card is present or any phase fails.
    Then one prefill and two decode steps are traced with
    ``torch.profiler``: device time by kernel and by category, the number
    of device kernels, and the device's busy share of the unprofiled time.
-5. Grad: each op's autograd on the card (the backward re-dispatches
+5. Serve-int8 (a main path of its own; counts zeroed before, read after):
+   the same model, its weights turned into int8 records by
+   ``quantize_weights`` (embed, lm_head and the stacked biases and norm
+   scales: the 3-D layer weights stay dense), served under
+   ``GemmPolicy(quant="int8")``: 4 x 2048 prompt tokens and 16 greedy
+   tokens, then step by step for times. Each prefill must launch tsm2r_q8
+   exactly 56 times and tsm2r never. Prefill logits must match a plain
+   arm (the same int8 dispatch with the plain version in place of the
+   kernel) within 5e-2, and a ``mode="dense"`` arm on the same records
+   within 0.1, the JAX package's criterion for int8 results through
+   several products (``test_quant.py:187, 335``): the int8 K/V
+   projections of 28 layers move the logits by about 5% on their own.
+   Prints prefill
+   ms, decode ms a step, peak memory, the bytes the records hold and the
+   dense bytes they replace, and one profiled prefill.
+6. Grad: each op's autograd on the card (the backward re-dispatches
    through ``tsmm``) against autograd through its plain version, f32, at
    the kernel tolerances; a directional finite difference of a
    tsm2l-routed loss against a float64 oracle (rtol 1e-2).
-6. Train (the training main path; counts zeroed before it, read after):
+7. Train (the training main path; counts zeroed before it, read after):
    chatglm3-6b at its published width with 4 layers, bf16 parameters
    from seed 0, PowerSGD rank 4, 4 microbatches of 2 x 2048 tokens, 3
    steps of ``train_step.make_train_step``. Every step must be
@@ -73,11 +109,20 @@ printing no result, when no CUDA card is present or any phase fails.
    embed/lm_head gradients within normalised error 5e-2. Prints step
    time, tokens/s, peak memory, and a profiled fourth step's device busy
    share and device time by kernel.
-7. A ``{"kernels": [...]}`` line: every ported kernel with its launches on
-   each of the three paths (dispatch, serve, train) and its numbers at its
-   main-path shape and dtype; tsm2r adds its numbers at the training
-   shapes.
-8. Last line: ``{"ok": true, "device": {...}}``.
+8. Train-int8 (a main path of its own): the same, inside
+   ``GemmPolicy(quant="int8")`` with ``PowerSGDConfig(compress="int8")``.
+   Every step launches tsm2r_q8 32 times for wk/wv, the two P projections
+   on tsm2r_q8 or tsm2r_q8_split at the S the int8 chooser resolves
+   (checked against it), tsmt_q8_split exactly twice with S > 1, and no
+   f32/bf16 TSM2X kernel. The dense arm (same compress setting, state and
+   batch) must match the first step's loss and grad norm within 5e-2 and
+   its compressed embed/lm_head gradients within 0.1 (the JAX criterion
+   for int8 PowerSGD and int8 gradients).
+9. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
+   on each of the five paths (dispatch, serve, train, serve-int8,
+   train-int8) and their numbers at their main-path shape and dtype;
+   tsm2r and tsm2r_q8 add their numbers at the training shapes.
+10. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -94,13 +139,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,            # dense tensor-core bf16
-              torch.float32: 67e12}              # f32 outside tensor cores
+              torch.float32: 67e12,              # f32 outside tensor cores
+              torch.int8: 1979e12}               # dense tensor-core int8
 TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 LOGIT_TOL = 5e-2
+# int8 results through several products (int8 gradients, int8 PowerSGD:
+# JAX tests/test_quant.py:187, 335), and int8 serving against a dense arm
+Q8_GRAD_TOL = 0.1
+Q8_REL_TOL = {torch.float32: 0.05, torch.bfloat16: 0.06}
 BATCH, PROMPT, NEW = 4, 2048, 16
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
-KERNEL_NAMES = ("tsm2r_split", "tsmt_split", "tsm2r", "tsm2l", "tsmt",
-                "sum_partials")
+KERNEL_NAMES = ("tsm2r_q8_split", "tsmt_q8_split", "tsm2r_q8", "tsm2l_q8",
+                "tsmt_q8", "tsm2r_split", "tsmt_split", "tsm2r", "tsm2l",
+                "tsmt", "sum_partials")
 
 
 def emit(obj) -> None:
@@ -134,8 +185,11 @@ def time_ms(fn, min_reps: int = 3) -> float:
     return statistics.median([first] + [once() for _ in range(reps - 1)])
 
 
-def bound(x, y, out, flops):
-    nbytes = sum(t.numel() * t.element_size() for t in (x, y, out))
+def bound(x, y, out, flops, *extra):
+    """The least time for the work: each input (``extra`` too: scale
+    sidecars) read once and the output written once, or ``flops`` at the
+    peak rate of the inputs' type, whichever is longer."""
+    nbytes = sum(t.numel() * t.element_size() for t in (x, y, out, *extra))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
@@ -153,6 +207,8 @@ def normalised_err(got, want) -> float:
 
 
 def category(name: str) -> str:
+    if "tsm2l_kernel<signed char" in name:   # one template serves both
+        return "tsm2l_q8"
     for kern in KERNEL_NAMES:
         if f"{kern}_kernel" in name:
             return kern
@@ -287,6 +343,247 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
     return measured
 
 
+def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
+    """Each int8 kernel against its plain version on the same int8
+    operands and scales, with f32 and bf16 outputs, bit-identical
+    repeats; timed at its main-path shapes. Then the whole ``tsmm`` /
+    ``tsmm_t`` op under ``quant="int8"`` against the f32 product. Returns
+    the records of each kernel's main-path case and of its training-path
+    cases."""
+    from repro_torch.core import perf_model, tsmm
+    from repro_torch.kernels import quant, ref
+    from repro_torch.kernels import tsm2l as k_tsm2l
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    band, bk = perf_model.Q8_BAND, perf_model.TSM2R_BLOCK_K
+    f32, bf16 = torch.float32, torch.bfloat16
+    # name: (entry, kernel(q, dtype, S), plain(q, dtype, S), split?)
+    kernels = {
+        "tsm2r_q8": ("mm", lambda q, dt, S: k_tsm2r.tsm2r_q8(*q, band, dt),
+                     lambda q, dt, S: ref.tsm2r_q8_ref(*q, band, dt), False),
+        "tsm2r_q8_split": (
+            "mm", lambda q, dt, S: k_tsm2r.tsm2r_q8_split(*q, band, S, bk),
+            lambda q, dt, S: ref.tsm2r_q8_split_ref(*q, band, S, bk), True),
+        "tsm2l_q8": ("mm", lambda q, dt, S: k_tsm2l.tsm2l_q8(*q, band, dt),
+                     lambda q, dt, S: ref.tsm2l_q8_ref(*q, band, dt), False),
+        "tsmt_q8": ("mmt", lambda q, dt, S: k_tsmt.tsmt_q8(*q, band, dt),
+                    lambda q, dt, S: ref.tsmt_q8_ref(*q, band, dt), False),
+        "tsmt_q8_split": (
+            "mmt", lambda q, dt, S: k_tsmt.tsmt_q8_split(*q, band, S),
+            lambda q, dt, S: ref.tsmt_q8_split_ref(*q, band, S), True),
+    }
+    # (m, d1, d2, S, deep, timed as): the main-path shapes first; "deep"
+    # reductions are of one sign with codes near 127, so a single int32
+    # sum over their depth (> 133,143 terms) would overflow.
+    cases = {
+        "tsm2r_q8": [(8192, 4096, 256, 1, False, "main"),
+                     (4096, 4096, 256, 1, False, "train"),
+                     (65024, 4096, 4, 1, False, "train"),
+                     (1000, 777, 17, 1, False, None),
+                     (512, 300000, 4, 1, True, None)],
+        "tsm2r_q8_split": [(4096, 65536, 16, 4, False, "main"),
+                           (16384, 16384, 16, 2, False, None),
+                           (1000, 777, 17, 3, False, None),
+                           (512, 300000, 4, 2, True, None)],
+        "tsm2l_q8": [(102400, 4, 4, 1, False, "main"),
+                     (10000, 300, 20, 1, False, None),
+                     (512, 200000, 4, 1, True, None)],
+        "tsmt_q8": [(65536, 128, 4, 1, False, "main"),
+                    (10000, 300, 20, 1, False, None),
+                    (300000, 16, 4, 1, True, None)],
+        "tsmt_q8_split": [(65024, 4096, 4, 8, False, "main"),
+                          (1 << 20, 128, 4, 32, False, None),
+                          (10000, 300, 20, 3, False, None),
+                          (300000, 16, 4, 2, True, None)],
+    }
+    main_dtype = {"tsm2r_q8": bf16}
+    measured, at_train, bad = {}, {}, []
+    for name, (entry, kern, plain, split) in kernels.items():
+        for m, d1, d2, S, deep, timed in cases[name]:
+            x = uniform((m, d1), f32)
+            y = uniform((d1, d2) if entry == "mm" else (m, d2), f32)
+            if deep:
+                x, y = x.abs() * 0.5 + 0.5, y.abs() * 0.5 + 0.5
+            xq, xs = quant.quantize_blocks(x, band)
+            yq, ys = (quant.quantize_tensor(y) if entry == "mm"
+                      else quant.quantize_blocks(y, band))
+            q = (xq, yq, xs, ys)
+            depth = d1 if entry == "mm" else m
+            if split:
+                depth = ref.split_len(depth, S, bk if entry == "mm" else band)
+            for dtype in ((f32,) if split else (f32, bf16)):
+                got = kern(q, dtype, S)
+                again = kern(q, dtype, S)
+                torch.cuda.synchronize()
+                want = plain(q, dtype, S)
+                rtol, atol = TOL[dtype]
+                if dtype == f32:
+                    atol *= max(1.0, (depth / 1024) ** 0.5)
+                err = (got.float() - want.float()).abs()
+                same = torch.equal(got, again)
+                ok = same and bool(
+                    (err <= atol + rtol * want.float().abs()).all())
+                rec = {"phase": "kernel", "kernel": name,
+                       "shape": [m, d1, d2], "splits": S, "deep": deep,
+                       "dtype": str(dtype)[6:], "max_err": float(err.max()),
+                       "rtol": rtol, "atol": atol, "deterministic": same,
+                       "ok": ok, "gpu": gpu}
+                if not ok:
+                    bad.append(f"{name} {m}x{d1}x{d2} S={S} {dtype}")
+                # wk/wv run in bf16, PowerSGD's P (n = 4) in f32.
+                is_main = (timed == "main"
+                           and dtype == main_dtype.get(name, f32))
+                is_train = timed == "train" and (d2 == 4) == (dtype == f32)
+                if is_main or is_train:
+                    rec.update(q8_times(entry, q, dtype, got, band,
+                                        lambda: kern(q, dtype, S),
+                                        lambda: plain(q, dtype, S)))
+                emit(rec)
+                if is_main:
+                    measured[name] = rec
+                elif is_train:
+                    at_train.setdefault(name, []).append(rec)
+                del got, again, want, err
+            del x, y, xq, yq, xs, ys, q
+            torch.cuda.empty_cache()
+    check(not bad, f"int8 kernel phase mismatch in {bad}")
+
+    # The whole op under quant="int8" against the f32 product.
+    for entry, (m, d1, d2), dtype, split in [
+            ("mm", (8192, 4096, 256), bf16, "auto"),
+            ("mm", (65024, 4096, 4), f32, "auto"),
+            ("mm", (4096, 65536, 16), f32, "auto"),
+            ("mm", (102400, 4, 4), f32, "auto"),
+            ("mmt", (65536, 128, 4), f32, "never"),
+            ("mmt", (65024, 4096, 4), f32, "auto")]:
+        x = uniform((m, d1), dtype)
+        y = uniform((d1, d2) if entry == "mm" else (m, d2), dtype)
+        op = tsmm.tsmm if entry == "mm" else tsmm.tsmm_t
+        xt = x if entry == "mm" else x.t()
+        with tsmm.policy(quant="int8", split=split), \
+                tsmm.record_dispatches() as log:
+            got = op(x, y)
+        oracle = torch.matmul(xt.float(), y.float())
+        rel = normalised_err(got, oracle)
+        ok = got.dtype == dtype and rel <= Q8_REL_TOL[dtype]
+        with tsmm.policy(quant="int8", split=split):
+            op_ms = time_ms(lambda: op(x, y))
+        emit({"phase": "kernel", "op": "tsmm" if entry == "mm" else "tsmm_t",
+              "quant": "int8", "shape": [m, d1, d2], "dtype": str(dtype)[6:],
+              "split": split,
+              "launches": [(lm.kind, lm.splits) for e in log
+                           for lm in e.launches],
+              "op_ms": op_ms,
+              "library_ms": time_ms(lambda: torch.matmul(xt, y)),
+              "rel_err_vs_f32": rel, "tol": Q8_REL_TOL[dtype], "ok": ok,
+              "gpu": gpu})
+        check(ok, f"int8 {entry} op {m}x{d1}x{d2} {dtype}: {rel}")
+        del x, y, xt, got, oracle
+        torch.cuda.empty_cache()
+    return measured, at_train
+
+
+def q8_times(entry, q, dtype, got, band, kern, plain) -> dict:
+    """Times of one int8 kernel case: the kernel, its plain version,
+    ``torch._int_mm`` and the scale fold (``library_ms``; None where it
+    refuses the shape, or for TSMT, whose scales vary along the
+    reduction), one ``torch.matmul`` of the dequantized operands in
+    ``dtype`` (``library_dq_ms``), and the bound."""
+    from repro_torch.kernels import quant
+
+    xq, yq, xs, ys = q
+    m, d1 = xq.shape
+    d2 = yq.shape[1]
+    library_ms = None
+    if entry == "mm":
+        rows = (xs.reshape(-1).repeat_interleave(band)[:m]
+                * ys.reshape(()))[:, None]
+
+        def int_mm():
+            return (torch._int_mm(xq, yq).float() * rows).to(dtype)
+        try:
+            int_mm()
+        except RuntimeError:
+            pass
+        else:
+            library_ms = time_ms(int_mm)
+    xd = quant.dequantize_blocks(xq, xs, dtype, block_rows=band)
+    yd = (quant.dequantize_blocks(yq, ys, dtype) if entry == "mm"
+          else quant.dequantize_blocks(yq, ys, dtype, block_rows=band))
+    xd = xd if entry == "mm" else xd.t()
+    b_ms, b_by = bound(xq, yq, got, 2 * m * d1 * d2, xs, ys)
+    return {"kernel_ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": library_ms,
+            "library_dq_ms": time_ms(lambda: torch.matmul(xd, yd)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def q8_dispatch(dev, uniform, counts, expect) -> dict:
+    """The dispatch path under ``quant="int8"``: "never" routes the
+    quickstart's shapes to tsm2r_q8, tsm2l_q8 and tsmt_q8; "auto" splits
+    PowerSGD's TSMT and a TSM2R of 32 row tiles, and resolves the paper's
+    TSM2R to the int8 chooser's S. Every output within the JAX int8
+    criterion of the f32 product. Returns the launches it made."""
+    from repro_torch.core import tsmm
+    from repro_torch.kernels import ops
+
+    f32 = torch.float32
+    first = before = counts()
+    a, b = uniform((4096, 4096), f32), uniform((4096, 8), f32)
+    a2, b2 = uniform((102400, 4), f32), uniform((4, 4), f32)
+    x, y = uniform((65536, 128), f32), uniform((65536, 4), f32)
+    with tsmm.policy(split="never", quant="int8"), \
+            tsmm.record_dispatches() as log:
+        outs = [tsmm.tsmm(a, b), tsmm.tsmm(a2, b2), tsmm.tsmm_t(x, y)]
+    torch.cuda.synchronize()
+    launched = [[lm.kind for lm in e.launches] for e in log]
+    errs = [normalised_err(got, want) for got, want in
+            zip(outs, (a @ b, a2 @ b2, x.t() @ y))]
+    grown = {n: v - before[n] for n, v in counts().items()}
+    emit({"phase": "dispatch", "quant": "int8", "split": "never",
+          "launched": launched, "launches": grown, "rel_err_vs_f32": errs})
+    check(launched == [["tsm2r_q8"], ["tsm2l_q8"], ["tsmt_q8"]]
+          and all(e.quant == "int8" and e.executor == "cuda" for e in log),
+          f"int8 dispatch routes {launched}")
+    check(grown == expect(tsm2r_q8=1, tsm2l_q8=1, tsmt_q8=1),
+          f"int8 dispatch launches {grown}")
+    check(max(errs) <= Q8_REL_TOL[f32], f"int8 dispatch errors {errs}")
+    del a, b, a2, b2, x, y, outs
+
+    a, b = uniform((16384, 16384), f32), uniform((16384, 16), f32)
+    a3, b3 = uniform((4096, 65536), f32), uniform((65536, 16), f32)
+    x, y = uniform((65024, 4096), f32), uniform((65024, 4), f32)
+    paper_s = ops.resolve_params("tsm2r", 16384, 16384, 16, f32,
+                                 tsmm.GemmPolicy(quant="int8"),
+                                 device=dev)["splits"]
+    before = counts()
+    with tsmm.policy(split="auto", quant="int8"), \
+            tsmm.record_dispatches() as log:
+        outs = [tsmm.tsmm(a, b), tsmm.tsmm(a3, b3), tsmm.tsmm_t(x, y)]
+    torch.cuda.synchronize()
+    resolved = [[(lm.kind, lm.splits) for lm in e.launches] for e in log]
+    n_reduce = sum(k == "reduce" for r in resolved for k, _ in r)
+    errs = [normalised_err(got, want) for got, want in
+            zip(outs, (a @ b, a3 @ b3, x.t() @ y))]
+    grown = {n: v - before[n] for n, v in counts().items()}
+    want = expect(tsm2r_q8=int(paper_s == 1),
+                  tsm2r_q8_split=1 + int(paper_s > 1), tsmt_q8_split=1,
+                  sum_partials=n_reduce)
+    emit({"phase": "dispatch", "quant": "int8", "split": "auto",
+          "resolved": resolved, "paper_shape_int8_splits": paper_s,
+          "launches": grown, "rel_err_vs_f32": errs})
+    check(resolved[0][0] == ("tsm2r_q8", paper_s)
+          and resolved[1][0][0] == "tsm2r_q8" and resolved[1][0][1] > 1
+          and resolved[2][0][0] == "tsmt_q8" and resolved[2][0][1] > 1,
+          f"int8 split=auto dispatch: {resolved}")
+    check(grown == want, f"int8 split=auto launches {grown} != {want}")
+    check(max(errs) <= Q8_REL_TOL[f32], f"int8 dispatch errors {errs}")
+    del a, b, a3, b3, x, y, outs
+    torch.cuda.empty_cache()
+    return {n: v - first[n] for n, v in counts().items()}
+
+
 def grad_phase(dev, uniform, gpu) -> None:
     """Autograd through each op on the card (the backward re-dispatches
     through tsmm and its kernels) against autograd through the op's plain
@@ -347,16 +644,20 @@ def grad_phase(dev, uniform, gpu) -> None:
     check(ok, f"directional finite difference {analytic} vs {fd}")
 
 
-def train_phase(dev, gpu, counts, zero_counts) -> dict:
+def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     """Train chatglm3-6b at its published width with TRAIN_LAYERS layers:
     a dense arm's first step, then the kernel arm's TRAIN_STEPS steps (the
     training main path: counts zeroed before, read after), then one
-    profiled step. Returns the main path's launch counts."""
+    profiled step. ``quant``: the train-int8 path, inside
+    ``GemmPolicy(quant="int8")`` with int8 PowerSGD. Returns the main
+    path's launch counts."""
+    import contextlib
     import dataclasses
 
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
     from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
     from repro_torch.optim import adamw, powersgd, schedule
     from repro_torch.train import train_step
 
@@ -369,7 +670,10 @@ def train_phase(dev, gpu, counts, zero_counts) -> dict:
     opt = adamw.AdamWConfig(
         lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
         weight_decay=0.1)
-    ps = powersgd.PowerSGDConfig(rank=4)
+    ps = powersgd.PowerSGDConfig(rank=4,
+                                 compress="int8" if quant else "none")
+    pol = tsmm.GemmPolicy(quant="int8") if quant else None
+    phase = "train-int8" if quant else "train"
     batches = [{k: torch.from_numpy(v).to(dev, torch.long)
                 for k, v in pipeline.batch_for_step(dcfg, i).items()}
                for i in range(TRAIN_STEPS + 1)]
@@ -414,34 +718,58 @@ def train_phase(dev, gpu, counts, zero_counts) -> dict:
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
     mb_tokens = tokens // n_micro
     per_step_tsm2r = 2 * TRAIN_LAYERS * n_micro + 2
+    # PowerSGD's P = G Q of embed and lm_head (f32 gradients): the S the
+    # chooser resolves for the kernel arm's scope.
+    p_shape = (cfg.vocab_size, cfg.d_model, ps.rank)
+    p_splits = ops.resolve_params("tsm2r", *p_shape, torch.float32,
+                                  pol or tsmm.GemmPolicy(),
+                                  device=dev)["splits"]
+    if quant:
+        want_step = {n: 0 for n in counts()}
+        want_step.update(tsmt_q8_split=2)
+        want_step["tsm2r_q8"] = per_step_tsm2r - 2 * (p_splits > 1)
+        want_step["tsm2r_q8_split"] = 2 * (p_splits > 1)
     zero_counts()
     step_ms, per_step, records = [], [], []
     for i in range(TRAIN_STEPS):
         before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with tsmm.record_dispatches() as log:
+        with (tsmm.policy(pol) if pol else contextlib.nullcontext()), \
+                tsmm.record_dispatches() as log:
             state, m = step(state, batches[i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         grown = {n: v - before[n] for n, v in counts().items()}
         per_step.append(grown)
         tsmt_splits = [lm.splits for e in log if e.kind == "tsmt"
-                       for lm in e.launches if lm.kind == "tsmt"]
+                       for lm in e.launches if lm.kind in ("tsmt",
+                                                           "tsmt_q8")]
+        p_resolved = [lm.splits for e in log
+                      if (e.entry, e.shape) == ("mm", p_shape)
+                      for lm in e.launches if lm.kind != "reduce"]
         bwd = [e for e in log if (e.entry, e.shape) in {
             ("mm", (mb_tokens, kv, cfg.d_model)),       # da = ct w^T
             ("mmt", (mb_tokens, cfg.d_model, kv))}]     # dw = x^T ct
         rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
                                         "accuracy", "powersgd_compression")}
         rec.update(step=i + 1, step_ok=bool(m["step_ok"]), launches=grown,
-                   tsmt_splits=tsmt_splits, ms=step_ms[-1])
+                   tsmt_splits=tsmt_splits, p_splits=p_resolved,
+                   ms=step_ms[-1])
         records.append(rec)
-        check(rec["step_ok"], f"train step {i + 1} not ok: {rec}")
-        check(grown["tsm2r"] == per_step_tsm2r,
-              f"tsm2r launches in step {i + 1}: {grown['tsm2r']}")
-        check(grown["tsmt_split"] == 2 and grown["tsmt"] == 0
-              and len(tsmt_splits) == 2 and min(tsmt_splits) > 1,
-              f"tsmt launches in step {i + 1}: {grown} S={tsmt_splits}")
+        check(rec["step_ok"], f"{phase} step {i + 1} not ok: {rec}")
+        check(p_resolved == [p_splits, p_splits],
+              f"{phase} P projections in step {i + 1}: S={p_resolved}")
+        if quant:
+            check(grown == want_step,
+                  f"train-int8 launches in step {i + 1}: {grown}")
+        else:
+            check(grown["tsm2r"] == per_step_tsm2r,
+                  f"tsm2r launches in step {i + 1}: {grown['tsm2r']}")
+            check(grown["tsmt_split"] == 2 and grown["tsmt"] == 0,
+                  f"tsmt launches in step {i + 1}: {grown}")
+        check(len(tsmt_splits) == 2 and min(tsmt_splits) > 1,
+              f"{phase} Q projections in step {i + 1}: S={tsmt_splits}")
         check(len(bwd) == 2 * 2 * TRAIN_LAYERS * n_micro
               and all(e.executor == "torch-dense" for e in bwd),
               f"wk/wv backward routes in step {i + 1}: {len(bwd)}")
@@ -454,14 +782,16 @@ def train_phase(dev, gpu, counts, zero_counts) -> dict:
     loss_err = abs(records[0]["loss"] - dense["loss"]) / abs(dense["loss"])
     gnorm_err = (abs(records[0]["grad_norm"] - dense["grad_norm"])
                  / dense["grad_norm"])
-    check(max(head_err.values()) <= LOGIT_TOL and loss_err <= LOGIT_TOL
+    head_tol = Q8_GRAD_TOL if quant else LOGIT_TOL
+    check(max(head_err.values()) <= head_tol and loss_err <= LOGIT_TOL
           and gnorm_err <= LOGIT_TOL,
-          f"train kernel vs dense arm: loss {loss_err} grad norm "
+          f"{phase} kernel vs dense arm: loss {loss_err} grad norm "
           f"{gnorm_err} compressed grads {head_err}")
     captured.update(kernel=None, dense=None)   # free; capture no more
-    prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
+    with (tsmm.policy(pol) if pol else contextlib.nullcontext()):
+        prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
     mid_ms = statistics.median(step_ms)
-    emit({"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+    emit({"phase": phase, "model": cfg.name, "quant": ps.compress, "layers": cfg.n_layers,
           "params": n_params, "dtype": cfg.dtype, "n_micro": n_micro,
           "tokens_per_step": tokens, "init_s": init_s, "steps": records,
           "step_ms": step_ms, "median_step_ms": mid_ms,
@@ -469,13 +799,139 @@ def train_phase(dev, gpu, counts, zero_counts) -> dict:
           "dense_arm": dense, "dense_arm_loss_err": loss_err,
           "dense_arm_grad_norm_err": gnorm_err,
           "dense_arm_compressed_grad_err": head_err,
+          "compressed_grad_tol": head_tol, "p_splits": p_splits,
           "tsm2r_launches_per_step": per_step_tsm2r, "gpu": gpu})
-    emit({"phase": "profile", "window": "train step", **prof,
+    emit({"phase": "profile", "window": f"{phase} step", **prof,
           "unprofiled_ms": mid_ms,
           "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
     del state, batches
     torch.cuda.empty_cache()
     return main_train
+
+
+def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
+    """Serve chatglm3-6b from int8 weight records under
+    ``GemmPolicy(quant="int8")`` (the serve-int8 main path: counts zeroed
+    before, read after), then check it against a dense arm on the same
+    records and profile one prefill. Returns the main path's launch
+    counts."""
+    from repro_torch.configs import registry
+    from repro_torch.core import tsmm
+    from repro_torch.kernels import quant, ref
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    cfg = registry.get_config("chatglm3-6b")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=0, device=dev)
+    dense_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    qw = quant.quantize_weights(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kept_bytes = sum(p.numel() * p.element_size()
+                     for p in params.parameters())
+    seg = "segments.0."
+    check(sorted(qw.records) == sorted(
+        ["embed.table", "lm_head.table"]
+        + [seg + n for n in ("attn.bq", "attn.bk", "attn.bv", "norm1.scale",
+                             "norm2.scale")]),
+        f"records of {sorted(qw.records)}")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    pol = tsmm.GemmPolicy(quant="int8")
+    per_prefill = 2 * cfg.n_layers
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+
+    zero_counts()
+    with tsmm.record_dispatches() as log:
+        t0 = time.perf_counter()
+        out = engine.generate(qw, cfg, prompts, NEW, policy=pol, device=dev)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    check(counts() == expect(tsm2r_q8=per_prefill),
+          f"serve-int8 launches of one request {counts()}")
+    routed = [e for e in log if e.launches]
+    check(len(routed) == per_prefill and all(
+        e.executor == "cuda" and e.quant == "int8"
+        and [lm.kind for lm in e.launches] == ["tsm2r_q8"]
+        and e.shape == (BATCH * PROMPT, cfg.d_model, kv) for e in routed),
+        f"serve-int8 prefill routes {routed[:2]}")
+    decode_events = [e for e in log if e.shape[0] == BATCH]
+    check(len(decode_events) == (NEW - 1) * cfg.n_layers * 7 and all(
+        e.executor == "torch-dense" for e in decode_events),
+        "every int8 decode projection goes to torch-dense")
+    check(out.shape == (BATCH, NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"serve-int8 output {out.shape}")
+
+    prefill_step, decode_step = engine.make_serve_fns(cfg, policy=pol)
+    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(qw, {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(1, NEW):
+        _, cache = decode_step(qw, out[:, i - 1:i], PROMPT + i - 1, cache)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
+    del cache
+    # The main path ends here; what follows checks it and measures it.
+    main = counts()
+    check(main == expect(tsm2r_q8=2 * per_prefill),
+          f"serve-int8 main path launches {main}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    dense_prefill, _ = engine.make_serve_fns(
+        cfg, policy=tsmm.GemmPolicy(mode="dense", quant="int8"))
+    with tsmm.record_dispatches() as log:
+        dense_logits, _ = dense_prefill(
+            qw, {"tokens": prompts},
+            model.init_cache(cfg, BATCH, PROMPT, device=dev))
+    check(all(e.executor == "torch-dense" for e in log),
+          "serve-int8 dense arm routes")
+    dense_err = normalised_err(logits, dense_logits)
+    check(dense_err <= Q8_GRAD_TOL, f"serve-int8 vs dense arm {dense_err}")
+    # The plain arm: the same int8 dispatch and quantization, with the
+    # plain version in place of the tsm2r_q8 kernel (not counted).
+    kernel_fn = k_tsm2r.tsm2r_q8
+    k_tsm2r.tsm2r_q8 = ref.tsm2r_q8_ref
+    try:
+        plain_logits, _ = prefill_step(
+            qw, {"tokens": prompts},
+            model.init_cache(cfg, BATCH, PROMPT, device=dev))
+    finally:
+        k_tsm2r.tsm2r_q8 = kernel_fn
+    plain_err = normalised_err(logits, plain_logits)
+    check(plain_err <= LOGIT_TOL, f"serve-int8 vs plain arm {plain_err}")
+    emit({"phase": "serve-int8", "model": cfg.name, "dtype": cfg.dtype,
+          "batch": BATCH, "prompt": PROMPT, "new": NEW, "init_s": init_s,
+          "records": sorted(qw.records), "records_bytes": qw.nbytes(),
+          "dense_bytes_replaced": dense_bytes - kept_bytes,
+          "param_bytes_dense": dense_bytes,
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": BATCH * PROMPT / prefill_ms * 1e3,
+          "decode_ms_per_step": decode_ms,
+          "decode_tokens_per_s": BATCH / decode_ms * 1e3,
+          "greedy_request_s": greedy_s,
+          "tsm2r_q8_launches_per_prefill": per_prefill,
+          "dense_arm_err": dense_err, "dense_arm_tol": Q8_GRAD_TOL,
+          "plain_arm_err": plain_err, "plain_arm_tol": LOGIT_TOL,
+          "peak_mem_gb": peak_gb, "gpu": gpu})
+    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    rec = device_profile(
+        lambda: prefill_step(qw, {"tokens": prompts}, cache))
+    emit({"phase": "profile", "window": "int8 prefill", **rec,
+          "unprofiled_ms": prefill_ms,
+          "busy_share": rec["device_busy_ms"] / prefill_ms, "gpu": gpu})
+    del qw, params, cache, prompts, out, logits, dense_logits, plain_logits
+    torch.cuda.empty_cache()
+    return main
 
 
 def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
@@ -617,6 +1073,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
     measured.update(split_kernel_phase(dev, uniform, gpu))
+    q8_measured, q8_at_train = q8_kernel_phase(dev, uniform, gpu)
+    measured.update(q8_measured)
+    at_train.update(q8_at_train)
 
     # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
@@ -624,7 +1083,12 @@ def main() -> int:
                 "tsmt": (k_tsmt, "launches"),
                 "tsm2r_split": (k_tsm2r, "split_launches"),
                 "tsmt_split": (k_tsmt, "split_launches"),
-                "sum_partials": (k_reduce, "launches")}
+                "sum_partials": (k_reduce, "launches"),
+                "tsm2r_q8": (k_tsm2r, "q8_launches"),
+                "tsm2l_q8": (k_tsm2l, "q8_launches"),
+                "tsmt_q8": (k_tsmt, "q8_launches"),
+                "tsm2r_q8_split": (k_tsm2r, "q8_split_launches"),
+                "tsmt_q8_split": (k_tsmt, "q8_split_launches")}
 
     def counts():
         return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
@@ -692,13 +1156,15 @@ def main() -> int:
                                        atol=atol * 8)   # 16384-65024 terms
     del a, b, x, y, outs
     mirror = {}
+    tsm2r_shapes = [(16384, 16384, 16), (8192, 4096, 256), (1000, 777, 17),
+                    (4096, 4096, 1), (4096, 65536, 16)]
+    tsmt_shapes = [(65024, 4096, 4), (1 << 20, 128, 4), (65536, 256, 256),
+                   (10000, 300, 20), (4099, 100, 5)]
     for name, grid_fn, shapes in [
-            ("tsm2r_split", perf_model.tsm2r_grid,
-             [(16384, 16384, 16), (8192, 4096, 256), (1000, 777, 17),
-              (4096, 4096, 1)]),
-            ("tsmt_split", perf_model.tsmt_grid,
-             [(65024, 4096, 4), (1 << 20, 128, 4), (65536, 256, 256),
-              (10000, 300, 20), (4099, 100, 5)])]:
+            ("tsm2r_split", perf_model.tsm2r_grid, tsm2r_shapes),
+            ("tsmt_split", perf_model.tsmt_grid, tsmt_shapes),
+            ("tsm2r_q8_split", perf_model.tsm2r_grid, tsm2r_shapes),
+            ("tsmt_q8_split", perf_model.tsmt_grid, tsmt_shapes)]:
         for shape in shapes:
             for splits in (1, 8):
                 c_grid = _build.grid(name, *shape, splits)
@@ -707,10 +1173,11 @@ def main() -> int:
                       f"tile mirror {name} {shape}: C {c_grid} vs Python "
                       f"{grid_fn(*shape, splits)}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
+    q8_launched = q8_dispatch(dev, uniform, counts, expect)
     dispatch_launches = counts()
-    check(dispatch_launches == expect(tsm2r=2, tsm2l=2, tsmt=2,
-                                      tsm2r_split=1, tsmt_split=1,
-                                      sum_partials=1),
+    base = expect(tsm2r=2, tsm2l=2, tsmt=2, tsm2r_split=1, tsmt_split=1,
+                  sum_partials=1)
+    check(dispatch_launches == {n: base[n] + q8_launched[n] for n in base},
           f"dispatch path launches {dispatch_launches}")
 
     # -- 4. serve chatglm3-6b (the serving main path) ----------------------
@@ -812,22 +1279,39 @@ def main() -> int:
     del params, prompts, out, step_logits, dense_logits, forced, full
     torch.cuda.empty_cache()
 
-    # -- 5. grad -----------------------------------------------------------
+    # -- 5. serve chatglm3-6b from int8 records (the serve-int8 path) ------
+    serve8_launches = serve_int8_phase(dev, gpu, counts, zero_counts, expect)
+
+    # -- 6. grad -----------------------------------------------------------
     grad_phase(dev, uniform, gpu)
 
-    # -- 6. train chatglm3-6b (the training main path) ---------------------
+    # -- 7. train chatglm3-6b (the training main path) ---------------------
     train_launches = train_phase(dev, gpu, counts, zero_counts)
     for name in ("tsm2r", "tsmt_split"):
         check(train_launches[name] > 0,
               f"{name} was not launched on the training main path")
 
-    # -- 7. kernels line ---------------------------------------------------
+    # -- 8. train chatglm3-6b under int8 (the train-int8 path) -------------
+    train8_launches = train_phase(dev, gpu, counts, zero_counts, quant=True)
+    for name in ("tsm2r_q8", "tsmt_q8_split"):
+        check(train8_launches[name] > 0,
+              f"{name} was not launched on the train-int8 main path")
+
+    # -- 9. kernels line ---------------------------------------------------
     replaces = {"tsm2r": "src/repro/kernels/tsm2r.py:62",
                 "tsm2l": "src/repro/kernels/tsm2l.py:48",
                 "tsmt": "src/repro/kernels/tsmt.py:63",
                 "tsm2r_split": "src/repro/kernels/tsm2r.py:112",
                 "tsmt_split": "src/repro/kernels/tsmt.py:115",
-                "sum_partials": "src/repro/kernels/reduce.py:45"}
+                "sum_partials": "src/repro/kernels/reduce.py:45",
+                "tsm2r_q8": "src/repro/kernels/quant.py:192",
+                "tsm2r_q8_split": "src/repro/kernels/quant.py:254",
+                "tsm2l_q8": "src/repro/kernels/quant.py:318",
+                "tsmt_q8": "src/repro/kernels/quant.py:387",
+                "tsmt_q8_split": "src/repro/kernels/quant.py:448"}
+    paths = {"dispatch": dispatch_launches, "serve": serve_launches,
+             "train": train_launches, "serve_int8": serve8_launches,
+             "train_int8": train8_launches}
     sources = {"sum_partials": "reduce"}
     line = []
     for name in counters:
@@ -839,20 +1323,20 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/"
                       f"{sources.get(name, name)}.cu",
             "replaces": replaces[name],
-            "launches": (dispatch_launches[name] + serve_launches[name]
-                         + train_launches[name]),
-            "launches_dispatch": dispatch_launches[name],
-            "launches_serve": serve_launches[name],
-            "launches_train": train_launches[name],
+            "launches": sum(c[name] for c in paths.values()),
+            **{f"launches_{p}": c[name] for p, c in paths.items()},
             "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_dq_ms": rec.get("library_dq_ms"),
             "shape": rec["shape"], "dtype": rec["dtype"],
+            "splits": rec.get("splits", 1),
             "at_train_shapes": [{
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "library_dq_ms": r.get("library_dq_ms")}
                 for r in at_train.get(name, ())]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,6 +5,11 @@
 (``jax.tree.map(np.asarray, params)``), and returns the port's ``LM``. A
 segment's layers arrive stacked on a leading axis (the JAX package's
 ``_stack_init``); they are split into the ``nn.ModuleList``.
+A tree whose leaves include int8 weight records (the JAX package's
+``kernels.quant.quantize_weights``: ``{"q8", "q8_scale"}`` dicts) gives a
+``kernels.quant.QuantizedWeights``: the records are carried as they are,
+keyed by their JAX leaf path, and the parameters they stand for are left
+empty until a serving step dequantizes them.
 ``state_from_jax(cfg, state)`` carries a whole JAX train state (parameters,
 AdamW moments and step, PowerSGD error buffers and Q factors) into the
 port's train state the same way. Imports neither JAX nor the JAX package.
@@ -15,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import layout, resolve_device
+from repro_torch.kernels import quant
 from repro_torch.models import model
 
 
@@ -26,16 +32,20 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _node(tree, path: str):
+    """The node at a dotted JAX path (list indices are digits)."""
+    node = tree
+    for key in path.split("."):
+        node = node[int(key)] if isinstance(node, (list, tuple)) else \
+            node[key]
+    return node
+
+
 def _leaf(tree, name: str, field: str | None = None):
     """The JAX leaf for one port parameter name; ``field`` picks an entry
     of a per-parameter dict leaf (the AdamW moments' "m"/"v")."""
-    parts = name.split(".")
-    i = None
-    if parts[0] == "layers":            # layers.<i>.<module>.<param>
-        i, parts = int(parts[1]), ["segments", 0, *parts[2:]]
-    node = tree
-    for key in parts:
-        node = node[key]
+    path, i = layout.jax_path(name)
+    node = _node(tree, path)
     if field is not None:
         node = node[field]
     return node if i is None else node[i]
@@ -53,21 +63,39 @@ def _walk(tree, prefix=""):
         yield from _walk(sub, f"{prefix}.{key}" if prefix else str(key))
 
 
-def params_from_jax(cfg, tree, *, device=None) -> model.LM:
+def params_from_jax(cfg, tree, *, device=None):
     """The port's ``LM`` for ``cfg`` holding the JAX package's parameters,
-    on ``device`` (the card unless the caller passes one)."""
+    on ``device`` (the card unless the caller passes one); a
+    ``QuantizedWeights`` around it when the tree holds int8 records."""
     dev = resolve_device(device)
     lm = model.LM(cfg, dev)
-    for name, p in lm.named_parameters():
+    named = dict(lm.named_parameters())
+    records = {}
+    for path, names in layout.jax_leaves(named).items():
         try:
-            src = _tensor(_leaf(tree, name))
+            node = _node(tree, path)
         except (KeyError, IndexError) as e:
-            raise KeyError(f"JAX params have no leaf for {name!r}") from e
-        if tuple(src.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != "
-                             f"port shape {tuple(p.shape)}")
-        p.data.copy_(src.to(p.dtype))
-    return lm
+            raise KeyError(f"JAX params have no leaf for {names[0]!r}") \
+                from e
+        if quant.is_record(node):
+            shape = layout.jax_shape(named, names)
+            rec = {k: _tensor(node[k]).to(dev) for k in ("q8", "q8_scale")}
+            if tuple(rec["q8"].shape) != shape:
+                raise ValueError(f"{path}: JAX record shape "
+                                 f"{tuple(rec['q8'].shape)} != {shape}")
+            records[path] = rec
+            for n in names:
+                named[n].data = torch.empty(0, dtype=named[n].dtype,
+                                            device=dev)
+            continue
+        for name in names:
+            p = named[name]
+            src = _tensor(_leaf(tree, name))
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != "
+                                 f"port shape {tuple(p.shape)}")
+            p.data.copy_(src.to(p.dtype))
+    return quant.QuantizedWeights(lm, records) if records else lm
 
 
 def state_from_jax(cfg, state, *, device=None) -> dict:

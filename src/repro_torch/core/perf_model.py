@@ -11,6 +11,12 @@ FMAs on the CUDA cores in f32, so the f32 rate bounds their arithmetic at
 either input dtype. Block sizes are fixed per tile shape inside the
 kernels, so the only parameter chosen here is the split factor S.
 
+Under ``GemmPolicy(quant="int8")`` the choosers price int8 operands, as
+the JAX package resolves under the int8 effective dtype (``ops.py:303``):
+1 byte an element, and the int8 kernels' own instruction rate (TSM2R's
+``__dp4a``, TSMT's int32 multiply-add). The TSMT slice quantum is then
+the scale band ``Q8_BAND``, so no band straddles two slices.
+
 The classifier thresholds stay the JAX package's (``core/tsmm.py``);
 re-deriving them from H100 measurements is later work.
 """
@@ -32,6 +38,11 @@ class GPUSpec:
     hbm_bw: float = 3.35e12
     peak_flops_bf16: float = 989e12     # dense tensor cores
     peak_flops_f32: float = 67e12       # CUDA cores, no tensor cores
+    # The int8 kernels' CUDA-core rates: 64 int32 lanes an SM a clock (half
+    # the f32 FMA lanes) at the f32 figure's clock; __dp4a does 4 products
+    # an instruction (TSM2R, TSM2L), a plain multiply-add one (TSMT).
+    peak_ops_dp4a: float = 134e12
+    peak_ops_imad: float = 33.5e12
     launch_s: float = 4e-6              # one extra kernel launch
 
     def peak_flops(self, dtype) -> float:
@@ -67,6 +78,11 @@ def device_spec(spec: GPUSpec, device: torch.device) -> GPUSpec:
 # JAX package's f32 sublane, so both packages cut m alike).
 TSM2R_BLOCK_K = 32
 TSMT_BLOCK_M = 8
+# Rows of the tall operand that share one int8 scale, in every int8
+# kernel: the JAX ``quantize_param`` default and a multiple of the JAX
+# int8 32-row tile quantum. The JAX kernels' band is their resolved
+# block_m; the port's tiles differ, so it passes this band explicitly.
+Q8_BAND = 256
 
 
 def tsm2r_tile(n: int) -> tuple[int, int]:
@@ -132,14 +148,16 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     """Modelled seconds of TSM2R (S = 1) or its split variant: A streamed
     once per column tile, B once per row tile, the output and the
     partials' round trip, over the bandwidth of the busy SMs' share;
-    FMAs at the f32 rate on the same share; one launch per kernel."""
+    FMAs at the f32 rate (``__dp4a`` at int8) on the same share; one
+    launch per kernel."""
     b = torch.empty((), dtype=dtype).element_size()
+    rate = spec.peak_ops_dp4a if dtype == torch.int8 else spec.peak_flops_f32
     gm, gn, _ = tsm2r_grid(m, k, n, splits)
     nbytes = (m * k * b * gn + k * n * b * gm + m * n * b
               + split_partials_bytes(splits, m, n))
     occ = occupancy(gm * gn * splits, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
-    t_comp = 2.0 * m * k * n / (spec.peak_flops_f32 * occ)
+    t_comp = 2.0 * m * k * n / (rate * occ)
     launches = 1 + reduce_kernel_runs(splits, m, n)
     return max(t_mem, t_comp) + launches * spec.launch_s
 
@@ -148,15 +166,17 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                     dtype=torch.float32, *, splits: int = 1) -> float:
     """Modelled seconds of TSMT or its split variant: X once per column
     tile, Y once per row tile, the output and the partials' round trip;
-    FMAs at the f32 rate. At PowerSGD and ABFT shapes (b <= 16) the output
-    is a few tiles, so S = 1 leaves most SMs idle."""
+    FMAs at the f32 rate (int32 multiply-adds at int8). At PowerSGD and
+    ABFT shapes (b <= 16) the output is a few tiles, so S = 1 leaves most
+    SMs idle."""
     b = torch.empty((), dtype=dtype).element_size()
+    rate = spec.peak_ops_imad if dtype == torch.int8 else spec.peak_flops_f32
     ga, gb, _ = tsmt_grid(m, a, bdim, splits)
     nbytes = (m * a * b * gb + m * bdim * b * ga + a * bdim * b
               + split_partials_bytes(splits, a, bdim))
     occ = occupancy(ga * gb * splits, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
-    t_comp = 2.0 * m * a * bdim / (spec.peak_flops_f32 * occ)
+    t_comp = 2.0 * m * a * bdim / (rate * occ)
     launches = 1 + reduce_kernel_runs(splits, a, bdim)
     return max(t_mem, t_comp) + launches * spec.launch_s
 
@@ -202,9 +222,15 @@ def choose_splits_tsm2r(m: int, k: int, n: int, spec: GPUSpec = H100,
                     for s in SPLIT_CANDIDATES if s <= cap])
 
 
+def tsmt_block_m(dtype) -> int:
+    """The TSMT slice quantum: the scale band for int8 operands."""
+    return Q8_BAND if dtype == torch.int8 else TSMT_BLOCK_M
+
+
 def choose_splits_tsmt(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                        dtype=torch.float32) -> int:
-    cap = max_splits(m, TSMT_BLOCK_M) if bdim <= SPLIT_MAX_WIDTH else 1
+    cap = (max_splits(m, tsmt_block_m(dtype)) if bdim <= SPLIT_MAX_WIDTH
+           else 1)
     return _argmin([(tsmt_model_time(m, a, bdim, spec, dtype, splits=s), s)
                     for s in SPLIT_CANDIDATES if s <= cap])
 

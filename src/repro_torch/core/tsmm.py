@@ -26,6 +26,12 @@ their tiles alone leave SMs of the card idle), an int pins S, "never"
 keeps the sequential kernels. The classifier thresholds keep the JAX
 package's defaults, so both packages classify every shape the same way.
 
+``GemmPolicy.quant="int8"`` sends the kernel kinds through the five int8
+kernels: the tall operand is quantized per ``perf_model.Q8_BAND``-row
+band, the small operand of tsm2r/tsm2l per tensor, both tsmt operands per
+band, and the output comes back in the caller's dtype. The dense path
+ignores the knob, so a ``mode="dense"`` arm stays exact.
+
 Both entries are differentiable: the ops they dispatch to are
 ``torch.autograd.Function``s whose backward re-enters this dispatcher under
 ``backward_policy`` of the caller's scope.
@@ -68,6 +74,7 @@ SKINNY_RATIO_T = SKINNY_RATIO // 4
 _MM_KINDS = ("auto", "dense", "tsm2r", "tsm2l")
 _MMT_KINDS = ("auto", "dense", "tsmt")
 _ALL_MODES = ("auto", "dense", "tsm2r", "tsm2l", "tsmt")
+_QUANT_MODES = ("none", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +92,11 @@ class GemmPolicy:
     S for every tsm2r/tsmt in scope; 1 = sequential) or "never" (the
     sequential kernels everywhere). The chooser models the card the
     operands lie on (``perf_model.device_spec``).
+
+    ``quant``: "none" (operands stream at their own dtype) or "int8"
+    (the kernel kinds quantize their operands and run the int8 kernels,
+    the chooser pricing int8 operands; the dense path ignores it). It is
+    scope-wide numeric intent, so ``backward_policy`` keeps it.
     """
 
     mode: str = "auto"
@@ -95,6 +107,7 @@ class GemmPolicy:
     skinny_ratio_t: int = SKINNY_RATIO_T
     executor: str | None = None
     split: str | int = "auto"
+    quant: str = "none"
 
     def __post_init__(self):
         s = self.split
@@ -108,6 +121,10 @@ class GemmPolicy:
             raise ValueError(
                 f"unknown GemmPolicy mode {self.mode!r}: valid modes are "
                 f"{', '.join(_ALL_MODES)}")
+        if self.quant not in _QUANT_MODES:
+            raise ValueError(
+                f"unknown GemmPolicy quant {self.quant!r}: valid values are "
+                f"{', '.join(_QUANT_MODES)}")
 
 
 _DEFAULT_POLICY = GemmPolicy()
@@ -142,8 +159,8 @@ def backward_policy(p: GemmPolicy) -> GemmPolicy:
     """Policy for the backward's re-dispatch: the caller's scope, minus a
     forward-kind force and any executor pin (cotangent shapes classify for
     themselves). An int ``split`` was chosen for the forward shape, so it
-    goes back to "auto"; "never" and a "dense" mode are scope-wide intent
-    and stay."""
+    goes back to "auto"; "never", a "dense" mode and ``quant`` are
+    scope-wide intent and stay."""
     mode = p.mode if p.mode in ("auto", "dense") else "auto"
     split = "auto" if isinstance(p.split, int) else p.split
     if mode == p.mode and p.executor is None and split == p.split:
@@ -184,7 +201,8 @@ def classify_gemm_t(m: int, a_dim: int, b_dim: int,
 @dataclasses.dataclass(frozen=True)
 class LaunchMeta:
     """One kernel launch a dispatch resolved to: ``kind`` ("tsm2r",
-    "tsm2l", "tsmt" or "reduce" for the partials epilogue), ``grid`` (the
+    "tsm2l", "tsmt", their int8 kernels "tsm2r_q8", "tsm2l_q8", "tsmt_q8",
+    or "reduce" for the partials epilogue), ``grid`` (the
     CUDA grid from ``perf_model``'s mirror of the tile table; the
     (S, rows, cols) partials shape for "reduce"; empty for tsm2l, whose
     grid follows the card's occupancy) and the resolved ``splits``."""
@@ -199,14 +217,17 @@ class DispatchEvent:
     """One routing decision: which entry, classified kind, chosen executor,
     and the (tall, minor, minor) shape it was made for. Emitted on every
     call (PyTorch runs eagerly; there is no trace to cache). ``split`` is
-    the policy's split knob; ``launches`` the kernel launches the call
-    resolved to (empty on the dense path)."""
+    the policy's split knob; ``quant`` its quantization knob ("none" |
+    "int8"), so a spy can check that an int8 scope reached the int8
+    kernels; ``launches`` the kernel launches the call resolved to (empty
+    on the dense path)."""
 
     entry: str       # "mm" (A @ B) | "mmt" (X^T Y)
     kind: str        # "tsm2r" | "tsm2l" | "tsmt" | "dense"
     executor: str    # registry key
     shape: tuple[int, int, int]
     split: str | int = "auto"
+    quant: str = "none"
     launches: tuple = ()       # of LaunchMeta
 
 
@@ -247,7 +268,7 @@ def _dispatch(entry: str, kind: str, executor: str, shape, p: GemmPolicy,
     finally:
         _LAUNCH_NOTES.pop()
     ev = DispatchEvent(entry, kind, executor, tuple(shape), p.split,
-                       tuple(notes))
+                       p.quant, tuple(notes))
     for cb in tuple(_LISTENERS):
         cb(ev)
     return out

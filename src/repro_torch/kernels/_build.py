@@ -18,13 +18,18 @@ takes seconds):
 * A failed build raises ``RuntimeError`` with nvcc's output. Nothing falls
   back to the plain PyTorch versions: those run only for CPU tensors.
 
-Every launcher ``<kernel>_<f32|bf16>`` returns the ``cudaError_t`` of its
+Every launcher ``<kernel>_<tag>`` returns the ``cudaError_t`` of its
 launch; its C signature is ``SIGNATURES[kernel]``: two inputs, one output
 and three dims for the sequential kernels; the same plus ``splits`` and
 the slice length for the split kernels; one input, one output, ``splits``,
-rows, cols and rows per block for ``reduce``. The split libraries also
-export ``<kernel>_grid(int, int, int, int, int* out)``, the launch grid
-their tile table gives (``grid``).
+rows, cols and rows per block for ``reduce``. The int8 kernels
+(``*_q8*``) take two int8 inputs, their two f32 scale sidecars, the
+output, the three dims and the band length of the tall operand's scales
+(the split ones then ``splits`` and the slice length). ``tag`` is "f32"
+or "bf16": the input dtype of the f32/bf16 kernels, the output dtype of
+the int8 ones (``TAGS``: the int8 split kernels write f32 partials only).
+The split libraries also export ``<kernel>_grid(int, int, int, int, int*
+out)``, the launch grid their tile table gives (``grid``).
 """
 
 from __future__ import annotations
@@ -39,16 +44,25 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("tsm2r", "tsm2l", "tsmt", "tsm2r_split", "tsmt_split", "reduce")
+KERNELS = ("tsm2r", "tsm2l", "tsmt", "tsm2r_split", "tsmt_split", "reduce",
+           "tsm2r_q8", "tsm2l_q8", "tsmt_q8", "tsm2r_q8_split",
+           "tsmt_q8_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SEQ = [_P, _P, _P, _I, _I, _I, _P]
 _SPLIT = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SEQ_Q8 = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SPLIT_Q8 = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {"tsm2r": _SEQ, "tsm2l": _SEQ, "tsmt": _SEQ,
               "tsm2r_split": _SPLIT, "tsmt_split": _SPLIT,
-              "reduce": [_P, _P, _I, _I, _I, _I, _P]}
-_GRID_QUERIES = ("tsm2r_split", "tsmt_split")
+              "reduce": [_P, _P, _I, _I, _I, _I, _P],
+              "tsm2r_q8": _SEQ_Q8, "tsm2l_q8": _SEQ_Q8, "tsmt_q8": _SEQ_Q8,
+              "tsm2r_q8_split": _SPLIT_Q8, "tsmt_q8_split": _SPLIT_Q8}
+TAGS = {name: ("f32",) if name.endswith("q8_split") else ("f32", "bf16")
+        for name in KERNELS}
+_GRID_QUERIES = ("tsm2r_split", "tsmt_split", "tsm2r_q8_split",
+                 "tsmt_q8_split")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -129,7 +143,7 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build((name,))
             lib = ctypes.CDLL(str(library_path(name)))
-            for dt in ("f32", "bf16"):
+            for dt in TAGS[name]:
                 fn = getattr(lib, f"{name}_{dt}")
                 fn.argtypes = SIGNATURES[name]
                 fn.restype = ctypes.c_int

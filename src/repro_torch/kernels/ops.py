@@ -16,6 +16,14 @@ when they already are) and handed to the per-kernel wrappers, which run
 the plain versions for CPU tensors and launch the kernels for CUDA
 tensors.
 
+Under ``GemmPolicy.quant="int8"`` (JAX ``ops.py:361-392, 453-457,
+507-535``) the tall operand is quantized per ``perf_model.Q8_BAND``-row
+band and the small operand of tsm2r/tsm2l per tensor (both tsmt operands
+per band), the int8 kernel runs, split partials (already dequantized)
+go through ``reduce.reduce_partials`` as usual, and the output comes back
+in the caller's dtype. Split resolution then prices int8 operands, and
+the tsmt slice quantum is the band.
+
 Each entry is a ``torch.autograd.Function`` whose backward sends the
 cotangent GEMMs back through ``core.tsmm`` under
 ``tsmm.backward_policy`` of the policy captured at forward time, as the
@@ -31,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import perf_model
-from repro_torch.kernels import reduce, ref
+from repro_torch.kernels import quant, reduce, ref
 from repro_torch.kernels import tsm2l as _tsm2l
 from repro_torch.kernels import tsm2r as _tsm2r
 from repro_torch.kernels import tsmt as _tsmt
@@ -67,18 +75,22 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     the operands lie: on a card the chooser counts blocks against its own
     SM count; on the CPU, where the plain versions have no SMs to occupy,
     "auto" resolves to S = 1 (pins still split). Without ``device`` the
-    chooser models the data sheet's H100 (``perf_model.H100``)."""
+    chooser models the data sheet's H100 (``perf_model.H100``). Under
+    ``policy.quant="int8"`` the chooser prices int8 operands and the tsmt
+    slice quantum is the scale band."""
     if kind == "tsm2l":
         return {}
     if kind not in ("tsm2r", "tsmt"):
         raise ValueError(f"unknown kernel kind {kind!r}: valid kinds are "
                          "tsm2r, tsm2l, tsmt")
     splits = _policy_split(policy)
+    if policy.quant == "int8":
+        dtype = torch.int8
     if kind == "tsm2r":
         depth, block, choose = (d1, perf_model.TSM2R_BLOCK_K,
                                 perf_model.choose_splits_tsm2r)
     else:
-        depth, block, choose = (m, perf_model.TSMT_BLOCK_M,
+        depth, block, choose = (m, perf_model.tsmt_block_m(dtype),
                                 perf_model.choose_splits_tsmt)
     if splits is None and device is not None and device.type == "cpu":
         splits = 1
@@ -111,7 +123,18 @@ def _tsm2r_impl(a, b, policy):
     (m, k), n = a.shape, b.shape[1]
     p = _resolve("tsm2r", a, k, n, policy)
     s = p["splits"]
-    tsmm.note_launch("tsm2r", perf_model.tsm2r_grid(m, k, n, s), s)
+    q8 = policy.quant == "int8"
+    tsmm.note_launch("tsm2r_q8" if q8 else "tsm2r",
+                     perf_model.tsm2r_grid(m, k, n, s), s)
+    if q8:
+        band = perf_model.Q8_BAND
+        a_q, a_s = quant.quantize_blocks(a, band)
+        b_q, b_s = quant.quantize_tensor(b)
+        if s == 1:
+            return _tsm2r.tsm2r_q8(a_q, b_q, a_s, b_s, band, a.dtype)
+        parts = _tsm2r.tsm2r_q8_split(a_q, b_q, a_s, b_s, band, s,
+                                      p["block_k"])
+        return _epilogue(parts, a.dtype)
     if s == 1:
         return _tsm2r.tsm2r(a, b)
     parts = _tsm2r.tsm2r_split(a, b, s, p["block_k"])
@@ -124,7 +147,17 @@ def _tsmt_impl(x, y, policy):
     (m, a), b = x.shape, y.shape[1]
     p = _resolve("tsmt", x, a, b, policy)
     s = p["splits"]
-    tsmm.note_launch("tsmt", perf_model.tsmt_grid(m, a, b, s), s)
+    q8 = policy.quant == "int8"
+    tsmm.note_launch("tsmt_q8" if q8 else "tsmt",
+                     perf_model.tsmt_grid(m, a, b, s), s)
+    if q8:
+        band = p["block_m"]
+        x_q, x_s = quant.quantize_blocks(x, band)
+        y_q, y_s = quant.quantize_blocks(y, band)
+        if s == 1:
+            return _tsmt.tsmt_q8(x_q, y_q, x_s, y_s, band, x.dtype)
+        parts = _tsmt.tsmt_q8_split(x_q, y_q, x_s, y_s, band, s)
+        return _epilogue(parts, x.dtype)
     if s == 1:
         return _tsmt.tsmt(x, y)
     parts = _tsmt.tsmt_split(x, y, s, p["block_m"])
@@ -138,9 +171,16 @@ def _epilogue(parts, out_dtype):
     return out
 
 
-def _tsm2l_impl(a, b):
+def _tsm2l_impl(a, b, policy):
+    a, b = a.contiguous(), b.contiguous()
+    if policy.quant == "int8":
+        _dispatcher().note_launch("tsm2l_q8", (), 1)
+        band = perf_model.Q8_BAND
+        a_q, a_s = quant.quantize_blocks(a, band)
+        b_q, b_s = quant.quantize_tensor(b)
+        return _tsm2l.tsm2l_q8(a_q, b_q, a_s, b_s, band, a.dtype)
     _dispatcher().note_launch("tsm2l", (), 1)
-    return _tsm2l.tsm2l(a.contiguous(), b.contiguous())
+    return _tsm2l.tsm2l(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +196,7 @@ class _MatMul(torch.autograd.Function):
         ctx.save_for_backward(a, b)
         ctx.policy = policy
         if kind == "tsm2l":
-            return _tsm2l_impl(a, b)
+            return _tsm2l_impl(a, b, policy)
         return _tsm2r_impl(a, b, policy)
 
     @staticmethod

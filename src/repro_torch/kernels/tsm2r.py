@@ -15,8 +15,17 @@ the bytes of A plus the partials' round trip, and pays off where the
 output tiles alone leave SMs idle (the paper's [16384^2]·[16384,16] has
 128 row tiles for 132 SMs); ``kernels/reduce.py`` sums the partials.
 
+``tsm2r_q8`` replaces ``quant.py::tsm2r_q8_pallas`` with
+``csrc/tsm2r_q8.cu`` and ``tsm2r_q8_split`` replaces
+``quant.py::tsm2r_q8_pallas_split`` with ``csrc/tsm2r_q8_split.cu``: the
+same block body loading int8 A (per-band scales) and B (one scale),
+summing four products a ``__dp4a`` into exact int32 tile sums, folding
+sA[band of row] * sB into the stored tile. Bound by the bytes of A at 1
+byte an element.
+
 CPU tensors take the plain versions (``ref.tsm2r_ref``,
-``ref.tsm2r_split_ref``); CUDA tensors launch the kernel or raise.
+``ref.tsm2r_split_ref``, ``ref.tsm2r_q8_ref``, ``ref.tsm2r_q8_split_ref``);
+CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from repro_torch.kernels import _launch, ref
 
 launches = 0         # tsm2r kernel launches; chip_smoke.py resets and reads
 split_launches = 0   # tsm2r_split kernel launches, likewise
+q8_launches = 0      # tsm2r_q8 kernel launches, likewise
+q8_split_launches = 0   # tsm2r_q8_split kernel launches, likewise
 
 
 def tsm2r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -58,4 +69,46 @@ def tsm2r_split(a: torch.Tensor, b: torch.Tensor, splits: int,
     _launch.launch("tsm2r_split", a.dtype, a, b, out, m, k, n, splits,
                    ref.split_len(k, splits, block_k))
     split_launches += 1
+    return out
+
+
+def tsm2r_q8(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
+             b_scale: torch.Tensor, band: int, out_dtype) -> torch.Tensor:
+    """C[m,n] = int32(A8 @ B8) * sA[row // band] * sB in ``out_dtype``:
+    ``a``/``b`` int8, ``a_scale`` ceil(m / band) f32 band scales, ``b_scale``
+    one f32 scale."""
+    global q8_launches
+    (m, k), n = a.shape, b.shape[1]
+    _launch.check_q8("tsm2r_q8", a, b, a_scale, b_scale, -(-m // band), 1,
+                     out_dtype)
+    if a.device.type == "cpu":
+        return ref.tsm2r_q8_ref(a, b, a_scale, b_scale, band, out_dtype)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    _launch.launch("tsm2r_q8", out_dtype, a, b, a_scale, b_scale, out, m, k,
+                   n, band)
+    q8_launches += 1
+    return out
+
+
+def tsm2r_q8_split(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
+                   b_scale: torch.Tensor, band: int, splits: int,
+                   block_k: int) -> torch.Tensor:
+    """(S, m, n) f32 partials of ``tsm2r_q8`` over S contiguous k slices of
+    ``ref.split_len(k, S, block_k)`` rows each, already scaled."""
+    global q8_split_launches
+    (m, k), n = a.shape, b.shape[1]
+    _launch.check_q8("tsm2r_q8_split", a, b, a_scale, b_scale,
+                     -(-m // band), 1, torch.float32)
+    if a.device.type == "cpu":
+        return ref.tsm2r_q8_split_ref(a, b, a_scale, b_scale, band, splits,
+                                      block_k)
+    out = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    _launch.launch("tsm2r_q8_split", torch.float32, a, b, a_scale, b_scale,
+                   out, m, k, n, band, splits,
+                   ref.split_len(k, splits, block_k))
+    q8_split_launches += 1
     return out

@@ -15,8 +15,17 @@ the bytes of X and Y; splitting m multiplies the blocks by S, so at
 PowerSGD's Q projection (32 output tiles) the whole card pulls from
 memory. ``kernels/reduce.py`` sums the partials.
 
+``tsmt_q8`` replaces ``quant.py::tsmt_q8_pallas`` with
+``csrc/tsmt_q8.cu`` and ``tsmt_q8_split`` replaces
+``quant.py::tsmt_q8_pallas_split`` with ``csrc/tsmt_q8_split.cu``: the
+same block body loading int8 X and Y, both with per-band scales along m,
+summing each band exactly in int32 and dequantizing it with the band's
+two scales before it is added. Bound by the bytes of X and Y at 1 byte
+an element. A split slice is a whole number of bands.
+
 CPU tensors take the plain versions (``ref.tsmt_ref``,
-``ref.tsmt_split_ref``); CUDA tensors launch the kernel or raise.
+``ref.tsmt_split_ref``, ``ref.tsmt_q8_ref``, ``ref.tsmt_q8_split_ref``);
+CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from repro_torch.kernels import _launch, ref
 
 launches = 0         # tsmt kernel launches; chip_smoke.py resets and reads
 split_launches = 0   # tsmt_split kernel launches, likewise
+q8_launches = 0      # tsmt_q8 kernel launches, likewise
+q8_split_launches = 0   # tsmt_q8_split kernel launches, likewise
 
 
 def tsmt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -58,4 +69,46 @@ def tsmt_split(x: torch.Tensor, y: torch.Tensor, splits: int,
     _launch.launch("tsmt_split", x.dtype, x, y, out, m, a, b, splits,
                    ref.split_len(m, splits, block_m))
     split_launches += 1
+    return out
+
+
+def tsmt_q8(x: torch.Tensor, y: torch.Tensor, x_scale: torch.Tensor,
+            y_scale: torch.Tensor, band: int, out_dtype) -> torch.Tensor:
+    """C[a,b] = sum over m bands j of int32(X8[j]^T Y8[j]) * sX[j] * sY[j]
+    in ``out_dtype``: ``x``/``y`` int8, both scales ceil(m / band) f32."""
+    global q8_launches
+    (m, a), b = x.shape, y.shape[1]
+    bands = -(-m // band)
+    _launch.check_q8("tsmt_q8", x, y, x_scale, y_scale, bands, bands,
+                     out_dtype)
+    if x.device.type == "cpu":
+        return ref.tsmt_q8_ref(x, y, x_scale, y_scale, band, out_dtype)
+    out = torch.empty((a, b), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _launch.launch("tsmt_q8", out_dtype, x, y, x_scale, y_scale, out, m, a,
+                   b, band)
+    q8_launches += 1
+    return out
+
+
+def tsmt_q8_split(x: torch.Tensor, y: torch.Tensor, x_scale: torch.Tensor,
+                  y_scale: torch.Tensor, band: int,
+                  splits: int) -> torch.Tensor:
+    """(S, a, b) f32 partials of ``tsmt_q8`` over S contiguous m slices of
+    ``ref.split_len(m, S, band)`` rows (whole bands) each."""
+    global q8_split_launches
+    (m, a), b = x.shape, y.shape[1]
+    bands = -(-m // band)
+    _launch.check_q8("tsmt_q8_split", x, y, x_scale, y_scale, bands, bands,
+                     torch.float32)
+    if x.device.type == "cpu":
+        return ref.tsmt_q8_split_ref(x, y, x_scale, y_scale, band, splits)
+    out = torch.empty((splits, a, b), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    _launch.launch("tsmt_q8_split", torch.float32, x, y, x_scale, y_scale,
+                   out, m, a, b, band, splits,
+                   ref.split_len(m, splits, band))
+    q8_split_launches += 1
     return out

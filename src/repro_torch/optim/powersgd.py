@@ -13,10 +13,14 @@ r:
                        #             "auto" runs the split kernel
 
 with error feedback. Both projections go through ``core.tsmm`` and follow
-the active ``tsmm.policy(...)`` scope (or ``policy=``).
+the active ``tsmm.policy(...)`` scope (or ``policy=``). ``compress="int8"``
+applies ``kernels.quant.fake_quant`` to P after the TSM2R projection and
+to Q after the TSMT, and counts each factor at 1 byte an element plus its
+f32 scale (the JAX package's int8 wire format).
 
-Which leaves compress is decided on the JAX package's layout, where a
-segment's layers are stacked on a leading axis: a leaf is eligible when
+Which leaves compress is decided on the JAX package's layout
+(``repro_torch.layout``), where a segment's layers are stacked on a
+leading axis: a leaf is eligible when
 its JAX shape is 2-D with at least ``min_size`` elements. Layer weights
 are 3-D there and stay dense; a per-layer vector (norm scale, bias) is a
 2-D ``(L, d)`` leaf there and is compressed as that stacked matrix here
@@ -32,7 +36,7 @@ Deliberate differences from the JAX package:
 * ``_orthonormalize``'s fresh direction for a degenerate column comes from
   a generator seeded with the column index, not ``jax.random.PRNGKey(i)``:
   the two agree only while no column degenerates.
-* ``orth="tsqr"`` and ``compress="int8"`` are not ported yet and raise.
+* ``orth="tsqr"`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ import zlib
 
 import torch
 
+from repro_torch import layout
 from repro_torch.core import tsmm
+from repro_torch.kernels import quant
 
 _ORTH_MODES = ("gram_schmidt", "tsqr")
 _COMPRESS_MODES = ("none", "int8")
@@ -69,36 +75,6 @@ class PowerSGDConfig:
             raise NotImplementedError(
                 f"PowerSGDConfig orth={self.orth!r} is not ported yet "
                 "(it needs the tall-skinny QR slice)")
-        if self.compress != "none":
-            raise NotImplementedError(
-                f"PowerSGDConfig compress={self.compress!r} is not ported "
-                "yet (it needs the int8 slice)")
-
-
-def jax_path(name: str) -> tuple[str, int | None]:
-    """The JAX leaf path of a port parameter name and the layer index
-    within it: ``layers.3.attn.bq`` -> (``segments.0.attn.bq``, 3),
-    ``embed.table`` -> (``embed.table``, None)."""
-    parts = name.split(".")
-    if parts[0] == "layers":
-        return ".".join(["segments", "0", *parts[2:]]), int(parts[1])
-    return name, None
-
-
-def jax_leaves(named: dict) -> dict:
-    """Group port parameter names by JAX leaf path, each group in layer
-    order: ``{path: [name, ...]}``."""
-    groups: dict = {}
-    for name in named:
-        path, i = jax_path(name)
-        groups.setdefault(path, []).append((i, name))
-    return {path: [n for _, n in sorted(g, key=lambda t: t[0] or 0)]
-            for path, g in groups.items()}
-
-
-def _jax_shape(named: dict, names: list) -> tuple:
-    shape = tuple(named[names[0]].shape)
-    return shape if jax_path(names[0])[1] is None else (len(names), *shape)
 
 
 def init(cfg: PowerSGDConfig, params, seed: int = 0) -> dict:
@@ -106,8 +82,8 @@ def init(cfg: PowerSGDConfig, params, seed: int = 0) -> dict:
     buffer and a warm-started Q, ``{path: {"err", "q"}}``."""
     named = dict(params.named_parameters())
     state = {}
-    for path, names in jax_leaves(named).items():
-        shape = _jax_shape(named, names)
+    for path, names in layout.jax_leaves(named).items():
+        shape = layout.jax_shape(named, names)
         if len(shape) != 2 or shape[0] * shape[1] < cfg.min_size:
             continue
         dev = named[names[0]].device
@@ -157,8 +133,12 @@ def compress_one(cfg: PowerSGDConfig, grad, st, *, policy=None):
     """
     g = grad.float() + st["err"] * cfg.ef_decay
     p = tsmm.tsmm(g, st["q"], policy=policy)                      # TSM2R
+    if cfg.compress == "int8":
+        p = quant.fake_quant(p)
     p = _orthonormalize(p)
     q = tsmm.tsmm_t(g, p, policy=policy)                          # TSMT
+    if cfg.compress == "int8":
+        q = quant.fake_quant(q)
     approx = p @ q.transpose(0, 1)
     err = g - approx
     return approx, dict(st, err=err, q=q)
@@ -173,19 +153,21 @@ def compress_tree(cfg: PowerSGDConfig, grads: dict, state: dict, *,
     (grads, state, metrics)."""
     out, new_state = dict(grads), dict(state)
     bytes_dense = bytes_sent = 0
-    for path, names in jax_leaves(grads).items():
+    for path, names in layout.jax_leaves(grads).items():
         size = sum(grads[n].numel() for n in names)
         bytes_dense += size * 4
         st = state.get(path)
         if st is None:
             bytes_sent += size * 4
             continue
-        stacked = jax_path(names[0])[1] is not None
+        stacked = layout.stacked(names)
         g = (torch.stack([grads[n] for n in names]) if stacked
              else grads[names[0]])
         approx, new_state[path] = compress_one(cfg, g, st, policy=policy)
+        # int8 wire format: 1 byte an element plus one f32 scale a factor.
+        fb, ov = (1, 2 * 4) if cfg.compress == "int8" else (4, 0)
         bytes_sent += (new_state[path]["q"].numel()
-                       + approx.shape[0] * cfg.rank) * 4
+                       + approx.shape[0] * cfg.rank) * fb + ov
         approx = approx.to(g.dtype)
         for i, n in enumerate(names):
             out[n] = approx[i] if stacked else approx

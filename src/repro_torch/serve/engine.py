@@ -5,6 +5,13 @@ Counterpart of ``src/repro/serve/engine.py`` (``make_serve_fns`` :29,
 step functions are plain callables (the JAX package jits them) and the
 policy scope is entered on every call. Caches are allocated once at
 ``max_len = prompt + max_new`` and updated in place.
+
+``params`` is a model (``models.model.LM``) or a model whose large leaves
+are held as int8 records (``kernels.quant.quantize_weights``, or
+``convert.params_from_jax`` of a JAX tree holding records): each step
+dequantizes the records at its entry, into the dtype the model holds
+them in, and frees the dense tensors after it (the JAX engine dequantizes
+at step entry inside its jit, ``engine.py:66-74``).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import tsmm
+from repro_torch.kernels import quant
 from repro_torch.models import model
 
 
@@ -29,12 +37,12 @@ def make_serve_fns(cfg, policy: "tsmm.GemmPolicy | None" = None):
                 else contextlib.nullcontext())
 
     def prefill_step(params, batch, cache):
-        with _scope():
-            return model.prefill(params, cfg, batch, cache)
+        with _scope(), quant.dequantized(params) as p:
+            return model.prefill(p, cfg, batch, cache)
 
     def decode_step(params, tokens, pos, cache):
-        with _scope():
-            return model.decode_step(params, cfg, tokens, pos, cache)
+        with _scope(), quant.dequantized(params) as p:
+            return model.decode_step(p, cfg, tokens, pos, cache)
 
     return prefill_step, decode_step
 
@@ -57,7 +65,8 @@ def generate(params, cfg, prompts, max_new: int, *, generator=None,
     sampling (default: one seeded with 0 on that device).
     """
     dev = resolve_device(device)
-    for name, t in (("params", next(params.parameters())),
+    lm = params.model if isinstance(params, quant.QuantizedWeights) else params
+    for name, t in (("params", next(lm.parameters())),
                     ("prompts", prompts)):
         if t.device != dev:
             raise ValueError(f"generate runs on {dev} but {name} lie on "

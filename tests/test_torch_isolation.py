@@ -107,7 +107,8 @@ def test_new_modules_are_scanned():
                 "repro_torch.models.losses", "repro_torch.optim.adamw",
                 "repro_torch.optim.powersgd", "repro_torch.optim.schedule",
                 "repro_torch.train.train_step",
-                "repro_torch.data.pipeline"):
+                "repro_torch.data.pipeline", "repro_torch.kernels.quant",
+                "repro_torch.layout"):
         assert mod in MODULES
 
 
