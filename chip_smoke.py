@@ -15,7 +15,10 @@ printing no result, when no CUDA card is present or any phase fails.
 2. Kernels: each kernel against its plain version on the card, f32 and
    bf16, at the chatglm3, paper and ragged shapes; one JSON line per case
    with the kernel's, the plain version's and one ``torch.matmul``'s median
-   time (CUDA events), the bound, and the worst error. Each kernel must
+   time (CUDA events around the call, so the wrapper's host time is
+   inside), the bound, and the worst error; at the main path's shapes also
+   ``device_ms``, the kernel's own median device time from
+   ``torch.profiler``. Each kernel must
    also give bit-identical results on a second launch. The split kernels
    (tsm2r_split, tsmt_split) are held against their plain (S, ., .) f32
    partials at the PowerSGD, paper and chatglm3 shapes with a pinned S
@@ -83,12 +86,19 @@ printing no result, when no CUDA card is present or any phase fails.
    scales: the 3-D layer weights stay dense), served under
    ``GemmPolicy(quant="int8")``: 4 x 2048 prompt tokens and 16 greedy
    tokens, then step by step for times. Each prefill must launch tsm2r_q8
-   exactly 56 times and tsm2r never. Prefill logits must match a plain
-   arm (the same int8 dispatch with the plain version in place of the
-   kernel) within 5e-2, and a ``mode="dense"`` arm on the same records
+   exactly 56 times and tsm2r never. Prefill logits must equal, bit for
+   bit, a scheme arm: the same routing with every wk/wv product taken by
+   the JAX int8 scheme written out in this script, apart from
+   ``kernels/ops.py`` and ``kernels/quant.py`` (A in zero-padded 256-row
+   bands, B per tensor, absmax / 127, round half to even, clip), times the
+   plain version's exact integer product. So ``ops.py`` applies the scheme
+   and tsm2r_q8 equals its plain version at every prefill launch. The
+   logits must also match a ``mode="dense"`` arm on the same records
    within 0.1, the JAX package's criterion for int8 results through
-   several products (``test_quant.py:187, 335``): the int8 K/V
-   projections of 28 layers move the logits by about 5% on their own.
+   several products (``test_quant.py:187, 335``): the scheme's int8 K/V
+   projections of 28 layers move the logits by about 5% on their own
+   (``tests/test_torch_quant.py`` reads the same distance from the JAX
+   package's int8 prefill at the smoke size).
    Prints prefill
    ms, decode ms a step, peak memory, the bytes the records hold and the
    dense bytes they replace, and one profiled prefill.
@@ -154,7 +164,12 @@ KERNEL_NAMES = ("tsm2r_q8_split", "tsmt_q8_split", "tsm2r_q8", "tsm2l_q8",
                 "tsmt", "sum_partials")
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -245,6 +260,26 @@ def device_profile(fn) -> dict:
             "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top]}
 
 
+def device_ms(fn, name: str, reps: int = 5) -> float:
+    """Median device time of kernel ``name`` over ``reps`` calls of ``fn``
+    under ``torch.profiler``: the kernel alone, without the host time
+    that CUDA events around the call include."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and category(e.name) == name]
+    check(len(us) == reps, f"{name}: {len(us)} device kernels in {reps} "
+          "profiled calls")
+    return statistics.median(us) / 1e3
+
+
 def split_kernel_phase(dev, uniform, gpu) -> dict:
     """Each split kernel and sum_partials against its plain version at the
     main path's, the paper's and the chatglm3 shapes, f32 and bf16, with
@@ -302,11 +337,13 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                        "max_err": float(err.max()), "rtol": rtol,
                        "atol": atol, "deterministic": same, "ok": ok,
                        "gpu": gpu}
+                if main_case[name] == ((m, d1, d2, S), dtype):
+                    rec["device_ms"] = device_ms(
+                        lambda: kern(x, y, S, block), name)
+                    measured[name] = rec
                 emit(rec)
                 if not ok:
                     bad.append(f"{name} {m}x{d1}x{d2} S={S} {dtype}")
-                if main_case[name] == ((m, d1, d2, S), dtype):
-                    measured[name] = rec
                 del x, y, got, again, want, err
                 torch.cuda.empty_cache()
     for S, rows, cols in [(2, 16384, 16), (8, 4096, 4), (32, 128, 4)]:
@@ -334,11 +371,13 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                    "bound_by": "bytes", "max_err": float(err.max()),
                    "rtol": rtol, "atol": atol, "deterministic": same,
                    "ok": ok, "gpu": gpu}
+            if main_case["sum_partials"] == ((S, rows, cols), dtype):
+                rec["device_ms"] = device_ms(
+                    lambda: reduce.sum_partials(p, dtype), "sum_partials")
+                measured["sum_partials"] = rec
             emit(rec)
             if not ok:
                 bad.append(f"sum_partials {S}x{rows}x{cols} {dtype}")
-            if main_case["sum_partials"] == ((S, rows, cols), dtype):
-                measured["sum_partials"] = rec
     check(not bad, f"split kernel phase mismatch in {bad}")
     return measured
 
@@ -439,6 +478,8 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                     rec.update(q8_times(entry, q, dtype, got, band,
                                         lambda: kern(q, dtype, S),
                                         lambda: plain(q, dtype, S)))
+                    rec["device_ms"] = device_ms(lambda: kern(q, dtype, S),
+                                                 name)
                 emit(rec)
                 if is_main:
                     measured[name] = rec
@@ -809,16 +850,45 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     return main_train
 
 
+SCHEME_BAND = 256   # the JAX ``quantize_param`` default band
+
+
+def scheme_q8(x, band: int):
+    """int8 codes and (bands, 1) f32 scales of a 2-D ``x`` as the JAX
+    package forms them (``kernels/quant.py:56``): rows zero-padded to whole
+    bands, absmax / 127 per band (1 for an all-zero band), divide, round
+    half to even, clip to +-127. Written here apart from the port's
+    ``kernels/quant.py`` so the serve-int8 scheme arm does not share it."""
+    m = x.shape[0]
+    bands = -(-m // band)
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, bands * band - m))
+    amax = xf.reshape(bands, -1).abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = (xf / scale.repeat_interleave(band)[:, None]).round()
+    return codes.clamp(-127.0, 127.0)[:m].to(torch.int8), scale[:, None]
+
+
+def scheme_tsm2r(a, b, policy):
+    """The JAX int8 TSM2R scheme on ``a @ b``: A per ``SCHEME_BAND``-row
+    band, B per tensor, then the plain version's exact integer product
+    with the scales folded, in ``a``'s dtype. Stands in for
+    ``kernels.ops._tsm2r_impl`` in the serve-int8 scheme arm."""
+    from repro_torch.kernels import ref
+
+    a_q, a_s = scheme_q8(a, SCHEME_BAND)
+    b_q, b_s = scheme_q8(b, b.shape[0])
+    return ref.tsm2r_q8_ref(a_q, b_q, a_s, b_s, SCHEME_BAND, a.dtype)
+
+
 def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     """Serve chatglm3-6b from int8 weight records under
     ``GemmPolicy(quant="int8")`` (the serve-int8 main path: counts zeroed
     before, read after), then check it against a dense arm on the same
-    records and profile one prefill. Returns the main path's launch
-    counts."""
+    records and a scheme arm and profile one prefill. Returns the main
+    path's launch counts."""
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
-    from repro_torch.kernels import quant, ref
-    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.kernels import ops, quant
     from repro_torch.models import model
     from repro_torch.serve import engine
 
@@ -897,18 +967,22 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
           "serve-int8 dense arm routes")
     dense_err = normalised_err(logits, dense_logits)
     check(dense_err <= Q8_GRAD_TOL, f"serve-int8 vs dense arm {dense_err}")
-    # The plain arm: the same int8 dispatch and quantization, with the
-    # plain version in place of the tsm2r_q8 kernel (not counted).
-    kernel_fn = k_tsm2r.tsm2r_q8
-    k_tsm2r.tsm2r_q8 = ref.tsm2r_q8_ref
+    # The scheme arm: the same routing, every wk/wv product taken by
+    # scheme_tsm2r instead of ops.py's quantization and the kernel (no
+    # launch, so nothing is counted). Equal bits show that ops.py applies
+    # the JAX scheme and the kernel equals its plain version at every
+    # prefill launch: the dense arm's distance is the scheme's own.
+    impl = ops._tsm2r_impl
+    ops._tsm2r_impl = scheme_tsm2r
     try:
-        plain_logits, _ = prefill_step(
+        scheme_logits, _ = prefill_step(
             qw, {"tokens": prompts},
             model.init_cache(cfg, BATCH, PROMPT, device=dev))
     finally:
-        k_tsm2r.tsm2r_q8 = kernel_fn
-    plain_err = normalised_err(logits, plain_logits)
-    check(plain_err <= LOGIT_TOL, f"serve-int8 vs plain arm {plain_err}")
+        ops._tsm2r_impl = impl
+    scheme_err = normalised_err(logits, scheme_logits)
+    check(torch.equal(logits, scheme_logits),
+          f"serve-int8 vs scheme arm {scheme_err}")
     emit({"phase": "serve-int8", "model": cfg.name, "dtype": cfg.dtype,
           "batch": BATCH, "prompt": PROMPT, "new": NEW, "init_s": init_s,
           "records": sorted(qw.records), "records_bytes": qw.nbytes(),
@@ -921,7 +995,9 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
           "greedy_request_s": greedy_s,
           "tsm2r_q8_launches_per_prefill": per_prefill,
           "dense_arm_err": dense_err, "dense_arm_tol": Q8_GRAD_TOL,
-          "plain_arm_err": plain_err, "plain_arm_tol": LOGIT_TOL,
+          "scheme_arm_err": scheme_err,
+          "scheme_arm_dense_err": normalised_err(scheme_logits,
+                                                 dense_logits),
           "peak_mem_gb": peak_gb, "gpu": gpu})
     cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
     rec = device_profile(
@@ -929,7 +1005,7 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     emit({"phase": "profile", "window": "int8 prefill", **rec,
           "unprofiled_ms": prefill_ms,
           "busy_share": rec["device_busy_ms"] / prefill_ms, "gpu": gpu})
-    del qw, params, cache, prompts, out, logits, dense_logits, plain_logits
+    del qw, params, cache, prompts, out, logits, dense_logits, scheme_logits
     torch.cuda.empty_cache()
     return main
 
@@ -1062,12 +1138,16 @@ def main() -> int:
                        "max_err": float(err.max()), "rtol": rtol,
                        "atol": atol, "deterministic": same, "ok": ok,
                        "gpu": gpu}
+                is_main = main_case[name] == ((m, d1, d2), dtype)
+                is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
+                if is_main or is_train:
+                    rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                 emit(rec)
                 if not ok:
                     bad.append(f"{name} {m}x{d1}x{d2} {dtype}")
-                if main_case[name] == ((m, d1, d2), dtype):
+                if is_main:
                     measured[name] = rec
-                if ((m, d1, d2), dtype) in train_cases.get(name, ()):
+                if is_train:
                     at_train.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
@@ -1326,6 +1406,7 @@ def main() -> int:
             "launches": sum(c[name] for c in paths.values()),
             **{f"launches_{p}": c[name] for p, c in paths.items()},
             "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
+            "device_ms": rec["device_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_dq_ms": rec.get("library_dq_ms"),
@@ -1334,7 +1415,7 @@ def main() -> int:
             "at_train_shapes": [{
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "library_dq_ms": r.get("library_dq_ms")}
                 for r in at_train.get(name, ())]})

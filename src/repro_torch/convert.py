@@ -85,8 +85,7 @@ def params_from_jax(cfg, tree, *, device=None):
                                  f"{tuple(rec['q8'].shape)} != {shape}")
             records[path] = rec
             for n in names:
-                named[n].data = torch.empty(0, dtype=named[n].dtype,
-                                            device=dev)
+                quant.release_param(named[n])
             continue
         for name in names:
             p = named[name]

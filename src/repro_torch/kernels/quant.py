@@ -152,7 +152,10 @@ class QuantizedWeights:
                    for rec in self.records.values() for t in rec.values())
 
 
-def _release(p: torch.Tensor) -> None:
+def release_param(p: torch.Tensor) -> None:
+    """Hold ``p`` empty (its dtype and device kept) until
+    ``dequantize_weights`` fills it: the rule for a parameter that a
+    record stands for."""
     p.data = torch.empty(0, dtype=p.dtype, device=p.device)
 
 
@@ -173,7 +176,7 @@ def quantize_weights(params: torch.nn.Module, *, block_rows: int = 256,
              else named[names[0]])
         records[path] = quantize_param(w, block_rows=block_rows)
         for n in names:
-            _release(named[n])
+            release_param(named[n])
     return QuantizedWeights(params, records)
 
 
@@ -190,12 +193,12 @@ def _groups(q: QuantizedWeights):
 
 
 @torch.no_grad()
-def dequantize_weights(q: QuantizedWeights, dtype=None) -> torch.nn.Module:
+def dequantize_weights(q: QuantizedWeights) -> torch.nn.Module:
     """Fill every recorded parameter of ``q.model`` with its dequantized
-    values, in ``dtype`` or else the parameter's own dtype, and return the
-    model. ``release_weights`` frees them again."""
+    values, in the parameter's own dtype, and return the model.
+    ``release_weights`` frees them again."""
     for rec, params, stacked in _groups(q):
-        dense = dequantize_param(rec, dtype or params[0].dtype)
+        dense = dequantize_param(rec, params[0].dtype)
         for i, p in enumerate(params):
             p.data = dense[i] if stacked else dense
     return q.model
@@ -205,18 +208,18 @@ def release_weights(q: QuantizedWeights) -> None:
     """Free the dense tensors ``dequantize_weights`` filled in."""
     for _, params, _ in _groups(q):
         for p in params:
-            _release(p)
+            release_param(p)
 
 
 @contextlib.contextmanager
-def dequantized(params, dtype=None):
+def dequantized(params):
     """The model to run one step with: ``params`` itself when it holds no
     records, else its records dequantized for the scope and freed after
     it."""
     if not isinstance(params, QuantizedWeights):
         yield params
         return
-    model = dequantize_weights(params, dtype)
+    model = dequantize_weights(params)
     try:
         yield model
     finally:

@@ -18,6 +18,8 @@ Tolerances and why:
   3.5-4.1x byte ratio (``test_quant.py``);
 * serving from records: the JAX serving tests' 1e-4 (the records
   dequantize to the same f32 values on both sides);
+* the int8 prefill's normalised distance from its dense arm: the JAX
+  package's own distance within 1e-4 (one activation band on both sides);
 * an int8 train step: loss within 5e-2 of JAX's (the JAX kernels' scale
   band is their resolved block_m, the port's ``perf_model.Q8_BAND``, so
   activations quantize in different bands).
@@ -527,6 +529,43 @@ def test_int8_prefill_from_records_near_dense_arm(smoke_tree):
     err = float((out["auto"] - out["dense"]).abs().max()
                 / out["dense"].abs().max())
     assert err <= 5e-2
+
+
+@pytest.mark.parametrize("batch,seq", [(4, 24), (4, 64)])
+def test_int8_prefill_distance_from_dense_is_the_jax_schemes(smoke_tree,
+                                                             batch, seq):
+    """The int8 prefill's distance from the dense arm belongs to the JAX
+    int8 scheme: on the same records and prompts, the JAX package's int8
+    prefill reads the port's distance from its own dense arm. With at most
+    256 prompt rows both packages quantize the activations in one band
+    (JAX pads its block_m band with zeros), so the int8 logits agree to
+    f32 rounding (the JAX serving tests' 1e-4)."""
+    from repro.serve import engine as jengine
+
+    jcfg, cfg, tree = smoke_tree
+    jqtree = jquant.quantize_weights(jax.tree.map(jnp.asarray, tree))
+    qw = params_from_jax(cfg, jax.tree.map(np.asarray, jqtree),
+                         device="cpu")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    jout, out = {}, {}
+    for mode in ("auto", "dense"):
+        jpre, _ = jengine.make_serve_fns(
+            jcfg, jtsmm.GemmPolicy(mode=mode, quant="int8", **THRESH))
+        jout[mode], _ = jax.jit(jpre)(
+            jqtree, {"tokens": jnp.asarray(prompts)},
+            jmodel.init_cache(jcfg, batch, seq))
+        pre, _ = engine.make_serve_fns(
+            cfg, tsmm.GemmPolicy(mode=mode, quant="int8", **THRESH))
+        out[mode], _ = pre(qw, {"tokens": torch.from_numpy(prompts).long()},
+                           model.init_cache(cfg, batch, seq, device="cpu"))
+    jlogits = {k: _t(v) for k, v in jout.items()}
+    np.testing.assert_allclose(out["auto"].numpy(), jlogits["auto"].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    jgap = _rel_err(jlogits["auto"], jlogits["dense"])
+    gap = _rel_err(out["auto"], out["dense"])
+    assert jgap > 1e-3   # the JAX int8 arm did quantize
+    assert abs(gap - jgap) <= 1e-4
 
 
 # ---------------------------------------------------------------------------
