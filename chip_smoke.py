@@ -18,8 +18,20 @@ printing no result, when no CUDA card is present or any phase fails.
    time (CUDA events around the call, so the wrapper's host time is
    inside), the bound, and the worst error; at the main path's shapes also
    ``device_ms``, the kernel's own median device time from
-   ``torch.profiler``. Each kernel must
-   also give bit-identical results on a second launch. The split kernels
+   ``torch.profiler``, ``call_device_ms``, every device kernel and
+   memset of the wrapper call summed, and ``library_device_ms``, the
+   library call's device time the same way. Each kernel must
+   also give bit-identical results on a second launch. tsmt (f32, bf16)
+   and tsmt_q8 (f32, bf16 out) spread m over the card in one launch at
+   the plan of ``perf_model.tsmt_slices``, printed as ``plan_splits`` on
+   every line (a short m plans S = 1); each must equal, bit for bit, its
+   split kernel's partials at the plan's S summed slice by slice from f32
+   zeros on the card and cast once, plan S > 1 at [65536,128]^T
+   [65536,4] and run there within 0.10 ms on the device. A sweep then
+   times both at other S (``tsmt_sweep`` lines): at [65536,128]^T
+   [65536,4] over the slice length, at [2^20,128]^T [2^20,4] over 1, 2
+   and 4 blocks per SM, where the plan's two constants were read from.
+   The split kernels
    (tsm2r_split, tsmt_split) are held against their plain (S, ., .) f32
    partials at the PowerSGD, paper and chatglm3 shapes with a pinned S
    (tsmt_split at b = 256 also at S = 1, against the sequential kernel on
@@ -56,7 +68,9 @@ printing no result, when no CUDA card is present or any phase fails.
 3. Dispatch (a path of its own: every launch count is set to 0 just
    before it and read just after): under ``split="never"`` the quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
-   executor ``cuda``. Under ``"auto"`` the paper's ``[16384^2]·[16384,16]``
+   executor ``cuda``, tsmt's launch record showing the planned grid
+   (a-tiles, b-tiles, S) with ``splits`` 1. Under ``"auto"`` the paper's
+   ``[16384^2]·[16384,16]``
    and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
    launch tsm2r_split (with sum_partials) and tsmt_split; under
    ``"never"`` the sequential kernels. The same under ``quant="int8"``:
@@ -130,8 +144,10 @@ printing no result, when no CUDA card is present or any phase fails.
    for int8 PowerSGD and int8 gradients).
 9. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
    on each of the five paths (dispatch, serve, train, serve-int8,
-   train-int8) and their numbers at their main-path shape and dtype;
-   tsm2r and tsm2r_q8 add their numbers at the training shapes.
+   train-int8) and their numbers at their main-path shape and dtype
+   (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
+   S for tsmt and tsmt_q8); tsm2r and tsm2r_q8 add their numbers at the
+   training shapes.
 10. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -157,6 +173,10 @@ LOGIT_TOL = 5e-2
 # JAX tests/test_quant.py:187, 335), and int8 serving against a dense arm
 Q8_GRAD_TOL = 0.1
 Q8_REL_TOL = {torch.float32: 0.05, torch.bfloat16: 0.06}
+# Device time the one-launch tsmt and tsmt_q8 must stay within at
+# [65536,128]^T [65536,4]: 12x below one block per output tile (1.361 and
+# 1.236 ms on an H100 80GB HBM3 at 700 W).
+TSMT_MAX_MS = 0.10
 BATCH, PROMPT, NEW = 4, 2048, 16
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
 KERNEL_NAMES = ("tsm2r_q8_split", "tsmt_q8_split", "tsm2r_q8", "tsm2l_q8",
@@ -260,24 +280,152 @@ def device_profile(fn) -> dict:
             "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top]}
 
 
+def device_events(run, enough, tries: int = 3) -> list:
+    """The device events (kernels, memsets) of ``run()`` under
+    ``torch.profiler``, in start order. Now and then a session's trace
+    comes back without them; a session whose events are not ``enough`` is
+    taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if enough(events):
+            break
+    return events
+
+
 def device_ms(fn, name: str, reps: int = 5) -> float:
     """Median device time of kernel ``name`` over ``reps`` calls of ``fn``
     under ``torch.profiler``: the kernel alone, without the host time
     that CUDA events around the call include."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    return device_ms_each([fn], name, reps)[0]
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+def call_device_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: every device kernel (and memset)
+    it runs, summed, averaged over ``reps`` calls under ``torch.profiler``.
+    The library calls are timed so, device to device with ``device_ms``."""
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and category(e.name) == name]
-    check(len(us) == reps, f"{name}: {len(us)} device kernels in {reps} "
-          "profiled calls")
-    return statistics.median(us) / 1e3
+
+    fn()
+    events = device_events(run, bool)
+    check(events, f"no device kernel in {reps} profiled calls")
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+
+
+def device_ms_each(fns, name: str, reps: int = 10) -> list:
+    """``device_ms`` of each of ``fns`` (median of ``reps`` calls), in one
+    profiler session: the kernel events of ``name``, in launch order."""
+    def run():
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+
+    def ours(events):
+        return [e for e in events if category(e.name) == name]
+
+    for fn in fns:
+        fn()
+    events = ours(device_events(
+        run, lambda ev: len(ours(ev)) == reps * len(fns)))
+    check(len(events) == reps * len(fns), f"{name}: {len(events)} device "
+          f"kernels in {reps * len(fns)} profiled calls")
+    us = [e.time_range.elapsed_us() for e in events]
+    return [statistics.median(us[i * reps:(i + 1) * reps]) / 1e3
+            for i in range(len(fns))]
+
+
+def in_slice_order(parts, dtype):
+    """The one-launch TSMT's last block written out: the (S, a, b) f32
+    partials summed slice by slice from f32 zeros and cast once; at S = 1
+    the kernel stores its one partial straight."""
+    if parts.shape[0] == 1:
+        return parts[0].to(dtype)
+    acc = torch.zeros_like(parts[0])
+    for p in parts:
+        acc += p
+    return acc.to(dtype)
+
+
+def same_bits(a, b) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def tsmt_plan_check(x, y, got, dtype, q=None) -> dict:
+    """The sequential TSMT (``q``: tsmt_q8's scales) against its split
+    kernel at the plan's S: the split partials summed in slice order must
+    equal the kernel's output bit for bit."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    (m, a), b = x.shape, y.shape[1]
+    band = perf_model.Q8_BAND
+    if q is None:
+        S, slice_ = k_tsmt._plan(m, a, b, x.device, dtype)
+        parts = k_tsmt.tsmt_split(x, y, S, perf_model.TSMT_BLOCK_M)
+    else:
+        S, slice_ = k_tsmt._plan(m, a, b, x.device, torch.int8, band)
+        parts = k_tsmt.tsmt_q8_split(x, y, *q, band, S)
+    return {"plan_splits": S, "plan_slice": slice_,
+            "bits_vs_split_sum": same_bits(got, in_slice_order(parts,
+                                                               dtype))}
+
+
+def tsmt_sweep(dev, uniform, gpu) -> None:
+    """Device time of tsmt and tsmt_q8 at S slices other than the plan's,
+    where ``perf_model``'s two constants were read from: at
+    [65536,128]^T [65536,4] over the slice length, at [2^20,128]^T
+    [2^20,4] over 1, 2 and 4 blocks per SM. Launches go straight through
+    the C launchers, so the wrappers' counts do not move."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _launch, quant, ref
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    band, n_sms = perf_model.Q8_BAND, torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    for m, Ss in [(65536, (16, 32, 64, 128, 256)),
+                  (1 << 20, (n_sms, 2 * n_sms, 4 * n_sms))]:
+        x, y = uniform((m, 128), torch.float32), uniform((m, 4),
+                                                         torch.float32)
+        xq, xs = quant.quantize_blocks(x, band)
+        yq, ys = quant.quantize_blocks(y, band)
+        for name, quantum in (("tsmt", perf_model.TSMT_BLOCK_M),
+                              ("tsmt_q8", band)):
+            plans = []
+            for S in Ss:
+                slice_ = ref.split_len(m, S, quantum)
+                S = -(-m // slice_)
+                plans.append((S, ref.split_len(m, S, quantum)))
+
+            def at(S, slice_, name=name):
+                out = torch.empty((128, 4), device=dev)
+                ws = k_tsmt._workspace(S, 128, 4, dev)
+                if name == "tsmt":
+                    _launch.launch(name, torch.float32, x, y, out, m, 128, 4,
+                                   S, slice_, ws)
+                else:
+                    _launch.launch(name, torch.float32, xq, yq, xs, ys, out,
+                                   m, 128, 4, band, S, slice_, ws)
+            ms = device_ms_each([lambda p=p: at(*p) for p in plans], name)
+            dtype, q_band = ((torch.int8, band) if name == "tsmt_q8"
+                             else (torch.float32, None))
+            emit({"phase": "tsmt_sweep", "kernel": name, "shape": [m, 128, 4],
+                  "splits": [p[0] for p in plans],
+                  "slice_rows": [p[1] for p in plans], "device_ms": ms,
+                  "plan": k_tsmt._plan(m, 128, 4, dev, dtype, q_band),
+                  "gpu": gpu})
+        del x, y, xq, yq, xs, ys
+        torch.cuda.empty_cache()
 
 
 def split_kernel_phase(dev, uniform, gpu) -> dict:
@@ -340,6 +488,7 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                 if main_case[name] == ((m, d1, d2, S), dtype):
                     rec["device_ms"] = device_ms(
                         lambda: kern(x, y, S, block), name)
+                    rec["library_device_ms"] = call_device_ms(lib)
                     measured[name] = rec
                 emit(rec)
                 if not ok:
@@ -374,6 +523,8 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
             if main_case["sum_partials"] == ((S, rows, cols), dtype):
                 rec["device_ms"] = device_ms(
                     lambda: reduce.sum_partials(p, dtype), "sum_partials")
+                rec["library_device_ms"] = call_device_ms(
+                    lambda: torch.sum(p, dim=0))
                 measured["sum_partials"] = rec
             emit(rec)
             if not ok:
@@ -430,7 +581,8 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                      (512, 200000, 4, 1, True, None)],
         "tsmt_q8": [(65536, 128, 4, 1, False, "main"),
                     (10000, 300, 20, 1, False, None),
-                    (300000, 16, 4, 1, True, None)],
+                    (300000, 16, 4, 1, True, None),
+                    (1000, 100, 3, 1, False, None)],    # plans S = 1
         "tsmt_q8_split": [(65024, 4096, 4, 8, False, "main"),
                           (1 << 20, 128, 4, 32, False, None),
                           (10000, 300, 20, 3, False, None),
@@ -468,6 +620,9 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                        "dtype": str(dtype)[6:], "max_err": float(err.max()),
                        "rtol": rtol, "atol": atol, "deterministic": same,
                        "ok": ok, "gpu": gpu}
+                if name == "tsmt_q8":
+                    rec.update(tsmt_plan_check(xq, yq, got, dtype, (xs, ys)))
+                    rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
                 if not ok:
                     bad.append(f"{name} {m}x{d1}x{d2} S={S} {dtype}")
                 # wk/wv run in bf16, PowerSGD's P (n = 4) in f32.
@@ -480,6 +635,8 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                                         lambda: plain(q, dtype, S)))
                     rec["device_ms"] = device_ms(lambda: kern(q, dtype, S),
                                                  name)
+                    rec["call_device_ms"] = call_device_ms(
+                        lambda: kern(q, dtype, S))
                 emit(rec)
                 if is_main:
                     measured[name] = rec
@@ -530,7 +687,8 @@ def q8_times(entry, q, dtype, got, band, kern, plain) -> dict:
     ``torch._int_mm`` and the scale fold (``library_ms``; None where it
     refuses the shape, or for TSMT, whose scales vary along the
     reduction), one ``torch.matmul`` of the dequantized operands in
-    ``dtype`` (``library_dq_ms``), and the bound."""
+    ``dtype`` (``library_dq_ms``, and its device time
+    ``library_device_ms``), and the bound."""
     from repro_torch.kernels import quant
 
     xq, yq, xs, ys = q
@@ -557,6 +715,8 @@ def q8_times(entry, q, dtype, got, band, kern, plain) -> dict:
     return {"kernel_ms": time_ms(kern), "plain_ms": time_ms(plain),
             "library_ms": library_ms,
             "library_dq_ms": time_ms(lambda: torch.matmul(xd, yd)),
+            "library_device_ms": call_device_ms(
+                lambda: torch.matmul(xd, yd)),
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1098,7 +1258,8 @@ def main() -> int:
         "tsm2l": [(1 << 20, 16, 16), (102400, 4, 4), (10000, 300, 20),
                   (5000, 77, 1)],
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
-                 (10000, 300, 20), (4099, 100, 1)],
+                 (10000, 300, 20), (4099, 100, 1),
+                 (1000, 100, 3)],       # short m: plans S = 1
     }
     # The shape and dtype each kernel meets on the main path.
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
@@ -1138,10 +1299,17 @@ def main() -> int:
                        "max_err": float(err.max()), "rtol": rtol,
                        "atol": atol, "deterministic": same, "ok": ok,
                        "gpu": gpu}
+                if name == "tsmt":
+                    rec.update(tsmt_plan_check(x, y, got, dtype))
+                    rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
                 is_main = main_case[name] == ((m, d1, d2), dtype)
                 is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
                 if is_main or is_train:
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
+                    rec["call_device_ms"] = call_device_ms(
+                        lambda: kern(x, y))
+                    rec["library_device_ms"] = call_device_ms(
+                        lambda: library(x, y))
                 emit(rec)
                 if not ok:
                     bad.append(f"{name} {m}x{d1}x{d2} {dtype}")
@@ -1156,6 +1324,14 @@ def main() -> int:
     q8_measured, q8_at_train = q8_kernel_phase(dev, uniform, gpu)
     measured.update(q8_measured)
     at_train.update(q8_at_train)
+    # The one-launch TSMTs spread one output tile over the card, and do
+    # so fast enough to beat one block per tile by far.
+    for name in ("tsmt", "tsmt_q8"):
+        rec = measured[name]
+        check(rec["plan_splits"] > 1 and rec["device_ms"] <= TSMT_MAX_MS,
+              f"{name} at {rec['shape']}: S = {rec['plan_splits']}, "
+              f"{rec['device_ms']} ms on the device")
+    tsmt_sweep(dev, uniform, gpu)
 
     # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
@@ -1198,12 +1374,19 @@ def main() -> int:
     kinds = [(e.kind, e.executor) for e in log]
     check(kinds == [("tsm2r", "cuda"), ("tsm2l", "cuda"), ("tsm2l", "cuda"),
                     ("tsmt", "cuda")], f"dispatch routes {kinds}")
+    # The sequential tsmt's record shows the grid it runs: its own plan.
+    plan_s = k_tsmt._plan(65536, 128, 4, dev, torch.float32)[0]
+    tsmt_launch = log[3].launches[0]
+    check(plan_s > 1 and tsmt_launch.grid == (1, 1, plan_s)
+          and tsmt_launch.splits == 1, f"sequential tsmt launch record "
+          f"{tsmt_launch} against the plan's S = {plan_s}")
     for got, want in zip(outs, wants):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
     grown = counts()
     check(grown == expect(tsm2r=1, tsm2l=2, tsmt=1),
           f"dispatch launches {grown}")
-    emit({"phase": "dispatch", "routes": kinds, "launches": grown})
+    emit({"phase": "dispatch", "routes": kinds, "launches": grown,
+          "tsmt_grid": tsmt_launch.grid})
     del a, b, a2, b2, a4, x, y, outs, wants
 
     # Split-K: "auto" splits the paper's TSM2R (128 row tiles) and
@@ -1410,14 +1593,17 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_dq_ms": rec.get("library_dq_ms"),
+            "library_device_ms": rec["library_device_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
-            "splits": rec.get("splits", 1),
+            "splits": rec.get("plan_splits", rec.get("splits", 1)),
             "at_train_shapes": [{
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
-                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "library_dq_ms": r.get("library_dq_ms")}
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_dq_ms": r.get("library_dq_ms"),
+                "library_device_ms": r["library_device_ms"]}
                 for r in at_train.get(name, ())]})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels.ref import split_len
+
 
 @dataclasses.dataclass(frozen=True)
 class GPUSpec:
@@ -111,6 +113,40 @@ def tsmt_grid(m: int, a: int, b: int, splits: int = 1) -> tuple:
     return (-(-a // ba), -(-b // bb), splits)
 
 
+# The sequential TSMT kernel spreads m over S slices in one launch
+# (``csrc/common.cuh`` tsmt_slices_block), planned by ``tsmt_slices``.
+# Blocks per SM its grid aims for: tiles x S ~ this x n_sms. Two is what
+# fits (86-119 registers x 256 threads a block), and on the card it beat
+# one and four blocks per SM at [2^20,128]^T [2^20,4] in f32 and int8
+# (PERF.md §6, the tsmt sweep).
+TSMT_BLOCKS_PER_SM = 2
+# Rows a slice keeps at least: past S ~ 128 slices of one tile, the last
+# block's ordered sum of the S partials outgrows what more blocks save
+# (at [65536,128]^T [65536,4], 512-row slices ran 10% faster than 256-row
+# ones in f32 and 23% in int8; PERF.md §6, the tsmt sweep).
+TSMT_MIN_SLICE_ROWS = 512
+
+
+def tsmt_slices(m: int, a: int, b: int, spec: GPUSpec = H100,
+                dtype=torch.float32, *,
+                quantum: int | None = None) -> tuple[int, int]:
+    """(S, slice) of the sequential TSMT kernel at X[m,a]^T Y[m,b]: S
+    slices of ``slice`` rows (``ref.split_len``, the split kernels' own
+    convention; none empty), so that the output tiles x S stay within
+    ``TSMT_BLOCKS_PER_SM`` x ``spec.n_sms`` blocks, every slice keeps at
+    least ``TSMT_MIN_SLICE_ROWS`` rows, and slices are whole ``quantum``s
+    (default ``tsmt_block_m(dtype)``: 8 rows, or whole scale bands for
+    int8). S = 1 (a direct store, no workspace) when the tiles alone fill
+    the card or m is short."""
+    q = quantum or tsmt_block_m(dtype)
+    ga, gb, _ = tsmt_grid(m, a, b)
+    s = max(1, TSMT_BLOCKS_PER_SM * spec.n_sms // (ga * gb))
+    s = max(1, min(s, m // TSMT_MIN_SLICE_ROWS, max_splits(m, q)))
+    # Whole-quantum slices may cover m in fewer than S: drop the empty ones.
+    s = max(1, -(-m // split_len(m, s, q)))
+    return s, split_len(m, s, q)
+
+
 # ---------------------------------------------------------------------------
 # Modelled times
 # ---------------------------------------------------------------------------
@@ -166,9 +202,10 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                     dtype=torch.float32, *, splits: int = 1) -> float:
     """Modelled seconds of TSMT or its split variant: X once per column
     tile, Y once per row tile, the output and the partials' round trip;
-    FMAs at the f32 rate (int32 multiply-adds at int8). At PowerSGD and
-    ABFT shapes (b <= 16) the output is a few tiles, so S = 1 leaves most
-    SMs idle."""
+    FMAs at the f32 rate (int32 multiply-adds at int8). S = 1 is priced
+    as one block per output tile, which the sequential kernel no longer
+    is: it spreads m over the card itself (``tsmt_slices``), so at
+    PowerSGD and ABFT shapes (b <= 16) this model overprices S = 1."""
     b = torch.empty((), dtype=dtype).element_size()
     rate = spec.peak_ops_imad if dtype == torch.int8 else spec.peak_flops_f32
     ga, gb, _ = tsmt_grid(m, a, bdim, splits)

@@ -89,9 +89,11 @@ class GemmPolicy:
     registered backend by name.
 
     ``split``: "auto" (the chooser picks S per shape), a positive int (that
-    S for every tsm2r/tsmt in scope; 1 = sequential) or "never" (the
+    S for every tsm2r/tsmt in scope; 1 = no split-K op) or "never" (the
     sequential kernels everywhere). The chooser models the card the
-    operands lie on (``perf_model.device_spec``).
+    operands lie on (``perf_model.device_spec``). The sequential TSMT
+    kernel still spreads m over the card by itself, in one launch with no
+    epilogue op (``perf_model.tsmt_slices``).
 
     ``quant``: "none" (operands stream at their own dtype) or "int8"
     (the kernel kinds quantize their operands and run the int8 kernels,
@@ -203,9 +205,11 @@ class LaunchMeta:
     """One kernel launch a dispatch resolved to: ``kind`` ("tsm2r",
     "tsm2l", "tsmt", their int8 kernels "tsm2r_q8", "tsm2l_q8", "tsmt_q8",
     or "reduce" for the partials epilogue), ``grid`` (the
-    CUDA grid from ``perf_model``'s mirror of the tile table; the
-    (S, rows, cols) partials shape for "reduce"; empty for tsm2l, whose
-    grid follows the card's occupancy) and the resolved ``splits``."""
+    CUDA grid from ``perf_model``'s mirror of the tile table; for the
+    sequential tsmt/tsmt_q8 its last dim is the kernel's own plan of m
+    slices, ``perf_model.tsmt_slices``; the (S, rows, cols) partials shape
+    for "reduce"; empty for tsm2l, whose grid follows the card's
+    occupancy) and the resolved ``splits`` (1 for a sequential kernel)."""
 
     kind: str
     grid: tuple

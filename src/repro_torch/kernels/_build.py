@@ -19,13 +19,17 @@ takes seconds):
   back to the plain PyTorch versions: those run only for CPU tensors.
 
 Every launcher ``<kernel>_<tag>`` returns the ``cudaError_t`` of its
-launch; its C signature is ``SIGNATURES[kernel]``: two inputs, one output
-and three dims for the sequential kernels; the same plus ``splits`` and
-the slice length for the split kernels; one input, one output, ``splits``,
-rows, cols and rows per block for ``reduce``. The int8 kernels
-(``*_q8*``) take two int8 inputs, their two f32 scale sidecars, the
-output, the three dims and the band length of the tall operand's scales
-(the split ones then ``splits`` and the slice length). ``tag`` is "f32"
+launch (or of the memset before it); its C signature is
+``SIGNATURES[kernel]``, each ending in the stream: two inputs, one output
+and three dims for tsm2r and tsm2l; the same plus ``splits`` and the
+slice length for the split kernels; for tsmt those plus the workspace
+pointer (the (S, a, b) f32 partials, then one int32 counter per output
+tile; null at S = 1); one input, one output, ``splits``, rows, cols and
+rows per block for ``reduce``. The int8 kernels (``*_q8*``) take two int8
+inputs, their two f32 scale sidecars, the output, the three dims and the
+band length of the tall operand's scales (the split ones and tsmt_q8
+then ``splits`` and the slice length; tsmt_q8 then the workspace
+pointer). ``tag`` is "f32"
 or "bf16": the input dtype of the f32/bf16 kernels, the output dtype of
 the int8 ones (``TAGS``: the int8 split kernels write f32 partials only).
 The split libraries also export ``<kernel>_grid(int, int, int, int, int*
@@ -54,10 +58,12 @@ _SEQ = [_P, _P, _P, _I, _I, _I, _P]
 _SPLIT = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 _SEQ_Q8 = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SPLIT_Q8 = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-SIGNATURES = {"tsm2r": _SEQ, "tsm2l": _SEQ, "tsmt": _SEQ,
+_SLICES = [*_SPLIT[:-1], _P, _P]         # the split's, then the workspace
+_SLICES_Q8 = [*_SPLIT_Q8[:-1], _P, _P]
+SIGNATURES = {"tsm2r": _SEQ, "tsm2l": _SEQ, "tsmt": _SLICES,
               "tsm2r_split": _SPLIT, "tsmt_split": _SPLIT,
               "reduce": [_P, _P, _I, _I, _I, _I, _P],
-              "tsm2r_q8": _SEQ_Q8, "tsm2l_q8": _SEQ_Q8, "tsmt_q8": _SEQ_Q8,
+              "tsm2r_q8": _SEQ_Q8, "tsm2l_q8": _SEQ_Q8, "tsmt_q8": _SLICES_Q8,
               "tsm2r_q8_split": _SPLIT_Q8, "tsmt_q8_split": _SPLIT_Q8}
 TAGS = {name: ("f32",) if name.endswith("q8_split") else ("f32", "bf16")
         for name in KERNELS}

@@ -41,16 +41,16 @@ def check(name: str, x: torch.Tensor, y: torch.Tensor, contract: str, *,
 def launch(name: str, dtype: torch.dtype, *args) -> None:
     """Launch ``<name>_<dtype tag>`` (the input dtype of an f32/bf16 kernel,
     the output dtype of an int8 one) with ``args`` (tensors, passed as their
-    data pointers, and ints) on the current stream of the first tensor's
-    device, and raise on a non-zero cudaError_t. Every tensor lies on that
-    one CUDA device."""
+    data pointers, None as a null pointer, and ints) on the current stream
+    of the first tensor's device, and raise on a non-zero cudaError_t.
+    Every tensor lies on that one CUDA device."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors; got {dev}")
     fn = _build.launcher(name, _DTYPE_TAG[dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-              for a in args]
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
+              else 0 if a is None else int(a) for a in args]
     with torch.cuda.device(dev):
         err = fn(*c_args, stream)
     if err != 0:

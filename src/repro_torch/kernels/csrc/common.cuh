@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -397,6 +398,104 @@ __device__ __forceinline__ void tsmt_block(const T* __restrict__ X,
     const int ga = a0 + idx / BB, gb = b0 + idx % BB;
     if (ga < a_dim && gb < b_dim) C[(long)ga * b_dim + gb] = from_f32<U>(s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// One-launch TSMT over S slices of m, shared by tsmt.cu and tsmt_q8.cu.
+// Block (i, j, s) runs tsmt_block over the rows [s * slice, min((s + 1) *
+// slice, m)) into P[s], an f32 (S, a, b) workspace (the split kernels'
+// layout), then draws a ticket from its tile's counter. The block that
+// draws S - 1 is the tile's last: every other slice of the tile has stored
+// and fenced its partials, so it sums each output element over s = 0, 1,
+// ..., S - 1 from 0.f, in that order, and writes C once. It reads the
+// partials through L2 (__ldcg): another SM's stores are not coherent in
+// this SM's L1. The only atomic is the ticket, never data, so the sum's
+// order is fixed and every launch repeats its bits. count holds one zeroed
+// counter per output tile (the launcher clears it on the stream).
+// ---------------------------------------------------------------------------
+
+template <typename T, typename U, int BA, int BB, int TA, int TB, int G,
+          typename Fold = NoFold>
+__device__ __forceinline__ void tsmt_slices_block(
+    const T* __restrict__ X, const T* __restrict__ Y, U* __restrict__ C,
+    float* __restrict__ P, unsigned* __restrict__ count, int m, int a_dim,
+    int b_dim, int splits, int slice, const Fold fold = Fold()) {
+  constexpr int NT = (BA / TA) * (BB / TB) * G;
+  constexpr int EPT = (BA * BB + NT - 1) / NT;  // output elements a thread
+  constexpr int UN = EPT >= 32 ? 1 : 32 / EPT;  // slices loaded at once
+  __shared__ bool last;
+  const long ab = (long)a_dim * b_dim;
+  const long s = blockIdx.z;
+  const long lo = s * slice < m ? s * slice : m;
+  const long hi = lo + slice < m ? lo + slice : m;
+  tsmt_block<T, float, BA, BB, TA, TB, G>(X, Y, P + s * ab, lo, hi, a_dim,
+                                          b_dim, fold);
+  __threadfence();  // this block's partials, before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&count[blockIdx.y * gridDim.x + blockIdx.x], 1u) ==
+           (unsigned)(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the other slices' partials, before they are read
+
+  const int a0 = blockIdx.x * BA, b0 = blockIdx.y * BB;
+  long off[EPT];
+  bool ok[EPT];
+  float acc[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int idx = threadIdx.x + e * NT;
+    const int ga = a0 + idx / BB, gb = b0 + idx % BB;
+    ok[e] = idx < BA * BB && ga < a_dim && gb < b_dim;
+    off[e] = ok[e] ? (long)ga * b_dim + gb : 0;
+    acc[e] = 0.f;
+  }
+  // UN slices' loads are issued before any of them is added, so the L2
+  // round trips overlap; the adds stay in slice order.
+  for (int s0 = 0; s0 < splits; s0 += UN) {
+    float v[UN][EPT];
+#pragma unroll
+    for (int u = 0; u < UN; ++u)
+#pragma unroll
+      for (int e = 0; e < EPT; ++e)
+        v[u][e] = (ok[e] && s0 + u < splits)
+                      ? __ldcg(P + (long)(s0 + u) * ab + off[e])
+                      : 0.f;
+#pragma unroll
+    for (int u = 0; u < UN; ++u)
+#pragma unroll
+      for (int e = 0; e < EPT; ++e)
+        if (s0 + u < splits) acc[e] += v[u][e];
+  }
+#pragma unroll
+  for (int e = 0; e < EPT; ++e)
+    if (ok[e]) C[off[e]] = from_f32<U>(acc[e]);
+}
+
+// The launch of a one-launch TSMT kernel at tile Tl. S = 1 calls
+// launch(false_type, grid, threads, nullptr, nullptr): tsmt_block straight
+// into C, no workspace. Past one slice it clears the tile counters that
+// follow the (S, a, b) f32 partials in ws, on the stream, and calls
+// launch(true_type, grid, threads, partials, counters) over the (a-tiles,
+// b-tiles, S) grid. Returns the cudaError_t of the memset or the launch.
+template <typename Tl, typename Launch>
+int tsmt_slices_launch(int a_dim, int b_dim, int splits, void* ws,
+                       cudaStream_t stream, Launch&& launch) {
+  constexpr int NT = (Tl::BA / Tl::TA) * (Tl::BB / Tl::TB) * Tl::G;
+  dim3 grid((a_dim + Tl::BA - 1) / Tl::BA, (b_dim + Tl::BB - 1) / Tl::BB,
+            splits > 1 ? splits : 1);
+  if (splits <= 1) {
+    launch(std::false_type{}, grid, NT, (float*)nullptr, (unsigned*)nullptr);
+    return (int)cudaGetLastError();
+  }
+  float* p = (float*)ws;
+  unsigned* count = (unsigned*)(p + (size_t)splits * a_dim * b_dim);
+  const cudaError_t err = cudaMemsetAsync(
+      count, 0, sizeof(unsigned) * grid.x * grid.y, stream);
+  if (err != cudaSuccess) return (int)err;
+  launch(std::true_type{}, grid, NT, p, count);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -148,8 +148,12 @@ def _tsmt_impl(x, y, policy):
     p = _resolve("tsmt", x, a, b, policy)
     s = p["splits"]
     q8 = policy.quant == "int8"
+    # S = 1 is the sequential kernel, which spreads m over its own plan of
+    # slices in one launch: record the grid that runs.
+    slices = s if s > 1 else _tsmt._plan(
+        m, a, b, x.device, torch.int8 if q8 else x.dtype, p["block_m"])[0]
     tsmm.note_launch("tsmt_q8" if q8 else "tsmt",
-                     perf_model.tsmt_grid(m, a, b, s), s)
+                     perf_model.tsmt_grid(m, a, b, slices), s)
     if q8:
         band = p["block_m"]
         x_q, x_s = quant.quantize_blocks(x, band)

@@ -2,11 +2,16 @@
 
 Replaces the TPU kernel ``src/repro/kernels/tsmt.py::tsmt_pallas`` with the
 CUDA kernel in ``csrc/tsmt.cu``. On the H100 it is bound by the bytes of X
-and Y; with a, b <= 16 its output is one tile, so the sequential kernel
-runs on one or a few SMs and reaches a small share of that bound. One
-block per output tile loops over all of m and sums its thread groups'
-partials in a fixed order, so results are bit-identical from run to run
-(no atomics); see the source's note.
+and Y, read once, plus the 2 * S * a * b * 4 bytes of f32 partials past
+one slice. Its output has few tiles (one at a, b <= 4), so one block per
+tile would pull all of m through one SM; instead one launch spreads m over
+the card: ``perf_model.tsmt_slices`` plans S slices (tiles x S about
+``TSMT_BLOCKS_PER_SM`` blocks per SM, whole 8-row blocks, at least
+``TSMT_MIN_SLICE_ROWS`` rows each), each block reduces its slice into an
+f32 (S, a, b) workspace, and each tile's last block (a ticket counter,
+the only atomic) sums the S partials in slice order and writes C once, so
+results are bit-identical from run to run. S = 1 stores straight into C;
+see the source's note.
 
 ``tsmt_split`` replaces ``tsmt.py::tsmt_pallas_split`` with
 ``csrc/tsmt_split.cu``: the same block body over one of S contiguous m
@@ -21,7 +26,8 @@ memory. ``kernels/reduce.py`` sums the partials.
 same block body loading int8 X and Y, both with per-band scales along m,
 summing each band exactly in int32 and dequantizing it with the band's
 two scales before it is added. Bound by the bytes of X and Y at 1 byte
-an element. A split slice is a whole number of bands.
+an element. ``tsmt_q8`` spreads m over the card as ``tsmt`` does; its
+slices, and a split kernel's, are whole bands.
 
 CPU tensors take the plain versions (``ref.tsmt_ref``,
 ``ref.tsmt_split_ref``, ``ref.tsmt_q8_ref``, ``ref.tsmt_q8_split_ref``);
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import perf_model
 from repro_torch.kernels import _launch, ref
 
 launches = 0         # tsmt kernel launches; chip_smoke.py resets and reads
@@ -49,9 +56,30 @@ def tsmt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((a, b), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch.launch("tsmt", x.dtype, x, y, out, m, a, b)
+    splits, slice_ = _plan(m, a, b, x.device, x.dtype)
+    _launch.launch("tsmt", x.dtype, x, y, out, m, a, b, splits, slice_,
+                   _workspace(splits, a, b, x.device))
     launches += 1
     return out
+
+
+def _plan(m: int, a: int, b: int, device: torch.device, dtype,
+          band: int | None = None) -> tuple[int, int]:
+    """(S, slice) the sequential kernel launches with for X[m,a]^T Y[m,b]
+    on ``device`` (``dtype`` int8 with the scale ``band`` for tsmt_q8)."""
+    spec = perf_model.device_spec(perf_model.H100, device)
+    return perf_model.tsmt_slices(m, a, b, spec, dtype, quantum=band)
+
+
+def _workspace(splits: int, a: int, b: int, device: torch.device):
+    """The one-launch kernel's scratch: (S, a, b) f32 partials, then one
+    int32 counter per output tile (cleared by the launcher); None at
+    S = 1, which stores straight into C."""
+    if splits <= 1:
+        return None
+    ga, gb, _ = perf_model.tsmt_grid(0, a, b)
+    return torch.empty(splits * a * b + ga * gb, dtype=torch.float32,
+                       device=device)
 
 
 def tsmt_split(x: torch.Tensor, y: torch.Tensor, splits: int,
@@ -86,8 +114,10 @@ def tsmt_q8(x: torch.Tensor, y: torch.Tensor, x_scale: torch.Tensor,
     out = torch.empty((a, b), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    splits, slice_ = _plan(m, a, b, x.device, torch.int8, band)
     _launch.launch("tsmt_q8", out_dtype, x, y, x_scale, y_scale, out, m, a,
-                   b, band)
+                   b, band, splits, slice_,
+                   _workspace(splits, a, b, x.device))
     q8_launches += 1
     return out
 
