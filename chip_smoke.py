@@ -49,7 +49,16 @@ printing no result, when no CUDA card is present or any phase fails.
    it is: both sides round their f32 sums to bf16, and one bf16 step is at
    most 2^-7 of the value.
    tsm2r is also held at the training path's shapes: the wk/wv forward of
-   a 4096-token microbatch and PowerSGD's P projection.
+   a 4096-token microbatch and PowerSGD's P projection. Every tsm2r line
+   carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
+   tensor-core body) for bf16 at [8192,4096]·[4096,256],
+   [4096,4096]·[4096,256], the ragged (1000, 776, 200) and the narrowest
+   wide output (4096, 4096, 24); "simt" for f32, n <= 16, k % 8 != 0
+   (1000, 777, 200) and a base address off the 16-byte grid (its own
+   line). The two wgmma main-path shapes must run under 0.26 and 0.128 ms
+   on the device, their f32 CUDA-core floors. A layout probe (A of small
+   integers, B a column selection, so the exact answer is known) must
+   come out exact on the wgmma body.
    The five int8 kernels are held against their plain versions on the
    same int8 operands and scales (quantized on the card by
    ``kernels/quant.py``), with f32 and bf16 outputs (the split ones write
@@ -79,7 +88,8 @@ printing no result, when no CUDA card is present or any phase fails.
    (32 row tiles) to S > 1 on tsmt_q8_split and tsm2r_q8_split, and the
    paper's TSM2R to what the int8 chooser picks. The Python mirror of the
    tile table (``core/perf_model.py``) must equal the C grid query of all
-   four split libraries.
+   four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r
+   library's choice of body and grid.
 4. Serve (the serving main path; counts zeroed before it, read after):
    chatglm3-6b at its published width and depth, bf16,
    random weights from a seeded generator; 4 prompts of 2048 tokens answered
@@ -123,19 +133,22 @@ printing no result, when no CUDA card is present or any phase fails.
 7. Train (the training main path; counts zeroed before it, read after):
    chatglm3-6b at its published width with 4 layers, bf16 parameters
    from seed 0, PowerSGD rank 4, 4 microbatches of 2 x 2048 tokens, 3
-   steps of ``train_step.make_train_step``. Every step must be
+   steps of ``train_step.make_train_step``, with ``remat`` on (each
+   layer's forward runs again in the backward, and each attention kv step
+   a third time). Every step must be
    ``step_ok``, compress exactly embed and lm_head, launch tsm2r exactly
-   34 times (wk, wv x 4 layers x 4 microbatches + 2 P projections) and
+   66 times (wk, wv x 4 layers x 4 microbatches, twice, + 2 P
+   projections) and
    tsmt_split exactly twice with S > 1 (the Q projections) and the
    sequential tsmt never; every backward GEMM of wk/wv goes to
    ``torch-dense``. A ``policy(mode="dense")`` arm from the same state and
    batch must match the first step's loss, grad norm and compressed
    embed/lm_head gradients within normalised error 5e-2. Prints step
-   time, tokens/s, peak memory, and a profiled fourth step's device busy
-   share and device time by kernel.
+   time, tokens/s, peak memory (and the train state's share of it), and
+   a profiled fourth step's device busy share and device time by kernel.
 8. Train-int8 (a main path of its own): the same, inside
    ``GemmPolicy(quant="int8")`` with ``PowerSGDConfig(compress="int8")``.
-   Every step launches tsm2r_q8 32 times for wk/wv, the two P projections
+   Every step launches tsm2r_q8 64 times for wk/wv, the two P projections
    on tsm2r_q8 or tsm2r_q8_split at the S the int8 chooser resolves
    (checked against it), tsmt_q8_split exactly twice with S > 1, and no
    f32/bf16 TSM2X kernel. The dense arm (same compress setting, state and
@@ -146,8 +159,8 @@ printing no result, when no CUDA card is present or any phase fails.
    on each of the five paths (dispatch, serve, train, serve-int8,
    train-int8) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
-   S for tsmt and tsmt_q8); tsm2r and tsm2r_q8 add their numbers at the
-   training shapes.
+   S for tsmt and tsmt_q8; ``body`` for tsm2r); tsm2r and tsm2r_q8 add
+   their numbers at the training shapes.
 10. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -177,6 +190,14 @@ Q8_REL_TOL = {torch.float32: 0.05, torch.bfloat16: 0.06}
 # [65536,128]^T [65536,4]: 12x below one block per output tile (1.361 and
 # 1.236 ms on an H100 80GB HBM3 at 700 W).
 TSMT_MAX_MS = 0.10
+# Device time tsm2r's bf16 wgmma body must stay under at chatglm3's wk/wv
+# shapes: the f32 CUDA-core floor of each (2mkn FLOP at 67 TFLOP/s), which
+# only a body on the tensor cores can beat.
+TSM2R_MAX_MS = {(8192, 4096, 256): 0.26, (4096, 4096, 256): 0.128}
+# bf16 tsm2r cases that take the wgmma body; every other tsm2r case (f32,
+# n <= 16, k % 8 != 0, a misaligned base) takes the simt body.
+TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
+               (4096, 4096, 24)}
 BATCH, PROMPT, NEW = 4, 2048, 16
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
 KERNEL_NAMES = ("tsm2r_q8_split", "tsmt_q8_split", "tsm2r_q8", "tsm2l_q8",
@@ -244,6 +265,8 @@ def normalised_err(got, want) -> float:
 def category(name: str) -> str:
     if "tsm2l_kernel<signed char" in name:   # one template serves both
         return "tsm2l_q8"
+    if "tsm2r_wgmma_kernel" in name:         # tsm2r's tensor-core body
+        return "tsm2r"
     for kern in KERNEL_NAMES:
         if f"{kern}_kernel" in name:
             return kern
@@ -426,6 +449,64 @@ def tsmt_sweep(dev, uniform, gpu) -> None:
                   "gpu": gpu})
         del x, y, xq, yq, xs, ys
         torch.cuda.empty_cache()
+
+
+def tsm2r_probes(dev, uniform, gpu) -> None:
+    """Two tsm2r cases beside the shape sweep, bf16, each with a
+    bit-identical repeat. A layout probe on the wgmma body: A of small
+    integers, B a column-selection matrix (column j picks row sel(j) of
+    B), so C[i, j] = A[i, sel(j)] exactly; a wrong accumulator map or
+    shared-memory descriptor shows as wrong cells, reported with the rows
+    and columns whose values they hold. Then a base address off the
+    16-byte grid, which TMA cannot take: the simt body, against the plain
+    version at bf16's tolerance."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tsm2r as k_tsm2r
+
+    m, k, n = 1000, 1024, 256
+    rows = torch.arange(m, device=dev)[:, None]
+    a = ((rows * 13 + torch.arange(k, device=dev) * 5) % 255 - 127).to(
+        torch.bfloat16)                   # integers in [-127, 127]: exact
+    sel = (torch.arange(n, device=dev) * 7 + 3) % k
+    b = torch.zeros((k, n), dtype=torch.bfloat16, device=dev)
+    b[sel, torch.arange(n, device=dev)] = 1
+    got, again = k_tsm2r.tsm2r(a, b), k_tsm2r.tsm2r(a, b)
+    torch.cuda.synchronize()
+    want = a[:, sel]
+    wrong = (got != want).nonzero().tolist()
+    swapped = [{"cell": [r, c], "got": float(got[r, c]),
+                "rows_holding_it": (a[:, sel[c]] == got[r, c]).nonzero()
+                .flatten()[:4].tolist(),
+                "cols_holding_it": (want[r] == got[r, c]).nonzero()
+                .flatten()[:4].tolist()} for r, c in wrong[:8]]
+    body = k_tsm2r.plan(a, b)[0]
+    ok = body == "wgmma" and not wrong and torch.equal(got, again)
+    emit({"phase": "kernel", "kernel": "tsm2r", "case": "layout_probe",
+          "shape": [m, k, n], "dtype": "bfloat16", "body": body,
+          "wrong_cells": len(wrong), "first_wrong": swapped,
+          "deterministic": torch.equal(got, again), "ok": ok, "gpu": gpu})
+    check(ok, f"tsm2r layout probe: body {body}, {len(wrong)} wrong cells "
+          f"{swapped}")
+
+    m, k, n = 1024, 1024, 256
+    flat = uniform((m * k + 1,), torch.bfloat16)
+    a = flat[1:].view(m, k)               # 2 bytes past a 16-byte boundary
+    b = uniform((k, n), torch.bfloat16)
+    got, again = k_tsm2r.tsm2r(a, b), k_tsm2r.tsm2r(a, b)
+    torch.cuda.synchronize()
+    want = ref.tsm2r_ref(a, b)
+    rtol, atol = TOL[torch.bfloat16]
+    err = (got.float() - want.float()).abs()
+    body = k_tsm2r.plan(a, b)[0]
+    ok = (body == "simt" and torch.equal(got, again)
+          and bool((err <= atol + rtol * want.float().abs()).all()))
+    emit({"phase": "kernel", "kernel": "tsm2r", "case": "unaligned_base",
+          "shape": [m, k, n], "dtype": "bfloat16", "body": body,
+          "a_ptr_mod_16": a.data_ptr() % 16, "max_err": float(err.max()),
+          "rtol": rtol, "atol": atol,
+          "deterministic": torch.equal(got, again), "ok": ok, "gpu": gpu})
+    check(ok, f"tsm2r at a misaligned base: body {body}, "
+          f"{float(err.max())}")
 
 
 def split_kernel_phase(dev, uniform, gpu) -> dict:
@@ -886,7 +967,11 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
         def transform(grads, st):
             out, st, met = powersgd.compress_tree(ps, grads, st)
             if tag not in captured:   # the first step's compressed grads
-                captured[tag] = {n: out[n].detach().clone() for n in heads}
+                # (the dense arm's kept on the host, off the kernel arm's
+                # peak)
+                captured[tag] = {n: (out[n].detach().cpu() if tag == "dense"
+                                     else out[n].detach().clone())
+                                 for n in heads}
             return out, st, met
         return train_step.make_train_step(cfg, opt, n_micro=n_micro,
                                           grad_transform=transform)
@@ -900,25 +985,32 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     # step, every GEMM on torch.matmul.
     state = fresh_state()
     with tsmm.policy(mode="dense"), tsmm.record_dispatches() as log:
-        _, m = make_step("dense")(state, batches[0])
+        m = make_step("dense")(state, batches[0])[1]
     check(log and all(e.executor == "torch-dense" for e in log),
           "train dense arm routes")
     dense = {k: float(m[k]) for k in ("loss", "grad_norm")}
-    del state, m, log
+    del state, m, log   # no reference to the dense arm's state is left
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     state = fresh_state()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # What the train state holds before any step (parameters, AdamW
+    # moments, PowerSGD state): the part of the peak no activation owns.
+    state_gb = torch.cuda.memory_allocated() / 2**30 - before_gb
     n_params = sum(p.numel() for p in state["params"].parameters())
     check(sorted(state["extra"]) == list(heads),
           f"compressed leaves {sorted(state['extra'])}")
     step = make_step("kernel")
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
     mb_tokens = tokens // n_micro
-    per_step_tsm2r = 2 * TRAIN_LAYERS * n_micro + 2
+    # wk/wv of every layer and microbatch, twice under remat (the
+    # backward runs each layer's forward again), and PowerSGD's 2 P.
+    check(cfg.remat, f"{phase} runs without remat")
+    per_step_tsm2r = 2 * TRAIN_LAYERS * n_micro * (2 if cfg.remat else 1) + 2
     # PowerSGD's P = G Q of embed and lm_head (f32 gradients): the S the
     # chooser resolves for the kernel arm's scope.
     p_shape = (cfg.vocab_size, cfg.d_model, ps.rank)
@@ -979,7 +1071,8 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     # The main path ends here; what follows checks it and measures it.
     head_err = {n: normalised_err(captured["kernel"][n],
-                                  captured["dense"][n]) for n in heads}
+                                  captured["dense"][n].to(dev))
+                for n in heads}
     loss_err = abs(records[0]["loss"] - dense["loss"]) / abs(dense["loss"])
     gnorm_err = (abs(records[0]["grad_norm"] - dense["grad_norm"])
                  / dense["grad_norm"])
@@ -997,11 +1090,13 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
           "tokens_per_step": tokens, "init_s": init_s, "steps": records,
           "step_ms": step_ms, "median_step_ms": mid_ms,
           "tokens_per_s": tokens / mid_ms * 1e3, "peak_mem_gb": peak_gb,
+          "state_mem_gb": state_gb, "mem_before_state_gb": before_gb,
           "dense_arm": dense, "dense_arm_loss_err": loss_err,
           "dense_arm_grad_norm_err": gnorm_err,
           "dense_arm_compressed_grad_err": head_err,
           "compressed_grad_tol": head_tol, "p_splits": p_splits,
-          "tsm2r_launches_per_step": per_step_tsm2r, "gpu": gpu})
+          "remat": cfg.remat, "tsm2r_launches_per_step": per_step_tsm2r,
+          "gpu": gpu})
     emit({"phase": "profile", "window": f"{phase} step", **prof,
           "unprofiled_ms": mid_ms,
           "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
@@ -1250,11 +1345,14 @@ def main() -> int:
     }
     # (m, d1, d2): tsm2r/tsm2l (m, k, n); tsmt (m, a, b). Besides the main
     # path's and the paper's shapes: ragged m, k, n and n = 1, and for
-    # tsm2l a k past the resident B tile (B staged chunk by chunk).
+    # tsm2l a k past the resident B tile (B staged chunk by chunk). tsm2r
+    # adds ragged tails inside the wgmma body's TMA boxes (1000, 776, 200),
+    # the same with k % 8 != 0 (simt) and its narrowest width, n = 24.
     cases = {
         "tsm2r": [(8192, 4096, 256), (4096, 4096, 256), (65024, 4096, 4),
                   (16384, 16384, 16), (1000, 777, 16), (4096, 4096, 8),
-                  (512, 512, 1)],
+                  (512, 512, 1), (1000, 776, 200), (1000, 777, 200),
+                  (4096, 4096, 24)],
         "tsm2l": [(1 << 20, 16, 16), (102400, 4, 4), (10000, 300, 20),
                   (5000, 77, 1)],
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
@@ -1302,6 +1400,11 @@ def main() -> int:
                 if name == "tsmt":
                     rec.update(tsmt_plan_check(x, y, got, dtype))
                     rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
+                if name == "tsm2r":
+                    rec["body"], rec["grid"] = k_tsm2r.plan(x, y)
+                    want_body = ("wgmma" if dtype == torch.bfloat16
+                                 and (m, d1, d2) in TSM2R_WGMMA else "simt")
+                    rec["ok"] = ok = ok and rec["body"] == want_body
                 is_main = main_case[name] == ((m, d1, d2), dtype)
                 is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
                 if is_main or is_train:
@@ -1320,6 +1423,15 @@ def main() -> int:
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
+    # tsm2r's wide bf16 shapes run on the tensor cores, under the f32
+    # CUDA-core floor.
+    for rec in [measured["tsm2r"], *at_train["tsm2r"]]:
+        limit = TSM2R_MAX_MS.get(tuple(rec["shape"]))
+        if limit is not None and rec["dtype"] == "bfloat16":
+            check(rec["body"] == "wgmma" and rec["device_ms"] < limit,
+                  f"tsm2r at {rec['shape']}: body {rec['body']}, "
+                  f"{rec['device_ms']} ms on the device (limit {limit})")
+    tsm2r_probes(dev, uniform, gpu)
     measured.update(split_kernel_phase(dev, uniform, gpu))
     q8_measured, q8_at_train = q8_kernel_phase(dev, uniform, gpu)
     measured.update(q8_measured)
@@ -1435,6 +1547,21 @@ def main() -> int:
                 check(c_grid == grid_fn(*shape, splits),
                       f"tile mirror {name} {shape}: C {c_grid} vs Python "
                       f"{grid_fn(*shape, splits)}")
+    # tsm2r's choice of body and grid: the C query against its Python
+    # mirror, over dtypes, widths either side of 16, k % 8 and base
+    # addresses 16-byte aligned or not (only the pointers' values matter).
+    for m, k, n in [(8192, 4096, 256), (4096, 4096, 256), (65024, 4096, 4),
+                    (1000, 776, 200), (1000, 777, 200), (4096, 4096, 24),
+                    (4096, 4096, 16), (4096, 4096, 20), (512, 512, 1)]:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for ptr_a, ptr_b in ((0, 0), (2, 0), (0, 8)):
+                c_plan = _build.plan(m, k, n, tag, ptr_a, ptr_b)
+                mirror[f"tsm2r_plan{[m, k, n]}{tag}@{ptr_a},{ptr_b}"] = c_plan
+                check(c_plan == perf_model.tsm2r_plan(m, k, n, dtype, ptr_a,
+                                                      ptr_b),
+                      f"tsm2r plan mirror {m, k, n} {tag} {ptr_a, ptr_b}: C "
+                      f"{c_plan} vs Python "
+                      f"{perf_model.tsm2r_plan(m, k, n, dtype, ptr_a, ptr_b)}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
     q8_launched = q8_dispatch(dev, uniform, counts, expect)
     dispatch_launches = counts()
@@ -1596,8 +1723,10 @@ def main() -> int:
             "library_device_ms": rec["library_device_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
             "splits": rec.get("plan_splits", rec.get("splits", 1)),
+            **({"body": rec["body"]} if "body" in rec else {}),
             "at_train_shapes": [{
                 "shape": r["shape"], "dtype": r["dtype"],
+                **({"body": r["body"]} if "body" in r else {}),
                 "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -2,8 +2,8 @@
 
 The port's own copy of ``src/repro/configs/base.py::ModelConfig``, with the
 fields of the dense family this package serves. The sub-configs of the
-other families (MoE, MLA, Mamba2, RWKV6, vision, audio) and the remat
-knobs arrive with the slices that port those modules.
+other families (MoE, MLA, Mamba2, RWKV6, vision, audio) and
+``remat_group`` arrive with the slices that port those modules.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class ModelConfig:
     dtype: str = "float32"
     q_chunk: int = 512
     kv_chunk: int = 512
+    remat: bool = True             # checkpoint each layer under autograd
     microbatch: int = 0            # number of grad-accumulation microbatches
 
     @property

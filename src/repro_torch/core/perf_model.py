@@ -6,10 +6,13 @@ Counterpart of the split half of ``src/repro/core/perf_model.py``
 :184-270 and the choosers :352-404). The TPU model counted grid cells
 against TensorCores; here blocks are counted against streaming
 multiprocessors, from the port's own tile tables (``csrc/common.cuh``,
-mirrored by ``tsm2r_tile``/``tsmt_tile`` below). The kernels run their
-FMAs on the CUDA cores in f32, so the f32 rate bounds their arithmetic at
-either input dtype. Block sizes are fixed per tile shape inside the
-kernels, so the only parameter chosen here is the split factor S.
+mirrored by ``tsm2r_tile``/``tsmt_tile`` below, and ``tsm2r_plan``'s
+choice of body). The sequential TSM2R runs bf16 outputs wider than 16 on
+the tensor cores (its "wgmma" body, priced at the bf16 rate); every
+other kernel, and TSM2R's "simt" body, runs its FMAs on the CUDA cores in
+f32, so the f32 rate bounds their arithmetic at either input dtype. Block
+sizes are fixed per tile shape inside the kernels, so the only parameter
+chosen here is the split factor S.
 
 Under ``GemmPolicy(quant="int8")`` the choosers price int8 operands, as
 the JAX package resolves under the int8 effective dtype (``ops.py:303``):
@@ -87,8 +90,30 @@ TSMT_BLOCK_M = 8
 Q8_BAND = 256
 
 
-def tsm2r_tile(n: int) -> tuple[int, int]:
-    """(BM, BN) of TSM2R at output width n (``with_tsm2r_tile``)."""
+# The sequential TSM2R's tensor-core body (``csrc/tsm2r_wgmma.cuh``):
+# its output tile, and the widest output that stays on the CUDA cores.
+TSM2R_WGMMA_TILE = (64, 128)
+WGMMA_MIN_WIDTH = 16
+
+
+def tsm2r_body(k: int, n: int, dtype, ptr_a: int = 0, ptr_b: int = 0,
+               splits: int = 1) -> str:
+    """The body a TSM2R launch runs (``wgmma::fits``): "wgmma" for the
+    sequential kernel (S = 1) on bf16 operands with n > 16, k and n
+    multiples of 8 (TMA's 16-byte strides, k > 0) and 16-byte aligned
+    base addresses ``ptr_a``/``ptr_b``; else "simt", as for every split
+    and int8 launch."""
+    wide = (splits == 1 and dtype == torch.bfloat16
+            and n > WGMMA_MIN_WIDTH and k > 0 and k % 8 == 0 and n % 8 == 0
+            and ptr_a % 16 == 0 and ptr_b % 16 == 0)
+    return "wgmma" if wide else "simt"
+
+
+def tsm2r_tile(n: int, body: str = "simt") -> tuple[int, int]:
+    """(BM, BN) of TSM2R at output width n: the wgmma body's one tile, or
+    the simt table (``with_tsm2r_tile``)."""
+    if body == "wgmma":
+        return TSM2R_WGMMA_TILE
     return (128, 16) if n <= 16 else (64, 64)
 
 
@@ -101,10 +126,20 @@ def tsmt_tile(b: int) -> tuple[int, int]:
     return (64, 64)
 
 
-def tsm2r_grid(m: int, k: int, n: int, splits: int = 1) -> tuple:
-    del k
-    bm, bn = tsm2r_tile(n)
+def tsm2r_grid(m: int, k: int, n: int, splits: int = 1,
+               dtype=torch.float32, ptr_a: int = 0, ptr_b: int = 0) -> tuple:
+    """The launch grid of TSM2R (S = 1) or its split kernel, for the body
+    that ``tsm2r_body`` gives these operands."""
+    bm, bn = tsm2r_tile(n, tsm2r_body(k, n, dtype, ptr_a, ptr_b, splits))
     return (-(-m // bm), -(-n // bn), splits)
+
+
+def tsm2r_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
+               ptr_b: int = 0) -> tuple[str, tuple]:
+    """(body, grid) of the sequential TSM2R: the mirror of the C query
+    ``tsm2r_plan`` (``kernels/_build.plan``)."""
+    return (tsm2r_body(k, n, dtype, ptr_a, ptr_b),
+            tsm2r_grid(m, k, n, 1, dtype, ptr_a, ptr_b))
 
 
 def tsmt_grid(m: int, a: int, b: int, splits: int = 1) -> tuple:
@@ -184,11 +219,17 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     """Modelled seconds of TSM2R (S = 1) or its split variant: A streamed
     once per column tile, B once per row tile, the output and the
     partials' round trip, over the bandwidth of the busy SMs' share;
-    FMAs at the f32 rate (``__dp4a`` at int8) on the same share; one
-    launch per kernel."""
+    multiply-adds on the same share at the rate of the body that runs
+    (``tsm2r_body``: the bf16 tensor-core rate for "wgmma", the f32 rate
+    for "simt", ``__dp4a`` at int8); one launch per kernel."""
     b = torch.empty((), dtype=dtype).element_size()
-    rate = spec.peak_ops_dp4a if dtype == torch.int8 else spec.peak_flops_f32
-    gm, gn, _ = tsm2r_grid(m, k, n, splits)
+    if dtype == torch.int8:
+        rate = spec.peak_ops_dp4a
+    elif tsm2r_body(k, n, dtype, splits=splits) == "wgmma":
+        rate = spec.peak_flops_bf16
+    else:
+        rate = spec.peak_flops_f32
+    gm, gn, _ = tsm2r_grid(m, k, n, splits, dtype)
     nbytes = (m * k * b * gn + k * n * b * gm + m * n * b
               + split_partials_bytes(splits, m, n))
     occ = occupancy(gm * gn * splits, spec)

@@ -33,7 +33,9 @@ pointer). ``tag`` is "f32"
 or "bf16": the input dtype of the f32/bf16 kernels, the output dtype of
 the int8 ones (``TAGS``: the int8 split kernels write f32 partials only).
 The split libraries also export ``<kernel>_grid(int, int, int, int, int*
-out)``, the launch grid their tile table gives (``grid``).
+out)``, the launch grid their tile table gives (``grid``), and the tsm2r
+library ``tsm2r_plan(m, k, n, dtype tag, A, B, int* out)``: the body
+(0 "simt", 1 "wgmma") and grid a call launches (``plan``).
 """
 
 from __future__ import annotations
@@ -157,6 +159,10 @@ def library(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, f"{name}_grid")
                 fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
                 fn.restype = ctypes.c_int
+            if name == "tsm2r":
+                lib.tsm2r_plan.argtypes = [_I, _I, _I, _I, _P, _P,
+                                           ctypes.POINTER(_I)]
+                lib.tsm2r_plan.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -164,6 +170,22 @@ def library(name: str) -> ctypes.CDLL:
 def launcher(name: str, dtype_tag: str):
     """The C launcher ``<name>_<dtype_tag>`` ("f32" or "bf16")."""
     return getattr(library(name), f"{name}_{dtype_tag}")
+
+
+PLAN_TAGS = {"f32": 0, "bf16": 1}
+PLAN_BODIES = ("simt", "wgmma")
+
+
+def plan(m: int, k: int, n: int, dtype_tag: str, ptr_a: int,
+         ptr_b: int) -> tuple:
+    """(body, grid) of a sequential tsm2r call on operands at ``ptr_a`` and
+    ``ptr_b``, as its library decides them."""
+    out = (ctypes.c_int * 4)()
+    err = library("tsm2r").tsm2r_plan(m, k, n, PLAN_TAGS[dtype_tag], ptr_a,
+                                      ptr_b, out)
+    if err != 0:
+        raise RuntimeError(f"tsm2r_plan failed: {err}")
+    return PLAN_BODIES[out[0]], tuple(out[1:])
 
 
 def grid(name: str, m: int, d1: int, d2: int, splits: int) -> tuple:

@@ -125,7 +125,9 @@ def _tsm2r_impl(a, b, policy):
     s = p["splits"]
     q8 = policy.quant == "int8"
     tsmm.note_launch("tsm2r_q8" if q8 else "tsm2r",
-                     perf_model.tsm2r_grid(m, k, n, s), s)
+                     perf_model.tsm2r_grid(m, k, n, s, torch.int8 if q8
+                                           else a.dtype, a.data_ptr(),
+                                           b.data_ptr()), s)
     if q8:
         band = perf_model.Q8_BAND
         a_q, a_s = quant.quantize_blocks(a, band)

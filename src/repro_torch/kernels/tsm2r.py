@@ -1,15 +1,24 @@
 """TSM2R wrapper: C[m,n] = A[m,k] @ B[k,n] with m ~ k >> n.
 
 Replaces the TPU kernel ``src/repro/kernels/tsm2r.py::tsm2r_pallas`` with
-the CUDA kernel in ``csrc/tsm2r.cu``. On the H100 it is bound by the bytes
-of A at small n; at the chatglm3 width (n = 256) this first version, which
-runs its FMAs on the CUDA cores in f32, is bound by the f32 FMA rate. The
-kernel stages B and the next A tile through registers and shared memory
-(paper Algorithm 4) and spreads the n columns over threads and a column
-grid dimension, streaming A once per column tile; see the source's note.
+the CUDA kernel in ``csrc/tsm2r.cu``, which runs one of two bodies, chosen
+from the shape, dtype and alignment before the launch (``plan``; mirrored
+by ``core/perf_model.py::tsm2r_plan``):
+
+* "wgmma" (``csrc/tsm2r_wgmma.cuh``): bf16 with n > 16, k and n multiples
+  of 8 and 16-byte aligned operands, such as chatglm3's wk/wv projections
+  (n = 256). TMA loads swizzled tiles into a 4-stage shared-memory ring
+  and one warpgroup multiplies them on the tensor cores into f32
+  registers. Bound by the bytes of A plus B's re-reads from L2, one per
+  64-row tile.
+* "simt" (``csrc/common.cuh``): every other call (f32, such as
+  PowerSGD's P at n = 4; n <= 16; strides or bases TMA cannot take). It
+  stages B and the next A tile through registers and shared memory (paper
+  Algorithm 4) and runs its FMAs on the CUDA cores in f32: bound by the
+  bytes of A at n <= 16 and by the f32 FMA rate at wide n.
 
 ``tsm2r_split`` replaces ``tsm2r.py::tsm2r_pallas_split`` with
-``csrc/tsm2r_split.cu``: the same block body over one of S contiguous k
+``csrc/tsm2r_split.cu``: the simt block body over one of S contiguous k
 slices per grid z index, writing (S, m, n) f32 partials. It is bound by
 the bytes of A plus the partials' round trip, and pays off where the
 output tiles alone leave SMs idle (the paper's [16384^2]·[16384,16] has
@@ -18,7 +27,7 @@ output tiles alone leave SMs idle (the paper's [16384^2]·[16384,16] has
 ``tsm2r_q8`` replaces ``quant.py::tsm2r_q8_pallas`` with
 ``csrc/tsm2r_q8.cu`` and ``tsm2r_q8_split`` replaces
 ``quant.py::tsm2r_q8_pallas_split`` with ``csrc/tsm2r_q8_split.cu``: the
-same block body loading int8 A (per-band scales) and B (one scale),
+simt block body loading int8 A (per-band scales) and B (one scale),
 summing four products a ``__dp4a`` into exact int32 tile sums, folding
 sA[band of row] * sB into the stored tile. Bound by the bytes of A at 1
 byte an element.
@@ -32,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _build, _launch, ref
 
 launches = 0         # tsm2r kernel launches; chip_smoke.py resets and reads
 split_launches = 0   # tsm2r_split kernel launches, likewise
@@ -52,6 +61,15 @@ def tsm2r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _launch.launch("tsm2r", a.dtype, a, b, out, m, k, n)
     launches += 1
     return out
+
+
+def plan(a: torch.Tensor, b: torch.Tensor) -> tuple[str, tuple]:
+    """(body, grid) that ``tsm2r(a, b)`` launches for these CUDA operands,
+    as the kernel's library decides them (``tsm2r_plan``)."""
+    _launch.check("tsm2r", a, b, "mm")
+    (m, k), n = a.shape, b.shape[1]
+    return _build.plan(m, k, n, _launch._DTYPE_TAG[a.dtype], a.data_ptr(),
+                       b.data_ptr())
 
 
 def tsm2r_split(a: torch.Tensor, b: torch.Tensor, splits: int,

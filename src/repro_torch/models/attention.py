@@ -20,6 +20,29 @@ from repro_torch.models import layers
 _NEG = -1e30
 
 
+def _kv_step(qb, kb, vb, q0: int, k0: int, causal: bool, scale: float,
+             m_run, l_run, acc):
+    """One (q chunk x kv chunk) tile of the online softmax: the f32 q
+    chunk ``qb`` (B, qc, Hk, G, D) starting at position ``q0`` against the
+    k/v chunk ``kb``/``vb`` (B, kc, Hk, D) starting at ``k0``. Returns the
+    updated (m_run, l_run, acc) carries."""
+    dev = qb.device
+    qn, kn = qb.shape[1], kb.shape[1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb.float()) * scale
+    q_pos = torch.arange(q0, q0 + qn, device=dev)
+    kv_pos = torch.arange(k0, k0 + kn, device=dev)
+    mask = (kv_pos[None, :] <= q_pos[:, None]) if causal else \
+        torch.ones((qn, kn), dtype=torch.bool, device=dev)
+    s = torch.where(mask, s, _NEG)
+    m_new = torch.maximum(m_run, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None]) * mask
+    corr = torch.exp(m_run - m_new)
+    l_run = l_run * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p, vb.float())
+    return m_new, l_run, acc
+
+
 def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
                       kv_chunk: int = 1024,
                       softmax_scale: float | None = None):
@@ -29,7 +52,10 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     Exact online softmax over (q_chunk x kv_chunk) tiles, so the live score
     tile stays bounded at long prompts. Under ``causal``, tiles that lie
     wholly above the diagonal are skipped: their masked contribution is
-    exactly zero (the JAX package computes and zeroes them).
+    exactly zero (the JAX package computes and zeroes them). Under autograd
+    each kv tile step is checkpointed, as the JAX package's
+    ``jax.checkpoint(kv_step)``: the backward keeps only the (m, l, acc)
+    carries and recomputes the f32 score tiles.
     """
     b, sq, h, dk = q.shape
     skv, hk = k.shape[1], k.shape[2]
@@ -40,11 +66,11 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     qc, kc = min(q_chunk, sq), min(kv_chunk, skv)
     qg = q.reshape(b, sq, hk, g, dk)
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
+    grad = torch.is_grad_enabled()
 
     for q0 in range(0, sq, qc):
         q1 = min(q0 + qc, sq)
         qb = qg[:, q0:q1].float()
-        q_pos = torch.arange(q0, q1, device=dev)
         m_run = torch.full((b, hk, g, q1 - q0), _NEG, device=dev)
         l_run = torch.zeros((b, hk, g, q1 - q0), device=dev)
         acc = torch.zeros((b, hk, g, q1 - q0, dv), device=dev)
@@ -52,19 +78,10 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
             if causal and k0 > q1 - 1:
                 break
             k1 = min(k0 + kc, skv)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qb,
-                             k[:, k0:k1].float()) * scale
-            kv_pos = torch.arange(k0, k1, device=dev)
-            mask = (kv_pos[None, :] <= q_pos[:, None]) if causal else \
-                torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=dev)
-            s = torch.where(mask, s, _NEG)
-            m_new = torch.maximum(m_run, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None]) * mask
-            corr = torch.exp(m_run - m_new)
-            l_run = l_run * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, v[:, k0:k1].float())
-            m_run = m_new
+            args = (qb, k[:, k0:k1], v[:, k0:k1], q0, k0, causal, scale,
+                    m_run, l_run, acc)
+            m_run, l_run, acc = (layers.remat(_kv_step, *args) if grad
+                                 else _kv_step(*args))
         o = acc / torch.clamp(l_run, min=1e-30)[..., None]   # (b,hk,g,q,dv)
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
             b, q1 - q0, h, dv).to(q.dtype)

@@ -11,11 +11,27 @@ made without ``requires_grad`` (serving); the training state turns it on
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.core import tsmm
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint``): the backward keeps only ``args`` and recomputes
+    the rest. The recompute runs under the ``tsmm.policy`` of the forward,
+    because autograd may run it on its device thread, where the caller's
+    scope is not set; nothing inside draws random numbers, so no RNG state
+    is kept."""
+    pol = tsmm.current_policy()
+    return checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), tsmm.policy(pol)))
 
 
 def param(t: torch.Tensor) -> nn.Parameter:

@@ -72,11 +72,16 @@ def _logits(params: LM, cfg, x):
 def forward_hidden(params: LM, cfg, batch):
     """Backbone only: returns (hidden (B,S,d), metrics). The training path
     computes the head inside ``losses.chunked_lm_loss`` to bound the live
-    logits."""
+    logits. Under autograd with ``cfg.remat`` each layer is checkpointed
+    (the JAX package's per-layer remat, ``remat_group`` 1): the backward
+    keeps each layer's input and runs its forward again."""
     x = layers.embed(params.embed.table, batch["tokens"])
+    remat = cfg.remat and torch.is_grad_enabled()
     for seg in segments(cfg):
         for lp in params.layers:
-            x, _ = blocks.block_fwd(lp, x, cfg, seg.kind)
+            args = (lp, x, cfg, seg.kind)
+            x, _ = (layers.remat(blocks.block_fwd, *args) if remat
+                    else blocks.block_fwd(*args))
     return x, {}
 
 

@@ -1,0 +1,132 @@
+"""tsm2r's choice of body, on the CPU.
+
+The sequential tsm2r kernel runs one of two bodies, decided from the
+shape, the dtype and the operands' alignment before the launch: "wgmma"
+(TMA loads and tensor-core products, ``csrc/tsm2r_wgmma.cuh``) for bf16
+outputs wider than 16 whose k and n are multiples of 8 and whose bases
+are 16-byte aligned; "simt" (the CUDA-core body of ``csrc/common.cuh``)
+for everything else. The C query ``tsm2r_plan`` runs only on the card,
+where ``chip_smoke.py`` holds it against ``perf_model.tsm2r_plan``. Here:
+that mirror's bodies and grids case by case, what it does to the
+performance model and the dispatch record, and the plain version against
+the JAX package's tsm2r (Pallas in interpret mode) at shapes the wgmma
+body takes, at bf16's rtol = atol = 2e-2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.core import perf_model, tsmm
+from repro_torch.kernels import ops
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("shape,dtype,ptrs,body,grid", [
+    # bf16, n > 16, aligned: the wgmma body, 64 x 128 tiles.
+    ((8192, 4096, 256), BF16, (0, 0), "wgmma", (128, 2, 1)),   # serving
+    ((4096, 4096, 256), BF16, (0, 0), "wgmma", (64, 2, 1)),    # training
+    ((1000, 776, 200), BF16, (64, 1024), "wgmma", (16, 2, 1)),  # ragged
+    ((4096, 4096, 24), BF16, (0, 0), "wgmma", (64, 1, 1)),     # narrowest
+    # f32: simt, 64 x 64 tiles past n = 16.
+    ((8192, 4096, 256), F32, (0, 0), "simt", (128, 4, 1)),
+    ((65024, 4096, 4), F32, (0, 0), "simt", (508, 1, 1)),       # P
+    # n <= 16: simt, 128 x 16 tiles.
+    ((4096, 4096, 16), BF16, (0, 0), "simt", (32, 1, 1)),
+    ((16384, 16384, 16), BF16, (0, 0), "simt", (128, 1, 1)),
+    ((512, 512, 1), BF16, (0, 0), "simt", (4, 1, 1)),
+    # k or n not a multiple of 8: TMA's 16-byte strides fail.
+    ((1000, 777, 200), BF16, (0, 0), "simt", (16, 4, 1)),
+    ((4096, 4096, 20), BF16, (0, 0), "simt", (64, 1, 1)),
+    # a base address off the 16-byte grid.
+    ((1024, 1024, 256), BF16, (2, 0), "simt", (16, 4, 1)),
+    ((1024, 1024, 256), BF16, (0, 8), "simt", (16, 4, 1)),
+    # k = 0 has nothing to load.
+    ((64, 0, 256), BF16, (0, 0), "simt", (1, 4, 1)),
+])
+def test_plan_body_and_grid(shape, dtype, ptrs, body, grid):
+    assert perf_model.tsm2r_plan(*shape, dtype, *ptrs) == (body, grid)
+
+
+def test_main_path_shapes_fill_the_card():
+    blocks = {shape: int(np.prod(perf_model.tsm2r_plan(*shape, BF16)[1]))
+              for shape in [(8192, 4096, 256), (4096, 4096, 256)]}
+    assert blocks == {(8192, 4096, 256): 256, (4096, 4096, 256): 128}
+    assert min(blocks.values()) >= perf_model.H100.n_sms * 0.95
+
+
+def test_misaligned_view_takes_the_simt_body():
+    flat = torch.zeros(64 * 64 + 1, dtype=BF16)
+    a, b = flat[1:].view(64, 64), torch.zeros((64, 32), dtype=BF16)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    assert perf_model.tsm2r_plan(64, 64, 32, BF16, a.data_ptr(),
+                                 b.data_ptr())[0] == "simt"
+    a = torch.zeros((64, 64), dtype=BF16)
+    assert perf_model.tsm2r_plan(64, 64, 32, BF16, a.data_ptr(),
+                                 b.data_ptr())[0] == "wgmma"
+
+
+def test_split_and_int8_launches_keep_the_simt_table():
+    # The split kernels and the int8 kernels run the simt body at any S.
+    assert perf_model.tsm2r_grid(8192, 4096, 256, 4, BF16) == (128, 4, 4)
+    assert perf_model.tsm2r_grid(8192, 4096, 256, 1, torch.int8) == (
+        128, 4, 1)
+    assert perf_model.tsm2r_grid(8192, 4096, 256) == (128, 4, 1)
+
+
+def test_model_prices_each_body_at_its_rate():
+    spec = perf_model.H100
+    m, k, n = 8192, 4096, 256
+    flops = 2.0 * m * k * n
+    wide = perf_model.tsm2r_model_time(m, k, n, spec, BF16)
+    simt = perf_model.tsm2r_model_time(m, k, n, spec, F32)
+    # f32 is at least its FMA floor; bf16's tensor-core body is priced by
+    # its bytes (A per column tile, B per row tile), below that floor.
+    assert simt >= flops / spec.peak_flops_f32
+    assert m * k * 2 / spec.hbm_bw <= wide < flops / spec.peak_flops_f32
+    gm, gn, _ = perf_model.tsm2r_grid(m, k, n, 1, BF16)
+    nbytes = 2 * (m * k * gn + k * n * gm + m * n)
+    assert wide == pytest.approx(nbytes / spec.hbm_bw + spec.launch_s)
+
+
+@pytest.mark.parametrize("shape,dtype,split", [
+    ((8192, 4096, 256), BF16, False),
+    ((4096, 4096, 256), BF16, False),
+    ((65024, 4096, 4), F32, False),
+    ((16384, 16384, 16), F32, True),
+    ((16384, 16384, 16), BF16, True),
+])
+def test_split_chooser_routes_as_before(shape, dtype, split):
+    """S > 1 is offered only at n <= 16 (SPLIT_MAX_WIDTH), where the body
+    is simt either way, so pricing the wgmma body moves no route."""
+    s = perf_model.choose_splits_tsm2r(*shape, perf_model.H100, dtype)
+    assert (s > 1) == split
+
+
+def test_dispatch_records_the_planned_grid():
+    a = torch.zeros((1024, 512), dtype=BF16)
+    b = torch.zeros((512, 32), dtype=BF16)
+    with tsmm.policy(split="never", max_skinny=32, min_tall=32,
+                     skinny_ratio=2), tsmm.record_dispatches() as log:
+        tsmm.tsmm(a, b)
+    (launch,) = log[0].launches
+    assert launch.kind == "tsm2r"
+    assert launch.grid == perf_model.tsm2r_plan(1024, 512, 32, BF16)[1] == (
+        16, 1, 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(200, 136, 24), (130, 64, 136)])
+def test_plain_version_matches_jax_at_wgmma_shapes(m, k, n):
+    assert perf_model.tsm2r_plan(m, k, n, BF16)[0] == "wgmma"
+    rng = np.random.default_rng(m + n)
+    x = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    y = rng.uniform(-1, 1, (k, n)).astype(np.float32)
+    got = ops.tsm2r(torch.from_numpy(x).to(BF16), torch.from_numpy(y).to(BF16))
+    want = jops.tsm2r(jnp.asarray(x).astype(jnp.bfloat16),
+                      jnp.asarray(y).astype(jnp.bfloat16), interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
