@@ -8,7 +8,8 @@ itself), imports neither JAX nor the JAX package, and exits non-zero,
 printing no result, when no CUDA card is present or any phase fails.
 
 1. Build: every kernel from ``src/repro_torch/kernels/csrc/`` (one nvcc per
-   source, all started together: eleven libraries); prints the build time,
+   source, all started together: twelve libraries, the eleven TPU
+   kernels' and the quantize pass's); prints the build time,
    the card's name and power limit, and the matmul precision flags (TF32
    and reduced precision bf16 reductions off, so the plain versions are
    exact f32 sums).
@@ -65,7 +66,24 @@ printing no result, when no CUDA card is present or any phase fails.
    f32 partials), at their main-path shapes, a ragged shape, and a deep
    case whose reduction (over 133,143 terms of one sign, codes near 127)
    would overflow one int32 sum; at the same tolerances, since the integer
-   sums are exact and only the folds round; bit-identical repeats. At the
+   sums are exact and only the folds round; bit-identical repeats. Every
+   tsm2r_q8 line carries ``body``, from the library's ``tsm2r_q8_plan``:
+   "wgmma" (its s8·s8→s32 tensor-core body, B quantized K-major as
+   ``ops.py`` does) at [8192,4096]·[4096,256], [4096,4096]·[4096,256],
+   the ragged (1000, 784, 200) and the deep (256, 270000, 32); "simt" at
+   n <= 16 and at (1000, 777, 17) (k % 16 != 0). The wgmma cases up to k
+   = 131,072 must equal the plain version bit for bit (one fold of an
+   exact integer sum), and the two wk/wv shapes must run under 0.10 and
+   0.06 ms on the device. An int8 layout probe (A of codes, B a column
+   selection, scales 1) must come out exact, and a row-major B must give
+   the K-major B's bits through one counted layout copy
+   (``tsm2r_q8_transpose`` lines, with the copy's device time). The
+   fused quantize pass (``quantize`` lines) must equal the plain code on
+   the card, codes and scales bit for bit, for A [8192,4096] bf16 in
+   256-row bands, PowerSGD's [65024,4096] f32 operand, a short last band,
+   an all-zero band, exact half-step ties, and B per tensor row-major and
+   K-major; each line with its device time, its bytes bound and the
+   two-pass floor. At the
    main-path shapes they are timed beside their plain version,
    ``torch._int_mm`` followed by the scale fold (``library_ms``; null where
    it refuses the shape or, for TSMT, where the scales vary along the
@@ -73,7 +91,8 @@ printing no result, when no CUDA card is present or any phase fails.
    caller's dtype (``library_dq_ms``). Then the whole ``tsmm``/``tsmm_t``
    op under ``quant="int8"`` is held against the f32 product (the JAX
    ``test_quant.py`` max-norm relative criterion: 5%, 6% for bf16) and
-   timed.
+   timed; at the serving shape beside the bf16 op, by events and on the
+   device.
 3. Dispatch (a path of its own: every launch count is set to 0 just
    before it and read just after): under ``split="never"`` the quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
@@ -88,8 +107,11 @@ printing no result, when no CUDA card is present or any phase fails.
    (32 row tiles) to S > 1 on tsmt_q8_split and tsm2r_q8_split, and the
    paper's TSM2R to what the int8 chooser picks. The Python mirror of the
    tile table (``core/perf_model.py``) must equal the C grid query of all
-   four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r
-   library's choice of body and grid.
+   four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r and
+   tsm2r_q8 libraries' choice of body and grid. Every int8 op quantizes
+   both operands through the fused pass: its count must be twice the int8
+   launches on every path (plus int8 PowerSGD's P and Q of each
+   compressed leaf on train-int8), and no path may need a layout copy.
 4. Serve (the serving main path; counts zeroed before it, read after):
    chatglm3-6b at its published width and depth, bf16,
    random weights from a seeded generator; 4 prompts of 2048 tokens answered
@@ -114,7 +136,8 @@ printing no result, when no CUDA card is present or any phase fails.
    bit, a scheme arm: the same routing with every wk/wv product taken by
    the JAX int8 scheme written out in this script, apart from
    ``kernels/ops.py`` and ``kernels/quant.py`` (A in zero-padded 256-row
-   bands, B per tensor, absmax / 127, round half to even, clip), times the
+   bands, B per tensor, absmax / 127 by IEEE division, round half to
+   even, clip), times the
    plain version's exact integer product. So ``ops.py`` applies the scheme
    and tsm2r_q8 equals its plain version at every prefill launch. The
    logits must also match a ``mode="dense"`` arm on the same records
@@ -159,8 +182,9 @@ printing no result, when no CUDA card is present or any phase fails.
    on each of the five paths (dispatch, serve, train, serve-int8,
    train-int8) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
-   S for tsmt and tsmt_q8; ``body`` for tsm2r); tsm2r and tsm2r_q8 add
-   their numbers at the training shapes.
+   S for tsmt and tsmt_q8; ``body`` for tsm2r and tsm2r_q8); tsm2r and
+   tsm2r_q8 add their numbers at the training shapes. A twelfth entry,
+   ``"tpu_kernel": false``, is the quantize pass at the serving shape.
 10. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -198,11 +222,24 @@ TSM2R_MAX_MS = {(8192, 4096, 256): 0.26, (4096, 4096, 256): 0.128}
 # n <= 16, k % 8 != 0, a misaligned base) takes the simt body.
 TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
                (4096, 4096, 24)}
+# Device time tsm2r_q8's int8 wgmma body must stay under at chatglm3's
+# wk/wv shapes: loose gates that the __dp4a body (0.428 and 0.219 ms on an
+# H100 80GB HBM3 at 700 W) cannot pass.
+TSM2R_Q8_MAX_MS = {(8192, 4096, 256): 0.10, (4096, 4096, 256): 0.06}
+# tsm2r_q8 cases that take the wgmma body (n > 16, k % 16 == 0); the others
+# (n <= 16, k % 16 != 0) take the simt body.
+TSM2R_Q8_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 784, 200),
+                  (256, 270000, 32)}
+# Deepest reduction whose s32 sum the wgmma body folds into f32 once, so
+# its result is bit-equal to the plain version (1,024 stages of 128 k).
+Q8_ONE_FOLD_K = 131072
 BATCH, PROMPT, NEW = 4, 2048, 16
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
 KERNEL_NAMES = ("tsm2r_q8_split", "tsmt_q8_split", "tsm2r_q8", "tsm2l_q8",
                 "tsmt_q8", "tsm2r_split", "tsmt_split", "tsm2r", "tsm2l",
                 "tsmt", "sum_partials")
+Q8_KERNELS = ("tsm2r_q8", "tsm2l_q8", "tsmt_q8", "tsm2r_q8_split",
+              "tsmt_q8_split")
 
 
 T0 = time.perf_counter()
@@ -267,6 +304,12 @@ def category(name: str) -> str:
         return "tsm2l_q8"
     if "tsm2r_wgmma_kernel" in name:         # tsm2r's tensor-core body
         return "tsm2r"
+    if "tsm2r_q8_wgmma_kernel" in name:      # tsm2r_q8's tensor-core body
+        return "tsm2r_q8"
+    if "tsm2r_q8_transpose_kernel" in name:  # tsm2r_q8's layout change of B
+        return "tsm2r_q8_transpose"
+    if "quantize_" in name and "_kernel" in name:   # the fused quantize pass
+        return "quantize"
     for kern in KERNEL_NAMES:
         if f"{kern}_kernel" in name:
             return kern
@@ -451,6 +494,22 @@ def tsmt_sweep(dev, uniform, gpu) -> None:
         torch.cuda.empty_cache()
 
 
+def probe_misses(got, a, sel) -> tuple[int, list]:
+    """How many cells of a layout probe's output ``got`` differ from A's
+    selected columns ``a[:, sel]``, and the first eight, each with the rows
+    of its wanted column and the columns of its wanted row that hold the
+    value it got: a swapped row or column shows there."""
+    want = a[:, sel].float()
+    got = got.float()
+    wrong = (got != want).nonzero().tolist()
+    return len(wrong), [
+        {"cell": [r, c], "got": float(got[r, c]),
+         "rows_holding_it": (want[:, c] == got[r, c]).nonzero().flatten()[
+             :4].tolist(),
+         "cols_holding_it": (want[r] == got[r, c]).nonzero().flatten()[
+             :4].tolist()} for r, c in wrong[:8]]
+
+
 def tsm2r_probes(dev, uniform, gpu) -> None:
     """Two tsm2r cases beside the shape sweep, bf16, each with a
     bit-identical repeat. A layout probe on the wgmma body: A of small
@@ -472,20 +531,14 @@ def tsm2r_probes(dev, uniform, gpu) -> None:
     b[sel, torch.arange(n, device=dev)] = 1
     got, again = k_tsm2r.tsm2r(a, b), k_tsm2r.tsm2r(a, b)
     torch.cuda.synchronize()
-    want = a[:, sel]
-    wrong = (got != want).nonzero().tolist()
-    swapped = [{"cell": [r, c], "got": float(got[r, c]),
-                "rows_holding_it": (a[:, sel[c]] == got[r, c]).nonzero()
-                .flatten()[:4].tolist(),
-                "cols_holding_it": (want[r] == got[r, c]).nonzero()
-                .flatten()[:4].tolist()} for r, c in wrong[:8]]
+    wrong, swapped = probe_misses(got, a, sel)
     body = k_tsm2r.plan(a, b)[0]
     ok = body == "wgmma" and not wrong and torch.equal(got, again)
     emit({"phase": "kernel", "kernel": "tsm2r", "case": "layout_probe",
           "shape": [m, k, n], "dtype": "bfloat16", "body": body,
-          "wrong_cells": len(wrong), "first_wrong": swapped,
+          "wrong_cells": wrong, "first_wrong": swapped,
           "deterministic": torch.equal(got, again), "ok": ok, "gpu": gpu})
-    check(ok, f"tsm2r layout probe: body {body}, {len(wrong)} wrong cells "
+    check(ok, f"tsm2r layout probe: body {body}, {wrong} wrong cells "
           f"{swapped}")
 
     m, k, n = 1024, 1024, 256
@@ -507,6 +560,162 @@ def tsm2r_probes(dev, uniform, gpu) -> None:
           "deterministic": torch.equal(got, again), "ok": ok, "gpu": gpu})
     check(ok, f"tsm2r at a misaligned base: body {body}, "
           f"{float(err.max())}")
+
+
+def tsm2r_q8_probes(dev, uniform, gpu) -> None:
+    """tsm2r_q8 beside its case sweep. A layout probe on the wgmma body:
+    A of int8 codes in [-127, 127], B a column selection (column j picks k
+    row sel(j)) given K-major, both scales 1, so C[i, j] = A[i, sel(j)]
+    exactly; wrong cells are reported with the rows and columns whose
+    values they hold. Then B row-major at the ragged and the serving
+    shapes: the wrapper copies it K-major with its transpose kernel (one
+    count a call), and the result must equal the K-major call's bits; the
+    copy's device time beside its bytes bound."""
+    from repro_torch.kernels import quant
+    from repro_torch.kernels import tsm2r as k_tsm2r
+
+    m, k, n = 1000, 1024, 256
+    rows = torch.arange(m, device=dev)[:, None]
+    a = ((rows * 13 + torch.arange(k, device=dev) * 5) % 255 - 127).to(
+        torch.int8)
+    sel = (torch.arange(n, device=dev) * 7 + 3) % k
+    bt = torch.zeros((n, k), dtype=torch.int8, device=dev)
+    bt[torch.arange(n, device=dev), sel] = 1
+    b = bt.t()                                  # K-major [k, n]
+    ones = torch.ones(-(-m // 256), device=dev)
+    got = k_tsm2r.tsm2r_q8(a, b, ones, ones[:1], 256, torch.float32)
+    again = k_tsm2r.tsm2r_q8(a, b, ones, ones[:1], 256, torch.float32)
+    torch.cuda.synchronize()
+    wrong, swapped = probe_misses(got, a, sel)
+    body = k_tsm2r.q8_plan(a, b)[0]
+    ok = body == "wgmma" and not wrong and torch.equal(got, again)
+    emit({"phase": "kernel", "kernel": "tsm2r_q8", "case": "layout_probe",
+          "shape": [m, k, n], "dtype": "float32", "body": body,
+          "wrong_cells": wrong, "first_wrong": swapped,
+          "deterministic": torch.equal(got, again), "ok": ok, "gpu": gpu})
+    check(ok, f"tsm2r_q8 layout probe: body {body}, {wrong} wrong cells "
+          f"{swapped}")
+
+    band = 256
+    for m, k, n in [(1000, 784, 200), (8192, 4096, 256)]:
+        xq, xs = quant.quantize_blocks(uniform((m, k), torch.float32), band)
+        y = uniform((k, n), torch.float32)
+        yk, ys = quant.quantize_tensor(y, kmajor=True)
+        yr, _ = quant.quantize_tensor(y)
+        before = k_tsm2r.q8_transpose_launches
+        got_r = k_tsm2r.tsm2r_q8(xq, yr, xs, ys, band, torch.bfloat16)
+        copies = k_tsm2r.q8_transpose_launches - before
+        got_k = k_tsm2r.tsm2r_q8(xq, yk, xs, ys, band, torch.bfloat16)
+        torch.cuda.synchronize()
+        back = k_tsm2r.q8_transpose(yk)
+        torch.cuda.synchronize()
+        ok = (copies == 1 and same_bits(got_r, got_k)
+              and back.is_contiguous() and torch.equal(back, yr))
+        emit({"phase": "kernel", "kernel": "tsm2r_q8_transpose",
+              "shape": [k, n], "for_tsm2r_q8": [m, k, n],
+              "body": k_tsm2r.q8_plan(xq, yr)[0], "copies_per_call": copies,
+              "bits_row_major_vs_kmajor_b": same_bits(got_r, got_k),
+              "device_ms": device_ms(lambda: k_tsm2r.q8_transpose(yr),
+                                     "tsm2r_q8_transpose"),
+              "kernel_ms": time_ms(lambda: k_tsm2r.q8_transpose(yr)),
+              "library_ms": time_ms(lambda: yr.t().contiguous()),
+              "bound_ms": 2 * k * n / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "ok": ok, "gpu": gpu})
+        check(ok, f"tsm2r_q8 with a row-major B at {m, k, n}: {copies} "
+              f"copies, bits {same_bits(got_r, got_k)}")
+        del xq, xs, y, yk, yr, got_r, got_k, back
+
+
+# The fused quantize pass's cases: (label, shape, dtype, band or None for
+# one scale, K-major codes); the first is the serving path's activations.
+QUANT_CASES = [
+    ("serve-int8 A", (8192, 4096), torch.bfloat16, 256, False),
+    ("PowerSGD P operand", (65024, 4096), torch.float32, 256, False),
+    ("short last band", (1000, 300), torch.float32, 256, False),
+    ("all-zero band", (1024, 64), torch.bfloat16, 256, False),
+    ("half-step ties", (512, 8), torch.float32, 8, False),
+    ("B per tensor", (4096, 256), torch.bfloat16, None, False),
+    ("B per tensor, K-major", (4096, 256), torch.bfloat16, None, True),
+]
+
+
+def quantize_phase(dev, uniform, gpu) -> dict:
+    """The fused quantize pass (``csrc/quantize.cu``, behind
+    ``quant.quantize_blocks`` / ``quantize_tensor`` for CUDA tensors)
+    against the plain code on the same tensor on the card: codes and
+    scales bit for bit, K-major codes in their layout. Each line carries
+    the pass's device time (both launches and the memset, summed) beside
+    its bytes bound (the operand read once, codes and scales written once)
+    and the two-pass design's floor (the operand read twice). Returns the
+    serving case's record."""
+    from repro_torch.kernels import quant
+
+    # Why the plain code divides by a tensor: PyTorch's CUDA division by a
+    # Python number multiplies by the rounded reciprocal, which is not
+    # the IEEE quotient that JAX (and the CPU) computes.
+    a = uniform((1 << 20,), torch.float32).abs() * 50
+    emit({"phase": "kernel", "kernel": "quantize",
+          "case": "division by a Python number on the card",
+          "values": a.numel(), "differ_from_ieee": int(
+              (a / 127.0 != a / torch.full_like(a, 127.0)).sum())})
+    del a
+    measured, bad = None, []
+    for label, shape, dtype, band, kmajor in QUANT_CASES:
+        x = uniform(shape, dtype)
+        if label == "all-zero band":
+            x[256:512] = 0
+        if label == "half-step ties":
+            # absmax 127 in every 8-row band (scale 1): x / scale lands
+            # on exact half steps, which round to even.
+            x = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                              126.5], device=dev).repeat(shape[0] // 8)
+            x = x[:, None].expand(shape).contiguous().to(dtype)
+        if band is None:
+            def fused():
+                return quant.quantize_tensor(x, kmajor=kmajor)
+
+            def plain():
+                return quant.quantize_tensor_ref(x, kmajor=kmajor)
+        else:
+            def fused():
+                return quant.quantize_blocks(x, band)
+
+            def plain():
+                return quant.quantize_blocks_ref(x, band)
+        before = quant.launches
+        (q, s), (q2, s2) = fused(), fused()
+        launched = quant.launches - before
+        qr, sr = plain()
+        torch.cuda.synchronize()
+        same = (torch.equal(q, qr) and torch.equal(s, sr)
+                and q.stride() == qr.stride())
+        ok = same and launched == 2 and torch.equal(q, q2)
+        n_bytes = x.numel() * (x.element_size() + 1) + s.numel() * 4
+        rec = {"phase": "kernel", "kernel": "quantize", "case": label,
+               "shape": list(shape), "dtype": str(dtype)[6:], "band": band,
+               "kmajor": kmajor, "bands": s.numel(),
+               "codes_equal": torch.equal(q, qr),
+               "scales_equal": torch.equal(s, sr),
+               "code_strides": list(q.stride()),
+               "max_err": float((q.float() - qr.float()).abs().max()),
+               "device_ms": call_device_ms(fused),
+               "kernel_ms": time_ms(fused), "plain_ms": time_ms(plain),
+               "plain_device_ms": call_device_ms(plain),
+               "library_ms": None, "library_device_ms": None,
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "two_pass_bound_ms": (n_bytes + x.numel() * x.element_size())
+               / HBM_BYTES_PER_S * 1e3,
+               "deterministic": torch.equal(q, q2), "ok": ok, "gpu": gpu}
+        emit(rec)
+        if measured is None:
+            measured = rec
+        if not ok:
+            bad.append(label)
+        del x, q, s, q2, s2, qr, sr
+        torch.cuda.empty_cache()
+    check(not bad, f"quantize pass differs from the plain code in {bad}")
+    return measured
 
 
 def split_kernel_phase(dev, uniform, gpu) -> dict:
@@ -651,7 +860,9 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
         "tsm2r_q8": [(8192, 4096, 256, 1, False, "main"),
                      (4096, 4096, 256, 1, False, "train"),
                      (65024, 4096, 4, 1, False, "train"),
+                     (1000, 784, 200, 1, False, None),
                      (1000, 777, 17, 1, False, None),
+                     (256, 270000, 32, 1, True, None),
                      (512, 300000, 4, 1, True, None)],
         "tsm2r_q8_split": [(4096, 65536, 16, 4, False, "main"),
                            (16384, 16384, 16, 2, False, None),
@@ -678,8 +889,12 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
             if deep:
                 x, y = x.abs() * 0.5 + 0.5, y.abs() * 0.5 + 0.5
             xq, xs = quant.quantize_blocks(x, band)
-            yq, ys = (quant.quantize_tensor(y) if entry == "mm"
-                      else quant.quantize_blocks(y, band))
+            # tsm2r_q8's B K-major where its wgmma body runs, as ops.py
+            # quantizes it.
+            kmajor = (name == "tsm2r_q8" and perf_model.tsm2r_body(
+                d1, d2, torch.int8) == "wgmma")
+            yq, ys = (quant.quantize_tensor(y, kmajor=kmajor)
+                      if entry == "mm" else quant.quantize_blocks(y, band))
             q = (xq, yq, xs, ys)
             depth = d1 if entry == "mm" else m
             if split:
@@ -704,6 +919,16 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                 if name == "tsmt_q8":
                     rec.update(tsmt_plan_check(xq, yq, got, dtype, (xs, ys)))
                     rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
+                if name == "tsm2r_q8":
+                    # The wgmma body folds its exact s32 sums into f32 once
+                    # up to Q8_ONE_FOLD_K: the plain version's bits there.
+                    rec["body"], rec["grid"] = k_tsm2r.q8_plan(xq, yq)
+                    wgmma = (m, d1, d2) in TSM2R_Q8_WGMMA
+                    rec["bits_vs_plain"] = same_bits(got, want)
+                    ok = ok and rec["body"] == ("wgmma" if wgmma else "simt")
+                    if wgmma and d1 <= Q8_ONE_FOLD_K:
+                        ok = ok and rec["bits_vs_plain"]
+                    rec["ok"] = ok
                 if not ok:
                     bad.append(f"{name} {m}x{d1}x{d2} S={S} {dtype}")
                 # wk/wv run in bf16, PowerSGD's P (n = 4) in f32.
@@ -727,6 +952,15 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
             del x, y, xq, yq, xs, ys, q
             torch.cuda.empty_cache()
     check(not bad, f"int8 kernel phase mismatch in {bad}")
+    # tsm2r_q8's wide shapes run on the tensor cores, under gates the
+    # __dp4a body cannot pass.
+    for rec in [measured["tsm2r_q8"], *at_train["tsm2r_q8"]]:
+        limit = TSM2R_Q8_MAX_MS.get(tuple(rec["shape"]))
+        if limit is not None:
+            check(rec["body"] == "wgmma" and rec["device_ms"] < limit,
+                  f"tsm2r_q8 at {rec['shape']}: body {rec['body']}, "
+                  f"{rec['device_ms']} ms on the device (limit {limit})")
+    tsm2r_q8_probes(dev, uniform, gpu)
 
     # The whole op under quant="int8" against the f32 product.
     for entry, (m, d1, d2), dtype, split in [
@@ -746,17 +980,26 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
         oracle = torch.matmul(xt.float(), y.float())
         rel = normalised_err(got, oracle)
         ok = got.dtype == dtype and rel <= Q8_REL_TOL[dtype]
-        with tsmm.policy(quant="int8", split=split):
-            op_ms = time_ms(lambda: op(x, y))
-        emit({"phase": "kernel", "op": "tsmm" if entry == "mm" else "tsmm_t",
-              "quant": "int8", "shape": [m, d1, d2], "dtype": str(dtype)[6:],
-              "split": split,
-              "launches": [(lm.kind, lm.splits) for e in log
-                           for lm in e.launches],
-              "op_ms": op_ms,
-              "library_ms": time_ms(lambda: torch.matmul(xt, y)),
-              "rel_err_vs_f32": rel, "tol": Q8_REL_TOL[dtype], "ok": ok,
-              "gpu": gpu})
+        def run(quant_mode="int8"):
+            with tsmm.policy(quant=quant_mode, split=split):
+                return op(x, y)
+
+        rec = {"phase": "kernel", "op": "tsmm" if entry == "mm" else "tsmm_t",
+               "quant": "int8", "shape": [m, d1, d2],
+               "dtype": str(dtype)[6:], "split": split,
+               "launches": [(lm.kind, lm.splits) for e in log
+                            for lm in e.launches],
+               "op_ms": time_ms(run),
+               "library_ms": time_ms(lambda: torch.matmul(xt, y)),
+               "rel_err_vs_f32": rel, "tol": Q8_REL_TOL[dtype], "ok": ok,
+               "gpu": gpu}
+        if (m, d1, d2) == (8192, 4096, 256):
+            # The serving shape: the int8 op (quantize passes and kernel)
+            # beside the bf16 op, by events and on the device.
+            rec.update(op_device_ms=call_device_ms(run),
+                       bf16_op_ms=time_ms(lambda: run("none")),
+                       bf16_op_device_ms=call_device_ms(lambda: run("none")))
+        emit(rec)
         check(ok, f"int8 {entry} op {m}x{d1}x{d2} {dtype}: {rel}")
         del x, y, xt, got, oracle
         torch.cuda.empty_cache()
@@ -1022,6 +1265,9 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
         want_step.update(tsmt_q8_split=2)
         want_step["tsm2r_q8"] = per_step_tsm2r - 2 * (p_splits > 1)
         want_step["tsm2r_q8_split"] = 2 * (p_splits > 1)
+        # Both operands of each int8 op, and int8 PowerSGD's P and Q of
+        # each compressed leaf, through the fused quantize pass.
+        want_step["quantize"] = 2 * (per_step_tsm2r + 2) + 2 * len(heads)
     zero_counts()
     step_ms, per_step, records = [], [], []
     for i in range(TRAIN_STEPS):
@@ -1118,7 +1364,10 @@ def scheme_q8(x, band: int):
     bands = -(-m // band)
     xf = torch.nn.functional.pad(x.float(), (0, 0, 0, bands * band - m))
     amax = xf.reshape(bands, -1).abs().amax(dim=1)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # JAX divides; PyTorch's CUDA division by a Python number multiplies by
+    # the rounded reciprocal instead, so divide by a tensor.
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
     codes = (xf / scale.repeat_interleave(band)[:, None]).round()
     return codes.clamp(-127.0, 127.0)[:m].to(torch.int8), scale[:, None]
 
@@ -1303,6 +1552,7 @@ def main() -> int:
     from repro_torch.core import tsmm
     from repro_torch.core import perf_model
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import quant as k_quant
     from repro_torch.kernels import reduce as k_reduce
     from repro_torch.kernels import tsm2l as k_tsm2l
     from repro_torch.kernels import tsm2r as k_tsm2r
@@ -1435,6 +1685,7 @@ def main() -> int:
     measured.update(split_kernel_phase(dev, uniform, gpu))
     q8_measured, q8_at_train = q8_kernel_phase(dev, uniform, gpu)
     measured.update(q8_measured)
+    measured["quantize"] = quantize_phase(dev, uniform, gpu)
     at_train.update(q8_at_train)
     # The one-launch TSMTs spread one output tile over the card, and do
     # so fast enough to beat one block per tile by far.
@@ -1456,7 +1707,11 @@ def main() -> int:
                 "tsm2l_q8": (k_tsm2l, "q8_launches"),
                 "tsmt_q8": (k_tsmt, "q8_launches"),
                 "tsm2r_q8_split": (k_tsm2r, "q8_split_launches"),
-                "tsmt_q8_split": (k_tsmt, "q8_split_launches")}
+                "tsmt_q8_split": (k_tsmt, "q8_split_launches"),
+                # not TPU kernels: the int8 ops' quantize pass, and
+                # tsm2r_q8's change of B's layout (no main path needs one)
+                "quantize": (k_quant, "launches"),
+                "tsm2r_q8_transpose": (k_tsm2r, "q8_transpose_launches")}
 
     def counts():
         return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
@@ -1465,8 +1720,14 @@ def main() -> int:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
 
-    def expect(**nonzero):
-        return {n: nonzero.get(n, 0) for n in counters}
+    def expect(fake_quants=0, **nonzero):
+        """Launch counts with ``nonzero`` kernels launched: every int8 op
+        quantizes both operands once through the fused pass, and each
+        int8 PowerSGD factor (``fake_quants``) once more."""
+        want = {n: nonzero.get(n, 0) for n in counters}
+        want["quantize"] = (2 * sum(want[n] for n in Q8_KERNELS)
+                            + fake_quants)
+        return want
 
     zero_counts()
     a, b = uniform((4096, 4096), torch.float32), uniform((4096, 8),
@@ -1562,6 +1823,18 @@ def main() -> int:
                       f"tsm2r plan mirror {m, k, n} {tag} {ptr_a, ptr_b}: C "
                       f"{c_plan} vs Python "
                       f"{perf_model.tsm2r_plan(m, k, n, dtype, ptr_a, ptr_b)}")
+    # tsm2r_q8's: widths either side of 16, k % 16, and bases of A and of
+    # the K-major B on the 16-byte grid or not.
+    for m, k, n in [(8192, 4096, 256), (4096, 4096, 256), (65024, 4096, 4),
+                    (1000, 784, 200), (1000, 776, 200), (1000, 777, 17),
+                    (256, 270000, 32), (4096, 4096, 17), (4096, 4096, 16),
+                    (512, 512, 1), (64, 0, 256)]:
+        for ptr_a, ptr_b in ((0, 0), (4, 0), (0, 8)):
+            c_plan = _build.plan(m, k, n, "int8", ptr_a, ptr_b)
+            py_plan = perf_model.tsm2r_plan(m, k, n, torch.int8, ptr_a, ptr_b)
+            mirror[f"tsm2r_q8_plan{[m, k, n]}@{ptr_a},{ptr_b}"] = c_plan
+            check(c_plan == py_plan, f"tsm2r_q8 plan mirror {m, k, n} "
+                  f"{ptr_a, ptr_b}: C {c_plan} vs Python {py_plan}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
     q8_launched = q8_dispatch(dev, uniform, counts, expect)
     dispatch_launches = counts()
@@ -1702,14 +1975,18 @@ def main() -> int:
     paths = {"dispatch": dispatch_launches, "serve": serve_launches,
              "train": train_launches, "serve_int8": serve8_launches,
              "train_int8": train8_launches}
+    # The quantize pass is not a TPU kernel: it replaces the jnp helpers
+    # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
+    replaces["quantize"] = "src/repro/kernels/quant.py:56"
     sources = {"sum_partials": "reduce"}
     line = []
-    for name in counters:
+    for name in [*KERNEL_NAMES, "quantize"]:
         rec = measured[name]
         check(dispatch_launches[name] > 0,
               f"{name} was not launched on the dispatch path")
         line.append({
             "name": name, "route": "cuda",
+            "tpu_kernel": name != "quantize",
             "source": "src/repro_torch/kernels/csrc/"
                       f"{sources.get(name, name)}.cu",
             "replaces": replaces[name],

@@ -7,18 +7,20 @@ Counterpart of the split half of ``src/repro/core/perf_model.py``
 against TensorCores; here blocks are counted against streaming
 multiprocessors, from the port's own tile tables (``csrc/common.cuh``,
 mirrored by ``tsm2r_tile``/``tsmt_tile`` below, and ``tsm2r_plan``'s
-choice of body). The sequential TSM2R runs bf16 outputs wider than 16 on
-the tensor cores (its "wgmma" body, priced at the bf16 rate); every
-other kernel, and TSM2R's "simt" body, runs its FMAs on the CUDA cores in
-f32, so the f32 rate bounds their arithmetic at either input dtype. Block
-sizes are fixed per tile shape inside the kernels, so the only parameter
-chosen here is the split factor S.
+choice of body). The sequential TSM2R runs bf16 and int8 outputs wider
+than 16 on the tensor cores (its "wgmma" bodies, priced at the bf16 and
+int8 tensor-core rates); every other kernel, and TSM2R's "simt" body,
+runs its FMAs on the CUDA cores in f32, so the f32 rate bounds their
+arithmetic at either input dtype. Block sizes are fixed per tile shape
+inside the kernels, so the only parameter chosen here is the split
+factor S.
 
 Under ``GemmPolicy(quant="int8")`` the choosers price int8 operands, as
 the JAX package resolves under the int8 effective dtype (``ops.py:303``):
-1 byte an element, and the int8 kernels' own instruction rate (TSM2R's
-``__dp4a``, TSMT's int32 multiply-add). The TSMT slice quantum is then
-the scale band ``Q8_BAND``, so no band straddles two slices.
+1 byte an element, and the rate of the int8 body that runs (TSM2R's
+``__dp4a`` or its int8 wgmma, TSMT's int32 multiply-add). The TSMT slice
+quantum is then the scale band ``Q8_BAND``, so no band straddles two
+slices.
 
 The classifier thresholds stay the JAX package's (``core/tsmm.py``);
 re-deriving them from H100 measurements is later work.
@@ -48,6 +50,7 @@ class GPUSpec:
     # an instruction (TSM2R, TSM2L), a plain multiply-add one (TSMT).
     peak_ops_dp4a: float = 134e12
     peak_ops_imad: float = 33.5e12
+    peak_ops_int8: float = 1979e12     # dense tensor cores, s8 x s8 -> s32
     launch_s: float = 4e-6              # one extra kernel launch
 
     def peak_flops(self, dtype) -> float:
@@ -90,23 +93,30 @@ TSMT_BLOCK_M = 8
 Q8_BAND = 256
 
 
-# The sequential TSM2R's tensor-core body (``csrc/tsm2r_wgmma.cuh``):
-# its output tile, and the widest output that stays on the CUDA cores.
+# The sequential TSM2R's tensor-core bodies (``csrc/tsm2r_wgmma.cuh`` for
+# bf16, ``csrc/tsm2r_q8_wgmma.cuh`` for int8): their one output tile, and
+# the widest output that stays on the CUDA cores.
 TSM2R_WGMMA_TILE = (64, 128)
 WGMMA_MIN_WIDTH = 16
 
 
 def tsm2r_body(k: int, n: int, dtype, ptr_a: int = 0, ptr_b: int = 0,
                splits: int = 1) -> str:
-    """The body a TSM2R launch runs (``wgmma::fits``): "wgmma" for the
-    sequential kernel (S = 1) on bf16 operands with n > 16, k and n
-    multiples of 8 (TMA's 16-byte strides, k > 0) and 16-byte aligned
-    base addresses ``ptr_a``/``ptr_b``; else "simt", as for every split
-    and int8 launch."""
-    wide = (splits == 1 and dtype == torch.bfloat16
-            and n > WGMMA_MIN_WIDTH and k > 0 and k % 8 == 0 and n % 8 == 0
-            and ptr_a % 16 == 0 and ptr_b % 16 == 0)
-    return "wgmma" if wide else "simt"
+    """The body a TSM2R launch runs: "wgmma" for the sequential kernel
+    (S = 1) with n > 16, k > 0 and 16-byte aligned base addresses
+    ``ptr_a``/``ptr_b``, where TMA's 16-byte global strides hold: for bf16
+    (``wgmma::fits``) k and n multiples of 8; for int8 (tsm2r_q8,
+    ``wgmma_s8::fits``, whose B is read K-major, so ``ptr_b`` is the
+    K-major B's address and n needs no multiple) k a multiple of 16. Else
+    "simt", as for every split launch and f32."""
+    if (splits != 1 or n <= WGMMA_MIN_WIDTH or k <= 0 or ptr_a % 16
+            or ptr_b % 16):
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
+    if dtype == torch.int8:
+        return "wgmma" if k % 16 == 0 else "simt"
+    return "simt"
 
 
 def tsm2r_tile(n: int, body: str = "simt") -> tuple[int, int]:
@@ -136,8 +146,9 @@ def tsm2r_grid(m: int, k: int, n: int, splits: int = 1,
 
 def tsm2r_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
                ptr_b: int = 0) -> tuple[str, tuple]:
-    """(body, grid) of the sequential TSM2R: the mirror of the C query
-    ``tsm2r_plan`` (``kernels/_build.plan``)."""
+    """(body, grid) of the sequential TSM2R: the mirror of the C queries
+    ``tsm2r_plan`` (f32, bf16) and ``tsm2r_q8_plan`` (int8)
+    (``kernels/_build.plan``)."""
     return (tsm2r_body(k, n, dtype, ptr_a, ptr_b),
             tsm2r_grid(m, k, n, 1, dtype, ptr_a, ptr_b))
 
@@ -220,12 +231,13 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     once per column tile, B once per row tile, the output and the
     partials' round trip, over the bandwidth of the busy SMs' share;
     multiply-adds on the same share at the rate of the body that runs
-    (``tsm2r_body``: the bf16 tensor-core rate for "wgmma", the f32 rate
-    for "simt", ``__dp4a`` at int8); one launch per kernel."""
+    (``tsm2r_body``: for "wgmma" the bf16 or int8 tensor-core rate, for
+    "simt" the f32 rate, ``__dp4a``'s at int8); one launch per kernel."""
     b = torch.empty((), dtype=dtype).element_size()
+    wide = tsm2r_body(k, n, dtype, splits=splits) == "wgmma"
     if dtype == torch.int8:
-        rate = spec.peak_ops_dp4a
-    elif tsm2r_body(k, n, dtype, splits=splits) == "wgmma":
+        rate = spec.peak_ops_int8 if wide else spec.peak_ops_dp4a
+    elif wide:
         rate = spec.peak_flops_bf16
     else:
         rate = spec.peak_flops_f32
@@ -273,7 +285,9 @@ SPLIT_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128)
 # tile runs each row about 3.8x slower than the sequential kernel (its
 # build issues the loads of a row one after another), so a split of a wide
 # output pays only past S ~ 4, and the split TSM2R's 64 x 64 tile ran no
-# faster at S = 4; wider outputs stay sequential until that is fixed.
+# faster at S = 4; wider outputs stay sequential until that is fixed. So
+# both wgmma bodies (n > 16) always run at S = 1: pricing them moves no
+# route.
 SPLIT_MAX_WIDTH = 16
 _TIE_EPS = 1e-12
 

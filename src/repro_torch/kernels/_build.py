@@ -29,13 +29,20 @@ rows per block for ``reduce``. The int8 kernels (``*_q8*``) take two int8
 inputs, their two f32 scale sidecars, the output, the three dims and the
 band length of the tall operand's scales (the split ones and tsmt_q8
 then ``splits`` and the slice length; tsmt_q8 then the workspace
-pointer). ``tag`` is "f32"
-or "bf16": the input dtype of the f32/bf16 kernels, the output dtype of
-the int8 ones (``TAGS``: the int8 split kernels write f32 partials only).
+pointer; tsm2r_q8 then whether B is K-major, which its plan's body must
+match). ``quantize`` (not a TPU kernel: the int8 kernels' quantize pass)
+takes the operand, a u32 absmax workspace of one slot a band, the f32
+scales, the int8 codes, rows, cols, the band length and whether the codes
+go out K-major. ``tag`` is "f32" or "bf16": the input dtype of the
+f32/bf16 kernels and of ``quantize``, the output dtype of the int8 ones
+(``TAGS``: the int8 split kernels write f32 partials only).
 The split libraries also export ``<kernel>_grid(int, int, int, int, int*
-out)``, the launch grid their tile table gives (``grid``), and the tsm2r
+out)``, the launch grid their tile table gives (``grid``); the tsm2r
 library ``tsm2r_plan(m, k, n, dtype tag, A, B, int* out)``: the body
-(0 "simt", 1 "wgmma") and grid a call launches (``plan``).
+(0 "simt", 1 "wgmma") and grid a call launches (``plan``); the tsm2r_q8
+library ``tsm2r_q8_plan(m, k, n, A, B, int* out)`` likewise (``plan``
+with dtype tag "int8") and ``tsm2r_q8_transpose(src, dst, rows, cols,
+stream)``, an int8 [rows, cols] to [cols, rows] copy (``transpose_q8``).
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("tsm2r", "tsm2l", "tsmt", "tsm2r_split", "tsmt_split", "reduce",
            "tsm2r_q8", "tsm2l_q8", "tsmt_q8", "tsm2r_q8_split",
-           "tsmt_q8_split")
+           "tsmt_q8_split", "quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -65,8 +72,10 @@ _SLICES_Q8 = [*_SPLIT_Q8[:-1], _P, _P]
 SIGNATURES = {"tsm2r": _SEQ, "tsm2l": _SEQ, "tsmt": _SLICES,
               "tsm2r_split": _SPLIT, "tsmt_split": _SPLIT,
               "reduce": [_P, _P, _I, _I, _I, _I, _P],
-              "tsm2r_q8": _SEQ_Q8, "tsm2l_q8": _SEQ_Q8, "tsmt_q8": _SLICES_Q8,
-              "tsm2r_q8_split": _SPLIT_Q8, "tsmt_q8_split": _SPLIT_Q8}
+              "tsm2r_q8": [*_SEQ_Q8[:-1], _I, _P], "tsm2l_q8": _SEQ_Q8,
+              "tsmt_q8": _SLICES_Q8, "tsm2r_q8_split": _SPLIT_Q8,
+              "tsmt_q8_split": _SPLIT_Q8,
+              "quantize": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
 TAGS = {name: ("f32",) if name.endswith("q8_split") else ("f32", "bf16")
         for name in KERNELS}
 _GRID_QUERIES = ("tsm2r_split", "tsmt_split", "tsm2r_q8_split",
@@ -163,6 +172,12 @@ def library(name: str) -> ctypes.CDLL:
                 lib.tsm2r_plan.argtypes = [_I, _I, _I, _I, _P, _P,
                                            ctypes.POINTER(_I)]
                 lib.tsm2r_plan.restype = ctypes.c_int
+            if name == "tsm2r_q8":
+                lib.tsm2r_q8_plan.argtypes = [_I, _I, _I, _P, _P,
+                                              ctypes.POINTER(_I)]
+                lib.tsm2r_q8_plan.restype = ctypes.c_int
+                lib.tsm2r_q8_transpose.argtypes = [_P, _P, _I, _I, _P]
+                lib.tsm2r_q8_transpose.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -179,13 +194,26 @@ PLAN_BODIES = ("simt", "wgmma")
 def plan(m: int, k: int, n: int, dtype_tag: str, ptr_a: int,
          ptr_b: int) -> tuple:
     """(body, grid) of a sequential tsm2r call on operands at ``ptr_a`` and
-    ``ptr_b``, as its library decides them."""
+    ``ptr_b``, as its library decides them: the f32/bf16 kernel's for
+    ``dtype_tag`` "f32" or "bf16", tsm2r_q8's for "int8" (``ptr_b`` then
+    the K-major B's address)."""
     out = (ctypes.c_int * 4)()
-    err = library("tsm2r").tsm2r_plan(m, k, n, PLAN_TAGS[dtype_tag], ptr_a,
-                                      ptr_b, out)
+    if dtype_tag == "int8":
+        err = library("tsm2r_q8").tsm2r_q8_plan(m, k, n, ptr_a, ptr_b, out)
+    else:
+        err = library("tsm2r").tsm2r_plan(m, k, n, PLAN_TAGS[dtype_tag],
+                                          ptr_a, ptr_b, out)
     if err != 0:
-        raise RuntimeError(f"tsm2r_plan failed: {err}")
+        raise RuntimeError(f"tsm2r plan query failed: {err}")
     return PLAN_BODIES[out[0]], tuple(out[1:])
+
+
+def transpose_q8(src: int, dst: int, rows: int, cols: int,
+                 stream: int) -> int:
+    """Launch tsm2r_q8's int8 [rows, cols] -> [cols, rows] copy; returns
+    its cudaError_t."""
+    return library("tsm2r_q8").tsm2r_q8_transpose(src, dst, rows, cols,
+                                                  stream)
 
 
 def grid(name: str, m: int, d1: int, d2: int, splits: int) -> tuple:

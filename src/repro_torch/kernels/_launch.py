@@ -11,11 +11,12 @@ _INT_MAX = 2**31 - 1
 
 
 def check(name: str, x: torch.Tensor, y: torch.Tensor, contract: str, *,
-          int8: bool = False) -> None:
-    """Raise unless x, y are 2-D, contiguous, of one supported dtype (int8
-    for the int8 kernels, else float32 or bfloat16) and one device, with
-    matching contraction dims (``contract`` is "mm" for x[m,k] @ y[k,n],
-    "mmt" for x[m,a]^T @ y[m,b])."""
+          int8: bool = False, y_kmajor: bool = False) -> None:
+    """Raise unless x, y are 2-D, contiguous (``y_kmajor``: y's transpose
+    contiguous instead), of one supported dtype (int8 for the int8
+    kernels, else float32 or bfloat16) and one device, with matching
+    contraction dims (``contract`` is "mm" for x[m,k] @ y[k,n], "mmt" for
+    x[m,a]^T @ y[m,b])."""
     if x.dim() != 2 or y.dim() != 2:
         raise ValueError(f"{name} takes 2-D operands; got {tuple(x.shape)} "
                          f"and {tuple(y.shape)}")
@@ -32,10 +33,17 @@ def check(name: str, x: torch.Tensor, y: torch.Tensor, contract: str, *,
                         f"dtype; got {x.dtype} and {y.dtype}")
     if x.device != y.device:
         raise ValueError(f"{name} operands lie on {x.device} and {y.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError(f"{name} takes contiguous row-major operands")
+    if not (x.is_contiguous() and (y.t().is_contiguous() if y_kmajor
+                                   else y.is_contiguous())):
+        raise ValueError(f"{name} takes contiguous row-major operands"
+                         + (" (the second K-major)" if y_kmajor else ""))
     if max(*x.shape, *y.shape) > _INT_MAX:
         raise ValueError(f"{name} dims must fit a 32-bit int")
+
+
+def require_cuda(name: str, dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors; got {dev}")
 
 
 def launch(name: str, dtype: torch.dtype, *args) -> None:
@@ -45,8 +53,7 @@ def launch(name: str, dtype: torch.dtype, *args) -> None:
     of the first tensor's device, and raise on a non-zero cudaError_t.
     Every tensor lies on that one CUDA device."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    if dev.type != "cuda":
-        raise ValueError(f"{name} kernel needs CUDA tensors; got {dev}")
+    require_cuda(name, dev)
     fn = _build.launcher(name, _DTYPE_TAG[dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
@@ -58,11 +65,12 @@ def launch(name: str, dtype: torch.dtype, *args) -> None:
 
 
 def check_q8(name: str, x, y, x_scale, y_scale, x_bands: int,
-             y_bands: int, out_dtype) -> None:
+             y_bands: int, out_dtype, *, y_kmajor: bool = False) -> None:
     """``check`` for an int8 kernel, plus its f32 scale sidecars (``x_bands``
     and ``y_bands`` scales, one device with the operands) and its output
     dtype tag."""
-    check(name, x, y, "mm" if name.startswith("tsm2") else "mmt", int8=True)
+    check(name, x, y, "mm" if name.startswith("tsm2") else "mmt", int8=True,
+          y_kmajor=y_kmajor)
     for label, s, bands in (("x", x_scale, x_bands), ("y", y_scale, y_bands)):
         if s.dtype != torch.float32 or s.numel() != bands:
             raise ValueError(f"{name} takes {bands} f32 {label} scales; got "

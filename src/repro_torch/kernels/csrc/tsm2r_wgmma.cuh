@@ -294,18 +294,21 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A row-major bf16 [outer, inner] tensor in 64 x 64 boxes, 128-byte
-// swizzle, zeros out of bounds.
-inline bool encode(CUtensorMap* map, const void* ptr, int inner, int outer) {
+// A row-major [outer, inner] tensor of `type` (`bytes` an element) in
+// box_inner x box_outer boxes (box_inner * bytes = one 128-byte row),
+// 128-byte swizzle, zeros out of bounds. By default bf16 in 64 x 64 boxes.
+inline bool encode(CUtensorMap* map, const void* ptr, int inner, int outer,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   int bytes = 2, int box_inner = BOX, int box_outer = BOX) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {BOX, BOX};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -123,20 +123,22 @@ def _tsm2r_impl(a, b, policy):
     (m, k), n = a.shape, b.shape[1]
     p = _resolve("tsm2r", a, k, n, policy)
     s = p["splits"]
-    q8 = policy.quant == "int8"
-    tsmm.note_launch("tsm2r_q8" if q8 else "tsm2r",
-                     perf_model.tsm2r_grid(m, k, n, s, torch.int8 if q8
-                                           else a.dtype, a.data_ptr(),
-                                           b.data_ptr()), s)
-    if q8:
+    if policy.quant == "int8":
         band = perf_model.Q8_BAND
+        # The wgmma body reads B K-major: the quantize pass writes B's
+        # codes so where that body will run (fresh codes are aligned).
+        kmajor = perf_model.tsm2r_body(k, n, torch.int8, splits=s) == "wgmma"
         a_q, a_s = quant.quantize_blocks(a, band)
-        b_q, b_s = quant.quantize_tensor(b)
+        b_q, b_s = quant.quantize_tensor(b, kmajor=kmajor)
+        tsmm.note_launch("tsm2r_q8", perf_model.tsm2r_grid(
+            m, k, n, s, torch.int8, a_q.data_ptr(), b_q.data_ptr()), s)
         if s == 1:
             return _tsm2r.tsm2r_q8(a_q, b_q, a_s, b_s, band, a.dtype)
         parts = _tsm2r.tsm2r_q8_split(a_q, b_q, a_s, b_s, band, s,
                                       p["block_k"])
         return _epilogue(parts, a.dtype)
+    tsmm.note_launch("tsm2r", perf_model.tsm2r_grid(
+        m, k, n, s, a.dtype, a.data_ptr(), b.data_ptr()), s)
     if s == 1:
         return _tsm2r.tsm2r(a, b)
     parts = _tsm2r.tsm2r_split(a, b, s, p["block_k"])

@@ -3,19 +3,35 @@
 Counterpart of the helper half of ``src/repro/kernels/quant.py``
 (``quantize_blocks`` :56, ``dequantize_blocks`` :75, ``quantize_tensor``
 :85, ``fake_quant`` :96, the weight records :102-162). The JAX package
-computes these with ``jnp`` outside any Pallas kernel, so plain torch is
-their counterpart here; the five int8 kernels they feed live in
-``csrc/*_q8*.cu`` behind ``kernels/{tsm2r,tsm2l,tsmt}.py``.
+computes these with ``jnp`` outside any Pallas kernel; the five int8
+kernels they feed live in ``csrc/*_q8*.cu`` behind
+``kernels/{tsm2r,tsm2l,tsmt}.py``.
 
 The arithmetic is the JAX package's, step for step, so codes and scales
 are the same bits on both sides: upcast to f32, ``scale = absmax / 127``
 (an all-zero band gets scale 1, so it round-trips exactly), divide,
-round half to even, clip to +-127, cast to int8.
+round half to even, clip to +-127, cast to int8. Both divisions are IEEE
+divisions by a tensor: PyTorch's CUDA division by a Python number
+multiplies by its rounded reciprocal instead, which can move a scale by
+one bit.
+
+Two bodies, chosen by where the operand lies: a CPU tensor runs the plain
+torch code (``quantize_blocks_ref``, ``quantize_tensor_ref``: the plain
+versions the tests hold against JAX); a CUDA
+tensor (f32 or bf16) runs the fused pass ``csrc/quantize.cu`` (an absmax
+launch and a codes launch, bit-identical to the plain code, which
+``chip_smoke.py`` checks on the card) or raises. ``launches`` counts its
+calls.
 
 Bands: the tall operand gets one scale per ``block_rows``-row band. JAX
 pads the operand to whole bands with zeros, which change no absmax; here
 the last band may be short and holds only the real rows, so nothing is
 copied to pad.
+
+``quantize_tensor(x, kmajor=True)`` writes the codes of a 2-D [k, n] x
+K-major: a [k, n] tensor whose transpose is contiguous, the layout the
+int8 TSM2R's wgmma body reads B in (``kernels/tsm2r.py``). The values are
+the row-major codes'.
 
 Weight records: ``quantize_weights`` picks the leaves the JAX package's
 ``quantize_weights`` picks (every 2-D floating leaf of at least
@@ -36,8 +52,11 @@ import math
 import torch
 
 from repro_torch import layout
+from repro_torch.kernels import _launch
 
 QMAX = 127.0
+
+launches = 0   # fused quantize passes (csrc/quantize.cu); chip_smoke.py reads
 
 
 def _absmax(flat: torch.Tensor) -> torch.Tensor:
@@ -48,7 +67,8 @@ def _absmax(flat: torch.Tensor) -> torch.Tensor:
 
 
 def _scale(absmax: torch.Tensor) -> torch.Tensor:
-    return torch.where(absmax > 0.0, absmax / QMAX, torch.ones_like(absmax))
+    qmax = absmax.new_full((), QMAX)   # a tensor divisor: IEEE division
+    return torch.where(absmax > 0.0, absmax / qmax, torch.ones_like(absmax))
 
 
 def _codes(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -64,15 +84,53 @@ def _per_row(scale: torch.Tensor, band: int, x_shape) -> torch.Tensor:
     return rows.reshape((m,) + (1,) * (len(x_shape) - 1))
 
 
+def _fused(x: torch.Tensor, rows: int, band: int, kmajor: bool = False):
+    """The CUDA quantize pass over ``x`` as ``rows`` rows: (codes of
+    ``x.shape``, K-major with ``kmajor``; ceil(rows / band) f32 scales)."""
+    global launches
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA quantize pass takes float32 or bfloat16; "
+                        f"got {x.dtype}")
+    x = x.contiguous()
+    bands = -(-rows // band)
+    if kmajor:
+        q = torch.empty(tuple(reversed(x.shape)), dtype=torch.int8,
+                        device=x.device).t()
+    else:
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel() == 0:   # nothing to launch: every band is all-zero
+        return q, torch.ones(bands, device=x.device)
+    cols = x.numel() // rows
+    if max(rows, cols, band) > _launch._INT_MAX:
+        raise ValueError("the CUDA quantize pass takes rows, cols and band "
+                         "that fit a 32-bit int")
+    amax = torch.empty(bands, dtype=torch.int32, device=x.device)
+    scale = torch.empty(bands, dtype=torch.float32, device=x.device)
+    _launch.launch("quantize", x.dtype, x, amax, scale, q, rows, cols, band,
+                   int(kmajor))
+    launches += 1
+    return q, scale
+
+
 def quantize_blocks(x: torch.Tensor, block_rows: int):
     """Symmetric int8 quantization per ``block_rows``-row band.
 
     Returns ``(q, scale)``: ``q`` int8 of ``x.shape``, ``scale`` a
     ``(ceil(m / block_rows), 1)`` f32 sidecar; ``dequant = q *
     scale[band]``. The last band may be short."""
-    m = x.shape[0]
     if block_rows < 1:
         raise ValueError(f"block_rows must be positive; got {block_rows}")
+    m = x.shape[0]
+    if x.device.type == "cuda" and m:
+        q, scale = _fused(x, m, block_rows)
+        return q, scale[:, None]
+    return quantize_blocks_ref(x, block_rows)
+
+
+def quantize_blocks_ref(x: torch.Tensor, block_rows: int):
+    """``quantize_blocks``' plain torch body, on any device: what CPU
+    tensors run and what the CUDA pass is held against."""
+    m = x.shape[0]
     flat = x.reshape(m, -1)
     full = m // block_rows * block_rows
     parts = []
@@ -99,12 +157,27 @@ def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * _per_row(scale, band, q.shape)).to(dtype)
 
 
-def quantize_tensor(x: torch.Tensor):
-    """Per-tensor symmetric int8; the scale is a ``(1, 1)`` f32 tensor."""
+def quantize_tensor(x: torch.Tensor, *, kmajor: bool = False):
+    """Per-tensor symmetric int8; the scale is a ``(1, 1)`` f32 tensor.
+    ``kmajor`` (2-D ``x`` only): the codes come K-major, the same values
+    in the layout of a contiguous transpose."""
+    if kmajor and x.dim() != 2:
+        raise ValueError(f"K-major codes need a 2-D operand; got "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cuda":
+        rows = x.shape[0] if kmajor and x.shape[0] else 1   # one band
+        q, scale = _fused(x, rows, rows, kmajor)
+        return q, scale.reshape(1, 1)
+    return quantize_tensor_ref(x, kmajor=kmajor)
+
+
+def quantize_tensor_ref(x: torch.Tensor, *, kmajor: bool = False):
+    """``quantize_tensor``'s plain torch body, on any device."""
     absmax = (_absmax(x.reshape(1, -1)) if x.numel()
               else torch.zeros(1, device=x.device))
     scale = _scale(absmax)
-    return _codes(x, scale), scale.reshape(1, 1)
+    q = _codes(x, scale)
+    return (q.t().contiguous().t() if kmajor else q), scale.reshape(1, 1)
 
 
 def fake_quant(x: torch.Tensor) -> torch.Tensor:

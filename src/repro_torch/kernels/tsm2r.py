@@ -25,12 +25,27 @@ output tiles alone leave SMs idle (the paper's [16384^2]·[16384,16] has
 128 row tiles for 132 SMs); ``kernels/reduce.py`` sums the partials.
 
 ``tsm2r_q8`` replaces ``quant.py::tsm2r_q8_pallas`` with
-``csrc/tsm2r_q8.cu`` and ``tsm2r_q8_split`` replaces
-``quant.py::tsm2r_q8_pallas_split`` with ``csrc/tsm2r_q8_split.cu``: the
-simt block body loading int8 A (per-band scales) and B (one scale),
-summing four products a ``__dp4a`` into exact int32 tile sums, folding
-sA[band of row] * sB into the stored tile. Bound by the bytes of A at 1
-byte an element.
+``csrc/tsm2r_q8.cu``: int8 A (per-band scales) and B (one scale), exact
+integer sums, sA[band of row] * sB folded into the stored tile, bound by
+the bytes of A at 1 byte an element. Two bodies, chosen before the launch
+(``plan`` with dtype int8; mirrored by ``perf_model.tsm2r_plan``):
+
+* "wgmma" (``csrc/tsm2r_q8_wgmma.cuh``): n > 16, k a multiple of 16 and
+  16-byte aligned operands, such as chatglm3's wk/wv at int8. TMA feeds
+  the bf16 body's ring with 128-byte rows of A and of a K-major B, and
+  ``wgmma.m64n128k32.s32.s8.s8`` sums on the tensor cores, folded into
+  f32 every 131,072 k: bit-equal to the plain version up to that depth.
+  It reads B K-major, a [k, n] tensor whose transpose is contiguous, as
+  ``quant.quantize_tensor(b, kmajor=True)`` writes it; given a row-major
+  B, the wrapper makes the K-major copy with the library's transpose
+  kernel (``q8_transpose_launches``).
+* "simt" (``csrc/common.cuh``): every other call (n <= 16, such as
+  PowerSGD's P; k % 16 != 0; a misaligned base): four int8 products a
+  ``__dp4a`` into exact int32 tile sums, with a row-major B (a K-major
+  one is copied back the same way).
+
+``tsm2r_q8_split`` replaces ``quant.py::tsm2r_q8_pallas_split`` with
+``csrc/tsm2r_q8_split.cu``: the simt int8 body over one of S k slices.
 
 CPU tensors take the plain versions (``ref.tsm2r_ref``,
 ``ref.tsm2r_split_ref``, ``ref.tsm2r_q8_ref``, ``ref.tsm2r_q8_split_ref``);
@@ -47,6 +62,7 @@ launches = 0         # tsm2r kernel launches; chip_smoke.py resets and reads
 split_launches = 0   # tsm2r_split kernel launches, likewise
 q8_launches = 0      # tsm2r_q8 kernel launches, likewise
 q8_split_launches = 0   # tsm2r_q8_split kernel launches, likewise
+q8_transpose_launches = 0   # tsm2r_q8's changes of B's layout, likewise
 
 
 def tsm2r(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -90,22 +106,62 @@ def tsm2r_split(a: torch.Tensor, b: torch.Tensor, splits: int,
     return out
 
 
+def is_kmajor(b: torch.Tensor) -> bool:
+    """Whether [k, n] ``b`` is laid out K-major (its transpose contiguous,
+    itself not), the layout the int8 wgmma body reads."""
+    return b.dim() == 2 and not b.is_contiguous() and b.t().is_contiguous()
+
+
+def q8_plan(a: torch.Tensor, b: torch.Tensor) -> tuple[str, tuple]:
+    """(body, grid) that ``tsm2r_q8(a, b, ...)`` launches for these CUDA
+    operands, as the kernel's library decides them (``tsm2r_q8_plan``). A
+    row-major B is planned at the address of the K-major copy the wrapper
+    would make, which the allocator aligns (pointer 0 stands for it)."""
+    (m, k), n = a.shape, b.shape[1]
+    return _build.plan(m, k, n, "int8", a.data_ptr(),
+                       b.data_ptr() if is_kmajor(b) else 0)
+
+
+def q8_transpose(b: torch.Tensor) -> torch.Tensor:
+    """The same int8 [k, n] matrix in the other layout (row-major <->
+    K-major), copied by tsm2r_q8's transpose kernel."""
+    global q8_transpose_launches
+    src = b.t() if is_kmajor(b) else b           # contiguous [rows, cols]
+    rows, cols = src.shape
+    dst = torch.empty((cols, rows), dtype=torch.int8, device=b.device)
+    if dst.numel():
+        with torch.cuda.device(b.device):
+            err = _build.transpose_q8(
+                src.data_ptr(), dst.data_ptr(), rows, cols,
+                torch.cuda.current_stream(b.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"tsm2r_q8_transpose launch failed: "
+                               f"cudaError_t {err}")
+        q8_transpose_launches += 1
+    return dst if is_kmajor(b) else dst.t()
+
+
 def tsm2r_q8(a: torch.Tensor, b: torch.Tensor, a_scale: torch.Tensor,
              b_scale: torch.Tensor, band: int, out_dtype) -> torch.Tensor:
     """C[m,n] = int32(A8 @ B8) * sA[row // band] * sB in ``out_dtype``:
-    ``a``/``b`` int8, ``a_scale`` ceil(m / band) f32 band scales, ``b_scale``
-    one f32 scale."""
+    ``a``/``b`` int8, ``b`` row-major or K-major (``is_kmajor``),
+    ``a_scale`` ceil(m / band) f32 band scales, ``b_scale`` one f32
+    scale."""
     global q8_launches
     (m, k), n = a.shape, b.shape[1]
     _launch.check_q8("tsm2r_q8", a, b, a_scale, b_scale, -(-m // band), 1,
-                     out_dtype)
+                     out_dtype, y_kmajor=is_kmajor(b))
     if a.device.type == "cpu":
         return ref.tsm2r_q8_ref(a, b, a_scale, b_scale, band, out_dtype)
+    _launch.require_cuda("tsm2r_q8", a.device)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
+    wide = q8_plan(a, b)[0] == "wgmma"
+    if wide != is_kmajor(b):         # the layout the planned body reads
+        b = q8_transpose(b)
     _launch.launch("tsm2r_q8", out_dtype, a, b, a_scale, b_scale, out, m, k,
-                   n, band)
+                   n, band, int(wide))
     q8_launches += 1
     return out
 

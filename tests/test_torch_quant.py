@@ -155,6 +155,101 @@ def test_weight_records_roundtrip_match_jax():
     assert tuple(odd["q8_scale"].shape) == (1, 1)
 
 
+def _ties(name):
+    """Two 8-row bands whose codes land on exact half steps: band 0 has
+    absmax 127 (scale 1), band 1 absmax 254 (scale 2)."""
+    x = np.zeros((16, 4), np.float32)
+    x[:8] = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5] * 4
+                     ).reshape(4, 8).T
+    x[8:] = np.array([254.0, 1.0, 3.0, 5.0, -1.0, -3.0, -5.0, 253.0] * 4
+                     ).reshape(4, 8).T
+    tdt, jdt = DTYPES[name]
+    return torch.from_numpy(x).to(tdt), jnp.asarray(x).astype(jdt)
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_round_half_even_ties_match_jax_bits(name):
+    x, jx = _ties(name)
+    jq, js = jquant.quantize_blocks(jx, 8)
+    q, s = quant.quantize_blocks(x, 8)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert s.flatten().tolist() == [1.0, 2.0]
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    # half steps round to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2
+    assert q[1:4, 0].tolist() == [0, 2, 2] == q[9:12, 0].tolist()
+    assert q[4:7, 0].tolist() == [0, -2, -2] == q[12:15, 0].tolist()
+    jq, js = jquant.quantize_tensor(jx)
+    q, s = quant.quantize_tensor(x)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+def test_scales_are_ieee_divisions_by_127():
+    """scale = absmax / 127 correctly rounded in f32, as JAX divides (a
+    reciprocal multiply would move some scales by one bit)."""
+    x = _np(31, (4096, 3), 0.0, 50.0)
+    _, s = quant.quantize_blocks(torch.from_numpy(x), 1)
+    want = np.abs(x).max(axis=1) / np.float32(127.0)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(s.numpy()[:, 0], want)
+    recip = np.abs(x).max(axis=1) * (np.float32(1.0) / np.float32(127.0))
+    assert (recip != want).any()      # the two roundings do differ here
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(300, 40), (64, 17), (1, 5), (2, 300)])
+def test_kmajor_codes_are_the_row_major_codes_transposed(name, shape):
+    x, jx = _pair(len(shape) + shape[0], shape, name)
+    q, s = quant.quantize_tensor(x)
+    qk, sk = quant.quantize_tensor(x, kmajor=True)
+    assert qk.shape == x.shape and qk.dtype == torch.int8
+    assert qk.t().is_contiguous()
+    assert torch.equal(qk, q) and torch.equal(sk, s)
+    jq, js = jquant.quantize_tensor(jx)
+    np.testing.assert_array_equal(qk.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sk.numpy(), np.asarray(js))
+    with pytest.raises(ValueError):
+        quant.quantize_tensor(x.reshape(-1), kmajor=True)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+def test_tsm2r_q8_wrapper_same_bits_for_kmajor_and_row_major_b(out):
+    tdt, jdt = DTYPES[out]
+    j, (aq, bq, as_, bs) = _q8_operands(41, (320, 256), (256, 40), 64,
+                                        False)
+    bk = bq.t().contiguous().t()
+    assert k_tsm2r.is_kmajor(bk) and not k_tsm2r.is_kmajor(bq)
+    before = k_tsm2r.q8_launches
+    got_k = k_tsm2r.tsm2r_q8(aq, bk, as_, bs, 64, tdt)
+    got_r = k_tsm2r.tsm2r_q8(aq, bq, as_, bs, 64, tdt)
+    assert k_tsm2r.q8_launches == before        # the plain version ran
+    assert torch.equal(got_k, got_r)
+    want = jquant.tsm2r_q8_pallas(*j, out_dtype=jdt, block_m=64,
+                                  block_k=128, interpret=True)
+    _close(got_k, want.astype(jnp.float32))
+    # Only tsm2r_q8 reads a K-major B; the split kernel wants row-major.
+    with pytest.raises(ValueError):
+        k_tsm2r.tsm2r_q8_split(aq, bk, as_, bs, 64, 2, 32)
+
+
+def test_quantize_on_the_cpu_never_reaches_the_cuda_pass(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU call reached the CUDA build")
+
+    for fn in ("build", "library", "launcher", "nvcc"):
+        monkeypatch.setattr(_build, fn, refuse)
+    before = quant.launches
+    x = torch.from_numpy(_np(42, (300, 64)))
+    quant.quantize_blocks(x, 64)
+    quant.quantize_tensor(x, kmajor=True)
+    quant.fake_quant(x)
+    assert quant.launches == before
+    assert "quantize" in _build.KERNELS
+    assert (_build.CSRC / "quantize.cu").is_file()
+    assert len(_build.SIGNATURES["quantize"]) == 9
+    assert _build.TAGS["quantize"] == ("f32", "bf16")
+
+
 # ---------------------------------------------------------------------------
 # The five plain versions against the JAX int8 kernels
 # ---------------------------------------------------------------------------
@@ -268,9 +363,11 @@ def test_build_knows_the_five_int8_kernels():
     for name in q8:
         assert name in _build.KERNELS
         assert (_build.CSRC / f"{name}.cu").is_file()
-        # tsmt_q8 also takes its plan of m slices and their workspace.
+        # tsmt_q8 also takes its plan of m slices and their workspace,
+        # tsm2r_q8 whether its B is K-major (its wgmma body's layout).
         assert len(_build.SIGNATURES[name]) == {
-            "tsmt_q8": 13}.get(name, 12 if "split" in name else 10)
+            "tsmt_q8": 13, "tsm2r_q8": 11}.get(
+                name, 12 if "split" in name else 10)
     assert _build.TAGS["tsmt_q8_split"] == ("f32",)
     assert _build.TAGS["tsm2r_q8"] == ("f32", "bf16")
 

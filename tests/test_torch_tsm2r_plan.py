@@ -1,12 +1,15 @@
-"""tsm2r's choice of body, on the CPU.
+"""tsm2r's and tsm2r_q8's choice of body, on the CPU.
 
 The sequential tsm2r kernel runs one of two bodies, decided from the
 shape, the dtype and the operands' alignment before the launch: "wgmma"
 (TMA loads and tensor-core products, ``csrc/tsm2r_wgmma.cuh``) for bf16
 outputs wider than 16 whose k and n are multiples of 8 and whose bases
 are 16-byte aligned; "simt" (the CUDA-core body of ``csrc/common.cuh``)
-for everything else. The C query ``tsm2r_plan`` runs only on the card,
-where ``chip_smoke.py`` holds it against ``perf_model.tsm2r_plan``. Here:
+for everything else. tsm2r_q8 likewise (``csrc/tsm2r_q8_wgmma.cuh``): int8
+outputs wider than 16 whose k is a multiple of 16, with aligned bases of
+A and of the K-major B it reads. The C queries ``tsm2r_plan`` and
+``tsm2r_q8_plan`` run only on the card, where ``chip_smoke.py`` holds
+them against ``perf_model.tsm2r_plan``. Here:
 that mirror's bodies and grids case by case, what it does to the
 performance model and the dispatch record, and the plain version against
 the JAX package's tsm2r (Pallas in interpret mode) at shapes the wgmma
@@ -70,10 +73,13 @@ def test_misaligned_view_takes_the_simt_body():
 
 
 def test_split_and_int8_launches_keep_the_simt_table():
-    # The split kernels and the int8 kernels run the simt body at any S.
+    # The split kernels run the simt body at any S, int8 too; the
+    # sequential int8 kernel at n > 16 runs its wgmma body's 64 x 128 tiles.
     assert perf_model.tsm2r_grid(8192, 4096, 256, 4, BF16) == (128, 4, 4)
+    assert perf_model.tsm2r_grid(8192, 4096, 256, 4, torch.int8) == (
+        128, 4, 4)
     assert perf_model.tsm2r_grid(8192, 4096, 256, 1, torch.int8) == (
-        128, 4, 1)
+        128, 2, 1)
     assert perf_model.tsm2r_grid(8192, 4096, 256) == (128, 4, 1)
 
 
@@ -130,3 +136,105 @@ def test_plain_version_matches_jax_at_wgmma_shapes(m, k, n):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=2e-2,
                                atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# tsm2r_q8: the int8 wgmma body
+# ---------------------------------------------------------------------------
+
+I8 = torch.int8
+
+
+@pytest.mark.parametrize("shape,ptrs,body,grid", [
+    # n > 16, k % 16 == 0, aligned: the wgmma body, 64 x 128 tiles.
+    ((8192, 4096, 256), (0, 0), "wgmma", (128, 2, 1)),     # serve-int8
+    ((4096, 4096, 256), (0, 0), "wgmma", (64, 2, 1)),      # train-int8
+    ((1000, 784, 200), (64, 1024), "wgmma", (16, 2, 1)),   # ragged
+    ((256, 270000, 32), (0, 0), "wgmma", (4, 1, 1)),       # past one s32
+    ((4096, 4096, 17), (0, 0), "wgmma", (64, 1, 1)),       # any n > 16
+    # n <= 16: simt, 128 x 16 tiles.
+    ((65024, 4096, 4), (0, 0), "simt", (508, 1, 1)),       # PowerSGD's P
+    ((4096, 4096, 16), (0, 0), "simt", (32, 1, 1)),
+    # k % 16 != 0: TMA's 16-byte strides of int8 fail.
+    ((1000, 777, 17), (0, 0), "simt", (16, 1, 1)),
+    ((1000, 776, 200), (0, 0), "simt", (16, 4, 1)),
+    # a base address off the 16-byte grid, of A or of the K-major B.
+    ((1024, 1024, 256), (4, 0), "simt", (16, 4, 1)),
+    ((1024, 1024, 256), (0, 8), "simt", (16, 4, 1)),
+    ((64, 0, 256), (0, 0), "simt", (1, 4, 1)),
+])
+def test_int8_plan_body_and_grid(shape, ptrs, body, grid):
+    assert perf_model.tsm2r_plan(*shape, I8, *ptrs) == (body, grid)
+
+
+def test_int8_split_launches_run_simt():
+    for s in (2, 4, 8):
+        assert perf_model.tsm2r_body(4096, 256, I8, splits=s) == "simt"
+        assert perf_model.tsm2r_grid(4096, 4096, 256, s, I8) == (64, 4, s)
+
+
+def test_int8_misaligned_view_takes_the_simt_body():
+    flat = torch.zeros(64 * 64 + 4, dtype=I8)
+    a, bt = flat[4:].view(64, 64), torch.zeros((32, 64), dtype=I8)
+    b = bt.t()                                # K-major [k, n]
+    assert a.data_ptr() % 16 == 4 and b.data_ptr() % 16 == 0
+    assert perf_model.tsm2r_plan(64, 64, 32, I8, a.data_ptr(),
+                                 b.data_ptr())[0] == "simt"
+    assert perf_model.tsm2r_plan(64, 64, 32, I8, 0, b.data_ptr())[0] == (
+        "wgmma")
+    b_off = flat[4:4 + 64 * 32].view(32, 64).t()
+    assert perf_model.tsm2r_plan(64, 64, 32, I8, 0, b_off.data_ptr())[0] == (
+        "simt")
+
+
+def test_model_prices_int8_wgmma_at_the_int8_tensor_core_rate():
+    spec = perf_model.H100
+    assert spec.peak_ops_int8 == 1979e12
+    m, k, n = 8192, 4096, 256
+    ops_ = 2.0 * m * k * n
+    wide = perf_model.tsm2r_model_time(m, k, n, spec, I8)
+    gm, gn, _ = perf_model.tsm2r_grid(m, k, n, 1, I8)
+    assert (gm, gn) == (128, 2)
+    nbytes = m * k * gn + k * n * gm + m * n
+    t_comp = ops_ / spec.peak_ops_int8
+    assert wide == pytest.approx(max(nbytes / spec.hbm_bw, t_comp)
+                                 + spec.launch_s)
+    # The dp4a body (n <= 16, or k % 16 != 0) keeps its CUDA-core rate.
+    narrow = perf_model.tsm2r_model_time(m, 4096, 16, spec, I8)
+    assert narrow >= 2.0 * m * 4096 * 16 / spec.peak_ops_dp4a
+    odd = perf_model.tsm2r_model_time(m, 4104, 256, spec, I8)
+    assert odd >= 2.0 * m * 4104 * 256 / spec.peak_ops_dp4a > wide
+
+
+@pytest.mark.parametrize("shape,split", [
+    ((8192, 4096, 256), False),     # serve-int8 wk/wv
+    ((4096, 4096, 256), False),     # train-int8 wk/wv
+    ((65024, 4096, 4), False),      # train-int8 P
+    ((16384, 16384, 16), False),    # the paper's shape: S = 1 under int8
+    ((4096, 65536, 16), True),      # 32 row tiles: split
+])
+def test_int8_chooser_routes_as_before(shape, split):
+    """Pricing the int8 wgmma body moves no route: S > 1 is offered only at
+    n <= 16, where the int8 body is simt either way."""
+    s = perf_model.choose_splits_tsm2r(*shape, perf_model.H100, I8)
+    assert (s > 1) == split
+
+
+def test_int8_dispatch_records_the_wgmma_grid_and_a_kmajor_b(monkeypatch):
+    seen = []
+    real = ops._tsm2r.tsm2r_q8
+
+    def spy(a, b, *rest):
+        seen.append(b.stride())
+        return real(a, b, *rest)
+
+    monkeypatch.setattr(ops._tsm2r, "tsm2r_q8", spy)
+    a = torch.zeros((1024, 512), dtype=BF16)
+    b = torch.zeros((512, 32), dtype=BF16)
+    with tsmm.policy(split="never", quant="int8", max_skinny=32, min_tall=32,
+                     skinny_ratio=2), tsmm.record_dispatches() as log:
+        tsmm.tsmm(a, b)
+        tsmm.tsmm(a, b[:, :16])
+    assert log[0].launches[0].grid == (16, 1, 1)          # 64 x 128 tiles
+    assert log[1].launches[0].grid == (8, 1, 1)           # 128 x 16 simt
+    assert seen == [(1, 512), (16, 1)]       # K-major B, then row-major B
