@@ -37,7 +37,11 @@ printing no result, when no CUDA card is present or any phase fails.
    partials at the PowerSGD, paper and chatglm3 shapes with a pinned S
    (tsmt_split at b = 256 also at S = 1, against the sequential kernel on
    the same rows, and at S = 16, the chooser's pick before it was kept to
-   outputs at most 16 wide),
+   outputs at most 16 wide; tsm2r_split at the paper's shape also at S =
+   1 and 8, at (4096, 4000, 16) with S = 5, whose 800-deep slices start
+   in the middle of a 64-deep bf16 box, and at n = 1, 3, 4 and 8; every
+   tsm2r_split line with its ``body`` from the library's
+   ``tsm2r_split_plan``: "skinny" at n <= 16, "simt" at n = 256),
    and sum_partials against an f32 sum; their lines add ``op_ms`` (split
    kernel plus epilogue) and ``seq_ms`` (the sequential kernel on the same
    product); ``library_ms`` is one ``torch.matmul`` of the whole product
@@ -54,12 +58,20 @@ printing no result, when no CUDA card is present or any phase fails.
    carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
    tensor-core body) for bf16 at [8192,4096]·[4096,256],
    [4096,4096]·[4096,256], the ragged (1000, 776, 200) and the narrowest
-   wide output (4096, 4096, 24); "simt" for f32, n <= 16, k % 8 != 0
-   (1000, 777, 200) and a base address off the 16-byte grid (its own
-   line). The two wgmma main-path shapes must run under 0.26 and 0.128 ms
-   on the device, their f32 CUDA-core floors. A layout probe (A of small
-   integers, B a column selection, so the exact answer is known) must
-   come out exact on the wgmma body.
+   wide output (4096, 4096, 24); "skinny" (the streaming body) for f32
+   and bf16 at n <= 16 with k * size a multiple of 16 bytes (P, the
+   paper's shape, n = 1, 3 and 8); "simt" for f32 past n = 16, k % 8 != 0
+   ((1000, 777, 16), (1000, 777, 200)) and a base address off the 16-byte
+   grid (its own line). The two wgmma main-path shapes must run under
+   0.26 and 0.128 ms on the device, their f32 CUDA-core floors; P (f32)
+   and tsm2r_split f32 at the paper's shape with S = 2 on the skinny body
+   within 0.55 ms. A layout probe (A of small integers, B a column
+   selection, so the exact answer is known) must come out exact on the
+   wgmma body, and on the skinny body at n = 16 and 4, f32 and bf16,
+   through tsm2r and through tsm2r_split at S = 3. A sweep
+   (``skinny_sweep`` lines) times the skinny body's variants (rows a
+   thread, k-splitting groups, stages, producer warps) at tsm2r_split's
+   paper shape and at P, beside the bound and the library call.
    The five int8 kernels are held against their plain versions on the
    same int8 operands and scales (quantized on the card by
    ``kernels/quant.py``), with f32 and bf16 outputs (the split ones write
@@ -107,8 +119,9 @@ printing no result, when no CUDA card is present or any phase fails.
    (32 row tiles) to S > 1 on tsmt_q8_split and tsm2r_q8_split, and the
    paper's TSM2R to what the int8 chooser picks. The Python mirror of the
    tile table (``core/perf_model.py``) must equal the C grid query of all
-   four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r and
-   tsm2r_q8 libraries' choice of body and grid. Every int8 op quantizes
+   four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r,
+   tsm2r_split (at S = 2, 5, 8) and tsm2r_q8 libraries' choice of body and
+   grid. Every int8 op quantizes
    both operands through the fused pass: its count must be twice the int8
    launches on every path (plus int8 PowerSGD's P and Q of each
    compressed leaf on train-int8), and no path may need a layout copy.
@@ -182,9 +195,10 @@ printing no result, when no CUDA card is present or any phase fails.
    on each of the five paths (dispatch, serve, train, serve-int8,
    train-int8) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
-   S for tsmt and tsmt_q8; ``body`` for tsm2r and tsm2r_q8); tsm2r and
-   tsm2r_q8 add their numbers at the training shapes. A twelfth entry,
-   ``"tpu_kernel": false``, is the quantize pass at the serving shape.
+   S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split and tsm2r_q8);
+   tsm2r and tsm2r_q8 add their numbers at the training shapes. A
+   twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
+   serving shape.
 10. Last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -219,9 +233,18 @@ TSMT_MAX_MS = 0.10
 # only a body on the tensor cores can beat.
 TSM2R_MAX_MS = {(8192, 4096, 256): 0.26, (4096, 4096, 256): 0.128}
 # bf16 tsm2r cases that take the wgmma body; every other tsm2r case (f32,
-# n <= 16, k % 8 != 0, a misaligned base) takes the simt body.
+# n <= 16, k % 8 != 0, a misaligned base) takes the skinny or the simt body.
 TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
                (4096, 4096, 24)}
+# tsm2r cases that take the skinny body, f32 and bf16 (n <= 16, rows of A
+# whole 16-byte chunks, an aligned A); the ragged (1000, 777, 16) stays on
+# the simt body, as do f32 outputs wider than 16.
+TSM2R_SKINNY = {(65024, 4096, 4), (16384, 16384, 16), (4096, 4096, 8),
+                (4096, 4096, 3), (512, 512, 1), (100, 8, 3), (64, 24, 16)}
+# Device time the skinny body must stay within, f32: tsm2r_split at
+# [16384,16384]·[16384,16], S = 2 (0.675 ms on the simt body), and tsm2r's
+# P at [65024,4096]·[4096,4] (0.662), on an H100 80GB HBM3 at 700 W.
+SKINNY_MAX_MS = 0.55
 # Device time tsm2r_q8's int8 wgmma body must stay under at chatglm3's
 # wk/wv shapes: loose gates that the __dp4a body (0.428 and 0.219 ms on an
 # H100 80GB HBM3 at 700 W) cannot pass.
@@ -306,6 +329,10 @@ def category(name: str) -> str:
         return "tsm2r"
     if "tsm2r_q8_wgmma_kernel" in name:      # tsm2r_q8's tensor-core body
         return "tsm2r_q8"
+    if "tsm2r_split_skinny_kernel" in name:  # the split kernel's skinny body
+        return "tsm2r_split"
+    if "tsm2r_skinny_kernel" in name:        # tsm2r's skinny body
+        return "tsm2r"
     if "tsm2r_q8_transpose_kernel" in name:  # tsm2r_q8's layout change of B
         return "tsm2r_q8_transpose"
     if "quantize_" in name and "_kernel" in name:   # the fused quantize pass
@@ -562,6 +589,102 @@ def tsm2r_probes(dev, uniform, gpu) -> None:
           f"{float(err.max())}")
 
 
+def skinny_probes(dev, gpu) -> None:
+    """Exact layout probes of tsm2r's skinny body at n = 16 and n = 4, f32
+    and bf16: A of small integers, B a column selection (column j picks k
+    row sel(j)), so C[i, j] = A[i, sel(j)] exactly, through tsm2r and
+    through tsm2r_split at S = 3, whose partials summed are exact too (one
+    slice holds row sel(j), the others add zeros); each with a
+    bit-identical repeat. m = 1000 leaves a ragged row tile, k = 1000 a
+    part box at the end, and the 352-deep slices start bf16's second and
+    third slices in the middle of a 64-deep box."""
+    from repro_torch.kernels import tsm2r as k_tsm2r
+
+    m = k = 1000
+    rows = torch.arange(m, device=dev)[:, None]
+    for n in (16, 4):
+        cols = torch.arange(n, device=dev)
+        sel = (cols * (k // n + 7) + 3) % k      # spread over the slices
+        for dtype in (torch.float32, torch.bfloat16):
+            a = ((rows * 13 + torch.arange(k, device=dev) * 5) % 255
+                 - 127).to(dtype)                 # integers: exact
+            b = torch.zeros((k, n), dtype=dtype, device=dev)
+            b[sel, cols] = 1
+            got, again = k_tsm2r.tsm2r(a, b), k_tsm2r.tsm2r(a, b)
+            parts = k_tsm2r.tsm2r_split(a, b, 3, 32)
+            parts2 = k_tsm2r.tsm2r_split(a, b, 3, 32)
+            torch.cuda.synchronize()
+            wrong, first = probe_misses(got, a, sel)
+            wrong_s, first_s = probe_misses(parts.sum(0), a, sel)
+            bodies = [k_tsm2r.plan(a, b)[0],
+                      k_tsm2r.split_plan(a, b, 3, 32)[0]]
+            same = torch.equal(got, again) and torch.equal(parts, parts2)
+            ok = (bodies == ["skinny", "skinny"] and not wrong
+                  and not wrong_s and same)
+            emit({"phase": "kernel", "kernel": "tsm2r", "case": "layout_probe",
+                  "shape": [m, k, n], "dtype": str(dtype)[6:],
+                  "body": bodies[0], "split_body": bodies[1], "splits": 3,
+                  "wrong_cells": wrong, "first_wrong": first,
+                  "split_wrong_cells": wrong_s, "split_first_wrong": first_s,
+                  "deterministic": same, "ok": ok, "gpu": gpu})
+            check(ok, f"skinny layout probe n={n} {dtype}: bodies {bodies}, "
+                  f"{wrong} / {wrong_s} wrong cells {first} {first_s}")
+
+
+def skinny_sweep(dev, uniform, gpu) -> None:
+    """Device time of the skinny body's variants (rows a thread, k-splitting
+    groups, stages, producer warps; ``_build.sweep_variants``, the first
+    the default) at tsm2r_split f32's main-path shape
+    [16384,16384]·[16384,16], S = 2, and at PowerSGD's P
+    [65024,4096]·[4096,4], S = 1, beside the bytes bound and one
+    ``torch.matmul``'s device time; each variant is held against the
+    plain version at the f32 tolerance. Launches go straight through the
+    C launcher, so the wrappers' counts do not move."""
+    from repro_torch.kernels import _build, ref
+
+    variants = _build.sweep_variants()
+    for m, k, n, S in [(16384, 16384, 16, 2), (65024, 4096, 4, 1)]:
+        x, y = uniform((m, k), torch.float32), uniform((k, n), torch.float32)
+        slice_ = ref.split_len(k, S, 32)
+        out = torch.empty((S, m, n), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def at(i):
+            err = _build.sweep_launch(i, x.data_ptr(), y.data_ptr(),
+                                      out.data_ptr(), m, k, n, S, slice_,
+                                      stream)
+            check(err == 0, f"skinny sweep variant {variants[i]}: "
+                  f"cudaError_t {err}")
+
+        want = ref.tsm2r_split_ref(x, y, S, 32)
+        rtol, atol = TOL[torch.float32]
+        atol *= max(1.0, (slice_ / 1024) ** 0.5)
+        errs, oks = [], []
+        for i in range(len(variants)):
+            out.fill_(float("nan"))         # every output must be written
+            at(i)
+            torch.cuda.synchronize()
+            err = (out - want).abs()
+            errs.append(float(err.max()))
+            oks.append(bool((err <= atol + rtol * want.abs()).all()))
+        ms = device_ms_each([lambda i=i: at(i) for i in range(len(variants))],
+                            "tsm2r_split")
+        b_ms, b_by = bound(x, y, out, 2 * m * k * n)
+        emit({"phase": "skinny_sweep", "shape": [m, k, n], "splits": S,
+              "dtype": "float32", "variants": [
+                  {"rows_a_thread": r, "groups": g, "stages": st,
+                   "producers": pw, "device_ms": t, "max_err": e, "ok": ok}
+                  for (r, g, st, pw), t, e, ok in zip(variants, ms, errs,
+                                                      oks)],
+              "bound_ms": b_ms, "bound_by": b_by,
+              "library_device_ms": call_device_ms(lambda: torch.matmul(x,
+                                                                       y)),
+              "gpu": gpu})
+        check(all(oks), f"skinny sweep at {m, k, n}: errors {errs}")
+        del x, y, out, want
+        torch.cuda.empty_cache()
+
+
 def tsm2r_q8_probes(dev, uniform, gpu) -> None:
     """tsm2r_q8 beside its case sweep. A layout probe on the wgmma body:
     A of int8 codes in [-127, 127], B a column selection (column j picks k
@@ -731,7 +854,16 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
         "tsmt_split": [(65024, 4096, 4, 8), (1 << 20, 128, 4, 32),
                        (65536, 256, 256, 1), (65536, 256, 256, 2),
                        (65536, 256, 256, 16)],
-        "tsm2r_split": [(16384, 16384, 16, 2), (8192, 4096, 256, 4)],
+        # the paper's shape at S = 1, 2, 8; slices of 800 k (no multiple
+        # of a 64-deep bf16 box); the skinny body's widths 1, 3, 4 and 8;
+        # 32-deep slices of k = 104, the last cut at 8 and four empty (a
+        # direct call may ask for more slices than k fills); a wide
+        # output on the simt body
+        "tsm2r_split": [(16384, 16384, 16, 2), (16384, 16384, 16, 1),
+                        (16384, 16384, 16, 8), (4096, 4000, 16, 5),
+                        (4096, 4096, 1, 2), (4096, 4096, 3, 2),
+                        (4096, 4096, 4, 2), (4096, 4096, 8, 2),
+                        (1000, 104, 16, 8), (8192, 4096, 256, 4)],
     }
     main_case = {"tsmt_split": ((65024, 4096, 4, 8), torch.float32),
                  "tsm2r_split": ((16384, 16384, 16, 2), torch.float32),
@@ -775,10 +907,18 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                        "max_err": float(err.max()), "rtol": rtol,
                        "atol": atol, "deterministic": same, "ok": ok,
                        "gpu": gpu}
-                if main_case[name] == ((m, d1, d2, S), dtype):
+                if mm:   # the skinny body at n <= 16, else simt
+                    rec["body"], rec["grid"] = k_tsm2r.split_plan(x, y, S,
+                                                                  block)
+                    want_body = "skinny" if d2 <= 16 else "simt"
+                    rec["ok"] = ok = ok and rec["body"] == want_body
+                is_main = main_case[name] == ((m, d1, d2, S), dtype)
+                # tsm2r_split's main case is timed on the device in bf16 too
+                if is_main or (mm and main_case[name][0] == (m, d1, d2, S)):
                     rec["device_ms"] = device_ms(
                         lambda: kern(x, y, S, block), name)
                     rec["library_device_ms"] = call_device_ms(lib)
+                if is_main:
                     measured[name] = rec
                 emit(rec)
                 if not ok:
@@ -820,6 +960,10 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
             if not ok:
                 bad.append(f"sum_partials {S}x{rows}x{cols} {dtype}")
     check(not bad, f"split kernel phase mismatch in {bad}")
+    rec = measured["tsm2r_split"]
+    check(rec["body"] == "skinny" and rec["device_ms"] <= SKINNY_MAX_MS,
+          f"tsm2r_split at {rec['shape']}: body {rec['body']}, "
+          f"{rec['device_ms']} ms on the device (limit {SKINNY_MAX_MS})")
     return measured
 
 
@@ -1597,12 +1741,15 @@ def main() -> int:
     # path's and the paper's shapes: ragged m, k, n and n = 1, and for
     # tsm2l a k past the resident B tile (B staged chunk by chunk). tsm2r
     # adds ragged tails inside the wgmma body's TMA boxes (1000, 776, 200),
-    # the same with k % 8 != 0 (simt) and its narrowest width, n = 24.
+    # the same with k % 8 != 0 (simt) and its narrowest width, n = 24, and
+    # the skinny body's widths 1, 3, 4, 8 and 16, and shapes smaller than
+    # its TMA box of A (k below a box, m below 128 rows).
     cases = {
         "tsm2r": [(8192, 4096, 256), (4096, 4096, 256), (65024, 4096, 4),
                   (16384, 16384, 16), (1000, 777, 16), (4096, 4096, 8),
-                  (512, 512, 1), (1000, 776, 200), (1000, 777, 200),
-                  (4096, 4096, 24)],
+                  (4096, 4096, 3), (512, 512, 1), (1000, 776, 200),
+                  (1000, 777, 200), (4096, 4096, 24), (100, 8, 3),
+                  (64, 24, 16)],
         "tsm2l": [(1 << 20, 16, 16), (102400, 4, 4), (10000, 300, 20),
                   (5000, 77, 1)],
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
@@ -1653,7 +1800,9 @@ def main() -> int:
                 if name == "tsm2r":
                     rec["body"], rec["grid"] = k_tsm2r.plan(x, y)
                     want_body = ("wgmma" if dtype == torch.bfloat16
-                                 and (m, d1, d2) in TSM2R_WGMMA else "simt")
+                                 and (m, d1, d2) in TSM2R_WGMMA else
+                                 "skinny" if (m, d1, d2) in TSM2R_SKINNY
+                                 else "simt")
                     rec["ok"] = ok = ok and rec["body"] == want_body
                 is_main = main_case[name] == ((m, d1, d2), dtype)
                 is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
@@ -1681,7 +1830,13 @@ def main() -> int:
             check(rec["body"] == "wgmma" and rec["device_ms"] < limit,
                   f"tsm2r at {rec['shape']}: body {rec['body']}, "
                   f"{rec['device_ms']} ms on the device (limit {limit})")
+    # PowerSGD's P streams A on the skinny body.
+    (p_rec,) = [r for r in at_train["tsm2r"] if r["dtype"] == "float32"]
+    check(p_rec["body"] == "skinny" and p_rec["device_ms"] <= SKINNY_MAX_MS,
+          f"tsm2r's P: body {p_rec['body']}, {p_rec['device_ms']} ms on the "
+          f"device (limit {SKINNY_MAX_MS})")
     tsm2r_probes(dev, uniform, gpu)
+    skinny_probes(dev, gpu)
     measured.update(split_kernel_phase(dev, uniform, gpu))
     q8_measured, q8_at_train = q8_kernel_phase(dev, uniform, gpu)
     measured.update(q8_measured)
@@ -1695,6 +1850,7 @@ def main() -> int:
               f"{name} at {rec['shape']}: S = {rec['plan_splits']}, "
               f"{rec['device_ms']} ms on the device")
     tsmt_sweep(dev, uniform, gpu)
+    skinny_sweep(dev, uniform, gpu)
 
     # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
@@ -1823,6 +1979,23 @@ def main() -> int:
                       f"tsm2r plan mirror {m, k, n} {tag} {ptr_a, ptr_b}: C "
                       f"{c_plan} vs Python "
                       f"{perf_model.tsm2r_plan(m, k, n, dtype, ptr_a, ptr_b)}")
+    # tsm2r_split's: widths, k on and off the 16-byte grid, S, and A's base
+    # on the 16-byte grid or not (B's does not matter to either body).
+    for m, k, n in [(16384, 16384, 16), (4096, 4000, 16), (65024, 4096, 4),
+                    (1000, 777, 16), (1000, 1000, 3), (4096, 4096, 17),
+                    (8192, 4096, 256)]:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for S in (2, 5, 8):
+                for ptr_a in (0, 4, 8):
+                    c_plan = _build.split_plan(m, k, n, S, ref.split_len(
+                        k, S, perf_model.TSM2R_BLOCK_K), tag, ptr_a)
+                    py_plan = perf_model.tsm2r_plan(m, k, n, dtype, ptr_a,
+                                                    splits=S)
+                    mirror[f"tsm2r_split_plan{[m, k, n]}S{S}{tag}@{ptr_a}"] = (
+                        c_plan)
+                    check(c_plan == py_plan, f"tsm2r_split plan mirror "
+                          f"{m, k, n} S={S} {tag} @{ptr_a}: C {c_plan} vs "
+                          f"Python {py_plan}")
     # tsm2r_q8's: widths either side of 16, k % 16, and bases of A and of
     # the K-major B on the 16-byte grid or not.
     for m, k, n in [(8192, 4096, 256), (4096, 4096, 256), (65024, 4096, 4),

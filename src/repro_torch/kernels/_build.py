@@ -39,10 +39,17 @@ f32/bf16 kernels and of ``quantize``, the output dtype of the int8 ones
 The split libraries also export ``<kernel>_grid(int, int, int, int, int*
 out)``, the launch grid their tile table gives (``grid``); the tsm2r
 library ``tsm2r_plan(m, k, n, dtype tag, A, B, int* out)``: the body
-(0 "simt", 1 "wgmma") and grid a call launches (``plan``); the tsm2r_q8
-library ``tsm2r_q8_plan(m, k, n, A, B, int* out)`` likewise (``plan``
-with dtype tag "int8") and ``tsm2r_q8_transpose(src, dst, rows, cols,
-stream)``, an int8 [rows, cols] to [cols, rows] copy (``transpose_q8``).
+(0 "simt", 1 "wgmma", 2 "skinny") and grid a call launches (``plan``);
+the tsm2r_split library ``tsm2r_split_plan(m, k, n, splits, slice, dtype
+tag, A, int* out)`` likewise for a split launch (``split_plan``), and the
+skinny body's sweep: ``tsm2r_split_sweep_variant(i, int* out)``, variant
+i's (rows a thread, groups, stages, producer warps), and
+``tsm2r_split_sweep_f32(i, ...)``,
+the f32 split launcher's arguments after i (``sweep_variants``,
+``sweep_launch``); the tsm2r_q8 library ``tsm2r_q8_plan(m, k, n, A, B,
+int* out)`` likewise (``plan`` with dtype tag "int8") and
+``tsm2r_q8_transpose(src, dst, rows, cols, stream)``, an int8 [rows,
+cols] to [cols, rows] copy (``transpose_q8``).
 """
 
 from __future__ import annotations
@@ -172,6 +179,15 @@ def library(name: str) -> ctypes.CDLL:
                 lib.tsm2r_plan.argtypes = [_I, _I, _I, _I, _P, _P,
                                            ctypes.POINTER(_I)]
                 lib.tsm2r_plan.restype = ctypes.c_int
+            if name == "tsm2r_split":
+                lib.tsm2r_split_plan.argtypes = [_I, _I, _I, _I, _I, _I, _P,
+                                                 ctypes.POINTER(_I)]
+                lib.tsm2r_split_plan.restype = ctypes.c_int
+                lib.tsm2r_split_sweep_variant.argtypes = [_I,
+                                                          ctypes.POINTER(_I)]
+                lib.tsm2r_split_sweep_variant.restype = ctypes.c_int
+                lib.tsm2r_split_sweep_f32.argtypes = [_I, *_SPLIT]
+                lib.tsm2r_split_sweep_f32.restype = ctypes.c_int
             if name == "tsm2r_q8":
                 lib.tsm2r_q8_plan.argtypes = [_I, _I, _I, _P, _P,
                                               ctypes.POINTER(_I)]
@@ -188,7 +204,7 @@ def launcher(name: str, dtype_tag: str):
 
 
 PLAN_TAGS = {"f32": 0, "bf16": 1}
-PLAN_BODIES = ("simt", "wgmma")
+PLAN_BODIES = ("simt", "wgmma", "skinny")
 
 
 def plan(m: int, k: int, n: int, dtype_tag: str, ptr_a: int,
@@ -206,6 +222,36 @@ def plan(m: int, k: int, n: int, dtype_tag: str, ptr_a: int,
     if err != 0:
         raise RuntimeError(f"tsm2r plan query failed: {err}")
     return PLAN_BODIES[out[0]], tuple(out[1:])
+
+
+def split_plan(m: int, k: int, n: int, splits: int, slice_: int,
+               dtype_tag: str, ptr_a: int) -> tuple:
+    """(body, grid) of a tsm2r_split launch of ``splits`` slices of
+    ``slice_`` k values on an A at ``ptr_a``, as its library decides them
+    (``dtype_tag`` "f32" or "bf16")."""
+    out = (ctypes.c_int * 4)()
+    err = library("tsm2r_split").tsm2r_split_plan(
+        m, k, n, splits, slice_, PLAN_TAGS[dtype_tag], ptr_a, out)
+    if err != 0:
+        raise RuntimeError(f"tsm2r_split plan query failed: {err}")
+    return PLAN_BODIES[out[0]], tuple(out[1:])
+
+
+def sweep_variants() -> list[tuple[int, int, int, int]]:
+    """The skinny body's sweep variants, (rows a thread, k-splitting
+    groups, stages, producer warps) each, as the tsm2r_split library lists
+    them; the first is the default."""
+    lib, out, found = library("tsm2r_split"), (ctypes.c_int * 4)(), []
+    while lib.tsm2r_split_sweep_variant(len(found), out) == 0:
+        found.append(tuple(out))
+    return found
+
+
+def sweep_launch(variant: int, *args) -> int:
+    """Launch the f32 split kernel's skinny body at sweep ``variant`` with
+    the f32 launcher's arguments (pointers, m, k, n = 4 or 16, splits,
+    slice, stream); returns its cudaError_t."""
+    return library("tsm2r_split").tsm2r_split_sweep_f32(variant, *args)
 
 
 def transpose_q8(src: int, dst: int, rows: int, cols: int,

@@ -177,7 +177,7 @@ struct Tsm2rTile {
 // f(Tsm2rTile<...>{}) for the tile TSM2R uses at output width n.
 template <typename F>
 inline int with_tsm2r_tile(int n, F&& f) {
-  if (n <= 16) return f(Tsm2rTile<128, 16, 32, 2, 4>{});  // skinny
+  if (n <= 16) return f(Tsm2rTile<128, 16, 32, 2, 4>{});  // n <= 16
   return f(Tsm2rTile<64, 64, 32, 4, 4>{});
 }
 

@@ -39,13 +39,13 @@
 namespace tsm2x {
 namespace wgmma_s8 {
 
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
+using tma::tma_load;
 using wgmma::desc;
-using wgmma::mbar_arrive;
-using wgmma::mbar_expect_tx;
-using wgmma::mbar_init;
-using wgmma::mbar_wait;
-using wgmma::smem_u32;
-using wgmma::tma_load;
 
 constexpr int BM = 64, BN = 128, BK = 128, STAGES = 4;
 constexpr int A_BYTES = BM * BK;             // 8 KB
@@ -247,8 +247,8 @@ int launch(const int8_t* a, const int8_t* b, const float* sa,
   // One 128-byte row of k a box row: A in 128 x 64 boxes, B in 128 x 128.
   constexpr CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap map_a, map_b;
-  if (!wgmma::encode(&map_a, a, k, m, U8, 1, BK, BM) ||
-      !wgmma::encode(&map_b, b, k, n, U8, 1, BK, BN))
+  if (!tma::encode(&map_a, a, k, m, U8, 1, BK, BM) ||
+      !tma::encode(&map_b, b, k, n, U8, 1, BK, BN))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       tsm2r_q8_wgmma_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -20,6 +20,8 @@
 //   so the library needs no -lcuda) and passed as __grid_constant__
 //   parameters. TMA fills out-of-bounds elements with zeros, which masks
 //   the ragged tails of m, k and n exactly; the epilogue masks the stores.
+//   The TMA and mbarrier helpers live in tma.cuh, shared with the int8
+//   and the skinny bodies.
 // - A ring of STAGES = 4 stages of 24 KB (96 KB of dynamic shared memory,
 //   two blocks an SM), each with a "full" and an "empty" mbarrier. One
 //   producer thread waits for "empty", posts the stage's bytes on "full"
@@ -40,9 +42,9 @@
 
 #include <cstdint>
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "tma.cuh"
 
 namespace tsm2x {
 namespace wgmma {
@@ -70,61 +72,15 @@ inline dim3 grid(int m, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// Device helpers: mbarriers, TMA, wgmma (PTX for sm_90a)
+// Device helpers: wgmma (PTX for sm_90a); mbarriers and TMA in tma.cuh
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 2-D box of `map` at (inner, outer) into shared memory at dst; its
-// bytes complete a transaction on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int inner,
-                                         int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner),
-      "r"(outer)
-      : "memory");
-}
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
+using tma::tma_load;
 
 // A shared-memory matrix descriptor with the 128-byte swizzle: start
 // address, leading and stride byte offsets, each in 16-byte units.
@@ -266,50 +222,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps and the launch
+// Host side: the launch
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_fn() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major [outer, inner] tensor of `type` (`bytes` an element) in
-// box_inner x box_outer boxes (box_inner * bytes = one 128-byte row),
-// 128-byte swizzle, zeros out of bounds. By default bf16 in 64 x 64 boxes.
-inline bool encode(CUtensorMap* map, const void* ptr, int inner, int outer,
-                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   int bytes = 2, int box_inner = BOX, int box_outer = BOX) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A row-major [outer, inner] bf16 tensor in 64 x 64 boxes (tma::encode).
+inline bool encode(CUtensorMap* map, const void* ptr, int inner, int outer) {
+  return tma::encode(map, ptr, inner, outer,
+                     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BOX, BOX);
 }
 
 // Returns the cudaError_t of the launch; cudaErrorInvalidValue when a

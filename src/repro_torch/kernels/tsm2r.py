@@ -1,9 +1,9 @@
 """TSM2R wrapper: C[m,n] = A[m,k] @ B[k,n] with m ~ k >> n.
 
 Replaces the TPU kernel ``src/repro/kernels/tsm2r.py::tsm2r_pallas`` with
-the CUDA kernel in ``csrc/tsm2r.cu``, which runs one of two bodies, chosen
-from the shape, dtype and alignment before the launch (``plan``; mirrored
-by ``core/perf_model.py::tsm2r_plan``):
+the CUDA kernel in ``csrc/tsm2r.cu``, which runs one of three bodies,
+chosen from the shape, dtype and alignment before the launch (``plan``;
+mirrored by ``core/perf_model.py::tsm2r_plan``):
 
 * "wgmma" (``csrc/tsm2r_wgmma.cuh``): bf16 with n > 16, k and n multiples
   of 8 and 16-byte aligned operands, such as chatglm3's wk/wv projections
@@ -11,18 +11,27 @@ by ``core/perf_model.py::tsm2r_plan``):
   and one warpgroup multiplies them on the tensor cores into f32
   registers. Bound by the bytes of A plus B's re-reads from L2, one per
   64-row tile.
-* "simt" (``csrc/common.cuh``): every other call (f32, such as
-  PowerSGD's P at n = 4; n <= 16; strides or bases TMA cannot take). It
+* "skinny" (``csrc/tsm2r_skinny.cuh``): f32 or bf16 with n <= 16, k * size
+  a multiple of 16 bytes and a 16-byte aligned A, such as PowerSGD's P at
+  n = 4 and the paper's n = 16. TMA streams 128-row boxes of A through a
+  3-stage ring fed by two producer warps; each thread keeps all n outputs
+  (rounded up to 1, 2, 4, 8 or 16) of its rows and reads B broadcast from
+  shared memory; groups of threads split each stage's k and sum their
+  tiles in a fixed order. Bound by the bytes of A.
+* "simt" (``csrc/common.cuh``): every other call (f32 past n = 16; a
+  ragged k such as 777 or a misaligned view, which TMA cannot take). It
   stages B and the next A tile through registers and shared memory (paper
   Algorithm 4) and runs its FMAs on the CUDA cores in f32: bound by the
-  bytes of A at n <= 16 and by the f32 FMA rate at wide n.
+  f32 FMA rate at wide n.
 
 ``tsm2r_split`` replaces ``tsm2r.py::tsm2r_pallas_split`` with
-``csrc/tsm2r_split.cu``: the simt block body over one of S contiguous k
-slices per grid z index, writing (S, m, n) f32 partials. It is bound by
-the bytes of A plus the partials' round trip, and pays off where the
-output tiles alone leave SMs idle (the paper's [16384^2]·[16384,16] has
-128 row tiles for 132 SMs); ``kernels/reduce.py`` sums the partials.
+``csrc/tsm2r_split.cu``: a body over one of S contiguous k slices per grid
+z index, writing (S, m, n) f32 partials, the body picked as for the
+sequential kernel (``split_plan``: "skinny" where it fits, else "simt").
+It is bound by the bytes of A plus the partials' round trip, and pays off
+where the output tiles alone leave SMs idle (the paper's
+[16384^2]·[16384,16] has 128 row tiles for 132 SMs); ``kernels/reduce.py``
+sums the partials.
 
 ``tsm2r_q8`` replaces ``quant.py::tsm2r_q8_pallas`` with
 ``csrc/tsm2r_q8.cu``: int8 A (per-band scales) and B (one scale), exact
@@ -86,6 +95,18 @@ def plan(a: torch.Tensor, b: torch.Tensor) -> tuple[str, tuple]:
     (m, k), n = a.shape, b.shape[1]
     return _build.plan(m, k, n, _launch._DTYPE_TAG[a.dtype], a.data_ptr(),
                        b.data_ptr())
+
+
+def split_plan(a: torch.Tensor, b: torch.Tensor, splits: int,
+               block_k: int) -> tuple[str, tuple]:
+    """(body, grid) that ``tsm2r_split(a, b, splits, block_k)`` launches for
+    these CUDA operands, as the kernel's library decides them
+    (``tsm2r_split_plan``)."""
+    _launch.check("tsm2r_split", a, b, "mm")
+    (m, k), n = a.shape, b.shape[1]
+    return _build.split_plan(m, k, n, splits, ref.split_len(k, splits,
+                                                            block_k),
+                             _launch._DTYPE_TAG[a.dtype], a.data_ptr())
 
 
 def tsm2r_split(a: torch.Tensor, b: torch.Tensor, splits: int,

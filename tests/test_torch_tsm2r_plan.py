@@ -1,19 +1,25 @@
-"""tsm2r's and tsm2r_q8's choice of body, on the CPU.
+"""tsm2r's, tsm2r_split's and tsm2r_q8's choice of body, on the CPU.
 
-The sequential tsm2r kernel runs one of two bodies, decided from the
+The sequential tsm2r kernel runs one of three bodies, decided from the
 shape, the dtype and the operands' alignment before the launch: "wgmma"
 (TMA loads and tensor-core products, ``csrc/tsm2r_wgmma.cuh``) for bf16
 outputs wider than 16 whose k and n are multiples of 8 and whose bases
-are 16-byte aligned; "simt" (the CUDA-core body of ``csrc/common.cuh``)
-for everything else. tsm2r_q8 likewise (``csrc/tsm2r_q8_wgmma.cuh``): int8
-outputs wider than 16 whose k is a multiple of 16, with aligned bases of
-A and of the K-major B it reads. The C queries ``tsm2r_plan`` and
+are 16-byte aligned; "skinny" (TMA-fed, each thread all n outputs of its
+rows, ``csrc/tsm2r_skinny.cuh``) for f32 and bf16 outputs at most 16
+wide whose rows of A are whole 16-byte chunks and whose A is 16-byte
+aligned; "simt" (the CUDA-core body of ``csrc/common.cuh``) for
+everything else. The split kernel takes "skinny" under the same
+conditions at any S (its slices are multiples of 32 k), else "simt".
+tsm2r_q8 likewise (``csrc/tsm2r_q8_wgmma.cuh``): int8 outputs wider than
+16 whose k is a multiple of 16, with aligned bases of A and of the
+K-major B it reads; its split kernel and every int8 n <= 16 stay
+"simt". The C queries ``tsm2r_plan``, ``tsm2r_split_plan`` and
 ``tsm2r_q8_plan`` run only on the card, where ``chip_smoke.py`` holds
 them against ``perf_model.tsm2r_plan``. Here:
 that mirror's bodies and grids case by case, what it does to the
 performance model and the dispatch record, and the plain version against
 the JAX package's tsm2r (Pallas in interpret mode) at shapes the wgmma
-body takes, at bf16's rtol = atol = 2e-2.
+and the skinny bodies take, at bf16's rtol = atol = 2e-2 and f32's 1e-4.
 """
 
 import jax.numpy as jnp
@@ -21,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import tsmm as jtsmm
 from repro.kernels import ops as jops
 from repro_torch.core import perf_model, tsmm
 from repro_torch.kernels import ops
@@ -36,11 +43,11 @@ BF16, F32 = torch.bfloat16, torch.float32
     ((4096, 4096, 24), BF16, (0, 0), "wgmma", (64, 1, 1)),     # narrowest
     # f32: simt, 64 x 64 tiles past n = 16.
     ((8192, 4096, 256), F32, (0, 0), "simt", (128, 4, 1)),
-    ((65024, 4096, 4), F32, (0, 0), "simt", (508, 1, 1)),       # P
-    # n <= 16: simt, 128 x 16 tiles.
-    ((4096, 4096, 16), BF16, (0, 0), "simt", (32, 1, 1)),
-    ((16384, 16384, 16), BF16, (0, 0), "simt", (128, 1, 1)),
-    ((512, 512, 1), BF16, (0, 0), "simt", (4, 1, 1)),
+    # n <= 16: the skinny body, 128-row blocks (the simt table's grid).
+    ((65024, 4096, 4), F32, (0, 0), "skinny", (508, 1, 1)),     # P
+    ((4096, 4096, 16), BF16, (0, 0), "skinny", (32, 1, 1)),
+    ((16384, 16384, 16), BF16, (0, 0), "skinny", (128, 1, 1)),
+    ((512, 512, 1), BF16, (0, 0), "skinny", (4, 1, 1)),
     # k or n not a multiple of 8: TMA's 16-byte strides fail.
     ((1000, 777, 200), BF16, (0, 0), "simt", (16, 4, 1)),
     ((4096, 4096, 20), BF16, (0, 0), "simt", (64, 1, 1)),
@@ -73,8 +80,17 @@ def test_misaligned_view_takes_the_simt_body():
 
 
 def test_split_and_int8_launches_keep_the_simt_table():
-    # The split kernels run the simt body at any S, int8 too; the
-    # sequential int8 kernel at n > 16 runs its wgmma body's 64 x 128 tiles.
+    # f32/bf16 split launches at n <= 16 take the skinny body, on the simt
+    # table's grid; int8 split launches and split launches past n = 16
+    # keep the simt body and its table; the sequential int8 kernel at
+    # n > 16 runs its wgmma body's 64 x 128 tiles.
+    for dtype in (F32, BF16):
+        assert perf_model.tsm2r_plan(16384, 16384, 16, dtype, splits=2) == (
+            "skinny", (128, 1, 2))
+        assert perf_model.tsm2r_plan(8192, 4096, 256, dtype, splits=4) == (
+            "simt", (128, 4, 4))
+    assert perf_model.tsm2r_plan(16384, 16384, 16, torch.int8,
+                                 splits=2) == ("simt", (128, 1, 2))
     assert perf_model.tsm2r_grid(8192, 4096, 256, 4, BF16) == (128, 4, 4)
     assert perf_model.tsm2r_grid(8192, 4096, 256, 4, torch.int8) == (
         128, 4, 4)
@@ -139,6 +155,108 @@ def test_plain_version_matches_jax_at_wgmma_shapes(m, k, n):
 
 
 # ---------------------------------------------------------------------------
+# The skinny body: f32 and bf16 at n <= 16, sequential and split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("n,body", [(1, "skinny"), (4, "skinny"),
+                                    (16, "skinny"), (17, "simt")])
+def test_skinny_body_by_dtype_and_width(n, body, dtype, splits):
+    # n = 17 is past the body's widths; bf16 n = 17 is no multiple of 8,
+    # so no wgmma either, and the split kernel has no wgmma body.
+    bm = 128 if n <= 16 else 64                  # the simt table past 16
+    assert perf_model.tsm2r_plan(4096, 4096, n, dtype, splits=splits) == (
+        body, (4096 // bm, 1, splits))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("shape,dtype,body", [
+    ((1000, 777, 16), F32, "simt"),      # 777 x 4 bytes: off the grid
+    ((1000, 776, 16), F32, "skinny"),    # 776 x 4 = 3104: on it
+    ((1000, 772, 16), BF16, "simt"),     # 772 x 2 = 1544: off it
+    ((1000, 776, 16), BF16, "skinny"),
+    ((1000, 4, 3), F32, "skinny"),       # one 16-byte chunk of k
+    ((4096, 4000, 16), BF16, "skinny"),  # S = 5 slices of 800: mid-box
+    ((64, 0, 16), F32, "simt"),          # k = 0 has nothing to stream
+])
+def test_skinny_body_needs_whole_chunks_of_k(shape, dtype, body, splits):
+    assert perf_model.tsm2r_body(*shape[1:], dtype, splits=splits) == body
+    assert perf_model.tsm2r_plan(*shape, dtype, splits=splits)[1] == (
+        -(-shape[0] // 128), 1, splits)
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("dtype,ptr_a,ptr_b,body", [
+    (F32, 0, 0, "skinny"), (F32, 32, 0, "skinny"),
+    (F32, 4, 0, "simt"), (F32, 8, 0, "simt"), (BF16, 2, 0, "simt"),
+    # B is loaded by the threads: its base may lie anywhere.
+    (F32, 0, 4, "skinny"), (BF16, 0, 2, "skinny"),
+])
+def test_skinny_body_needs_an_aligned_a(dtype, ptr_a, ptr_b, body, splits):
+    assert perf_model.tsm2r_body(4096, 16, dtype, ptr_a, ptr_b,
+                                 splits) == body
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_misaligned_view_of_a_leaves_the_skinny_body(dtype):
+    flat = torch.zeros(64 * 64 + 1, dtype=dtype)
+    a, b = flat[1:].view(64, 64), torch.zeros((64, 16), dtype=dtype)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    for splits in (1, 2):
+        assert perf_model.tsm2r_plan(64, 64, 16, dtype, a.data_ptr(),
+                                     b.data_ptr(), splits)[0] == "simt"
+        assert perf_model.tsm2r_plan(64, 64, 16, dtype, 0, b.data_ptr(),
+                                     splits)[0] == "skinny"
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+def test_skinny_body_keeps_the_grid_and_the_price(splits):
+    # 128 rows a block, as the simt table at n <= 16: the chooser's block
+    # counts and its price do not move.
+    for dtype in (F32, BF16):
+        for shape in [(16384, 16384, 16), (65024, 4096, 4), (4096, 4000, 3)]:
+            body, grid = perf_model.tsm2r_plan(*shape, dtype, splits=splits)
+            assert body == "skinny"
+            assert grid == perf_model.tsm2r_grid(*shape, splits) == (
+                -(-shape[0] // 128), 1, splits)
+            t = perf_model.tsm2r_model_time(*shape, perf_model.H100, dtype,
+                                            splits=splits)
+            m, k, n = shape
+            assert t >= 2.0 * m * k * n / perf_model.H100.peak_flops_f32
+
+
+@pytest.mark.parametrize("name,dtype,tol", [("f32", F32, 1e-4),
+                                            ("bf16", BF16, 2e-2)])
+@pytest.mark.parametrize("m,k,n,splits", [
+    (200, 400, 3, 5),      # 96-deep slices: bf16's start mid-box
+    (130, 1000, 1, 3),     # ragged m, a part box at the end
+    (256, 512, 16, 1),     # the sequential kernel
+    (300, 800, 4, 2),
+])
+def test_plain_version_matches_jax_at_skinny_shapes(m, k, n, splits, name,
+                                                    dtype, tol):
+    assert perf_model.tsm2r_plan(m, k, n, dtype, splits=splits)[0] == (
+        "skinny")
+    rng = np.random.default_rng(m + k + n)
+    x = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    y = rng.uniform(-1, 1, (k, n)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    with tsmm.policy(split=splits, mode="tsm2r"), \
+            tsmm.record_dispatches() as log:
+        got = tsmm.tsmm(torch.from_numpy(x).to(dtype),
+                        torch.from_numpy(y).to(dtype))
+    with jtsmm.policy(split=splits, interpret=True, mode="tsm2r"):
+        want = jtsmm.tsmm(jnp.asarray(x).astype(jdt),
+                          jnp.asarray(y).astype(jdt))
+    assert [(lm.kind, lm.splits) for lm in log[0].launches][0] == (
+        "tsm2r", splits)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+# ---------------------------------------------------------------------------
 # tsm2r_q8: the int8 wgmma body
 # ---------------------------------------------------------------------------
 
@@ -165,6 +283,17 @@ I8 = torch.int8
 ])
 def test_int8_plan_body_and_grid(shape, ptrs, body, grid):
     assert perf_model.tsm2r_plan(*shape, I8, *ptrs) == (body, grid)
+
+
+@pytest.mark.parametrize("shape,splits,body,grid", [
+    ((65024, 4096, 4), 1, "simt", (508, 1, 1)),        # train-int8's P
+    ((16384, 16384, 16), 2, "simt", (128, 1, 2)),
+    ((4096, 65536, 16), 4, "simt", (32, 1, 4)),        # tsm2r_q8_split
+    ((8192, 4096, 256), 1, "wgmma", (128, 2, 1)),
+    ((8192, 4096, 256), 4, "simt", (128, 4, 4)),
+])
+def test_int8_plans_do_not_take_the_skinny_body(shape, splits, body, grid):
+    assert perf_model.tsm2r_plan(*shape, I8, splits=splits) == (body, grid)
 
 
 def test_int8_split_launches_run_simt():
