@@ -71,7 +71,9 @@ printing no result, when no CUDA card is present or any phase fails.
    through tsm2r and through tsm2r_split at S = 3. A sweep
    (``skinny_sweep`` lines) times the skinny body's variants (rows a
    thread, k-splitting groups, stages, producer warps) at tsm2r_split's
-   paper shape and at P, beside the bound and the library call.
+   paper shape and at P, beside the bound and the library call, and the
+   int8 stage's at P and at [4096,65536]·[65536,16], S = 4, each
+   variant bit-equal to the plain version.
    The five int8 kernels are held against their plain versions on the
    same int8 operands and scales (quantized on the card by
    ``kernels/quant.py``), with f32 and bf16 outputs (the split ones write
@@ -79,17 +81,26 @@ printing no result, when no CUDA card is present or any phase fails.
    case whose reduction (over 133,143 terms of one sign, codes near 127)
    would overflow one int32 sum; at the same tolerances, since the integer
    sums are exact and only the folds round; bit-identical repeats. Every
-   tsm2r_q8 line carries ``body``, from the library's ``tsm2r_q8_plan``:
-   "wgmma" (its s8·s8→s32 tensor-core body, B quantized K-major as
-   ``ops.py`` does) at [8192,4096]·[4096,256], [4096,4096]·[4096,256],
-   the ragged (1000, 784, 200) and the deep (256, 270000, 32); "simt" at
-   n <= 16 and at (1000, 777, 17) (k % 16 != 0). The wgmma cases up to k
-   = 131,072 must equal the plain version bit for bit (one fold of an
-   exact integer sum), and the two wk/wv shapes must run under 0.10 and
-   0.06 ms on the device. An int8 layout probe (A of codes, B a column
-   selection, scales 1) must come out exact, and a row-major B must give
-   the K-major B's bits through one counted layout copy
-   (``tsm2r_q8_transpose`` lines, with the copy's device time). The
+   tsm2r_q8 line carries ``body``, from the library's ``tsm2r_q8_plan``,
+   and every tsm2r_q8_split line from ``tsm2r_q8_split_plan``: "wgmma"
+   (its s8·s8→s32 tensor-core body, B quantized K-major as ``ops.py``
+   does) at [8192,4096]·[4096,256], [4096,4096]·[4096,256], the ragged
+   (1000, 784, 200) and the deep (256, 270000, 32); "skinny" (the
+   streaming body's int8 stage: exact int32 ``__dp4a`` sums) at n <= 16
+   with k % 16 == 0 (``TSM2R_Q8_SKINNY``: P, n = 1, 3 and 8, the deep
+   (512, 300000, 4) at S = 1 and 2, and tsm2r_q8_split at
+   [4096,65536]·[65536,16] with S = 4, the paper's shape with S = 2 and
+   (4096, 4000, 16) with S = 5, whose 800-deep slices start mid-box);
+   "simt" at (1000, 777, 17) (k % 16 != 0). The wgmma and skinny cases
+   whose slices are up to 131,072 deep must equal the plain version bit
+   for bit (one conversion of an exact integer sum), the two wk/wv shapes
+   must run under 0.10 and 0.06 ms on the device, and P and
+   tsm2r_q8_split's main case within 0.25 ms. An int8 layout probe (A of
+   codes, B a column selection, scales 1) must come out exact on the
+   wgmma body, and on the skinny body at n = 16 and 4 through tsm2r_q8
+   and tsm2r_q8_split at S = 3; a row-major B must give the K-major B's
+   bits through one counted layout copy (``tsm2r_q8_transpose`` lines,
+   with the copy's device time). The
    fused quantize pass (``quantize`` lines) must equal the plain code on
    the card, codes and scales bit for bit, for A [8192,4096] bf16 in
    256-row bands, PowerSGD's [65024,4096] f32 operand, a short last band,
@@ -103,8 +114,8 @@ printing no result, when no CUDA card is present or any phase fails.
    caller's dtype (``library_dq_ms``). Then the whole ``tsmm``/``tsmm_t``
    op under ``quant="int8"`` is held against the f32 product (the JAX
    ``test_quant.py`` max-norm relative criterion: 5%, 6% for bf16) and
-   timed; at the serving shape beside the bf16 op, by events and on the
-   device.
+   timed; at the serving shape beside the bf16 op and at PowerSGD's P
+   and Q beside the f32 op, by events and on the device.
 3. Dispatch (a path of its own: every launch count is set to 0 just
    before it and read just after): under ``split="never"`` the quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
@@ -120,8 +131,8 @@ printing no result, when no CUDA card is present or any phase fails.
    paper's TSM2R to what the int8 chooser picks. The Python mirror of the
    tile table (``core/perf_model.py``) must equal the C grid query of all
    four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r,
-   tsm2r_split (at S = 2, 5, 8) and tsm2r_q8 libraries' choice of body and
-   grid. Every int8 op quantizes
+   tsm2r_split (at S = 2, 5, 8), tsm2r_q8 and tsm2r_q8_split (at S = 2,
+   4, 5) libraries' choice of body and grid. Every int8 op quantizes
    both operands through the fused pass: its count must be twice the int8
    launches on every path (plus int8 PowerSGD's P and Q of each
    compressed leaf on train-int8), and no path may need a layout copy.
@@ -195,7 +206,8 @@ printing no result, when no CUDA card is present or any phase fails.
    on each of the five paths (dispatch, serve, train, serve-int8,
    train-int8) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
-   S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split and tsm2r_q8);
+   S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8 and
+   tsm2r_q8_split);
    tsm2r and tsm2r_q8 add their numbers at the training shapes. A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
@@ -249,10 +261,22 @@ SKINNY_MAX_MS = 0.55
 # wk/wv shapes: loose gates that the __dp4a body (0.428 and 0.219 ms on an
 # H100 80GB HBM3 at 700 W) cannot pass.
 TSM2R_Q8_MAX_MS = {(8192, 4096, 256): 0.10, (4096, 4096, 256): 0.06}
-# tsm2r_q8 cases that take the wgmma body (n > 16, k % 16 == 0); the others
-# (n <= 16, k % 16 != 0) take the simt body.
+# tsm2r_q8 cases that take the wgmma body (n > 16, k % 16 == 0).
 TSM2R_Q8_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 784, 200),
                   (256, 270000, 32)}
+# int8 cases (m, k, n, S) that take the skinny body (n <= 16, k % 16 == 0,
+# an aligned A), through tsm2r_q8 (S = 1) and tsm2r_q8_split; the ragged
+# (1000, 777, 17) stays on the simt body.
+TSM2R_Q8_SKINNY = {(65024, 4096, 4, 1), (4096, 4096, 1, 1),
+                   (4096, 4096, 3, 1), (4096, 4096, 8, 1),
+                   (512, 300000, 4, 1), (4096, 65536, 16, 4),
+                   (16384, 16384, 16, 2), (512, 300000, 4, 2),
+                   (4096, 4000, 16, 5)}
+# Device time the int8 skinny body must stay within at tsm2r_q8's P
+# [65024,4096]·[4096,4] and tsm2r_q8_split's [4096,65536]·[65536,16], S =
+# 4: a gate that the __dp4a simt body (0.481 and 0.489 ms on an H100 80GB
+# HBM3 at 700 W) cannot pass.
+TSM2R_Q8_SKINNY_MAX_MS = 0.25
 # Deepest reduction whose s32 sum the wgmma body folds into f32 once, so
 # its result is bit-equal to the plain version (1,024 stages of 128 k).
 Q8_ONE_FOLD_K = 131072
@@ -335,6 +359,10 @@ def category(name: str) -> str:
         return "tsm2r"
     if "tsm2r_q8_transpose_kernel" in name:  # tsm2r_q8's layout change of B
         return "tsm2r_q8_transpose"
+    if "tsm2r_q8_split_skinny_kernel" in name:   # the int8 skinny bodies
+        return "tsm2r_q8_split"
+    if "tsm2r_q8_skinny_kernel" in name:
+        return "tsm2r_q8"
     if "quantize_" in name and "_kernel" in name:   # the fused quantize pass
         return "quantize"
     for kern in KERNEL_NAMES:
@@ -638,9 +666,14 @@ def skinny_sweep(dev, uniform, gpu) -> None:
     [16384,16384]·[16384,16], S = 2, and at PowerSGD's P
     [65024,4096]·[4096,4], S = 1, beside the bytes bound and one
     ``torch.matmul``'s device time; each variant is held against the
-    plain version at the f32 tolerance. Launches go straight through the
-    C launcher, so the wrappers' counts do not move."""
-    from repro_torch.kernels import _build, ref
+    plain version at the f32 tolerance. Then the int8 stage's variants
+    through tsm2r_q8_split's launcher at P (S = 1, what tsm2r_q8 runs
+    there) and at tsm2r_q8_split's main-path shape
+    [4096,65536]·[65536,16], S = 4, each bit-equal to the plain version
+    (every slice is under 131,072 deep), beside the library call of the
+    dequantized operands. Launches go straight through the C launchers,
+    so the wrappers' counts do not move."""
+    from repro_torch.kernels import _build, quant, ref
 
     variants = _build.sweep_variants()
     for m, k, n, S in [(16384, 16384, 16, 2), (65024, 4096, 4, 1)]:
@@ -682,6 +715,47 @@ def skinny_sweep(dev, uniform, gpu) -> None:
               "gpu": gpu})
         check(all(oks), f"skinny sweep at {m, k, n}: errors {errs}")
         del x, y, out, want
+        torch.cuda.empty_cache()
+
+    band = 256
+    for m, k, n, S in [(65024, 4096, 4, 1), (4096, 65536, 16, 4)]:
+        xq, xs = quant.quantize_blocks(uniform((m, k), torch.float32), band)
+        yq, ys = quant.quantize_tensor(uniform((k, n), torch.float32))
+        slice_ = ref.split_len(k, S, 32)
+        out = torch.empty((S, m, n), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def at(i):
+            err = _build.sweep_launch_q8(
+                i, xq.data_ptr(), yq.data_ptr(), xs.data_ptr(),
+                ys.data_ptr(), out.data_ptr(), m, k, n, band, S, slice_,
+                stream)
+            check(err == 0, f"int8 skinny sweep variant {variants[i]}: "
+                  f"cudaError_t {err}")
+
+        want = ref.tsm2r_q8_split_ref(xq, yq, xs, ys, band, S, 32)
+        oks = []
+        for i in range(len(variants)):
+            out.fill_(float("nan"))         # every output must be written
+            at(i)
+            torch.cuda.synchronize()
+            oks.append(same_bits(out, want))
+        ms = device_ms_each([lambda i=i: at(i) for i in range(len(variants))],
+                            "tsm2r_q8_split")
+        b_ms, b_by = bound(xq, yq, out, 2 * m * k * n, xs, ys)
+        xd = quant.dequantize_blocks(xq, xs, torch.float32, block_rows=band)
+        yd = quant.dequantize_blocks(yq, ys, torch.float32)
+        emit({"phase": "skinny_sweep", "shape": [m, k, n], "splits": S,
+              "dtype": "int8", "variants": [
+                  {"rows_a_thread": r, "groups": g, "stages": st,
+                   "producers": pw, "device_ms": t, "bits_vs_plain": ok}
+                  for (r, g, st, pw), t, ok in zip(variants, ms, oks)],
+              "bound_ms": b_ms, "bound_by": b_by,
+              "library_device_ms": call_device_ms(lambda: torch.matmul(xd,
+                                                                       yd)),
+              "gpu": gpu})
+        check(all(oks), f"int8 skinny sweep at {m, k, n}: bits {oks}")
+        del xq, xs, yq, ys, out, want, xd, yd
         torch.cuda.empty_cache()
 
 
@@ -747,6 +821,50 @@ def tsm2r_q8_probes(dev, uniform, gpu) -> None:
         check(ok, f"tsm2r_q8 with a row-major B at {m, k, n}: {copies} "
               f"copies, bits {same_bits(got_r, got_k)}")
         del xq, xs, y, yk, yr, got_r, got_k, back
+
+
+def q8_skinny_probes(dev, gpu) -> None:
+    """Exact layout probes of the int8 skinny body at n = 16 and n = 4: A of
+    int8 codes in [-127, 127], B a row-major column selection (column j
+    picks k row sel(j)), both scales 1, so C[i, j] = A[i, sel(j)] exactly,
+    through tsm2r_q8 and through tsm2r_q8_split at S = 3, whose partials
+    summed are exact too (one slice holds row sel(j), the others add
+    zeros); each with a bit-identical repeat. m = 1000 leaves a ragged row
+    tile, k = 1008 a part box at the end, and the 352-deep slices start in
+    the middle of a 128-deep int8 box."""
+    from repro_torch.kernels import tsm2r as k_tsm2r
+
+    m, k = 1000, 1008
+    rows = torch.arange(m, device=dev)[:, None]
+    a = ((rows * 13 + torch.arange(k, device=dev) * 5) % 255 - 127).to(
+        torch.int8)
+    ones = torch.ones(-(-m // 256), device=dev)
+    for n in (16, 4):
+        cols = torch.arange(n, device=dev)
+        sel = (cols * (k // n + 7) + 3) % k      # spread over the slices
+        b = torch.zeros((k, n), dtype=torch.int8, device=dev)
+        b[sel, cols] = 1
+        q = (a, b, ones, ones[:1], 256)
+        got = k_tsm2r.tsm2r_q8(*q, torch.float32)
+        again = k_tsm2r.tsm2r_q8(*q, torch.float32)
+        parts = k_tsm2r.tsm2r_q8_split(*q, 3, 32)
+        parts2 = k_tsm2r.tsm2r_q8_split(*q, 3, 32)
+        torch.cuda.synchronize()
+        wrong, first = probe_misses(got, a, sel)
+        wrong_s, first_s = probe_misses(parts.sum(0), a, sel)
+        bodies = [k_tsm2r.q8_plan(a, b)[0],
+                  k_tsm2r.q8_split_plan(a, b, 3, 32)[0]]
+        same = torch.equal(got, again) and torch.equal(parts, parts2)
+        ok = (bodies == ["skinny", "skinny"] and not wrong and not wrong_s
+              and same)
+        emit({"phase": "kernel", "kernel": "tsm2r_q8", "case": "layout_probe",
+              "shape": [m, k, n], "dtype": "float32", "body": bodies[0],
+              "split_body": bodies[1], "splits": 3, "wrong_cells": wrong,
+              "first_wrong": first, "split_wrong_cells": wrong_s,
+              "split_first_wrong": first_s, "deterministic": same, "ok": ok,
+              "gpu": gpu})
+        check(ok, f"int8 skinny layout probe n={n}: bodies {bodies}, "
+              f"{wrong} / {wrong_s} wrong cells {first} {first_s}")
 
 
 # The fused quantize pass's cases: (label, shape, dtype, band or None for
@@ -999,17 +1117,23 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
     }
     # (m, d1, d2, S, deep, timed as): the main-path shapes first; "deep"
     # reductions are of one sign with codes near 127, so a single int32
-    # sum over their depth (> 133,143 terms) would overflow.
+    # sum over their depth (> 133,143 terms) would overflow. tsm2r_q8 adds
+    # the skinny body's widths 1, 3 and 8, tsm2r_q8_split 800-deep slices
+    # that start in the middle of a 128-deep int8 box.
     cases = {
         "tsm2r_q8": [(8192, 4096, 256, 1, False, "main"),
                      (4096, 4096, 256, 1, False, "train"),
                      (65024, 4096, 4, 1, False, "train"),
                      (1000, 784, 200, 1, False, None),
                      (1000, 777, 17, 1, False, None),
+                     (4096, 4096, 1, 1, False, None),
+                     (4096, 4096, 3, 1, False, None),
+                     (4096, 4096, 8, 1, False, None),
                      (256, 270000, 32, 1, True, None),
                      (512, 300000, 4, 1, True, None)],
         "tsm2r_q8_split": [(4096, 65536, 16, 4, False, "main"),
                            (16384, 16384, 16, 2, False, None),
+                           (4096, 4000, 16, 5, False, None),
                            (1000, 777, 17, 3, False, None),
                            (512, 300000, 4, 2, True, None)],
         "tsm2l_q8": [(102400, 4, 4, 1, False, "main"),
@@ -1063,14 +1187,20 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                 if name == "tsmt_q8":
                     rec.update(tsmt_plan_check(xq, yq, got, dtype, (xs, ys)))
                     rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
-                if name == "tsm2r_q8":
-                    # The wgmma body folds its exact s32 sums into f32 once
-                    # up to Q8_ONE_FOLD_K: the plain version's bits there.
-                    rec["body"], rec["grid"] = k_tsm2r.q8_plan(xq, yq)
-                    wgmma = (m, d1, d2) in TSM2R_Q8_WGMMA
+                if name in ("tsm2r_q8", "tsm2r_q8_split"):
+                    # The wgmma and skinny bodies fold their exact int32
+                    # sums into f32 once up to Q8_ONE_FOLD_K: the plain
+                    # version's bits there.
+                    rec["body"], rec["grid"] = (
+                        k_tsm2r.q8_split_plan(xq, yq, S, bk) if split
+                        else k_tsm2r.q8_plan(xq, yq))
+                    want_body = (
+                        "wgmma" if not split and (m, d1, d2) in TSM2R_Q8_WGMMA
+                        else "skinny" if (m, d1, d2, S) in TSM2R_Q8_SKINNY
+                        else "simt")
                     rec["bits_vs_plain"] = same_bits(got, want)
-                    ok = ok and rec["body"] == ("wgmma" if wgmma else "simt")
-                    if wgmma and d1 <= Q8_ONE_FOLD_K:
+                    ok = ok and rec["body"] == want_body
+                    if want_body != "simt" and depth <= Q8_ONE_FOLD_K:
                         ok = ok and rec["bits_vs_plain"]
                     rec["ok"] = ok
                 if not ok:
@@ -1104,7 +1234,17 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
             check(rec["body"] == "wgmma" and rec["device_ms"] < limit,
                   f"tsm2r_q8 at {rec['shape']}: body {rec['body']}, "
                   f"{rec['device_ms']} ms on the device (limit {limit})")
+    # PowerSGD's P and tsm2r_q8_split's main case stream A on the int8
+    # skinny body, under a gate the __dp4a simt body cannot pass.
+    for rec in [*(r for r in at_train["tsm2r_q8"] if r["shape"][2] == 4),
+                measured["tsm2r_q8_split"]]:
+        check(rec["body"] == "skinny"
+              and rec["device_ms"] <= TSM2R_Q8_SKINNY_MAX_MS,
+              f"{rec['kernel']} at {rec['shape']}: body {rec['body']}, "
+              f"{rec['device_ms']} ms on the device (limit "
+              f"{TSM2R_Q8_SKINNY_MAX_MS})")
     tsm2r_q8_probes(dev, uniform, gpu)
+    q8_skinny_probes(dev, gpu)
 
     # The whole op under quant="int8" against the f32 product.
     for entry, (m, d1, d2), dtype, split in [
@@ -1137,12 +1277,16 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                "library_ms": time_ms(lambda: torch.matmul(xt, y)),
                "rel_err_vs_f32": rel, "tol": Q8_REL_TOL[dtype], "ok": ok,
                "gpu": gpu}
-        if (m, d1, d2) == (8192, 4096, 256):
-            # The serving shape: the int8 op (quantize passes and kernel)
-            # beside the bf16 op, by events and on the device.
-            rec.update(op_device_ms=call_device_ms(run),
-                       bf16_op_ms=time_ms(lambda: run("none")),
-                       bf16_op_device_ms=call_device_ms(lambda: run("none")))
+        if (m, d1, d2) in ((8192, 4096, 256), (65024, 4096, 4)):
+            # The serving shape and PowerSGD's (P through tsmm, Q through
+            # tsmm_t): the int8 op (quantize passes and kernel) beside the
+            # op in the caller's dtype (bf16, f32), by events and on the
+            # device.
+            tag = "bf16" if dtype == bf16 else "f32"
+            rec.update({"op_device_ms": call_device_ms(run),
+                        f"{tag}_op_ms": time_ms(lambda: run("none")),
+                        f"{tag}_op_device_ms": call_device_ms(
+                            lambda: run("none"))})
         emit(rec)
         check(ok, f"int8 {entry} op {m}x{d1}x{d2} {dtype}: {rel}")
         del x, y, xt, got, oracle
@@ -2008,6 +2152,22 @@ def main() -> int:
             mirror[f"tsm2r_q8_plan{[m, k, n]}@{ptr_a},{ptr_b}"] = c_plan
             check(c_plan == py_plan, f"tsm2r_q8 plan mirror {m, k, n} "
                   f"{ptr_a, ptr_b}: C {c_plan} vs Python {py_plan}")
+    # tsm2r_q8_split's: widths either side of 16, k on and off the 16-byte
+    # grid (776, 777), slices mid-box (S = 5 at k = 4000), and A's base.
+    for m, k, n in [(4096, 65536, 16), (16384, 16384, 16), (65024, 4096, 4),
+                    (4096, 4000, 16), (1000, 1008, 3), (1000, 776, 16),
+                    (1000, 777, 17), (4096, 4096, 17), (512, 300000, 4)]:
+        for S in (2, 4, 5):
+            for ptr_a in (0, 4, 16):
+                c_plan = _build.split_plan(m, k, n, S, ref.split_len(
+                    k, S, perf_model.TSM2R_BLOCK_K), "int8", ptr_a)
+                py_plan = perf_model.tsm2r_plan(m, k, n, torch.int8, ptr_a,
+                                                splits=S)
+                mirror[f"tsm2r_q8_split_plan{[m, k, n]}S{S}@{ptr_a}"] = (
+                    c_plan)
+                check(c_plan == py_plan, f"tsm2r_q8_split plan mirror "
+                      f"{m, k, n} S={S} @{ptr_a}: C {c_plan} vs Python "
+                      f"{py_plan}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
     q8_launched = q8_dispatch(dev, uniform, counts, expect)
     dispatch_launches = counts()

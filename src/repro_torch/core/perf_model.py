@@ -10,8 +10,10 @@ mirrored by ``tsm2r_tile``/``tsmt_tile`` below, and ``tsm2r_plan``'s
 choice of body). The sequential TSM2R runs bf16 and int8 outputs wider
 than 16 on the tensor cores (its "wgmma" bodies, priced at the bf16 and
 int8 tensor-core rates); every other kernel, and TSM2R's "skinny" and
-"simt" bodies, runs its FMAs on the CUDA cores in f32, so the f32 rate
-bounds their arithmetic at either input dtype. Block sizes are fixed
+"simt" bodies, runs on the CUDA cores: FMAs in f32 for f32 and bf16
+inputs, so the f32 rate bounds their arithmetic at either input dtype,
+and ``__dp4a`` for int8 (both non-wgmma bodies priced at its rate, so
+the skinny body moves no route or resolved S). Block sizes are fixed
 per tile shape inside the kernels, so the only parameter chosen here is
 the split factor S.
 
@@ -98,23 +100,25 @@ Q8_BAND = 256
 # the widest output that stays on the CUDA cores.
 TSM2R_WGMMA_TILE = (64, 128)
 WGMMA_MIN_WIDTH = 16
-# TSM2R's streaming body for f32 and bf16 outputs at most 16 wide
-# (``csrc/tsm2r_skinny.cuh``), sequential and split. Its blocks own 128
-# rows, the simt table's tile at n <= 16, so the grid does not depend on
-# which of the two runs.
+# TSM2R's streaming body for outputs at most 16 wide
+# (``csrc/tsm2r_skinny.cuh``): f32, bf16 and int8 (tsm2r_q8), sequential
+# and split. Its blocks own 128 rows, the simt table's tile at n <= 16, so
+# the grid does not depend on which of the two runs.
 SKINNY_MAX_WIDTH = 16
+_SKINNY_SIZES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 
 
 def skinny_fits(k: int, n: int, dtype, ptr_a: int = 0,
                 splits: int = 1) -> bool:
-    """Whether a f32/bf16 TSM2R launch takes the skinny body
-    (``skinny::fits``): n in 1..16, k > 0, A's rows and each slice whole
-    16-byte chunks (TMA's strides), A's base ``ptr_a`` 16-byte aligned. A
-    split launch's slice is ``split_len(k, splits, TSM2R_BLOCK_K)``, the
-    sequential kernel's is k."""
-    if dtype not in (torch.float32, torch.bfloat16):
+    """Whether a TSM2R launch (f32, bf16, or int8 through tsm2r_q8 and
+    tsm2r_q8_split) takes the skinny body (``skinny::fits``): n in 1..16,
+    k > 0, A's rows and each slice whole 16-byte chunks (TMA's strides; k
+    a multiple of 16 at int8's 1 byte an element), A's base ``ptr_a``
+    16-byte aligned. A split launch's slice is ``split_len(k, splits,
+    TSM2R_BLOCK_K)``, the sequential kernel's is k."""
+    size = _SKINNY_SIZES.get(dtype)
+    if size is None:
         return False
-    size = 2 if dtype == torch.bfloat16 else 4
     slice_ = k if splits == 1 else split_len(k, splits, TSM2R_BLOCK_K)
     return (1 <= n <= SKINNY_MAX_WIDTH and k > 0 and k * size % 16 == 0
             and slice_ * size % 16 == 0 and ptr_a % 16 == 0)
@@ -122,14 +126,16 @@ def skinny_fits(k: int, n: int, dtype, ptr_a: int = 0,
 
 def tsm2r_body(k: int, n: int, dtype, ptr_a: int = 0, ptr_b: int = 0,
                splits: int = 1) -> str:
-    """The body a TSM2R launch runs. "skinny" for f32 and bf16 launches,
-    sequential or split, that ``skinny_fits``. "wgmma" for the sequential
+    """The body a TSM2R launch runs. "skinny" for f32, bf16 and int8
+    launches, sequential or split, that ``skinny_fits`` (int8 at n <= 16
+    with k a multiple of 16 and an aligned A). "wgmma" for the sequential
     kernel (S = 1) with n > 16, k > 0 and 16-byte aligned base addresses
     ``ptr_a``/``ptr_b``, where TMA's 16-byte global strides hold: for bf16
     (``wgmma::fits``) k and n multiples of 8; for int8 (tsm2r_q8,
     ``wgmma_s8::fits``, whose B is read K-major, so ``ptr_b`` is the
     K-major B's address and n needs no multiple) k a multiple of 16. Else
-    "simt", as for every int8 split launch and f32 past n = 16."""
+    "simt": f32 past n = 16, split launches past n = 16, and whatever
+    misses the skinny body's chunks or alignment."""
     if skinny_fits(k, n, dtype, ptr_a, splits):
         return "skinny"
     if (splits != 1 or n <= WGMMA_MIN_WIDTH or k <= 0 or ptr_a % 16
@@ -172,8 +178,9 @@ def tsm2r_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
                ptr_b: int = 0, splits: int = 1) -> tuple[str, tuple]:
     """(body, grid) of the sequential TSM2R (``splits`` 1) or its split
     kernel: the mirror of the C queries ``tsm2r_plan`` (f32, bf16),
-    ``tsm2r_q8_plan`` (int8) and ``tsm2r_split_plan`` (f32, bf16 at S
-    slices of ``split_len(k, S, TSM2R_BLOCK_K)``) (``kernels/_build.plan``,
+    ``tsm2r_q8_plan`` (int8), ``tsm2r_split_plan`` (f32, bf16) and
+    ``tsm2r_q8_split_plan`` (int8), the split ones at S slices of
+    ``split_len(k, S, TSM2R_BLOCK_K)`` (``kernels/_build.plan``,
     ``kernels/_build.split_plan``)."""
     return (tsm2r_body(k, n, dtype, ptr_a, ptr_b, splits),
             tsm2r_grid(m, k, n, splits, dtype, ptr_a, ptr_b))
@@ -258,7 +265,8 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     partials' round trip, over the bandwidth of the busy SMs' share;
     multiply-adds on the same share at the rate of the body that runs
     (``tsm2r_body``: for "wgmma" the bf16 or int8 tensor-core rate, for
-    "skinny" and "simt" the f32 rate, ``__dp4a``'s at int8); one launch
+    "skinny" and "simt" the f32 rate, ``__dp4a``'s at int8, both bodies
+    alike); one launch
     per kernel."""
     b = torch.empty((), dtype=dtype).element_size()
     wide = tsm2r_body(k, n, dtype, splits=splits) == "wgmma"

@@ -49,7 +49,11 @@ the f32 split launcher's arguments after i (``sweep_variants``,
 ``sweep_launch``); the tsm2r_q8 library ``tsm2r_q8_plan(m, k, n, A, B,
 int* out)`` likewise (``plan`` with dtype tag "int8") and
 ``tsm2r_q8_transpose(src, dst, rows, cols, stream)``, an int8 [rows,
-cols] to [cols, rows] copy (``transpose_q8``).
+cols] to [cols, rows] copy (``transpose_q8``); the tsm2r_q8_split library
+``tsm2r_q8_split_plan(m, k, n, splits, slice, A, int* out)``
+(``split_plan`` with dtype tag "int8") and
+``tsm2r_q8_split_sweep_f32(i, ...)``, the int8 split launcher's arguments
+after i (``sweep_launch_q8``).
 """
 
 from __future__ import annotations
@@ -194,6 +198,12 @@ def library(name: str) -> ctypes.CDLL:
                 lib.tsm2r_q8_plan.restype = ctypes.c_int
                 lib.tsm2r_q8_transpose.argtypes = [_P, _P, _I, _I, _P]
                 lib.tsm2r_q8_transpose.restype = ctypes.c_int
+            if name == "tsm2r_q8_split":
+                lib.tsm2r_q8_split_plan.argtypes = [_I, _I, _I, _I, _I, _P,
+                                                    ctypes.POINTER(_I)]
+                lib.tsm2r_q8_split_plan.restype = ctypes.c_int
+                lib.tsm2r_q8_split_sweep_f32.argtypes = [_I, *_SPLIT_Q8]
+                lib.tsm2r_q8_split_sweep_f32.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -228,10 +238,14 @@ def split_plan(m: int, k: int, n: int, splits: int, slice_: int,
                dtype_tag: str, ptr_a: int) -> tuple:
     """(body, grid) of a tsm2r_split launch of ``splits`` slices of
     ``slice_`` k values on an A at ``ptr_a``, as its library decides them
-    (``dtype_tag`` "f32" or "bf16")."""
+    (``dtype_tag`` "f32" or "bf16"; "int8" for tsm2r_q8_split's)."""
     out = (ctypes.c_int * 4)()
-    err = library("tsm2r_split").tsm2r_split_plan(
-        m, k, n, splits, slice_, PLAN_TAGS[dtype_tag], ptr_a, out)
+    if dtype_tag == "int8":
+        err = library("tsm2r_q8_split").tsm2r_q8_split_plan(
+            m, k, n, splits, slice_, ptr_a, out)
+    else:
+        err = library("tsm2r_split").tsm2r_split_plan(
+            m, k, n, splits, slice_, PLAN_TAGS[dtype_tag], ptr_a, out)
     if err != 0:
         raise RuntimeError(f"tsm2r_split plan query failed: {err}")
     return PLAN_BODIES[out[0]], tuple(out[1:])
@@ -252,6 +266,14 @@ def sweep_launch(variant: int, *args) -> int:
     the f32 launcher's arguments (pointers, m, k, n = 4 or 16, splits,
     slice, stream); returns its cudaError_t."""
     return library("tsm2r_split").tsm2r_split_sweep_f32(variant, *args)
+
+
+def sweep_launch_q8(variant: int, *args) -> int:
+    """Launch tsm2r_q8_split's skinny body at sweep ``variant`` with its
+    launcher's arguments (int8 A and B, their scales, the f32 partials, m,
+    k, n = 4 or 16, band, splits, slice, stream); returns its
+    cudaError_t."""
+    return library("tsm2r_q8_split").tsm2r_q8_split_sweep_f32(variant, *args)
 
 
 def transpose_q8(src: int, dst: int, rows: int, cols: int,

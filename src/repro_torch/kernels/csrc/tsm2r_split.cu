@@ -107,14 +107,6 @@ int run(const T* a, const T* b, float* p, int m, int k, int n, int splits,
   return dispatch<T>(a, b, p, m, k, n, splits, slice, stream);
 }
 
-// The skinny body's variants that the sweep times: {rows a thread,
-// k-splitting groups, stages, producer warps}; variant 0 is the default.
-constexpr int SWEEP[][4] = {{2, 2, 3, 2}, {2, 2, 3, 1}, {2, 2, 3, 3},
-                            {2, 2, 4, 4}, {2, 2, 4, 2}, {2, 2, 6, 2},
-                            {1, 2, 3, 2}, {4, 2, 3, 2}, {2, 4, 3, 2},
-                            {2, 8, 3, 2}};
-constexpr int SWEEP_N = sizeof(SWEEP) / sizeof(SWEEP[0]);
-
 template <int R, int G>
 int sweep_at(const float* a, const float* b, float* p, int m, int k, int n,
              int splits, int slice, int stages, int producers,
@@ -174,11 +166,13 @@ extern "C" int tsm2r_split_plan(int m, int k, int n, int splits, int slice,
   return tsm2r_split_grid(m, k, n, splits, out + 1);
 }
 
-// Sweep variant i of the skinny body: out = {rows a thread, groups,
-// stages, producer warps}; cudaErrorInvalidValue past the last.
+// Sweep variant i of the skinny body (skinny::SWEEP): out = {rows a
+// thread, groups, stages, producer warps}; cudaErrorInvalidValue past the
+// last.
 extern "C" int tsm2r_split_sweep_variant(int i, int* out) {
-  if (i < 0 || i >= SWEEP_N) return (int)cudaErrorInvalidValue;
-  for (int q = 0; q < 4; ++q) out[q] = SWEEP[i][q];
+  namespace sk = tsm2x::skinny;
+  if (i < 0 || i >= sk::SWEEP_N) return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < 4; ++q) out[q] = sk::SWEEP[i][q];
   return 0;
 }
 
@@ -186,22 +180,10 @@ extern "C" int tsm2r_split_sweep_variant(int i, int* out) {
 extern "C" int tsm2r_split_sweep_f32(int i, const void* a, const void* b,
                                      void* p, int m, int k, int n, int splits,
                                      int slice, void* stream) {
-  if (i < 0 || i >= SWEEP_N) return (int)cudaErrorInvalidValue;
-  const float *fa = (const float*)a, *fb = (const float*)b;
-  float* fp = (float*)p;
-  const int stages = SWEEP[i][2], producers = SWEEP[i][3];
-  const cudaStream_t st = (cudaStream_t)stream;
-#define TSM2R_SWEEP_CASE(R, G)                                    \
-  case R * 100 + G:                                               \
-    return sweep_at<R, G>(fa, fb, fp, m, k, n, splits, slice, stages, \
-                          producers, st);
-  switch (SWEEP[i][0] * 100 + SWEEP[i][1]) {
-    TSM2R_SWEEP_CASE(2, 2)
-    TSM2R_SWEEP_CASE(1, 2)
-    TSM2R_SWEEP_CASE(4, 2)
-    TSM2R_SWEEP_CASE(2, 4)
-    TSM2R_SWEEP_CASE(2, 8)
-  }
-#undef TSM2R_SWEEP_CASE
-  return (int)cudaErrorInvalidValue;
+  namespace sk = tsm2x::skinny;
+  return sk::with_variant(i, [&](auto r, auto g) {
+    return sweep_at<decltype(r)::value, decltype(g)::value>(
+        (const float*)a, (const float*)b, (float*)p, m, k, n, splits, slice,
+        sk::SWEEP[i][2], sk::SWEEP[i][3], (cudaStream_t)stream);
+  });
 }

@@ -36,8 +36,8 @@ sums the partials.
 ``tsm2r_q8`` replaces ``quant.py::tsm2r_q8_pallas`` with
 ``csrc/tsm2r_q8.cu``: int8 A (per-band scales) and B (one scale), exact
 integer sums, sA[band of row] * sB folded into the stored tile, bound by
-the bytes of A at 1 byte an element. Two bodies, chosen before the launch
-(``plan`` with dtype int8; mirrored by ``perf_model.tsm2r_plan``):
+the bytes of A at 1 byte an element. Three bodies, chosen before the
+launch (``q8_plan``; mirrored by ``perf_model.tsm2r_plan`` at int8):
 
 * "wgmma" (``csrc/tsm2r_q8_wgmma.cuh``): n > 16, k a multiple of 16 and
   16-byte aligned operands, such as chatglm3's wk/wv at int8. TMA feeds
@@ -48,13 +48,22 @@ the bytes of A at 1 byte an element. Two bodies, chosen before the launch
   ``quant.quantize_tensor(b, kmajor=True)`` writes it; given a row-major
   B, the wrapper makes the K-major copy with the library's transpose
   kernel (``q8_transpose_launches``).
-* "simt" (``csrc/common.cuh``): every other call (n <= 16, such as
-  PowerSGD's P; k % 16 != 0; a misaligned base): four int8 products a
-  ``__dp4a`` into exact int32 tile sums, with a row-major B (a K-major
-  one is copied back the same way).
+* "skinny" (``csrc/tsm2r_skinny.cuh``'s int8 stage): n <= 16 with k a
+  multiple of 16 and a 16-byte aligned A, such as PowerSGD's P at n = 4,
+  with a row-major B. The f32/bf16 skinny body's TMA ring at 128 int8 k
+  values a box; the producer warps stage B as packed words (four k values
+  of a column each) and every ``__dp4a`` does four exact products into
+  int32 sums that fold into f32 only past 131,072 k: bit-equal to the
+  plain version below that depth.
+* "simt" (``csrc/common.cuh``): every other call (k % 16 != 0; a
+  misaligned A; n > 16 where the wgmma body does not fit): four int8
+  products a ``__dp4a`` into exact int32 tile sums. It and the skinny
+  body read a row-major B (a K-major one is copied back the same way).
 
 ``tsm2r_q8_split`` replaces ``quant.py::tsm2r_q8_pallas_split`` with
-``csrc/tsm2r_q8_split.cu``: the simt int8 body over one of S k slices.
+``csrc/tsm2r_q8_split.cu``: the skinny or the simt int8 body over one of S
+k slices (``q8_split_plan``: "skinny" where it fits, as for
+``tsm2r_split``).
 
 CPU tensors take the plain versions (``ref.tsm2r_ref``,
 ``ref.tsm2r_split_ref``, ``ref.tsm2r_q8_ref``, ``ref.tsm2r_q8_split_ref``);
@@ -141,6 +150,17 @@ def q8_plan(a: torch.Tensor, b: torch.Tensor) -> tuple[str, tuple]:
     (m, k), n = a.shape, b.shape[1]
     return _build.plan(m, k, n, "int8", a.data_ptr(),
                        b.data_ptr() if is_kmajor(b) else 0)
+
+
+def q8_split_plan(a: torch.Tensor, b: torch.Tensor, splits: int,
+                  block_k: int) -> tuple[str, tuple]:
+    """(body, grid) that ``tsm2r_q8_split(a, b, ..., splits, block_k)``
+    launches for these CUDA operands, as the kernel's library decides them
+    (``tsm2r_q8_split_plan``)."""
+    (m, k), n = a.shape, b.shape[1]
+    return _build.split_plan(m, k, n, splits, ref.split_len(k, splits,
+                                                            block_k),
+                             "int8", a.data_ptr())
 
 
 def q8_transpose(b: torch.Tensor) -> torch.Tensor:

@@ -10,16 +10,20 @@ wide whose rows of A are whole 16-byte chunks and whose A is 16-byte
 aligned; "simt" (the CUDA-core body of ``csrc/common.cuh``) for
 everything else. The split kernel takes "skinny" under the same
 conditions at any S (its slices are multiples of 32 k), else "simt".
-tsm2r_q8 likewise (``csrc/tsm2r_q8_wgmma.cuh``): int8 outputs wider than
-16 whose k is a multiple of 16, with aligned bases of A and of the
-K-major B it reads; its split kernel and every int8 n <= 16 stay
-"simt". The C queries ``tsm2r_plan``, ``tsm2r_split_plan`` and
-``tsm2r_q8_plan`` run only on the card, where ``chip_smoke.py`` holds
-them against ``perf_model.tsm2r_plan``. Here:
+tsm2r_q8 likewise: "wgmma" (``csrc/tsm2r_q8_wgmma.cuh``) for int8 outputs
+wider than 16 whose k is a multiple of 16, with aligned bases of A and
+of the K-major B it reads; "skinny" (the streaming body's int8 stage)
+for int8 outputs at most 16 wide whose k is a multiple of 16 and whose A
+is 16-byte aligned, sequential or split; else "simt". The C queries
+``tsm2r_plan``, ``tsm2r_split_plan``, ``tsm2r_q8_plan`` and
+``tsm2r_q8_split_plan`` run only on the card, where ``chip_smoke.py``
+holds them against ``perf_model.tsm2r_plan``. Here:
 that mirror's bodies and grids case by case, what it does to the
-performance model and the dispatch record, and the plain version against
-the JAX package's tsm2r (Pallas in interpret mode) at shapes the wgmma
-and the skinny bodies take, at bf16's rtol = atol = 2e-2 and f32's 1e-4.
+performance model and the dispatch record, and the plain versions against
+the JAX package's kernels (Pallas in interpret mode) at shapes the wgmma
+and the skinny bodies take: tsm2r at bf16's rtol = atol = 2e-2 and f32's
+1e-4, the int8 tsm2r_q8 and tsm2r_q8_split bit for bit (k <= 1,024 keeps
+every partial sum below 2^24, so the JAX kernels' f32 sums are exact).
 """
 
 import jax.numpy as jnp
@@ -29,8 +33,9 @@ import torch
 
 from repro.core import tsmm as jtsmm
 from repro.kernels import ops as jops
+from repro.kernels import quant as jquant
 from repro_torch.core import perf_model, tsmm
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -80,17 +85,17 @@ def test_misaligned_view_takes_the_simt_body():
 
 
 def test_split_and_int8_launches_keep_the_simt_table():
-    # f32/bf16 split launches at n <= 16 take the skinny body, on the simt
-    # table's grid; int8 split launches and split launches past n = 16
-    # keep the simt body and its table; the sequential int8 kernel at
-    # n > 16 runs its wgmma body's 64 x 128 tiles.
+    # Split launches at n <= 16 take the skinny body, f32, bf16 and int8
+    # alike, on the simt table's grid; split launches past n = 16 keep the
+    # simt body and its table; the sequential int8 kernel at n > 16 runs
+    # its wgmma body's 64 x 128 tiles.
     for dtype in (F32, BF16):
         assert perf_model.tsm2r_plan(16384, 16384, 16, dtype, splits=2) == (
             "skinny", (128, 1, 2))
         assert perf_model.tsm2r_plan(8192, 4096, 256, dtype, splits=4) == (
             "simt", (128, 4, 4))
     assert perf_model.tsm2r_plan(16384, 16384, 16, torch.int8,
-                                 splits=2) == ("simt", (128, 1, 2))
+                                 splits=2) == ("skinny", (128, 1, 2))
     assert perf_model.tsm2r_grid(8192, 4096, 256, 4, BF16) == (128, 4, 4)
     assert perf_model.tsm2r_grid(8192, 4096, 256, 4, torch.int8) == (
         128, 4, 4)
@@ -257,7 +262,7 @@ def test_plain_version_matches_jax_at_skinny_shapes(m, k, n, splits, name,
 
 
 # ---------------------------------------------------------------------------
-# tsm2r_q8: the int8 wgmma body
+# tsm2r_q8: the int8 wgmma and skinny bodies
 # ---------------------------------------------------------------------------
 
 I8 = torch.int8
@@ -270,30 +275,70 @@ I8 = torch.int8
     ((1000, 784, 200), (64, 1024), "wgmma", (16, 2, 1)),   # ragged
     ((256, 270000, 32), (0, 0), "wgmma", (4, 1, 1)),       # past one s32
     ((4096, 4096, 17), (0, 0), "wgmma", (64, 1, 1)),       # any n > 16
-    # n <= 16: simt, 128 x 16 tiles.
-    ((65024, 4096, 4), (0, 0), "simt", (508, 1, 1)),       # PowerSGD's P
-    ((4096, 4096, 16), (0, 0), "simt", (32, 1, 1)),
+    # n <= 16, k % 16 == 0, an aligned A: skinny, the simt table's grid.
+    ((65024, 4096, 4), (0, 0), "skinny", (508, 1, 1)),     # PowerSGD's P
+    ((4096, 4096, 16), (0, 0), "skinny", (32, 1, 1)),
+    ((4096, 4096, 16), (0, 8), "skinny", (32, 1, 1)),      # B's base: any
     # k % 16 != 0: TMA's 16-byte strides of int8 fail.
     ((1000, 777, 17), (0, 0), "simt", (16, 1, 1)),
     ((1000, 776, 200), (0, 0), "simt", (16, 4, 1)),
+    ((1000, 776, 16), (0, 0), "simt", (8, 1, 1)),
     # a base address off the 16-byte grid, of A or of the K-major B.
     ((1024, 1024, 256), (4, 0), "simt", (16, 4, 1)),
     ((1024, 1024, 256), (0, 8), "simt", (16, 4, 1)),
+    ((1024, 1024, 16), (4, 0), "simt", (8, 1, 1)),
     ((64, 0, 256), (0, 0), "simt", (1, 4, 1)),
+    ((64, 0, 16), (0, 0), "simt", (1, 1, 1)),
 ])
 def test_int8_plan_body_and_grid(shape, ptrs, body, grid):
     assert perf_model.tsm2r_plan(*shape, I8, *ptrs) == (body, grid)
 
 
 @pytest.mark.parametrize("shape,splits,body,grid", [
-    ((65024, 4096, 4), 1, "simt", (508, 1, 1)),        # train-int8's P
-    ((16384, 16384, 16), 2, "simt", (128, 1, 2)),
-    ((4096, 65536, 16), 4, "simt", (32, 1, 4)),        # tsm2r_q8_split
+    ((65024, 4096, 4), 1, "skinny", (508, 1, 1)),      # train-int8's P
+    ((16384, 16384, 16), 2, "skinny", (128, 1, 2)),
+    ((4096, 65536, 16), 4, "skinny", (32, 1, 4)),      # tsm2r_q8_split
     ((8192, 4096, 256), 1, "wgmma", (128, 2, 1)),
     ((8192, 4096, 256), 4, "simt", (128, 4, 4)),
 ])
-def test_int8_plans_do_not_take_the_skinny_body(shape, splits, body, grid):
+def test_int8_plans_take_the_skinny_body_at_n_le_16(shape, splits, body,
+                                                    grid):
     assert perf_model.tsm2r_plan(*shape, I8, splits=splits) == (body, grid)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("shape,body", [
+    ((4096, 4096, 1), "skinny"),
+    ((4096, 4096, 3), "skinny"),
+    ((4096, 4096, 8), "skinny"),
+    ((4096, 4096, 16), "skinny"),
+    ((4096, 4000, 16), "skinny"),     # S = 5: 800-deep slices, mid-box
+    ((1000, 1008, 4), "skinny"),      # a part box at the end
+    ((1000, 776, 16), "simt"),        # k % 16 != 0
+    ((1000, 777, 4), "simt"),
+    ((4096, 4096, 17), "simt"),       # past the body's widths
+])
+def test_int8_skinny_body_by_width_and_chunks(shape, body, splits):
+    # n = 17 runs the sequential kernel's wgmma body; the split kernel has
+    # none, so it keeps the simt body and its 64-row tiles.
+    m, k, n = shape
+    want = "wgmma" if n > 16 and splits == 1 else body
+    bm = 64 if want == "simt" and n > 16 else 128
+    grid = (64, 1, 1) if want == "wgmma" else (-(-m // bm), 1, splits)
+    assert perf_model.tsm2r_plan(*shape, I8, splits=splits) == (want, grid)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_int8_misaligned_view_of_a_leaves_the_skinny_body(splits):
+    flat = torch.zeros(64 * 64 + 16, dtype=I8)
+    a, b = flat[4:4 + 64 * 64].view(64, 64), torch.zeros((64, 16), dtype=I8)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 4
+    assert perf_model.tsm2r_plan(64, 64, 16, I8, a.data_ptr(), b.data_ptr(),
+                                 splits)[0] == "simt"
+    a = flat[16:16 + 63 * 64].view(63, 64)             # back on the grid
+    assert a.data_ptr() % 16 == 0
+    assert perf_model.tsm2r_plan(63, 64, 16, I8, a.data_ptr(), b.data_ptr(),
+                                 splits)[0] == "skinny"
 
 
 def test_int8_split_launches_run_simt():
@@ -343,8 +388,9 @@ def test_model_prices_int8_wgmma_at_the_int8_tensor_core_rate():
     ((4096, 65536, 16), True),      # 32 row tiles: split
 ])
 def test_int8_chooser_routes_as_before(shape, split):
-    """Pricing the int8 wgmma body moves no route: S > 1 is offered only at
-    n <= 16, where the int8 body is simt either way."""
+    """Pricing the int8 bodies moves no route: S > 1 is offered only at
+    n <= 16, where the skinny and the simt body are both priced at
+    ``__dp4a``'s rate."""
     s = perf_model.choose_splits_tsm2r(*shape, perf_model.H100, I8)
     assert (s > 1) == split
 
@@ -365,5 +411,42 @@ def test_int8_dispatch_records_the_wgmma_grid_and_a_kmajor_b(monkeypatch):
         tsmm.tsmm(a, b)
         tsmm.tsmm(a, b[:, :16])
     assert log[0].launches[0].grid == (16, 1, 1)          # 64 x 128 tiles
-    assert log[1].launches[0].grid == (8, 1, 1)           # 128 x 16 simt
+    assert log[1].launches[0].grid == (8, 1, 1)           # 128-row skinny
     assert seen == [(1, 512), (16, 1)]       # K-major B, then row-major B
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 3, 4, 16])
+@pytest.mark.parametrize("k,splits", [(1024, 1), (800, 5)])
+def test_plain_int8_matches_jax_at_skinny_shapes(k, splits, n, out):
+    """ref.tsm2r_q8_ref / tsm2r_q8_split_ref against the JAX int8 kernels in
+    interpret mode, bit for bit: with k <= 1,024 every partial sum of
+    int8 products stays below 2^24, so the JAX kernels' f32 sums are
+    exact and both sides round the same integer once before the fold. The
+    split case's 160-deep slices (S = 5 of k = 800) start in the middle of
+    the skinny body's 128-deep int8 box."""
+    m, band = 256, 64
+    assert perf_model.tsm2r_plan(m, k, n, I8, splits=splits)[0] == "skinny"
+    assert ref.split_len(k, splits, perf_model.TSM2R_BLOCK_K) * splits == k
+    rng = np.random.default_rng(m + k + n)
+    x = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    y = rng.uniform(-1, 1, (k, n)).astype(np.float32)
+    xq, xs = jquant.quantize_blocks(jnp.asarray(x), band)
+    yq, ys = jquant.quantize_tensor(jnp.asarray(y))
+    t = [torch.from_numpy(np.array(v)) for v in (xq, yq, xs, ys)]
+    tdt, jdt = (BF16, jnp.bfloat16) if out == "bf16" else (F32, jnp.float32)
+    if splits == 1:
+        got = ref.tsm2r_q8_ref(*t, band, tdt)
+        want = jquant.tsm2r_q8_pallas(xq, yq, xs, ys, out_dtype=jdt,
+                                      block_m=band, block_k=128,
+                                      interpret=True)
+    else:
+        # One k step a slice: the JAX kernel's per-step fold is then the
+        # plain version's one fold of each slice's exact sum.
+        got = ref.tsm2r_q8_split_ref(*t, band, splits,
+                                     perf_model.TSM2R_BLOCK_K).to(tdt)
+        want = jquant.tsm2r_q8_pallas_split(
+            xq, yq, xs, ys, block_m=band, block_k=k // splits, splits=splits,
+            interpret=True).astype(jdt)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
