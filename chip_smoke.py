@@ -10,9 +10,11 @@ printing no result, when no CUDA card is present or any phase fails.
 1. Build: every kernel from ``src/repro_torch/kernels/csrc/`` (one nvcc per
    source, all started together: twelve libraries, the eleven TPU
    kernels' and the quantize pass's); prints the build time,
-   the card's name and power limit, and the matmul precision flags (TF32
-   and reduced precision bf16 reductions off, so the plain versions are
-   exact f32 sums).
+   ptxas's registers, static shared memory and spills of every kernel of
+   tsmt_q8 and tsmt_q8_split (``resources``: none may spill, or their two
+   blocks an SM would not hold), the card's name and power limit, and
+   the matmul precision flags (TF32 and reduced precision bf16
+   reductions off, so the plain versions are exact f32 sums).
 2. Kernels: each kernel against its plain version on the card, f32 and
    bf16, at the chatglm3, paper and ragged shapes; one JSON line per case
    with the kernel's, the plain version's and one ``torch.matmul``'s median
@@ -98,7 +100,20 @@ printing no result, when no CUDA card is present or any phase fails.
    tsm2r_q8_split's main case within 0.25 ms. An int8 layout probe (A of
    codes, B a column selection, scales 1) must come out exact on the
    wgmma body, and on the skinny body at n = 16 and 4 through tsm2r_q8
-   and tsm2r_q8_split at S = 3; a row-major B must give the K-major B's
+   and tsm2r_q8_split at S = 3. Every tsmt_q8 and tsmt_q8_split line
+   carries ``body`` from the library's ``tsmt_q8_plan`` /
+   ``tsmt_q8_split_plan``, which must equal ``perf_model.tsmt_q8_plan``:
+   "packed" (``csrc/tsmt_q8_packed.cuh``: 8 bytes of a row of X a thread
+   in one load, four rows a ``__dp4a``) for ``TSMT_Q8_PACKED`` (PowerSGD's
+   Q, [65536,128]^T [65536,4], [2^20,128]^T [2^20,4] and the deep
+   (300000, 16, 4)), "simt" at (10000, 300, 20) and (1000, 100, 3);
+   tsmt_q8_split at Q (S = 8) within 0.18 ms on the device. Its layout
+   probe (X of codes, Y one-hot at rows in every position of a 4-row
+   packet and in different thread groups and bands, scales 1, so C[:, j]
+   = X[r_j, :]) must come out exact at b = 4 and 16 through tsmt_q8 and
+   tsmt_q8_split at S = 3, and ``tsmt_q8_sweep`` times the packed body's
+   variants (bytes a thread, rows in flight) at Q, each within tolerance
+   of the plain version. A row-major B must give the K-major B's
    bits through one counted layout copy (``tsm2r_q8_transpose`` lines,
    with the copy's device time). The
    fused quantize pass (``quantize`` lines) must equal the plain code on
@@ -130,9 +145,11 @@ printing no result, when no CUDA card is present or any phase fails.
    (32 row tiles) to S > 1 on tsmt_q8_split and tsm2r_q8_split, and the
    paper's TSM2R to what the int8 chooser picks. The Python mirror of the
    tile table (``core/perf_model.py``) must equal the C grid query of all
-   four split libraries, and ``perf_model.tsm2r_plan`` the tsm2r,
+   four split libraries, ``perf_model.tsm2r_plan`` the tsm2r,
    tsm2r_split (at S = 2, 5, 8), tsm2r_q8 and tsm2r_q8_split (at S = 2,
-   4, 5) libraries' choice of body and grid. Every int8 op quantizes
+   4, 5) libraries' choice of body and grid, and
+   ``perf_model.tsmt_q8_plan`` the tsmt_q8 and tsmt_q8_split libraries'
+   (b either side of the packed widths, a % 16, bases of X and Y). Every int8 op quantizes
    both operands through the fused pass: its count must be twice the int8
    launches on every path (plus int8 PowerSGD's P and Q of each
    compressed leaf on train-int8), and no path may need a layout copy.
@@ -206,8 +223,8 @@ printing no result, when no CUDA card is present or any phase fails.
    on each of the five paths (dispatch, serve, train, serve-int8,
    train-int8) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
-   S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8 and
-   tsm2r_q8_split);
+   S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8,
+   tsm2r_q8_split, tsmt_q8 and tsmt_q8_split);
    tsm2r and tsm2r_q8 add their numbers at the training shapes. A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
@@ -277,6 +294,15 @@ TSM2R_Q8_SKINNY = {(65024, 4096, 4, 1), (4096, 4096, 1, 1),
 # 4: a gate that the __dp4a simt body (0.481 and 0.489 ms on an H100 80GB
 # HBM3 at 700 W) cannot pass.
 TSM2R_Q8_SKINNY_MAX_MS = 0.25
+# int8 TSMT cases (m, a, b) that take the packed body (b in {4, 8, 12,
+# 16}, a % 16 == 0, aligned X and Y), through tsmt_q8 and tsmt_q8_split
+# at every S; (10000, 300, 20) and (1000, 100, 3) stay on the simt body.
+TSMT_Q8_PACKED = {(65536, 128, 4), (300000, 16, 4), (65024, 4096, 4),
+                  (1 << 20, 128, 4)}
+# Device time tsmt_q8_split must stay within at PowerSGD's Q
+# [65024,4096]^T [65024,4], S = 8: a gate that the simt body (0.266 ms on
+# an H100 80GB HBM3 at 700 W) cannot pass.
+TSMT_Q8_SPLIT_MAX_MS = 0.18
 # Deepest reduction whose s32 sum the wgmma body folds into f32 once, so
 # its result is bit-equal to the plain version (1,024 stages of 128 k).
 Q8_ONE_FOLD_K = 131072
@@ -867,6 +893,113 @@ def q8_skinny_probes(dev, gpu) -> None:
               f"{wrong} / {wrong_s} wrong cells {first} {first_s}")
 
 
+def tsmt_q8_probes(dev, gpu) -> None:
+    """Exact layout probes of the packed int8 TSMT body at b = 4 and b =
+    16: X of int8 codes in [-127, 127], Y one-hot (Y[r_j, j] = 1), all
+    scales 1, so C[:, j] = X[r_j, :] exactly. The rows r_j sit at every
+    position within a 4-row packet, in different thread groups of the
+    default variant, in different packets of a group and in different
+    bands (the last one short: m = 1000); a = 144 leaves a ragged a-tile.
+    Through tsmt_q8 (S = 1 at this m) and tsmt_q8_split at S = 3 (whole
+    bands: 512, 488 and 0 rows), whose partials summed are exact too;
+    each with a bit-identical repeat."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    m, a, band = 1000, 144, perf_model.Q8_BAND
+    rows = torch.arange(m, device=dev)[:, None]
+    x = ((rows * 13 + torch.arange(a, device=dev) * 5) % 255 - 127).to(
+        torch.int8)
+    ones = torch.ones(-(-m // band), device=dev)
+    for b in (4, 16):
+        ta, tb = perf_model.tsmt_tile(b)
+        groups = 256 // ((ta // 8) * (tb // 4))   # 8 bytes, 4 columns a thread
+        sel = [band * (j if b == 4 else j // 4)
+               + 4 * ((3 * j + 1) % groups + groups * (3 * j % 4)) + j % 4
+               for j in range(b)]
+        check(len(set(sel)) == b and max(sel) < m, f"probe rows {sel}")
+        sel = torch.tensor(sel, device=dev)
+        y = torch.zeros((m, b), dtype=torch.int8, device=dev)
+        y[sel, torch.arange(b, device=dev)] = 1
+        q = (x, y, ones, ones, band)
+        got = k_tsmt.tsmt_q8(*q, torch.float32)
+        again = k_tsmt.tsmt_q8(*q, torch.float32)
+        parts = k_tsmt.tsmt_q8_split(*q, 3)
+        parts2 = k_tsmt.tsmt_q8_split(*q, 3)
+        torch.cuda.synchronize()
+        wrong, first = probe_misses(got, x.t(), sel)
+        wrong_s, first_s = probe_misses(parts.sum(0), x.t(), sel)
+        bodies = [k_tsmt.q8_plan(x, y)[0], k_tsmt.q8_plan(x, y, True)[0]]
+        same = torch.equal(got, again) and torch.equal(parts, parts2)
+        ok = (bodies == ["packed", "packed"] and not wrong and not wrong_s
+              and same)
+        emit({"phase": "kernel", "kernel": "tsmt_q8", "case": "layout_probe",
+              "shape": [m, a, b], "dtype": "float32", "body": bodies[0],
+              "split_body": bodies[1], "splits": 3, "rows": sel.tolist(),
+              "wrong_cells": wrong, "first_wrong": first,
+              "split_wrong_cells": wrong_s, "split_first_wrong": first_s,
+              "deterministic": same, "ok": ok, "gpu": gpu})
+        check(ok, f"packed int8 TSMT layout probe b={b}: bodies {bodies}, "
+              f"{wrong} / {wrong_s} wrong cells {first} {first_s}")
+
+
+def tsmt_q8_sweep(dev, uniform, gpu) -> None:
+    """Device time of the packed int8 TSMT body's variants (bytes of a row
+    of X a thread, rows loaded before any is multiplied;
+    ``_build.tsmt_q8_sweep_variants``, the first the default; their
+    registers are on the resources line) at
+    PowerSGD's Q [65024,4096]^T [65024,4], S = 8, beside the bytes bound
+    and the library call of the dequantized operands; each variant held
+    against the plain version at the f32 tolerance. Launches go straight
+    through the C launcher, so the wrappers' counts do not move."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _build, quant, ref
+
+    band, (m, a, b, S) = perf_model.Q8_BAND, (65024, 4096, 4, 8)
+    variants = _build.tsmt_q8_sweep_variants()
+    xq, xs = quant.quantize_blocks(uniform((m, a), torch.float32), band)
+    yq, ys = quant.quantize_blocks(uniform((m, b), torch.float32), band)
+    slice_ = ref.split_len(m, S, band)
+    out = torch.empty((S, a, b), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def at(i):
+        err = _build.tsmt_q8_sweep_launch(
+            i, xq.data_ptr(), yq.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+            out.data_ptr(), m, a, b, band, S, slice_, stream)
+        check(err == 0, f"tsmt_q8 sweep variant {variants[i]}: cudaError_t "
+              f"{err}")
+
+    want = ref.tsmt_q8_split_ref(xq, yq, xs, ys, band, S)
+    rtol, atol = TOL[torch.float32]
+    atol *= max(1.0, (slice_ / 1024) ** 0.5)
+    errs, oks = [], []
+    for i in range(len(variants)):
+        out.fill_(float("nan"))         # every output must be written
+        at(i)
+        torch.cuda.synchronize()
+        err = (out - want).abs()
+        errs.append(float(err.max()))
+        oks.append(bool((err <= atol + rtol * want.abs()).all()))
+    ms = device_ms_each([lambda i=i: at(i) for i in range(len(variants))],
+                        "tsmt_q8_split")
+    b_ms, b_by = bound(xq, yq, out, 2 * m * a * b, xs, ys)
+    xd = quant.dequantize_blocks(xq, xs, torch.float32, block_rows=band)
+    yd = quant.dequantize_blocks(yq, ys, torch.float32, block_rows=band)
+    emit({"phase": "tsmt_q8_sweep", "shape": [m, a, b], "splits": S,
+          "variants": [{"bytes_a_thread": aw, "rows_in_flight": ru,
+                        "device_ms": t, "max_err": e, "ok": ok}
+                       for (aw, ru), t, e, ok in zip(variants, ms, errs,
+                                                     oks)],
+          "bound_ms": b_ms, "bound_by": b_by,
+          "library_device_ms": call_device_ms(
+              lambda: torch.matmul(xd.t(), yd)),
+          "gpu": gpu})
+    check(all(oks), f"tsmt_q8 sweep: errors {errs}")
+    del xq, xs, yq, ys, out, want, xd, yd
+    torch.cuda.empty_cache()
+
+
 # The fused quantize pass's cases: (label, shape, dtype, band or None for
 # one scale, K-major codes); the first is the serving path's activations.
 QUANT_CASES = [
@@ -1187,6 +1320,16 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                 if name == "tsmt_q8":
                     rec.update(tsmt_plan_check(xq, yq, got, dtype, (xs, ys)))
                     rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
+                if name in ("tsmt_q8", "tsmt_q8_split"):
+                    # The library's body, its Python mirror's, and the
+                    # body this case must take.
+                    rec["body"], rec["grid"] = k_tsmt.q8_plan(xq, yq, split)
+                    mirror = perf_model.tsmt_q8_plan(
+                        m, d1, d2, xq.data_ptr(), yq.data_ptr())
+                    want_body = ("packed" if (m, d1, d2) in TSMT_Q8_PACKED
+                                 else "simt")
+                    rec["ok"] = ok = (ok and rec["body"] == want_body
+                                      and (rec["body"], rec["grid"]) == mirror)
                 if name in ("tsm2r_q8", "tsm2r_q8_split"):
                     # The wgmma and skinny bodies fold their exact int32
                     # sums into f32 once up to Q8_ONE_FOLD_K: the plain
@@ -1243,8 +1386,17 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
               f"{rec['kernel']} at {rec['shape']}: body {rec['body']}, "
               f"{rec['device_ms']} ms on the device (limit "
               f"{TSM2R_Q8_SKINNY_MAX_MS})")
+    # PowerSGD's Q streams X on the packed body, under a gate the simt
+    # body cannot pass.
+    rec = measured["tsmt_q8_split"]
+    check(rec["body"] == "packed"
+          and rec["device_ms"] <= TSMT_Q8_SPLIT_MAX_MS,
+          f"tsmt_q8_split at {rec['shape']}: body {rec['body']}, "
+          f"{rec['device_ms']} ms on the device (limit "
+          f"{TSMT_Q8_SPLIT_MAX_MS})")
     tsm2r_q8_probes(dev, uniform, gpu)
     q8_skinny_probes(dev, gpu)
+    tsmt_q8_probes(dev, gpu)
 
     # The whole op under quant="int8" against the f32 product.
     for entry, (m, d1, d2), dtype, split in [
@@ -1857,6 +2009,13 @@ def main() -> int:
     secs = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": secs, "nvcc": _build.nvcc()})
+    # The int8 TSMT bodies fit two blocks of 256 threads an SM (launch
+    # bounds cap a thread at 128 registers) only if nothing spills.
+    resources = _build.resource_usage(("tsmt_q8", "tsmt_q8_split"))
+    emit({"phase": "resources", "kernels": resources})
+    check(resources and all(r["spilled_bytes"] == 0 and "registers" in r
+                            for r in resources),
+          f"int8 TSMT kernels spill or went unreported: {resources}")
     print(gpu, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1995,6 +2154,7 @@ def main() -> int:
               f"{rec['device_ms']} ms on the device")
     tsmt_sweep(dev, uniform, gpu)
     skinny_sweep(dev, uniform, gpu)
+    tsmt_q8_sweep(dev, uniform, gpu)
 
     # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
@@ -2168,6 +2328,21 @@ def main() -> int:
                 check(c_plan == py_plan, f"tsm2r_q8_split plan mirror "
                       f"{m, k, n} S={S} @{ptr_a}: C {c_plan} vs Python "
                       f"{py_plan}")
+    # tsmt_q8's and tsmt_q8_split's: b either side of the packed widths,
+    # a % 16, and bases of X and Y on the 16-byte grid or not; the two
+    # libraries must agree with each other and with the mirror.
+    for m, a, b in [(65024, 4096, 4), (65536, 128, 4), (300000, 16, 4),
+                    (10000, 300, 20), (1000, 100, 3), (4096, 128, 8),
+                    (4096, 128, 12), (4096, 64, 16), (4096, 136, 4),
+                    (4096, 128, 2), (4096, 128, 6), (4096, 128, 17)]:
+        for ptr_x, ptr_y in ((0, 0), (8, 0), (0, 4), (16, 32)):
+            py_plan = perf_model.tsmt_q8_plan(m, a, b, ptr_x, ptr_y)
+            for split in (False, True):
+                c_plan = _build.tsmt_q8_plan(m, a, b, ptr_x, ptr_y, split)
+                tag = "tsmt_q8_split_plan" if split else "tsmt_q8_plan"
+                mirror[f"{tag}{[m, a, b]}@{ptr_x},{ptr_y}"] = c_plan
+                check(c_plan == py_plan, f"{tag} mirror {m, a, b} "
+                      f"{ptr_x, ptr_y}: C {c_plan} vs Python {py_plan}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
     q8_launched = q8_dispatch(dev, uniform, counts, expect)
     dispatch_launches = counts()

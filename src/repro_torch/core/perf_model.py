@@ -20,7 +20,9 @@ the split factor S.
 Under ``GemmPolicy(quant="int8")`` the choosers price int8 operands, as
 the JAX package resolves under the int8 effective dtype (``ops.py:303``):
 1 byte an element, and the rate of the int8 body that runs (TSM2R's
-``__dp4a`` or its int8 wgmma, TSMT's int32 multiply-add). The TSMT slice
+``__dp4a`` or its int8 wgmma, TSMT's packed ``__dp4a`` body or its int32
+multiply-add, ``tsmt_q8_body``; pricing the packed body moves no resolved
+S at PowerSGD's shapes). The TSMT slice
 quantum is then the scale band ``Q8_BAND``, so no band straddles two
 slices.
 
@@ -49,7 +51,8 @@ class GPUSpec:
     peak_flops_f32: float = 67e12       # CUDA cores, no tensor cores
     # The int8 kernels' CUDA-core rates: 64 int32 lanes an SM a clock (half
     # the f32 FMA lanes) at the f32 figure's clock; __dp4a does 4 products
-    # an instruction (TSM2R, TSM2L), a plain multiply-add one (TSMT).
+    # an instruction (TSM2R, TSM2L, TSMT's packed body), a plain
+    # multiply-add one (TSMT's simt body).
     peak_ops_dp4a: float = 134e12
     peak_ops_imad: float = 33.5e12
     peak_ops_int8: float = 1979e12     # dense tensor cores, s8 x s8 -> s32
@@ -192,10 +195,34 @@ def tsmt_grid(m: int, a: int, b: int, splits: int = 1) -> tuple:
     return (-(-a // ba), -(-b // bb), splits)
 
 
+# Output widths at which the int8 TSMT kernels (tsmt_q8 and tsmt_q8_split
+# alike) run their packed body (``csrc/tsmt_q8_packed.cuh``): each row of
+# Y whole 32-bit words, within the b <= 16 tiles.
+TSMT_Q8_PACKED_WIDTHS = (4, 8, 12, 16)
+
+
+def tsmt_q8_body(a: int, b: int, ptr_x: int = 0, ptr_y: int = 0) -> str:
+    """The body an int8 TSMT launch runs, at any m and S (``packed::fits``):
+    "packed" for b in ``TSMT_Q8_PACKED_WIDTHS`` with a a multiple of 16
+    and X's and Y's bases ``ptr_x``/``ptr_y`` 16-byte aligned, else
+    "simt"."""
+    fits = (b in TSMT_Q8_PACKED_WIDTHS and a > 0 and a % 16 == 0
+            and ptr_x % 16 == 0 and ptr_y % 16 == 0)
+    return "packed" if fits else "simt"
+
+
+def tsmt_q8_plan(m: int, a: int, b: int, ptr_x: int = 0,
+                 ptr_y: int = 0) -> tuple[str, tuple]:
+    """(body, (a-tiles, b-tiles)) of a tsmt_q8 or tsmt_q8_split call: the
+    mirror of the C queries ``tsmt_q8_plan`` and ``tsmt_q8_split_plan``
+    (``kernels/_build.tsmt_q8_plan``)."""
+    return tsmt_q8_body(a, b, ptr_x, ptr_y), tsmt_grid(m, a, b)[:2]
+
+
 # The sequential TSMT kernel spreads m over S slices in one launch
-# (``csrc/common.cuh`` tsmt_slices_block), planned by ``tsmt_slices``.
+# (``csrc/common.cuh`` tsmt_slices_run), planned by ``tsmt_slices``.
 # Blocks per SM its grid aims for: tiles x S ~ this x n_sms. Two is what
-# fits (86-119 registers x 256 threads a block), and on the card it beat
+# fits (85-128 registers x 256 threads a block), and on the card it beat
 # one and four blocks per SM at [2^20,128]^T [2^20,4] in f32 and int8
 # (PERF.md §6, the tsmt sweep).
 TSMT_BLOCKS_PER_SM = 2
@@ -290,12 +317,19 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                     dtype=torch.float32, *, splits: int = 1) -> float:
     """Modelled seconds of TSMT or its split variant: X once per column
     tile, Y once per row tile, the output and the partials' round trip;
-    FMAs at the f32 rate (int32 multiply-adds at int8). S = 1 is priced
+    FMAs at the f32 rate (at int8 the rate of the body that runs,
+    ``tsmt_q8_body`` at aligned operands: ``__dp4a``'s for "packed", one
+    int32 multiply-add a product for "simt"). S = 1 is priced
     as one block per output tile, which the sequential kernel no longer
     is: it spreads m over the card itself (``tsmt_slices``), so at
     PowerSGD and ABFT shapes (b <= 16) this model overprices S = 1."""
     b = torch.empty((), dtype=dtype).element_size()
-    rate = spec.peak_ops_imad if dtype == torch.int8 else spec.peak_flops_f32
+    if dtype != torch.int8:
+        rate = spec.peak_flops_f32
+    elif tsmt_q8_body(a, bdim) == "packed":
+        rate = spec.peak_ops_dp4a
+    else:
+        rate = spec.peak_ops_imad
     ga, gb, _ = tsmt_grid(m, a, bdim, splits)
     nbytes = (m * a * b * gb + m * bdim * b * ga + a * bdim * b
               + split_partials_bytes(splits, a, bdim))

@@ -53,7 +53,15 @@ cols] to [cols, rows] copy (``transpose_q8``); the tsm2r_q8_split library
 ``tsm2r_q8_split_plan(m, k, n, splits, slice, A, int* out)``
 (``split_plan`` with dtype tag "int8") and
 ``tsm2r_q8_split_sweep_f32(i, ...)``, the int8 split launcher's arguments
-after i (``sweep_launch_q8``).
+after i (``sweep_launch_q8``); the tsmt_q8 and tsmt_q8_split libraries
+``tsmt_q8_plan(m, a, b, X, Y, int* out)`` and ``tsmt_q8_split_plan``
+likewise: the body (0 "simt", 1 "packed") and the (a, b) tiles
+(``tsmt_q8_plan``), and the tsmt_q8_split library
+``tsmt_q8_split_sweep_variant(i, int* out)``, the packed body's variant i
+(bytes of a row of X a thread, rows in flight) and
+``tsmt_q8_split_sweep_f32(i, ...)``, the
+launcher's arguments after i (``tsmt_q8_sweep_variants``,
+``tsmt_q8_sweep_launch``).
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -164,6 +173,68 @@ def build(names=KERNELS) -> dict[str, float]:
     return secs
 
 
+def resource_usage(names) -> list[dict]:
+    """What ptxas reports for every kernel of the named sources (nvcc
+    ``--resource-usage``, one process each, all started together):
+    registers a thread, static shared bytes and spilled bytes (stores)
+    a thread, the kernel named by its template and its template
+    arguments. Raises with nvcc's output if one fails."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen(
+        [nvcc(), *NVCC_FLAGS[:4], "--resource-usage", "-c", "-o",
+         str(build_dir() / f"{n}.{os.getpid()}.resources.o"),
+         str(CSRC / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n in names}
+    found, errors = [], []
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        (build_dir() / f"{n}.{os.getpid()}.resources.o").unlink(
+            missing_ok=True)
+        if proc.returncode != 0:
+            errors.append(f"nvcc --resource-usage {n}.cu failed:\n{log}")
+        found += parse_resources(n, log)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return found
+
+
+def parse_resources(source: str, log: str) -> list[dict]:
+    """``resource_usage``'s records from ptxas's report of one source:
+    each kernel's "Compiling entry function" line, then its spill line,
+    then its "Used N registers, ..., S bytes smem" line."""
+    found, kernel = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = _kernel_label(entry.group(1))
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and kernel:
+            found.append({"source": source, "kernel": kernel,
+                          "spilled_bytes": int(spill.group(1))})
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used and found and found[-1]["kernel"] == kernel:
+            found[-1].update(registers=int(used.group(1)),
+                             static_shared_bytes=int(used.group(2)))
+            kernel = None
+    return found
+
+
+def _kernel_label(mangled: str) -> str:
+    """``name<args>`` from an Itanium-mangled kernel template: its
+    integer and bool arguments in order, ``bf16`` first for a bf16
+    output."""
+    name = mangled
+    for at in re.finditer(r"(?=(\d+))", mangled):   # a length, then a name
+        start = at.start() + len(at.group(1))
+        cand = mangled[start:start + int(at.group(1))]
+        if cand.endswith("_kernel") and mangled[start + len(cand):][:1] == "I":
+            name = cand
+            break
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    dtype = "bf16," if "bfloat16" in mangled else ""
+    return f"{name}<{dtype}{','.join(args)}>"
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built at first use."""
     with _LOCK:
@@ -204,6 +275,16 @@ def library(name: str) -> ctypes.CDLL:
                 lib.tsm2r_q8_split_plan.restype = ctypes.c_int
                 lib.tsm2r_q8_split_sweep_f32.argtypes = [_I, *_SPLIT_Q8]
                 lib.tsm2r_q8_split_sweep_f32.restype = ctypes.c_int
+            if name in ("tsmt_q8", "tsmt_q8_split"):
+                fn = getattr(lib, f"{name}_plan")
+                fn.argtypes = [_I, _I, _I, _P, _P, ctypes.POINTER(_I)]
+                fn.restype = ctypes.c_int
+            if name == "tsmt_q8_split":
+                lib.tsmt_q8_split_sweep_variant.argtypes = [
+                    _I, ctypes.POINTER(_I)]
+                lib.tsmt_q8_split_sweep_variant.restype = ctypes.c_int
+                lib.tsmt_q8_split_sweep_f32.argtypes = [_I, *_SPLIT_Q8]
+                lib.tsmt_q8_split_sweep_f32.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -274,6 +355,39 @@ def sweep_launch_q8(variant: int, *args) -> int:
     k, n = 4 or 16, band, splits, slice, stream); returns its
     cudaError_t."""
     return library("tsm2r_q8_split").tsm2r_q8_split_sweep_f32(variant, *args)
+
+
+TSMT_Q8_BODIES = ("simt", "packed")
+
+
+def tsmt_q8_plan(m: int, a: int, b: int, ptr_x: int, ptr_y: int,
+                 split: bool = False) -> tuple:
+    """(body, (a-tiles, b-tiles)) of a tsmt_q8 call (``split``: a
+    tsmt_q8_split call) on X at ``ptr_x`` and Y at ``ptr_y``, as its
+    library decides them."""
+    name = "tsmt_q8_split" if split else "tsmt_q8"
+    out = (ctypes.c_int * 3)()
+    err = getattr(library(name), f"{name}_plan")(m, a, b, ptr_x, ptr_y, out)
+    if err != 0:
+        raise RuntimeError(f"{name} plan query failed: {err}")
+    return TSMT_Q8_BODIES[out[0]], tuple(out[1:])
+
+
+def tsmt_q8_sweep_variants() -> list[tuple[int, int]]:
+    """The packed int8 TSMT body's sweep variants, (bytes of a row of X a
+    thread, rows loaded before any is multiplied) each, as the
+    tsmt_q8_split library lists them; the first is the default."""
+    lib, out, found = library("tsmt_q8_split"), (ctypes.c_int * 2)(), []
+    while lib.tsmt_q8_split_sweep_variant(len(found), out) == 0:
+        found.append(tuple(out))
+    return found
+
+
+def tsmt_q8_sweep_launch(variant: int, *args) -> int:
+    """Launch tsmt_q8_split's packed body at sweep ``variant`` with its
+    launcher's arguments (int8 X and Y, their scales, the f32 partials, m,
+    a, b, band, splits, slice, stream); returns its cudaError_t."""
+    return library("tsmt_q8_split").tsmt_q8_split_sweep_f32(variant, *args)
 
 
 def transpose_q8(src: int, dst: int, rows: int, cols: int,

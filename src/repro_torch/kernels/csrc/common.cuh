@@ -402,25 +402,23 @@ __device__ __forceinline__ void tsmt_block(const T* __restrict__ X,
 
 // ---------------------------------------------------------------------------
 // One-launch TSMT over S slices of m, shared by tsmt.cu and tsmt_q8.cu.
-// Block (i, j, s) runs tsmt_block over the rows [s * slice, min((s + 1) *
-// slice, m)) into P[s], an f32 (S, a, b) workspace (the split kernels'
-// layout), then draws a ticket from its tile's counter. The block that
-// draws S - 1 is the tile's last: every other slice of the tile has stored
-// and fenced its partials, so it sums each output element over s = 0, 1,
-// ..., S - 1 from 0.f, in that order, and writes C once. It reads the
+// Block (i, j, s) runs body(P[s], lo, hi), a block body over the rows
+// [lo, hi) = [s * slice, min((s + 1) * slice, m)) into P[s], an f32 (S,
+// a, b) workspace (the split kernels' layout), then draws a ticket from
+// its tile's counter. The block that draws S - 1 is the tile's last:
+// every other slice of the tile has stored and fenced its partials, so it
+// sums each output element over s = 0, 1, ..., S - 1 from 0.f, in that
+// order, and writes C once. It reads the
 // partials through L2 (__ldcg): another SM's stores are not coherent in
 // this SM's L1. The only atomic is the ticket, never data, so the sum's
 // order is fixed and every launch repeats its bits. count holds one zeroed
 // counter per output tile (the launcher clears it on the stream).
 // ---------------------------------------------------------------------------
 
-template <typename T, typename U, int BA, int BB, int TA, int TB, int G,
-          typename Fold = NoFold>
-__device__ __forceinline__ void tsmt_slices_block(
-    const T* __restrict__ X, const T* __restrict__ Y, U* __restrict__ C,
-    float* __restrict__ P, unsigned* __restrict__ count, int m, int a_dim,
-    int b_dim, int splits, int slice, const Fold fold = Fold()) {
-  constexpr int NT = (BA / TA) * (BB / TB) * G;
+template <typename U, int BA, int BB, int NT, typename Body>
+__device__ __forceinline__ void tsmt_slices_run(
+    U* __restrict__ C, float* __restrict__ P, unsigned* __restrict__ count,
+    int m, int a_dim, int b_dim, int splits, int slice, Body&& body) {
   constexpr int EPT = (BA * BB + NT - 1) / NT;  // output elements a thread
   constexpr int UN = EPT >= 32 ? 1 : 32 / EPT;  // slices loaded at once
   __shared__ bool last;
@@ -428,8 +426,7 @@ __device__ __forceinline__ void tsmt_slices_block(
   const long s = blockIdx.z;
   const long lo = s * slice < m ? s * slice : m;
   const long hi = lo + slice < m ? lo + slice : m;
-  tsmt_block<T, float, BA, BB, TA, TB, G>(X, Y, P + s * ab, lo, hi, a_dim,
-                                          b_dim, fold);
+  body(P + s * ab, lo, hi);
   __threadfence();  // this block's partials, before its ticket
   __syncthreads();
   if (threadIdx.x == 0)
@@ -474,7 +471,7 @@ __device__ __forceinline__ void tsmt_slices_block(
 }
 
 // The launch of a one-launch TSMT kernel at tile Tl. S = 1 calls
-// launch(false_type, grid, threads, nullptr, nullptr): tsmt_block straight
+// launch(false_type, grid, threads, nullptr, nullptr): a block body straight
 // into C, no workspace. Past one slice it clears the tile counters that
 // follow the (S, a, b) f32 partials in ws, on the stream, and calls
 // launch(true_type, grid, threads, partials, counters) over the (a-tiles,

@@ -17,7 +17,7 @@
 // memory) over its slice into an f32 (S, a, b) workspace, then draws a
 // ticket from its tile's counter; the tile's last block sums the S
 // partials of each output element in slice order from 0.f and writes C
-// once (common.cuh tsmt_slices_block). The ticket is the only atomic, so
+// once (common.cuh tsmt_slices_run). The ticket is the only atomic, so
 // the same bits come back on every launch. At S = 1 the block body stores
 // straight into C, with no workspace. Ragged m, a, b are masked.
 // nvcc --resource-usage (sm_90a), both builds of every tile: 96-119
@@ -36,8 +36,12 @@ __global__ void __launch_bounds__((BA / TA) * (BB / TB) * G)
                 int slice, float* __restrict__ P,
                 unsigned* __restrict__ count) {
   if constexpr (kSlices)
-    tsm2x::tsmt_slices_block<T, T, BA, BB, TA, TB, G>(
-        X, Y, C, P, count, m, a_dim, b_dim, splits, slice);
+    tsm2x::tsmt_slices_run<T, BA, BB, (BA / TA) * (BB / TB) * G>(
+        C, P, count, m, a_dim, b_dim, splits, slice,
+        [&](float* dst, long lo, long hi) {
+          tsm2x::tsmt_block<T, float, BA, BB, TA, TB, G>(X, Y, dst, lo, hi,
+                                                         a_dim, b_dim);
+        });
   else
     tsm2x::tsmt_block<T, T, BA, BB, TA, TB, G>(X, Y, C, 0, m, a_dim, b_dim);
 }

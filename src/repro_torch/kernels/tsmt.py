@@ -22,12 +22,27 @@ memory. ``kernels/reduce.py`` sums the partials.
 
 ``tsmt_q8`` replaces ``quant.py::tsmt_q8_pallas`` with
 ``csrc/tsmt_q8.cu`` and ``tsmt_q8_split`` replaces
-``quant.py::tsmt_q8_pallas_split`` with ``csrc/tsmt_q8_split.cu``: the
-same block body loading int8 X and Y, both with per-band scales along m,
-summing each band exactly in int32 and dequantizing it with the band's
-two scales before it is added. Bound by the bytes of X and Y at 1 byte
-an element. ``tsmt_q8`` spreads m over the card as ``tsmt`` does; its
-slices, and a split kernel's, are whole bands.
+``quant.py::tsmt_q8_pallas_split`` with ``csrc/tsmt_q8_split.cu``: int8
+X and Y, both with per-band scales along m, each band summed exactly in
+int32 and dequantized with the band's two scales before it is added.
+Bound by the bytes of X and Y at 1 byte an element. ``tsmt_q8`` spreads
+m over the card as ``tsmt`` does; its slices, and a split kernel's, are
+whole bands. Both run one of two block bodies, chosen before the launch
+by one rule that reads neither m nor S (``q8_plan``; mirrored by
+``perf_model.tsmt_q8_plan``), so the two kernels take the same body for
+the same operands:
+
+* "packed" (``csrc/tsmt_q8_packed.cuh``): b in {4, 8, 12, 16}, a a
+  multiple of 16 and 16-byte aligned X and Y, as PowerSGD's Q at rank 4.
+  A byte-a-thread load would move one 32-byte sector a warp and one
+  multiply-add a product would take most of the bytes bound's time; so
+  each thread loads 8 bytes of a row of X in one load and the row's word
+  of Y, keeps 16 rows in flight, turns each 4 rows into words of four rows
+  of one column with a 4 x 4 byte transpose and does four products a
+  ``__dp4a``. 128 registers a thread and 32 KB of static shared memory,
+  no spills (``nvcc --resource-usage``): two blocks of 256 threads an SM.
+* "simt" (``csrc/common.cuh``'s ``tsmt_block``): every other call, each
+  int8 value loaded and widened on its own.
 
 CPU tensors take the plain versions (``ref.tsmt_ref``,
 ``ref.tsmt_split_ref``, ``ref.tsmt_q8_ref``, ``ref.tsmt_q8_split_ref``);
@@ -39,7 +54,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import perf_model
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _build, _launch, ref
 
 launches = 0         # tsmt kernel launches; chip_smoke.py resets and reads
 split_launches = 0   # tsmt_split kernel launches, likewise
@@ -98,6 +113,15 @@ def tsmt_split(x: torch.Tensor, y: torch.Tensor, splits: int,
                    ref.split_len(m, splits, block_m))
     split_launches += 1
     return out
+
+
+def q8_plan(x: torch.Tensor, y: torch.Tensor,
+            split: bool = False) -> tuple[str, tuple]:
+    """(body, (a-tiles, b-tiles)) that ``tsmt_q8(x, y, ...)`` (``split``:
+    ``tsmt_q8_split``) launches for these CUDA operands, as the kernel's
+    library decides them (``tsmt_q8_plan``, ``tsmt_q8_split_plan``)."""
+    (m, a), b = x.shape, y.shape[1]
+    return _build.tsmt_q8_plan(m, a, b, x.data_ptr(), y.data_ptr(), split)
 
 
 def tsmt_q8(x: torch.Tensor, y: torch.Tensor, x_scale: torch.Tensor,
