@@ -12,7 +12,7 @@ printing no result, when no CUDA card is present or any phase fails.
    kernels' and the quantize pass's); prints the build time,
    ptxas's registers, static shared memory and spills of every kernel of
    tsmt_q8 and tsmt_q8_split (``resources``: none may spill, or their two
-   blocks an SM would not hold), the card's name and power limit, and
+   blocks an SM would not hold) and of tsm2l and tsm2l_q8 (reported), the card's name and power limit, and
    the matmul precision flags (TF32 and reduced precision bf16
    reductions off, so the plain versions are exact f32 sums).
 2. Kernels: each kernel against its plain version on the card, f32 and
@@ -76,6 +76,20 @@ printing no result, when no CUDA card is present or any phase fails.
    paper shape and at P, beside the bound and the library call, and the
    int8 stage's at P and at [4096,65536]·[65536,16], S = 4, each
    variant bit-equal to the plain version.
+   Every tsm2l line carries ``body``, ``grid`` and ``geometry`` (rows a
+   thread, k groups, rows a tile, stages) from the library's
+   ``tsm2l_plan``, which must equal ``perf_model.tsm2l_plan`` and
+   ``tsm2l_stream_geometry``: "stream" (``csrc/tsm2l_stream.cuh``) at n
+   <= 16 and k <= 256 with an aligned A (the paper's [2^20,16,16] and
+   [10^7,16,16], timed on the device beside ``torch.matmul``, the main
+   path's [102400,4,4], k = 77, 3, 129, 1 and 64), "tile" at (10000, 300,
+   20) and on an A 4 bytes off the 16-byte grid (its own line). A
+   ``tsm2l_sweep`` line times the tile body and the stream body's
+   rows-a-thread variants (the paper's tcf) at [10^7,16,16] f32 on the
+   device, and bf16 there and at [2^20,16,16] at 4 and 2 rows a thread,
+   each within tolerance of the plain version; the default must
+   beat the tile body there and stay within 0.60 ms
+   (``TSM2L_STREAM_MAX_MS``).
    The five int8 kernels are held against their plain versions on the
    same int8 operands and scales (quantized on the card by
    ``kernels/quant.py``), with f32 and bf16 outputs (the split ones write
@@ -113,7 +127,11 @@ printing no result, when no CUDA card is present or any phase fails.
    = X[r_j, :]) must come out exact at b = 4 and 16 through tsmt_q8 and
    tsmt_q8_split at S = 3, and ``tsmt_q8_sweep`` times the packed body's
    variants (bytes a thread, rows in flight) at Q, each within tolerance
-   of the plain version. A row-major B must give the K-major B's
+   of the plain version. Every tsm2l_q8 line carries its plan from
+   ``tsm2l_q8_plan`` against the same mirror, and the stream body
+   (timed at [2^20,16,16] and [10^7,16,16], f32 and bf16 outputs) must
+   equal the plain version bit for bit. A row-major B must give the
+   K-major B's
    bits through one counted layout copy (``tsm2r_q8_transpose`` lines,
    with the copy's device time). The
    fused quantize pass (``quantize`` lines) must equal the plain code on
@@ -135,7 +153,11 @@ printing no result, when no CUDA card is present or any phase fails.
    before it and read just after): under ``split="never"`` the quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
    executor ``cuda``, tsmt's launch record showing the planned grid
-   (a-tiles, b-tiles, S) with ``splits`` 1. Under ``"auto"`` the paper's
+   (a-tiles, b-tiles, S) with ``splits`` 1. A bfloat16·float32 pair and
+   a float16 pair per kernel kind (tsm2r, tsm2l, tsmt) must come back in
+   the left operand's dtype within the bf16 tolerance of the plain
+   version of the widened pair (the kernel phase times each beside the
+   bfloat16 pair's op, device to device). Under ``"auto"`` the paper's
    ``[16384^2]·[16384,16]``
    and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
    launch tsm2r_split (with sum_partials) and tsmt_split; under
@@ -224,8 +246,9 @@ printing no result, when no CUDA card is present or any phase fails.
    train-int8) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
    S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8,
-   tsm2r_q8_split, tsmt_q8 and tsmt_q8_split);
-   tsm2r and tsm2r_q8 add their numbers at the training shapes. A
+   tsm2r_q8_split, tsmt_q8, tsmt_q8_split, tsm2l and tsm2l_q8);
+   tsm2r and tsm2r_q8 add their numbers at the training shapes, tsm2l and
+   tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
 10. Last line: ``{"ok": true, "device": {...}}``.
@@ -303,6 +326,15 @@ TSMT_Q8_PACKED = {(65536, 128, 4), (300000, 16, 4), (65024, 4096, 4),
 # [65024,4096]^T [65024,4], S = 8: a gate that the simt body (0.266 ms on
 # an H100 80GB HBM3 at 700 W) cannot pass.
 TSMT_Q8_SPLIT_MAX_MS = 0.18
+# Device time tsm2l's stream body must stay within at the paper's
+# [10^7,16,16] in f32: below the tile body there (0.69 ms by CUDA events
+# around the call on an H100 80GB HBM3 at 700 W), which the same run also
+# times and must beat.
+TSM2L_STREAM_MAX_MS = 0.60
+# The dispatch phase's mixed and float16 pairs: (kind, entry, lhs, rhs).
+WIDENED_OPS = (("tsm2r", "mm", (4096, 4096), (4096, 8)),
+               ("tsm2l", "mm", (102400, 4), (4, 4)),
+               ("tsmt", "mmt", (65536, 128), (65536, 4)))
 # Deepest reduction whose s32 sum the wgmma body folds into f32 once, so
 # its result is bit-equal to the plain version (1,024 stages of 128 k).
 Q8_ONE_FOLD_K = 131072
@@ -375,6 +407,10 @@ def normalised_err(got, want) -> float:
 def category(name: str) -> str:
     if "tsm2l_kernel<signed char" in name:   # one template serves both
         return "tsm2l_q8"
+    if "tsm2l_stream_kernel<signed char" in name:   # the stream bodies
+        return "tsm2l_q8"
+    if "tsm2l_stream_kernel" in name:
+        return "tsm2l"
     if "tsm2r_wgmma_kernel" in name:         # tsm2r's tensor-core body
         return "tsm2r"
     if "tsm2r_q8_wgmma_kernel" in name:      # tsm2r_q8's tensor-core body
@@ -506,6 +542,134 @@ def in_slice_order(parts, dtype):
 def same_bits(a, b) -> bool:
     view = torch.int16 if a.element_size() == 2 else torch.int32
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def tsm2l_plan_check(x, y, dtype, q8_out=None) -> dict:
+    """tsm2l's (``q8_out``: tsm2l_q8's, writing that dtype) body, grid and
+    stream geometry from its library's plan query, against
+    ``perf_model.tsm2l_plan`` and ``tsm2l_stream_geometry`` and against
+    the body the case must take ("stream" for n <= 16, k <= 256 and an
+    aligned A)."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import tsm2l as k_tsm2l
+
+    (m, k), n = x.shape, y.shape[1]
+    body, grid, geo = (k_tsm2l.q8_plan(x, y, q8_out) if q8_out is not None
+                       else k_tsm2l.plan(x, y))
+    spec = perf_model.device_spec(perf_model.H100, x.device)
+    mirror = perf_model.tsm2l_plan(m, k, n, dtype, x.data_ptr(), spec,
+                                   out_dtype=q8_out)
+    if mirror[0] == "stream":
+        g = perf_model.tsm2l_stream_geometry(k, n, dtype, q8_out)
+        want_geo = (g["rows"], g["groups"], g["block_m"], g["stages"])
+    else:
+        want_geo = (0, 0, perf_model.tsm2l_tile(n)[0], 0)
+    want = ("stream" if n <= 16 and k <= 256 and x.data_ptr() % 16 == 0
+            else "tile")
+    return {"body": body, "grid": grid, "geometry": geo,
+            "plan_ok": (body == want and (body, grid) == mirror
+                        and geo == want_geo)}
+
+
+def tsm2l_sweep(dev, uniform, gpu) -> float:
+    """The paper's TSM2L at [10^7,16,16] f32: the tile body and the stream
+    body at each rows-a-thread variant (the paper's Fig. 5 tcf sweep), on
+    the device in one profiler session; then bf16 at 4 and 2 rows a thread
+    at [10^7,16,16] and [2^20,16,16]. Each within tolerance of the plain
+    version. Returns the tile body's device ms."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _build, ref
+
+    m, k, n = 10 ** 7, 16, 16
+    a, b = uniform((m, k), torch.float32), uniform((k, n), torch.float32)
+    want = ref.tsm2l_ref(a, b)
+    outs = []
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launcher(variant):
+        out = torch.empty((m, n), device=dev)
+        outs.append(out)
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, stream)
+
+        def run():
+            err = (_build.tsm2l_tile_launch(*args) if variant is None
+                   else _build.tsm2l_variant_launch("f32", variant, *args))
+            check(err == 0, f"tsm2l sweep rows {variant}: error {err}")
+        return run
+
+    rows = _build.tsm2l_sweep_variants()
+    fns = [launcher(None)] + [launcher(r) for r in rows]
+    times = device_ms_each(fns, "tsm2l")
+    torch.cuda.synchronize()
+    rtol, atol = TOL[torch.float32]
+    oks = [bool(((o - want).abs() <= atol + rtol * want.abs()).all())
+           for o in outs]
+    b_ms, _ = bound(a, b, want, 2 * m * k * n)
+    geos = [perf_model.tsm2l_stream_geometry(k, n, torch.float32, rows=r)
+            for r in rows]
+    del a, b, want, outs
+    # bf16 (32-byte rows: 4 rows a thread by default) at 4 and 2 rows a
+    # thread, at both paper shapes.
+    bf16_arms = []
+    for mb in (m, 1 << 20):
+        a, b = (uniform((mb, k), torch.bfloat16),
+                uniform((k, n), torch.bfloat16))
+        want = ref.tsm2l_ref(a, b)
+        arms = []
+        for r in (4, 2):
+            out = torch.empty((mb, n), dtype=torch.bfloat16, device=dev)
+            args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), mb, k, n,
+                    stream)
+
+            def run(r=r, args=args):
+                err = _build.tsm2l_variant_launch("bf16", r, *args)
+                check(err == 0, f"tsm2l bf16 rows {r}: error {err}")
+            arms.append((r, run, out))
+        times_b = device_ms_each([arm[1] for arm in arms], "tsm2l")
+        torch.cuda.synchronize()
+        rb, ab = TOL[torch.bfloat16]
+        for (r, _, o), t in zip(arms, times_b):
+            bf16_arms.append({
+                "m": mb, "rows": r, "device_ms": t,
+                "ok": bool(((o.float() - want.float()).abs()
+                            <= ab + rb * want.float().abs()).all())})
+        del a, b, want, arms
+    emit({"phase": "tsm2l_sweep", "shape": [m, k, n], "dtype": "float32",
+          "tile_device_ms": times[0], "tile_ok": oks[0],
+          "variants": [{"rows": r, "groups": g["groups"],
+                        "block_m": g["block_m"], "stages": g["stages"],
+                        "device_ms": t, "ok": ok, "default": i == 0}
+                       for i, (r, g, t, ok) in enumerate(
+                           zip(rows, geos, times[1:], oks[1:]))],
+          "bound_ms": b_ms, "bf16": bf16_arms, "gpu": gpu})
+    check(all(oks) and all(r["ok"] for r in bf16_arms),
+          f"tsm2l sweep mismatch: {oks} {bf16_arms}")
+    torch.cuda.empty_cache()
+    return times[0]
+
+
+def widening_cost(uniform, gpu) -> None:
+    """What widening costs: each op of ``WIDENED_OPS`` through ``tsmm`` /
+    ``tsmm_t`` on a bfloat16·float32 pair and a float16 pair (both widened
+    to f32 before the kernel) beside the same op on a bfloat16 pair, each
+    call's device time (every kernel it runs, the widening copies too)."""
+    from repro_torch.core import tsmm
+
+    times = []
+    for kind, entry, sa, sb in WIDENED_OPS:
+        op = tsmm.tsmm if entry == "mm" else tsmm.tsmm_t
+        for da, db in ((torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32),
+                       (torch.float16, torch.float16)):
+            x, y = uniform(sa, da), uniform(sb, db)
+
+            def run(op=op, x=x, y=y):
+                with tsmm.policy(split="never"):
+                    return op(x, y)
+            times.append({"kind": kind, "dtypes": [str(da)[6:], str(db)[6:]],
+                          "op_device_ms": call_device_ms(run)})
+            del x, y
+    emit({"phase": "kernel", "op": "widening", "ops": times, "gpu": gpu})
 
 
 def tsmt_plan_check(x, y, got, dtype, q=None) -> dict:
@@ -1218,13 +1382,13 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
     return measured
 
 
-def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
+def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict, dict]:
     """Each int8 kernel against its plain version on the same int8
     operands and scales, with f32 and bf16 outputs, bit-identical
     repeats; timed at its main-path shapes. Then the whole ``tsmm`` /
     ``tsmm_t`` op under ``quant="int8"`` against the f32 product. Returns
-    the records of each kernel's main-path case and of its training-path
-    cases."""
+    the records of each kernel's main-path case, of its training-path
+    cases and of its paper-shape cases (tsm2l_q8)."""
     from repro_torch.core import perf_model, tsmm
     from repro_torch.kernels import quant, ref
     from repro_torch.kernels import tsm2l as k_tsm2l
@@ -1270,8 +1434,13 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                            (1000, 777, 17, 3, False, None),
                            (512, 300000, 4, 2, True, None)],
         "tsm2l_q8": [(102400, 4, 4, 1, False, "main"),
+                     (1 << 20, 16, 16, 1, False, "paper"),
+                     (10 ** 7, 16, 16, 1, False, "paper"),
                      (10000, 300, 20, 1, False, None),
-                     (512, 200000, 4, 1, True, None)],
+                     (512, 200000, 4, 1, True, None),
+                     (333, 1, 16, 1, False, None),
+                     (1003, 129, 16, 1, False, None),
+                     (4096, 255, 9, 1, False, None)],
         "tsmt_q8": [(65536, 128, 4, 1, False, "main"),
                     (10000, 300, 20, 1, False, None),
                     (300000, 16, 4, 1, True, None),
@@ -1282,7 +1451,7 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                           (300000, 16, 4, 2, True, None)],
     }
     main_dtype = {"tsm2r_q8": bf16}
-    measured, at_train, bad = {}, {}, []
+    measured, at_train, at_paper, bad = {}, {}, {}, []
     for name, (entry, kern, plain, split) in kernels.items():
         for m, d1, d2, S, deep, timed in cases[name]:
             x = uniform((m, d1), f32)
@@ -1330,6 +1499,13 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                                  else "simt")
                     rec["ok"] = ok = (ok and rec["body"] == want_body
                                       and (rec["body"], rec["grid"]) == mirror)
+                if name == "tsm2l_q8":
+                    # The stream body converts each exact int32 sum once:
+                    # the plain version's bits.
+                    rec.update(tsm2l_plan_check(xq, yq, torch.int8, dtype))
+                    rec["bits_vs_plain"] = same_bits(got, want)
+                    rec["ok"] = ok = ok and rec["plan_ok"] and (
+                        rec["body"] != "stream" or rec["bits_vs_plain"])
                 if name in ("tsm2r_q8", "tsm2r_q8_split"):
                     # The wgmma and skinny bodies fold their exact int32
                     # sums into f32 once up to Q8_ONE_FOLD_K: the plain
@@ -1352,7 +1528,8 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                 is_main = (timed == "main"
                            and dtype == main_dtype.get(name, f32))
                 is_train = timed == "train" and (d2 == 4) == (dtype == f32)
-                if is_main or is_train:
+                is_paper = timed == "paper"
+                if is_main or is_train or is_paper:
                     rec.update(q8_times(entry, q, dtype, got, band,
                                         lambda: kern(q, dtype, S),
                                         lambda: plain(q, dtype, S)))
@@ -1365,6 +1542,8 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
                     measured[name] = rec
                 elif is_train:
                     at_train.setdefault(name, []).append(rec)
+                elif is_paper:
+                    at_paper.setdefault(name, []).append(rec)
                 del got, again, want, err
             del x, y, xq, yq, xs, ys, q
             torch.cuda.empty_cache()
@@ -1443,7 +1622,7 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict]:
         check(ok, f"int8 {entry} op {m}x{d1}x{d2} {dtype}: {rel}")
         del x, y, xt, got, oracle
         torch.cuda.empty_cache()
-    return measured, at_train
+    return measured, at_train, at_paper
 
 
 def q8_times(entry, q, dtype, got, band, kern, plain) -> dict:
@@ -2011,11 +2190,13 @@ def main() -> int:
           "per_kernel_s": secs, "nvcc": _build.nvcc()})
     # The int8 TSMT bodies fit two blocks of 256 threads an SM (launch
     # bounds cap a thread at 128 registers) only if nothing spills.
-    resources = _build.resource_usage(("tsmt_q8", "tsmt_q8_split"))
+    resources = _build.resource_usage(("tsmt_q8", "tsmt_q8_split",
+                                       "tsm2l", "tsm2l_q8"))
     emit({"phase": "resources", "kernels": resources})
-    check(resources and all(r["spilled_bytes"] == 0 and "registers" in r
-                            for r in resources),
-          f"int8 TSMT kernels spill or went unreported: {resources}")
+    tsmt8 = [r for r in resources if r["source"].startswith("tsmt_q8")]
+    check(tsmt8 and all(r["spilled_bytes"] == 0 and "registers" in r
+                        for r in tsmt8),
+          f"int8 TSMT kernels spill or went unreported: {tsmt8}")
     print(gpu, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2053,8 +2234,9 @@ def main() -> int:
                   (4096, 4096, 3), (512, 512, 1), (1000, 776, 200),
                   (1000, 777, 200), (4096, 4096, 24), (100, 8, 3),
                   (64, 24, 16)],
-        "tsm2l": [(1 << 20, 16, 16), (102400, 4, 4), (10000, 300, 20),
-                  (5000, 77, 1)],
+        "tsm2l": [(1 << 20, 16, 16), (10 ** 7, 16, 16), (102400, 4, 4),
+                  (10000, 300, 20), (5000, 77, 1), (4097, 3, 5),
+                  (1003, 129, 16), (333, 1, 16), (4096, 64, 12)],
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
                  (10000, 300, 20), (4099, 100, 1),
                  (1000, 100, 3)],       # short m: plans S = 1
@@ -2067,7 +2249,12 @@ def main() -> int:
     # (bf16) and PowerSGD's P = G Q of embed and lm_head (f32).
     train_cases = {"tsm2r": [((4096, 4096, 256), torch.bfloat16),
                              ((65024, 4096, 4), torch.float32)]}
-    measured, at_train, bad = {}, {}, []
+    # tsm2l at the paper's shapes (its stream body), timed on the device.
+    paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
+                             ((1 << 20, 16, 16), torch.bfloat16),
+                             ((10 ** 7, 16, 16), torch.float32),
+                             ((10 ** 7, 16, 16), torch.bfloat16)]}
+    measured, at_train, at_paper, bad = {}, {}, {}, []
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -2100,6 +2287,9 @@ def main() -> int:
                 if name == "tsmt":
                     rec.update(tsmt_plan_check(x, y, got, dtype))
                     rec["ok"] = ok = ok and rec["bits_vs_split_sum"]
+                if name == "tsm2l":
+                    rec.update(tsm2l_plan_check(x, y, dtype))
+                    rec["ok"] = ok = ok and rec["plan_ok"]
                 if name == "tsm2r":
                     rec["body"], rec["grid"] = k_tsm2r.plan(x, y)
                     want_body = ("wgmma" if dtype == torch.bfloat16
@@ -2109,7 +2299,8 @@ def main() -> int:
                     rec["ok"] = ok = ok and rec["body"] == want_body
                 is_main = main_case[name] == ((m, d1, d2), dtype)
                 is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
-                if is_main or is_train:
+                is_paper = ((m, d1, d2), dtype) in paper_cases.get(name, ())
+                if is_main or is_train or is_paper:
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                     rec["call_device_ms"] = call_device_ms(
                         lambda: kern(x, y))
@@ -2122,6 +2313,8 @@ def main() -> int:
                     measured[name] = rec
                 if is_train:
                     at_train.setdefault(name, []).append(rec)
+                if is_paper:
+                    at_paper.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
@@ -2138,13 +2331,39 @@ def main() -> int:
     check(p_rec["body"] == "skinny" and p_rec["device_ms"] <= SKINNY_MAX_MS,
           f"tsm2r's P: body {p_rec['body']}, {p_rec['device_ms']} ms on the "
           f"device (limit {SKINNY_MAX_MS})")
+    # A base off the 16-byte grid takes tsm2l's tile body.
+    buf = uniform((102400 * 16 + 1,), torch.float32)
+    x, y = buf[1:].view(102400, 16), uniform((16, 16), torch.float32)
+    rec = {"phase": "kernel", "kernel": "tsm2l", "shape": [102400, 16, 16],
+           "dtype": "float32", "a_offset_bytes": 4,
+           **tsm2l_plan_check(x, y, torch.float32)}
+    got, want = k_tsm2l.tsm2l(x, y), ref.tsm2l_ref(x, y)
+    rec["max_err"] = float((got - want).abs().max())
+    rec["ok"] = (rec["plan_ok"] and rec["body"] == "tile" and bool(
+        ((got - want).abs() <= 1e-4 + 1e-3 * want.abs()).all()))
+    emit(rec)
+    check(rec["ok"], f"tsm2l on a misaligned A: {rec}")
+    del buf, x, y, got, want
+    # The stream body at the paper's [10^7,16,16] in f32 beats the tile
+    # body in the same run, and a fixed gate.
+    tile_ms = tsm2l_sweep(dev, uniform, gpu)
+    widening_cost(uniform, gpu)
+    (big,) = [r for r in at_paper["tsm2l"]
+              if r["shape"][0] == 10 ** 7 and r["dtype"] == "float32"]
+    check(big["body"] == "stream" and big["device_ms"] < tile_ms
+          and big["device_ms"] <= TSM2L_STREAM_MAX_MS,
+          f"tsm2l at {big['shape']}: body {big['body']}, "
+          f"{big['device_ms']} ms on the device (tile body {tile_ms}, "
+          f"limit {TSM2L_STREAM_MAX_MS})")
     tsm2r_probes(dev, uniform, gpu)
     skinny_probes(dev, gpu)
     measured.update(split_kernel_phase(dev, uniform, gpu))
-    q8_measured, q8_at_train = q8_kernel_phase(dev, uniform, gpu)
+    q8_measured, q8_at_train, q8_at_paper = q8_kernel_phase(dev, uniform,
+                                                            gpu)
     measured.update(q8_measured)
     measured["quantize"] = quantize_phase(dev, uniform, gpu)
     at_train.update(q8_at_train)
+    at_paper.update(q8_at_paper)
     # The one-launch TSMTs spread one output tile over the card, and do
     # so fast enough to beat one block per tile by far.
     for name in ("tsmt", "tsmt_q8"):
@@ -2213,14 +2432,48 @@ def main() -> int:
     check(plan_s > 1 and tsmt_launch.grid == (1, 1, plan_s)
           and tsmt_launch.splits == 1, f"sequential tsmt launch record "
           f"{tsmt_launch} against the plan's S = {plan_s}")
-    for got, want in zip(outs, wants):
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    # The kernel tolerance, its atol grown by sqrt(depth / 1024) past 1,024
+    # terms (tsm2r's 4,096 and tsmt's 65,536), as in the kernel phase.
+    for got, want, depth in zip(outs, wants, (4096, 4, 4, 65536)):
+        torch.testing.assert_close(
+            got, want, rtol=1e-3, atol=1e-4 * max(1.0, (depth / 1024) ** 0.5))
     grown = counts()
     check(grown == expect(tsm2r=1, tsm2l=2, tsmt=1),
           f"dispatch launches {grown}")
     emit({"phase": "dispatch", "routes": kinds, "launches": grown,
           "tsmt_grid": tsmt_launch.grid})
     del a, b, a2, b2, a4, x, y, outs, wants
+
+    # A mixed float32/bfloat16 pair and a float16 pair per kernel kind:
+    # widened to f32 for the kernel, the output in the left operand's
+    # dtype, against the plain version of the widened pair.
+    mixed, before = [], counts()
+    for kind, entry, sa, sb in WIDENED_OPS:
+        op = tsmm.tsmm if entry == "mm" else tsmm.tsmm_t
+        plain = ref.tsmt_ref if entry == "mmt" else ref.tsm2r_ref
+        for da, db in ((torch.bfloat16, torch.float32),
+                       (torch.float16, torch.float16)):
+            x, y = uniform(sa, da), uniform(sb, db)
+            with tsmm.policy(split="never"), \
+                    tsmm.record_dispatches() as log:
+                got = op(x, y)
+            want = plain(x.float(), y.float()).to(da)
+            torch.cuda.synchronize()
+            rtol, atol = TOL[torch.bfloat16]      # a 2-byte output
+            err = float((got.float() - want.float()).abs().max())
+            ok = (got.dtype == da and [e.kind for e in log] == [kind]
+                  and log[0].executor == "cuda" and bool(
+                      ((got.float() - want.float()).abs()
+                       <= atol + rtol * want.float().abs()).all()))
+            mixed.append({"kind": kind, "dtypes": [str(da)[6:], str(db)[6:]],
+                          "out": str(got.dtype)[6:], "max_err": err,
+                          "ok": ok})
+            del x, y, got, want
+    grown = {n: v - before[n] for n, v in counts().items()}
+    emit({"phase": "dispatch", "mixed_and_f16": mixed, "launches": grown})
+    check(all(r["ok"] for r in mixed), f"mixed/f16 dispatch {mixed}")
+    check(grown == expect(tsm2r=2, tsm2l=2, tsmt=2),
+          f"mixed/f16 dispatch launches {grown}")
 
     # Split-K: "auto" splits the paper's TSM2R (128 row tiles) and
     # PowerSGD's TSMT (32 output tiles); "never" keeps them sequential.
@@ -2346,7 +2599,7 @@ def main() -> int:
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
     q8_launched = q8_dispatch(dev, uniform, counts, expect)
     dispatch_launches = counts()
-    base = expect(tsm2r=2, tsm2l=2, tsmt=2, tsm2r_split=1, tsmt_split=1,
+    base = expect(tsm2r=4, tsm2l=4, tsmt=4, tsm2r_split=1, tsmt_split=1,
                   sum_partials=1)
     check(dispatch_launches == {n: base[n] + q8_launched[n] for n in base},
           f"dispatch path launches {dispatch_launches}")
@@ -2518,7 +2771,16 @@ def main() -> int:
                 "library_ms": r["library_ms"],
                 "library_dq_ms": r.get("library_dq_ms"),
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_train.get(name, ())]})
+                for r in at_train.get(name, ())],
+            **({"at_paper_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"], "body": r["body"],
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_dq_ms": r.get("library_dq_ms"),
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_paper[name]]} if name in at_paper else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

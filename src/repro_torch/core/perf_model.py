@@ -189,6 +189,119 @@ def tsm2r_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
             tsm2r_grid(m, k, n, splits, dtype, ptr_a, ptr_b))
 
 
+# ---------------------------------------------------------------------------
+# TSM2L: the stream body (csrc/tsm2l_stream.cuh) and the tile body
+# (csrc/common.cuh's tsm2l_kernel), for tsm2l and tsm2l_q8 alike
+# ---------------------------------------------------------------------------
+
+# The stream body takes n in 1..16, k in 1..256 (every k the classifier
+# routes to TSM2L at its default ``max_skinny``) and a 16-byte aligned A.
+TSM2L_STREAM_MAX_WIDTH = 16
+TSM2L_STREAM_MAX_K = 256
+# Its constants (``stream::`` in the header): consumer threads a block, the
+# bulk copies a stage of A is cut into, the bytes of A a stage aims at,
+# the dynamic shared memory a block may take (two blocks an SM), the
+# deepest ring, the rows a thread of A's rows of 33 to 256 bytes (the
+# paper's tcf; 4 below, 1 above) and blocks an SM.
+STREAM_CONSUMERS = 128
+STREAM_PIECES = 8
+STREAM_STAGE_BYTES = 16384
+STREAM_SMEM_BYTES = 110 * 1024
+STREAM_MAX_STAGES = 6
+STREAM_ROWS_DEFAULT = 2
+STREAM_BLOCKS_PER_SM = 2
+_STREAM_SIZES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+
+
+def tsm2l_body(k: int, n: int, dtype, ptr_a: int = 0) -> str:
+    """The body a tsm2l (f32, bf16) or tsm2l_q8 (int8) launch runs:
+    "stream" for n in 1..16 and k in 1..256 with A's base ``ptr_a``
+    16-byte aligned (``stream::fits``), else "tile"."""
+    fits = (dtype in _STREAM_SIZES and 1 <= n <= TSM2L_STREAM_MAX_WIDTH
+            and 1 <= k <= TSM2L_STREAM_MAX_K and ptr_a % 16 == 0)
+    return "stream" if fits else "tile"
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _odd16(x: int) -> int:
+    """x rounded up to 16 bytes, then to an odd number of 16-byte units."""
+    x = _up16(x)
+    return x if (x // 16) % 2 else x + 16
+
+
+def tsm2l_stream_geometry(k: int, n: int, dtype, out_dtype=None,
+                          rows: int | None = None) -> dict:
+    """The stream body's launch at k, n (``stream::plan``): ``rows`` a
+    thread (default: 4 for rows of A of at most 32 bytes, 2 of at most
+    256, else 1), ``groups`` of
+    threads splitting each row's k (the fewest of 1, 2, 4 that keep a
+    stage within ``STREAM_STAGE_BYTES``, halving until an eighth of a
+    tile is whole 16-byte units), ``block_m`` = 128 / groups x rows rows
+    a tile, ``stages`` of the ring (as many as fit ``STREAM_SMEM_BYTES``
+    beside the output tile, B and the groups' partials, 2 to 6), ``vec`` (rows of A whole 16-byte chunks, read 16
+    bytes at a time; else one 32-bit word at a time) and ``smem``, the
+    dynamic shared memory a block. ``out_dtype`` is what the kernel
+    writes (default: A's dtype, f32 for int8)."""
+    size = _STREAM_SIZES[dtype]
+    out_dtype = out_dtype or (torch.float32 if dtype == torch.int8
+                              else dtype)
+    usize = torch.empty((), dtype=out_dtype).element_size()
+    rs = k * size
+    vec = rs % 16 == 0
+    units = rs // 16 if vec else -(-rs // 4)
+    kp = units * (16 if vec else 4) // size
+    r = rows or (4 if rs <= 32 else STREAM_ROWS_DEFAULT if rs <= 256 else 1)
+    g = next((g for g in (1, 2, 4)
+              if STREAM_CONSUMERS // g * r * rs <= STREAM_STAGE_BYTES), 4)
+    while g > 1 and (g > units
+                     or STREAM_CONSUMERS // g * r // STREAM_PIECES * rs % 16):
+        g //= 2
+    bm = STREAM_CONSUMERS // g * r
+    bmp = bm // STREAM_PIECES
+    stage = STREAM_PIECES * _odd16(bmp * rs)
+    nw = 1 << max(0, (n - 1).bit_length())
+    b_bytes = _up16(kp * nw * 4 if size > 1 else -(-kp // 4) * nw * 4)
+    cb = n * usize
+    c_bytes = (STREAM_PIECES * _odd16(bmp * cb) if bmp * cb % 16 == 0
+               else _up16(bm * cb))
+    fixed = c_bytes + b_bytes + (g - 1) * bm * nw * 4 + 128 + 16
+    stages = max(2, min(STREAM_MAX_STAGES,
+                        (STREAM_SMEM_BYTES - fixed) // stage))
+    return {"rows": r, "groups": g, "block_m": bm, "stages": stages,
+            "vec": vec, "smem": stages * stage + fixed}
+
+
+def tsm2l_tile(n: int) -> tuple[int, int]:
+    """(BM, BN) of TSM2L's tile body at output width n
+    (``tsm2l_dispatch``)."""
+    if n <= 4:
+        return (512, 4)
+    if n <= 16:
+        return (256, 16)
+    return (64, 64)
+
+
+def tsm2l_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
+               spec: GPUSpec = H100, out_dtype=None) -> tuple[str, tuple]:
+    """(body, grid) of a tsm2l or tsm2l_q8 call (``dtype`` the input's,
+    ``out_dtype`` what the kernel writes): the mirror of the C queries
+    ``tsm2l_plan`` and ``tsm2l_q8_plan`` (``kernels/_build.tsm2l_plan``).
+    The stream body's grid is its persistent blocks, ``STREAM_BLOCKS_PER_SM``
+    an SM or one a row tile if fewer; the tile body's is its table's row
+    and column tiles (the launch runs at most the blocks resident on the
+    card over the row tiles, by the card's occupancy query)."""
+    body = tsm2l_body(k, n, dtype, ptr_a)
+    if body == "stream":
+        bm = tsm2l_stream_geometry(k, n, dtype, out_dtype)["block_m"]
+        return body, (min(-(-m // bm), STREAM_BLOCKS_PER_SM * spec.n_sms),
+                      1, 1)
+    bm, bn = tsm2l_tile(n)
+    return body, (-(-m // bm), -(-n // bn), 1)
+
+
 def tsmt_grid(m: int, a: int, b: int, splits: int = 1) -> tuple:
     del m
     ba, bb = tsmt_tile(b)

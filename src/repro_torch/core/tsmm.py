@@ -207,9 +207,11 @@ class LaunchMeta:
     or "reduce" for the partials epilogue), ``grid`` (the
     CUDA grid from ``perf_model``'s mirror of the tile table; for the
     sequential tsmt/tsmt_q8 its last dim is the kernel's own plan of m
-    slices, ``perf_model.tsmt_slices``; the (S, rows, cols) partials shape
-    for "reduce"; empty for tsm2l, whose grid follows the card's
-    occupancy) and the resolved ``splits`` (1 for a sequential kernel)."""
+    slices, ``perf_model.tsmt_slices``; for tsm2l/tsm2l_q8 the grid of
+    ``perf_model.tsm2l_plan``: the stream body's persistent blocks, or
+    the tile body's row and column tiles; the (S, rows, cols) partials
+    shape for "reduce") and the resolved ``splits`` (1 for a sequential
+    kernel)."""
 
     kind: str
     grid: tuple
@@ -287,10 +289,16 @@ def _dispatch(entry: str, kind: str, executor: str, shape, p: GemmPolicy,
 # original N-d lhs for the "mm" entry.
 
 def _exec_dense(entry, kind, a, b, p):
+    """``torch.matmul`` of a pair of one dtype. A mixed pair is widened to
+    float32 and the product cast to ``a``'s dtype, as the JAX dense
+    executor accumulates in float32 and writes ``a.dtype``."""
     del kind, p
-    if entry == "mm":
-        return torch.matmul(a, b)
-    return torch.matmul(a.transpose(0, 1), b)
+    out_dtype = a.dtype
+    if a.dtype != b.dtype:
+        a, b = a.float(), b.float()
+    if entry == "mmt":
+        a = a.transpose(0, 1)
+    return torch.matmul(a, b).to(out_dtype)
 
 
 def _exec_ops(entry, kind, a, b, p):

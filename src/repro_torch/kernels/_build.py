@@ -61,7 +61,16 @@ likewise: the body (0 "simt", 1 "packed") and the (a, b) tiles
 (bytes of a row of X a thread, rows in flight) and
 ``tsmt_q8_split_sweep_f32(i, ...)``, the
 launcher's arguments after i (``tsmt_q8_sweep_variants``,
-``tsmt_q8_sweep_launch``).
+``tsmt_q8_sweep_launch``); the tsm2l and tsm2l_q8 libraries
+``tsm2l_plan(m, k, n, dtype tag, A, int* out)`` and ``tsm2l_q8_plan(m,
+k, n, output tag, A, int* out)``: the body (0 "tile", 1 "stream"), grid
+and stream geometry a call launches (``tsm2l_plan``), and the tsm2l
+library the stream body's sweep, ``tsm2l_sweep_variant(i, int* out)``
+(variant i's rows a thread) and ``tsm2l_variant_<tag>(rows, ...)``, the
+stream body at a chosen rows a thread (``tsm2l_sweep_variants``,
+``tsm2l_variant_launch``),
+and the tile body alone, ``tsm2l_tile_f32(...)`` with the f32 launcher's
+arguments (``tsm2l_tile_launch``).
 """
 
 from __future__ import annotations
@@ -275,6 +284,19 @@ def library(name: str) -> ctypes.CDLL:
                 lib.tsm2r_q8_split_plan.restype = ctypes.c_int
                 lib.tsm2r_q8_split_sweep_f32.argtypes = [_I, *_SPLIT_Q8]
                 lib.tsm2r_q8_split_sweep_f32.restype = ctypes.c_int
+            if name in ("tsm2l", "tsm2l_q8"):
+                fn = getattr(lib, f"{name}_plan")
+                fn.argtypes = [_I, _I, _I, _I, _P, ctypes.POINTER(_I)]
+                fn.restype = ctypes.c_int
+            if name == "tsm2l":
+                lib.tsm2l_sweep_variant.argtypes = [_I, ctypes.POINTER(_I)]
+                lib.tsm2l_sweep_variant.restype = ctypes.c_int
+                lib.tsm2l_tile_f32.argtypes = _SEQ
+                lib.tsm2l_tile_f32.restype = ctypes.c_int
+                for tag in ("f32", "bf16"):
+                    fn = getattr(lib, f"tsm2l_variant_{tag}")
+                    fn.argtypes = [_I, *_SEQ]
+                    fn.restype = ctypes.c_int
             if name in ("tsmt_q8", "tsmt_q8_split"):
                 fn = getattr(lib, f"{name}_plan")
                 fn.argtypes = [_I, _I, _I, _P, _P, ctypes.POINTER(_I)]
@@ -388,6 +410,52 @@ def tsmt_q8_sweep_launch(variant: int, *args) -> int:
     launcher's arguments (int8 X and Y, their scales, the f32 partials, m,
     a, b, band, splits, slice, stream); returns its cudaError_t."""
     return library("tsmt_q8_split").tsmt_q8_split_sweep_f32(variant, *args)
+
+
+TSM2L_BODIES = ("tile", "stream")
+
+
+def tsm2l_plan(m: int, k: int, n: int, dtype_tag: str, ptr_a: int,
+               out_tag: str = "f32") -> tuple:
+    """(body, grid, (rows a thread, groups, rows a tile, stages)) of a tsm2l
+    call (``dtype_tag`` "f32" or "bf16") or a tsm2l_q8 call (``dtype_tag``
+    "int8", writing ``out_tag``) on an A at ``ptr_a``, as its library
+    decides them on the current card (the tile body's geometry is (0, 0,
+    BM, 0))."""
+    out = (ctypes.c_int * 8)()
+    if dtype_tag == "int8":
+        err = library("tsm2l_q8").tsm2l_q8_plan(m, k, n, PLAN_TAGS[out_tag],
+                                                ptr_a, out)
+    else:
+        err = library("tsm2l").tsm2l_plan(m, k, n, PLAN_TAGS[dtype_tag],
+                                          ptr_a, out)
+    if err != 0:
+        raise RuntimeError(f"tsm2l plan query failed: {err}")
+    return TSM2L_BODIES[out[0]], tuple(out[1:4]), tuple(out[4:])
+
+
+def tsm2l_sweep_variants() -> list[int]:
+    """Rows a thread of the stream body's sweep variants, as the tsm2l
+    library lists them; the first is the default."""
+    lib, out, found = library("tsm2l"), (ctypes.c_int * 1)(), []
+    while lib.tsm2l_sweep_variant(len(found), out) == 0:
+        found.append(out[0])
+    return found
+
+
+def tsm2l_variant_launch(dtype_tag: str, rows: int, *args) -> int:
+    """Launch tsm2l's stream body in ``dtype_tag`` ("f32" or "bf16") at
+    ``rows`` a thread (1, 2, 4 or 8) with the launcher's arguments (A, B,
+    C, m, k, n = 16 with 16-byte rows, stream); returns its
+    cudaError_t."""
+    return getattr(library("tsm2l"), f"tsm2l_variant_{dtype_tag}")(rows,
+                                                                    *args)
+
+
+def tsm2l_tile_launch(*args) -> int:
+    """Launch tsm2l's f32 tile body at any shape with the f32 launcher's
+    arguments; returns its cudaError_t."""
+    return library("tsm2l").tsm2l_tile_f32(*args)
 
 
 def transpose_q8(src: int, dst: int, rows: int, cols: int,

@@ -93,8 +93,10 @@ struct RowFold {
   const float* sa;
   const float* sb;
   int band;
+  // Rows fit an int (m does): a 32-bit division, where a 64-bit one costs
+  // a long sequence of instructions.
   __device__ __forceinline__ float operator()(long row, float v) const {
-    return v * (sa[row / band] * sb[0]);
+    return v * (sa[(int)row / band] * sb[0]);
   }
 };
 
@@ -607,19 +609,30 @@ int tsm2l_launch(const T* a, const T* b, U* c, int m, int k, int n,
   return (int)cudaGetLastError();
 }
 
-// Shared memory stays under ~100 KB at every k: BM * (KC + 1) + KC * BN
-// words (a quarter of the words for int8).
+template <int BM_, int BN_, int TM_, int TN_, int KC_>
+struct Tsm2lTile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, KC = KC_;
+};
+
+// f(Tsm2lTile<...>{}) for the tile TSM2L's tile body uses at output width
+// n (mirrored by core/perf_model.py's tsm2l_tile). Shared memory stays
+// under ~100 KB at every k: BM * (KC + 1) + KC * BN words (a quarter of
+// the words for int8).
+template <typename F>
+inline int with_tsm2l_tile(int n, F&& f) {
+  if (n <= 4) return f(Tsm2lTile<512, 4, 2, 4, 32>{});
+  if (n <= 16) return f(Tsm2lTile<256, 16, 4, 4, 64>{});
+  return f(Tsm2lTile<64, 64, 4, 4, 256>{});
+}
+
 template <typename T, typename U, typename Fold>
 int tsm2l_dispatch(const T* a, const T* b, U* c, int m, int k, int n,
                    const Fold fold, cudaStream_t stream) {
-  if (n <= 4)
-    return tsm2l_launch<T, U, 512, 4, 2, 4, 32>(a, b, c, m, k, n, fold,
-                                                stream);
-  if (n <= 16)
-    return tsm2l_launch<T, U, 256, 16, 4, 4, 64>(a, b, c, m, k, n, fold,
-                                                 stream);
-  return tsm2l_launch<T, U, 64, 64, 4, 4, 256>(a, b, c, m, k, n, fold,
-                                               stream);
+  return with_tsm2l_tile(n, [&](auto tile) {
+    using Tl = decltype(tile);
+    return tsm2l_launch<T, U, Tl::BM, Tl::BN, Tl::TM, Tl::TN, Tl::KC>(
+        a, b, c, m, k, n, fold, stream);
+  });
 }
 
 }  // namespace tsm2x

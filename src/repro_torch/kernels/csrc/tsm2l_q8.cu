@@ -10,14 +10,23 @@
 // bytes a band); at the smallest shapes (k = n = 4) the launch and the
 // latency of each row tile, as for tsm2l.
 //
-// Design: TSM2L's kernel body and launch (common.cuh) at the int8 load
-// type: B stays resident in shared memory for the block's lifetime, four
-// consecutive k values of A and of B packed into each 32-bit word, so one
-// __dp4a does four exact products into an int32 sum (at most 127^2 * KC
-// per staged chunk, so no depth overflows: chunks fold into f32). The
-// RowFold epilogue multiplies each output by sA[row / band] * sB once.
+// TSM2L's two bodies at the int8 load type, picked by tsm2l_q8_plan as
+// tsm2l_plan picks them (tsm2l.cu):
+// - "stream" (tsm2l_stream.cuh): n in 1..16, k in 1..256, a 16-byte
+//   aligned A. A row word of A holds four consecutive k values of one row
+//   and B is staged as packed words of four k values of a column, so each
+//   __dp4a multiplies A's row words as they lie: four exact products into
+//   an int32 sum (127^2 * 256 << 2^31), converted once and multiplied by
+//   sA[row / band] * sB: bit-equal to the plain version.
+// - "tile" (common.cuh): every other call. B stays resident in shared
+//   memory for the block's lifetime, four consecutive k values of A and of
+//   B packed into each 32-bit word, __dp4a into an int32 sum per staged
+//   chunk of at most KC k values (folded into f32 between chunks, so no
+//   depth overflows); the RowFold epilogue multiplies each output by
+//   sA[row / band] * sB once.
 
 #include "common.cuh"
+#include "tsm2l_stream.cuh"
 
 namespace {
 
@@ -25,6 +34,9 @@ template <typename U>
 int run(const void* a, const void* b, const void* sa, const void* sb, void* c,
         int m, int k, int n, int band, void* stream) {
   const tsm2x::RowFold fold{(const float*)sa, (const float*)sb, band};
+  if (tsm2x::stream::fits(k, n, a))
+    return tsm2x::stream::launch((const int8_t*)a, (const int8_t*)b, (U*)c,
+                                 m, k, n, fold, (cudaStream_t)stream);
   return tsm2x::tsm2l_dispatch((const int8_t*)a, (const int8_t*)b, (U*)c, m,
                                k, n, fold, (cudaStream_t)stream);
 }
@@ -41,4 +53,11 @@ extern "C" int tsm2l_q8_bf16(const void* a, const void* b, const void* sa,
                              const void* sb, void* c, int m, int k, int n,
                              int band, void* stream) {
   return run<__nv_bfloat16>(a, b, sa, sb, c, m, k, n, band, stream);
+}
+
+// tsm2l_plan's query (tsm2l.cu) for a tsm2l_q8 call writing out_tag (0
+// f32, 1 bf16).
+extern "C" int tsm2l_q8_plan(int m, int k, int n, int out_tag, const void* a,
+                             int* out) {
+  return tsm2x::tsm2l_plan_query(m, k, n, 1, out_tag == 1 ? 2 : 4, a, out);
 }

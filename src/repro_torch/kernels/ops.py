@@ -24,6 +24,15 @@ go through ``reduce.reduce_partials`` as usual, and the output comes back
 in the caller's dtype. Split resolution then prices int8 operands, and
 the tsmt slice quantum is the band.
 
+Operand dtypes (JAX ``jnp.dot`` with ``preferred_element_type=f32``,
+``kernels/tsm2r.py:53,88``, ``tsm2l.py:43-44,74``, ``tsmt.py:54,88``):
+the kernels take float32 or bfloat16 pairs of one dtype, so a mixed
+float32/bfloat16 pair, and float16, are widened to float32 before the
+kernel (``_kernel_pair``); under int8 only a float16 operand is widened,
+since the quantize pass reads each operand on its own. The output is the
+left operand's dtype, as in JAX: a kernel that cannot write it (float16)
+writes float32, which is then cast once.
+
 Each entry is a ``torch.autograd.Function`` whose backward sends the
 cotangent GEMMs back through ``core.tsmm`` under
 ``tsmm.backward_policy`` of the policy captured at forward time, as the
@@ -113,17 +122,47 @@ def _resolve(kind, x, d1, d2, policy):
                           device=x.device)
 
 
+# What the kernels read and write: float32 or bfloat16, one dtype a pair.
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_WIDENED = (torch.float16, torch.bfloat16, torch.float32)
+
+
+def _kernel_pair(a, b):
+    """The operands as a kernel takes them: a mixed pair of float16,
+    bfloat16 and float32, or a float16 pair, widened to float32 (exact),
+    as ``jnp.dot`` promotes them; any other pair as it is (the wrapper
+    raises on what it does not take)."""
+    if a.dtype == b.dtype and a.dtype != torch.float16:
+        return a, b
+    if a.dtype in _WIDENED and b.dtype in _WIDENED:
+        return a.float(), b.float()
+    return a, b
+
+
+def _q8_operand(x):
+    """An operand as the quantize pass takes it: float16 widened to
+    float32 (exact; the pass upcasts to float32 anyway)."""
+    return x.float() if x.dtype == torch.float16 else x
+
+
+def _kernel_out(dtype):
+    """The dtype a kernel writes for an output of ``dtype``: itself, or
+    float32 where the kernels have no store of it (float16)."""
+    return dtype if dtype in _KERNEL_DTYPES else torch.float32
+
+
 # ---------------------------------------------------------------------------
 # Forward implementations
 # ---------------------------------------------------------------------------
 
 def _tsm2r_impl(a, b, policy):
     tsmm = _dispatcher()
-    a, b = a.contiguous(), b.contiguous()
+    out_dtype = a.dtype
     (m, k), n = a.shape, b.shape[1]
-    p = _resolve("tsm2r", a, k, n, policy)
-    s = p["splits"]
     if policy.quant == "int8":
+        a, b = _q8_operand(a).contiguous(), _q8_operand(b).contiguous()
+        p = _resolve("tsm2r", a, k, n, policy)
+        s = p["splits"]
         band = perf_model.Q8_BAND
         # The wgmma body reads B K-major: the quantize pass writes B's
         # codes so where that body will run (fresh codes are aligned).
@@ -133,25 +172,33 @@ def _tsm2r_impl(a, b, policy):
         tsmm.note_launch("tsm2r_q8", perf_model.tsm2r_grid(
             m, k, n, s, torch.int8, a_q.data_ptr(), b_q.data_ptr()), s)
         if s == 1:
-            return _tsm2r.tsm2r_q8(a_q, b_q, a_s, b_s, band, a.dtype)
+            return _tsm2r.tsm2r_q8(a_q, b_q, a_s, b_s, band,
+                                   _kernel_out(out_dtype)).to(out_dtype)
         parts = _tsm2r.tsm2r_q8_split(a_q, b_q, a_s, b_s, band, s,
                                       p["block_k"])
-        return _epilogue(parts, a.dtype)
+        return _epilogue(parts, out_dtype)
+    a, b = _kernel_pair(a.contiguous(), b.contiguous())
+    p = _resolve("tsm2r", a, k, n, policy)
+    s = p["splits"]
     tsmm.note_launch("tsm2r", perf_model.tsm2r_grid(
         m, k, n, s, a.dtype, a.data_ptr(), b.data_ptr()), s)
     if s == 1:
-        return _tsm2r.tsm2r(a, b)
+        return _tsm2r.tsm2r(a, b).to(out_dtype)
     parts = _tsm2r.tsm2r_split(a, b, s, p["block_k"])
-    return _epilogue(parts, a.dtype)
+    return _epilogue(parts, out_dtype)
 
 
 def _tsmt_impl(x, y, policy):
     tsmm = _dispatcher()
-    x, y = x.contiguous(), y.contiguous()
+    out_dtype = x.dtype
+    q8 = policy.quant == "int8"
+    if q8:
+        x, y = _q8_operand(x).contiguous(), _q8_operand(y).contiguous()
+    else:
+        x, y = _kernel_pair(x.contiguous(), y.contiguous())
     (m, a), b = x.shape, y.shape[1]
     p = _resolve("tsmt", x, a, b, policy)
     s = p["splits"]
-    q8 = policy.quant == "int8"
     # S = 1 is the sequential kernel, which spreads m over its own plan of
     # slices in one launch: record the grid that runs.
     slices = s if s > 1 else _tsmt._plan(
@@ -163,32 +210,48 @@ def _tsmt_impl(x, y, policy):
         x_q, x_s = quant.quantize_blocks(x, band)
         y_q, y_s = quant.quantize_blocks(y, band)
         if s == 1:
-            return _tsmt.tsmt_q8(x_q, y_q, x_s, y_s, band, x.dtype)
+            return _tsmt.tsmt_q8(x_q, y_q, x_s, y_s, band,
+                                 _kernel_out(out_dtype)).to(out_dtype)
         parts = _tsmt.tsmt_q8_split(x_q, y_q, x_s, y_s, band, s)
-        return _epilogue(parts, x.dtype)
+        return _epilogue(parts, out_dtype)
     if s == 1:
-        return _tsmt.tsmt(x, y)
+        return _tsmt.tsmt(x, y).to(out_dtype)
     parts = _tsmt.tsmt_split(x, y, s, p["block_m"])
-    return _epilogue(parts, x.dtype)
+    return _epilogue(parts, out_dtype)
 
 
 def _epilogue(parts, out_dtype):
-    out, kernel = reduce.reduce_partials(parts, out_dtype)
+    """The (S, rows, cols) f32 partials summed, in ``out_dtype``."""
+    out, kernel = reduce.reduce_partials(parts, _kernel_out(out_dtype))
     if kernel:
         _dispatcher().note_launch("reduce", parts.shape, parts.shape[0])
-    return out
+    return out.to(out_dtype)
 
 
 def _tsm2l_impl(a, b, policy):
-    a, b = a.contiguous(), b.contiguous()
+    tsmm = _dispatcher()
+    out_dtype = a.dtype
+    (m, k), n = a.shape, b.shape[1]
     if policy.quant == "int8":
-        _dispatcher().note_launch("tsm2l_q8", (), 1)
+        a, b = _q8_operand(a).contiguous(), _q8_operand(b).contiguous()
         band = perf_model.Q8_BAND
         a_q, a_s = quant.quantize_blocks(a, band)
         b_q, b_s = quant.quantize_tensor(b)
-        return _tsm2l.tsm2l_q8(a_q, b_q, a_s, b_s, band, a.dtype)
-    _dispatcher().note_launch("tsm2l", (), 1)
-    return _tsm2l.tsm2l(a, b)
+        kernel_out = _kernel_out(out_dtype)
+        tsmm.note_launch("tsm2l_q8", perf_model.tsm2l_plan(
+            m, k, n, torch.int8, a_q.data_ptr(), _spec(a.device),
+            out_dtype=kernel_out)[1])
+        return _tsm2l.tsm2l_q8(a_q, b_q, a_s, b_s, band,
+                               kernel_out).to(out_dtype)
+    a, b = _kernel_pair(a.contiguous(), b.contiguous())
+    tsmm.note_launch("tsm2l", perf_model.tsm2l_plan(
+        m, k, n, a.dtype, a.data_ptr(), _spec(a.device))[1])
+    return _tsm2l.tsm2l(a, b).to(out_dtype)
+
+
+def _spec(device):
+    """The card model a launch on ``device`` plans against."""
+    return perf_model.device_spec(perf_model.H100, device)
 
 
 # ---------------------------------------------------------------------------

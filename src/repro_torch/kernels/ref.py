@@ -77,8 +77,10 @@ def sum_partials_ref(p: torch.Tensor, out_dtype) -> torch.Tensor:
 
 def _exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The integer product of two int8 matrices, exactly, as f32-rounded
-    values (f64 sums are exact below 2^53)."""
-    return torch.matmul(a.double(), b.double()).float()
+    values (f64 sums are exact below 2^53). A zero sum is +0, as the
+    integer's conversion gives it: a single product 0 * -5 is -0.0 in
+    floating point, and adding +0.0 makes it +0."""
+    return torch.matmul(a.double(), b.double()).float() + 0.0
 
 
 def _row_scale(a_scale, b_scale, band: int, m: int) -> torch.Tensor:
