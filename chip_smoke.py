@@ -44,7 +44,17 @@ printing no result, when no CUDA card is present or any phase fails.
    in the middle of a 64-deep bf16 box, and at n = 1, 3, 4 and 8; every
    tsm2r_split line with its ``body`` from the library's
    ``tsm2r_split_plan``: "skinny" at n <= 16, "simt" at n = 256),
-   and sum_partials against an f32 sum; their lines add ``op_ms`` (split
+   and sum_partials bit for bit against the slice-order sum
+   (``in_slice_order`` and its plain version, f32 and bf16 outputs, at
+   ``REDUCE_CASES``: 4-wide, 2-wide and scalar vectors, P off the 16-byte
+   grid, S past one chunk), every line's plan from the library's
+   ``reduce_plan`` equal to ``perf_model.reduce_plan``, and the dispatch
+   path's (2, 16384, 16) f32 within ``REDUCE_MAX_MS`` on the device; a
+   ``reduce_sweep`` line times its body, its first body and
+   ``torch.sum`` at ``REDUCE_SWEEP``'s stacks, beside the bytes bound and
+   the plan, and its variants (chunk 4 against 8, streaming loads on and
+   off, threads a block, blocks an SM) at two of them, each bit-equal to
+   the slice-order sum. The split kernels' lines add ``op_ms`` (split
    kernel plus epilogue) and ``seq_ms`` (the sequential kernel on the same
    product); ``library_ms`` is one ``torch.matmul`` of the whole product
    (``torch.sum`` for sum_partials). Tolerances are the
@@ -160,7 +170,8 @@ printing no result, when no CUDA card is present or any phase fails.
    bfloat16 pair's op, device to device). Under ``"auto"`` the paper's
    ``[16384^2]·[16384,16]``
    and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
-   launch tsm2r_split (with sum_partials) and tsmt_split; under
+   launch tsm2r_split (with sum_partials, its launch record at the grid
+   of ``perf_model.reduce_plan``) and tsmt_split; under
    ``"never"`` the sequential kernels. The same under ``quant="int8"``:
    "never" routes the quickstart's shapes to tsm2r_q8, tsm2l_q8 and
    tsmt_q8; "auto" resolves PowerSGD's TSMT and ``[4096,65536]·[65536,16]``
@@ -331,6 +342,28 @@ TSMT_Q8_SPLIT_MAX_MS = 0.18
 # around the call on an H100 80GB HBM3 at 700 W), which the same run also
 # times and must beat.
 TSM2L_STREAM_MAX_MS = 0.60
+# sum_partials' cases (S, rows, cols, floats P lies past a 16-byte
+# boundary): the dispatch path's stack first; rows * cols % 4 == 2 (2-wide
+# vectors) and odd (one output a thread); S past one 8-slice chunk; P 4
+# and 8 bytes off the 16-byte grid.
+REDUCE_CASES = [(2, 16384, 16, 0), (8, 4096, 4, 0), (32, 128, 4, 0),
+                (4, 1002, 3, 0), (3, 1001, 3, 0), (9, 4096, 16, 0),
+                (2, 16384, 16, 1), (2, 16384, 16, 2)]
+# Device time sum_partials must stay within at the dispatch path's (2,
+# 16384, 16) f32: 0.00170 ms on an H100 80GB HBM3 at 700 W, where the first
+# body (64 blocks of 4,096 outputs) took 0.0030, which the gate refuses.
+REDUCE_MAX_MS = 0.0025
+# reduce_sweep's stacks: the launch floor (almost no bytes), the split
+# phase's stacks, and one past the 50 MB L2 (67 MB of partials). The
+# variants run at the last two.
+REDUCE_SWEEP = [((2, 64, 16), torch.float32), ((2, 16384, 16), torch.float32),
+                ((2, 16384, 16), torch.bfloat16),
+                ((8, 16384, 16), torch.float32),
+                ((5, 4096, 16), torch.float32),
+                ((16, 256, 256), torch.float32),
+                ((4, 8192, 256), torch.float32),
+                ((4, 65536, 64), torch.float32)]
+REDUCE_VARIANT_STACKS = ((16, 256, 256), (4, 65536, 64))
 # The dispatch phase's mixed and float16 pairs: (kind, entry, lhs, rhs).
 WIDENED_OPS = (("tsm2r", "mm", (4096, 4096), (4096, 8)),
                ("tsm2l", "mm", (102400, 4), (4, 4)),
@@ -1164,6 +1197,83 @@ def tsmt_q8_sweep(dev, uniform, gpu) -> None:
     torch.cuda.empty_cache()
 
 
+def reduce_sweep(dev, uniform, gpu) -> None:
+    """sum_partials on the device at ``REDUCE_SWEEP``'s stacks: the plan's
+    body, the first body (``reduce_rows_<tag>``: block_r rows of all cols
+    a block) and ``torch.sum(p, dim=0)``, beside the bytes bound and the
+    plan; then the body's variants (threads a block, blocks an SM, slices
+    a chunk, streaming loads; ``_build.reduce_sweep_variants``, the first
+    the plan's) at ``REDUCE_VARIANT_STACKS`` in f32. Every arm must give
+    the slice-order sum's bits. Launches go straight through the C
+    launchers, so the wrapper's count does not move."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _build, reduce
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    spec = perf_model.device_spec(perf_model.H100, dev)
+    stacks, bad = [], []
+
+    def arm(launch, p, dtype, outs):
+        out = torch.empty(p.shape[1:], dtype=dtype, device=dev)
+        outs.append(out)
+
+        def run():
+            err = launch(p.data_ptr(), out.data_ptr(), *p.shape, stream)
+            check(err == 0, f"reduce sweep {tuple(p.shape)}: error {err}")
+        return run
+
+    for shape, dtype in REDUCE_SWEEP:
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        p = uniform(shape, torch.float32)
+        outs = []
+        fns = [arm(_build.launcher("reduce", tag), p, dtype, outs),
+               arm(lambda *a, t=tag: _build.reduce_rows_launch(t, *a), p,
+                   dtype, outs)]
+        ms = device_ms_each(fns, "sum_partials")
+        torch.cuda.synchronize()
+        want = in_slice_order(p, dtype)
+        exact = [same_bits(o, want) for o in outs]
+        nbytes = p.numel() * 4 + want.numel() * want.element_size()
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        plan = reduce.c_plan(p, outs[0])
+        stacks.append({
+            "shape": list(shape), "dtype": str(dtype)[6:],
+            "device_ms": ms[0], "rows_body_ms": ms[1],
+            "library_device_ms": call_device_ms(lambda: torch.sum(p, dim=0)),
+            "bound_ms": b_ms, "bound_by": "bytes", "share": b_ms / ms[0],
+            "vs_rows_body": ms[0] / ms[1],
+            "plan": {"grid": plan[0], "threads": plan[1], "vec": plan[2],
+                     "chunk": plan[3]},
+            "plan_ok": plan == perf_model.reduce_plan(
+                *shape, dtype, p.data_ptr(), outs[0].data_ptr(), spec),
+            "bit_equal": exact})
+        if not (all(exact) and stacks[-1]["plan_ok"]):
+            bad.append(stacks[-1])
+        del p, outs, want
+    variants = _build.reduce_sweep_variants()
+    at = []
+    for shape in REDUCE_VARIANT_STACKS:
+        p = uniform(shape, torch.float32)
+        outs = []
+        fns = [arm(lambda *a, i=i: _build.reduce_sweep_launch(i, *a), p,
+                   torch.float32, outs) for i in range(len(variants))]
+        ms = device_ms_each(fns, "sum_partials")
+        torch.cuda.synchronize()
+        want = in_slice_order(p, torch.float32)
+        exact = [same_bits(o, want) for o in outs]
+        at.append({"shape": list(shape), "variants": [
+            {"threads": v[0], "blocks_per_sm": v[1], "chunk": v[2],
+             "streaming": v[3], "device_ms": t, "bit_equal": e}
+            for v, t, e in zip(variants, ms, exact)]})
+        if not all(exact):
+            bad.append(at[-1])
+        del p, outs, want
+    torch.cuda.empty_cache()
+    emit({"phase": "reduce_sweep", "stacks": stacks, "variants": at,
+          "gpu": gpu})
+    check(not bad, f"reduce sweep: {bad}")
+
+
 # The fused quantize pass's cases: (label, shape, dtype, band or None for
 # one scale, K-major codes); the first is the serving path's activations.
 QUANT_CASES = [
@@ -1261,6 +1371,7 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
     main path's, the paper's and the chatglm3 shapes, f32 and bf16, with
     bit-identical repeats. Returns the record of each kernel's main-path
     case."""
+    from repro_torch.core import perf_model
     from repro_torch.kernels import ref, reduce
     from repro_torch.kernels import tsm2r as k_tsm2r
     from repro_torch.kernels import tsmt as k_tsmt
@@ -1340,21 +1451,33 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                     bad.append(f"{name} {m}x{d1}x{d2} S={S} {dtype}")
                 del x, y, got, again, want, err
                 torch.cuda.empty_cache()
-    for S, rows, cols in [(2, 16384, 16), (8, 4096, 4), (32, 128, 4)]:
-        p = uniform((S, rows, cols), torch.float32)
+    spec = perf_model.device_spec(perf_model.H100, dev)
+    for S, rows, cols, off in REDUCE_CASES:
+        buf = uniform((S * rows * cols + off,), torch.float32)
+        p = buf[off:].view(S, rows, cols)
         for dtype in (torch.float32, torch.bfloat16):
             got = reduce.sum_partials(p, dtype)
             again = reduce.sum_partials(p, dtype)
             torch.cuda.synchronize()
             want = ref.sum_partials_ref(p, dtype)
-            rtol, atol = TOL[dtype]
-            err = (got.float() - want.float()).abs()
-            same = torch.equal(got, again)
-            ok = same and bool(
-                (err <= atol + rtol * want.float().abs()).all())
+            plan = reduce.c_plan(p, got)
+            mirror = perf_model.reduce_plan(S, rows, cols, dtype,
+                                            p.data_ptr(), got.data_ptr(),
+                                            spec)
+            # Bit for bit: the kernel adds the slices in order from +0.0,
+            # as the plain version and in_slice_order do.
+            exact = (same_bits(got, in_slice_order(p, dtype))
+                     and same_bits(got, want))
+            same = same_bits(got, again)
+            ok = exact and same and plan == mirror
             nbytes = p.numel() * 4 + got.numel() * got.element_size()
             rec = {"phase": "kernel", "kernel": "sum_partials",
-                   "shape": [S, rows, cols], "dtype": str(dtype)[6:],
+                   "shape": [S, rows, cols], "splits": S,
+                   "dtype": str(dtype)[6:],
+                   "p_offset_bytes": p.data_ptr() % 16,
+                   "plan": {"grid": plan[0], "threads": plan[1],
+                            "vec": plan[2], "chunk": plan[3]},
+                   "plan_ok": plan == mirror,
                    "kernel_ms": time_ms(lambda: reduce.sum_partials(p,
                                                                     dtype)),
                    "op_ms": None, "seq_ms": None,
@@ -1362,10 +1485,12 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                                                                     dtype)),
                    "library_ms": time_ms(lambda: torch.sum(p, dim=0)),
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                   "bound_by": "bytes", "max_err": float(err.max()),
-                   "rtol": rtol, "atol": atol, "deterministic": same,
+                   "bound_by": "bytes",
+                   "max_err": float((got.float() - want.float()).abs().max()),
+                   "bit_equal_slice_order": exact, "deterministic": same,
                    "ok": ok, "gpu": gpu}
-            if main_case["sum_partials"] == ((S, rows, cols), dtype):
+            if main_case["sum_partials"] == ((S, rows, cols), dtype) \
+                    and off == 0:
                 rec["device_ms"] = device_ms(
                     lambda: reduce.sum_partials(p, dtype), "sum_partials")
                 rec["library_device_ms"] = call_device_ms(
@@ -1373,12 +1498,17 @@ def split_kernel_phase(dev, uniform, gpu) -> dict:
                 measured["sum_partials"] = rec
             emit(rec)
             if not ok:
-                bad.append(f"sum_partials {S}x{rows}x{cols} {dtype}")
+                bad.append(f"sum_partials {S}x{rows}x{cols}+{off} {dtype}")
+        del buf, p, got, again, want
     check(not bad, f"split kernel phase mismatch in {bad}")
     rec = measured["tsm2r_split"]
     check(rec["body"] == "skinny" and rec["device_ms"] <= SKINNY_MAX_MS,
           f"tsm2r_split at {rec['shape']}: body {rec['body']}, "
           f"{rec['device_ms']} ms on the device (limit {SKINNY_MAX_MS})")
+    rec = measured["sum_partials"]
+    check(rec["device_ms"] <= REDUCE_MAX_MS,
+          f"sum_partials at {rec['shape']}: {rec['device_ms']} ms on the "
+          f"device (limit {REDUCE_MAX_MS})")
     return measured
 
 
@@ -2374,6 +2504,7 @@ def main() -> int:
     tsmt_sweep(dev, uniform, gpu)
     skinny_sweep(dev, uniform, gpu)
     tsmt_q8_sweep(dev, uniform, gpu)
+    reduce_sweep(dev, uniform, gpu)
 
     # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
@@ -2488,15 +2619,23 @@ def main() -> int:
         torch.cuda.synchronize()
         grown = {n: v - before[n] for n, v in counts().items()}
         resolved = [[(lm.kind, lm.splits) for lm in e.launches] for e in log]
+        # the epilogue's launch record: the grid of its plan
+        reduce_grids = [lm.grid for e in log for lm in e.launches
+                        if lm.kind == "reduce"]
         if split == "auto":
+            s = resolved[0][0][1]
             ok = (grown == expect(tsm2r_split=1, tsmt_split=1,
                                 sum_partials=1)
-                  and resolved[0][0][1] > 1 and resolved[1][0][1] > 1
-                  and resolved[0][-1][0] == "reduce")
+                  and s > 1 and resolved[1][0][1] > 1
+                  and resolved[0][-1][0] == "reduce"
+                  and reduce_grids == [perf_model.reduce_plan(
+                      s, 16384, 16, torch.float32,
+                      spec=perf_model.device_spec(perf_model.H100,
+                                                  dev))[0]])
         else:
             ok = grown == expect(tsm2r=1, tsmt=1)
         emit({"phase": "dispatch", "split": split, "resolved": resolved,
-              "launches": grown})
+              "reduce_grids": reduce_grids, "launches": grown})
         check(ok, f"split={split} dispatch: {resolved} {grown}")
         for got, ref_out in zip(outs, (ref.tsm2r_ref(a, b),
                                        ref.tsmt_ref(x, y))):

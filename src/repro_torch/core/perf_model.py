@@ -398,6 +398,42 @@ def reduce_kernel_runs(splits: int, rows: int, cols: int) -> bool:
     return splits > 1 and splits * rows * cols > JNP_REDUCE_MAX_ELEMS
 
 
+# The sum_partials kernel's launch (``csrc/reduce.cu``): threads a block,
+# the most blocks an SM before its grid-stride loop, and the slices whose
+# loads are all issued before their adds.
+REDUCE_THREADS = 128
+REDUCE_BLOCKS_PER_SM = 8
+REDUCE_CHUNK = 8
+
+
+def reduce_vector_width(n: int, ptr_p: int = 0, ptr_c: int = 0,
+                        out_size: int = 4) -> int:
+    """Outputs a sum_partials thread owns: the widest of 4, 2 and 1 that
+    divides the ``n`` = rows * cols outputs (so every slab of the stack
+    starts on a vector) and to whose vectors the partials at ``ptr_p``
+    (f32) and the output at ``ptr_c`` (``out_size`` bytes an element) are
+    aligned."""
+    return next((w for w in (4, 2) if n % w == 0 and ptr_p % (4 * w) == 0
+                 and ptr_c % (out_size * w) == 0), 1)
+
+
+def reduce_plan(s: int, rows: int, cols: int, out_dtype, ptr_p: int = 0,
+                ptr_c: int = 0, spec: GPUSpec = H100) -> tuple:
+    """(grid, threads a block, vector width, slices a chunk) of a
+    sum_partials launch on an ``(s, rows, cols)`` stack writing
+    ``out_dtype``: the mirror of the C query ``reduce_plan``
+    (``kernels/_build.reduce_plan``). One vector a thread, at most
+    ``REDUCE_BLOCKS_PER_SM`` blocks an SM (the kernel strides past that);
+    the grid does not depend on S."""
+    del s
+    n = rows * cols
+    usize = torch.empty((), dtype=out_dtype).element_size()
+    vec = reduce_vector_width(n, ptr_p, ptr_c, usize)
+    blocks = max(1, min(-(-(n // vec) // REDUCE_THREADS),
+                        REDUCE_BLOCKS_PER_SM * spec.n_sms))
+    return (blocks, 1, 1), REDUCE_THREADS, vec, REDUCE_CHUNK
+
+
 def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
                      dtype=torch.float32, *, splits: int = 1) -> float:
     """Modelled seconds of TSM2R (S = 1) or its split variant: A streamed

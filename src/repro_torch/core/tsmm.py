@@ -209,9 +209,10 @@ class LaunchMeta:
     sequential tsmt/tsmt_q8 its last dim is the kernel's own plan of m
     slices, ``perf_model.tsmt_slices``; for tsm2l/tsm2l_q8 the grid of
     ``perf_model.tsm2l_plan``: the stream body's persistent blocks, or
-    the tile body's row and column tiles; the (S, rows, cols) partials
-    shape for "reduce") and the resolved ``splits`` (1 for a sequential
-    kernel)."""
+    the tile body's row and column tiles; for "reduce" the grid of
+    ``perf_model.reduce_plan``: one vector of outputs a thread, at most
+    ``REDUCE_BLOCKS_PER_SM`` blocks an SM) and the
+    resolved ``splits`` (S; 1 for a sequential kernel)."""
 
     kind: str
     grid: tuple

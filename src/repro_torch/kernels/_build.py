@@ -24,8 +24,8 @@ launch (or of the memset before it); its C signature is
 and three dims for tsm2r and tsm2l; the same plus ``splits`` and the
 slice length for the split kernels; for tsmt those plus the workspace
 pointer (the (S, a, b) f32 partials, then one int32 counter per output
-tile; null at S = 1); one input, one output, ``splits``, rows, cols and
-rows per block for ``reduce``. The int8 kernels (``*_q8*``) take two int8
+tile; null at S = 1); one input, one output, ``splits``, rows and cols
+for ``reduce``. The int8 kernels (``*_q8*``) take two int8
 inputs, their two f32 scale sidecars, the output, the three dims and the
 band length of the tall operand's scales (the split ones and tsmt_q8
 then ``splits`` and the slice length; tsmt_q8 then the workspace
@@ -70,7 +70,15 @@ library the stream body's sweep, ``tsm2l_sweep_variant(i, int* out)``
 stream body at a chosen rows a thread (``tsm2l_sweep_variants``,
 ``tsm2l_variant_launch``),
 and the tile body alone, ``tsm2l_tile_f32(...)`` with the f32 launcher's
-arguments (``tsm2l_tile_launch``).
+arguments (``tsm2l_tile_launch``); the reduce library ``reduce_plan(splits,
+rows, cols, output tag, P, C, int* out)``: the grid, threads a block,
+vector width and slices a chunk a call launches (``reduce_plan``), its
+sweep, ``reduce_sweep_variant(i, int* out)`` (variant i's threads a block,
+blocks an SM, slices a chunk and streaming loads) and
+``reduce_sweep_f32(i, ...)`` with the f32 launcher's arguments after i
+(``reduce_sweep_variants``, ``reduce_sweep_launch``), and the first body,
+``reduce_rows_<tag>(...)`` with the launcher's arguments
+(``reduce_rows_launch``).
 """
 
 from __future__ import annotations
@@ -100,7 +108,7 @@ _SLICES = [*_SPLIT[:-1], _P, _P]         # the split's, then the workspace
 _SLICES_Q8 = [*_SPLIT_Q8[:-1], _P, _P]
 SIGNATURES = {"tsm2r": _SEQ, "tsm2l": _SEQ, "tsmt": _SLICES,
               "tsm2r_split": _SPLIT, "tsmt_split": _SPLIT,
-              "reduce": [_P, _P, _I, _I, _I, _I, _P],
+              "reduce": [_P, _P, _I, _I, _I, _P],
               "tsm2r_q8": [*_SEQ_Q8[:-1], _I, _P], "tsm2l_q8": _SEQ_Q8,
               "tsmt_q8": _SLICES_Q8, "tsm2r_q8_split": _SPLIT_Q8,
               "tsmt_q8_split": _SPLIT_Q8,
@@ -307,6 +315,18 @@ def library(name: str) -> ctypes.CDLL:
                 lib.tsmt_q8_split_sweep_variant.restype = ctypes.c_int
                 lib.tsmt_q8_split_sweep_f32.argtypes = [_I, *_SPLIT_Q8]
                 lib.tsmt_q8_split_sweep_f32.restype = ctypes.c_int
+            if name == "reduce":
+                lib.reduce_plan.argtypes = [_I, _I, _I, _I, _P, _P,
+                                            ctypes.POINTER(_I)]
+                lib.reduce_plan.restype = ctypes.c_int
+                lib.reduce_sweep_variant.argtypes = [_I, ctypes.POINTER(_I)]
+                lib.reduce_sweep_variant.restype = ctypes.c_int
+                lib.reduce_sweep_f32.argtypes = [_I, *SIGNATURES["reduce"]]
+                lib.reduce_sweep_f32.restype = ctypes.c_int
+                for tag in ("f32", "bf16"):
+                    fn = getattr(lib, f"reduce_rows_{tag}")
+                    fn.argtypes = SIGNATURES["reduce"]
+                    fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -456,6 +476,44 @@ def tsm2l_tile_launch(*args) -> int:
     """Launch tsm2l's f32 tile body at any shape with the f32 launcher's
     arguments; returns its cudaError_t."""
     return library("tsm2l").tsm2l_tile_f32(*args)
+
+
+def reduce_plan(splits: int, rows: int, cols: int, out_tag: str,
+                ptr_p: int, ptr_c: int) -> tuple:
+    """(grid, threads a block, vector width, slices a chunk) of a
+    sum_partials call writing ``out_tag`` ("f32" or "bf16") from partials
+    at ``ptr_p`` into an output at ``ptr_c``, as its library decides them
+    on the current card."""
+    out = (ctypes.c_int * 4)()
+    err = library("reduce").reduce_plan(splits, rows, cols,
+                                        PLAN_TAGS[out_tag], ptr_p, ptr_c, out)
+    if err != 0:
+        raise RuntimeError(f"reduce plan query failed: {err}")
+    return (out[0], 1, 1), out[1], out[2], out[3]
+
+
+def reduce_sweep_variants() -> list[tuple[int, int, int, bool]]:
+    """sum_partials' sweep variants, (threads a block, blocks an SM,
+    slices a chunk, streaming loads) each, as the reduce library lists
+    them; the first is the plan's."""
+    lib, out, found = library("reduce"), (ctypes.c_int * 4)(), []
+    while lib.reduce_sweep_variant(len(found), out) == 0:
+        found.append((out[0], out[1], out[2], bool(out[3])))
+    return found
+
+
+def reduce_sweep_launch(variant: int, *args) -> int:
+    """Launch sum_partials' f32 body at sweep ``variant`` with the f32
+    launcher's arguments (P, C, splits, rows, cols, stream); returns its
+    cudaError_t."""
+    return library("reduce").reduce_sweep_f32(variant, *args)
+
+
+def reduce_rows_launch(out_tag: str, *args) -> int:
+    """Launch sum_partials' first body (block_r rows of all cols a
+    block) writing ``out_tag`` with the launcher's arguments; returns its
+    cudaError_t."""
+    return getattr(library("reduce"), f"reduce_rows_{out_tag}")(*args)
 
 
 def transpose_q8(src: int, dst: int, rows: int, cols: int,

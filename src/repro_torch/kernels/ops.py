@@ -222,9 +222,9 @@ def _tsmt_impl(x, y, policy):
 
 def _epilogue(parts, out_dtype):
     """The (S, rows, cols) f32 partials summed, in ``out_dtype``."""
-    out, kernel = reduce.reduce_partials(parts, _kernel_out(out_dtype))
-    if kernel:
-        _dispatcher().note_launch("reduce", parts.shape, parts.shape[0])
+    out, plan = reduce.reduce_partials(parts, _kernel_out(out_dtype))
+    if plan is not None:   # the grid the sum_partials launch has
+        _dispatcher().note_launch("reduce", plan[0], parts.shape[0])
     return out.to(out_dtype)
 
 

@@ -12,9 +12,12 @@ leading axis in f32 and casts once:
   ``reduce.py::sum_partials_pallas`` with ``csrc/reduce.cu``.
 
 ``sum_partials`` is bound by reading the ``S * rows * cols * 4`` bytes of
-partials. Each thread adds its elements' S partials in the order 0..S-1
-(float4 loads when cols is a multiple of 4), so a launch gives the same
-bits every time: no atomics. CPU tensors take the plain version
+partials. Its launch is ``perf_model.reduce_plan``: each thread owns a
+vector of outputs on the flat index (4 where rows * cols and the pointers
+allow), one a thread up to ``REDUCE_BLOCKS_PER_SM`` blocks an SM. A
+thread issues a chunk of slices' loads before adding them in the order
+0..S-1 from +0.0, so a launch gives the bits of the slice-order sum every
+time: no atomics. CPU tensors take the plain version
 (``ref.sum_partials_ref``); CUDA tensors launch the kernel or raise.
 """
 
@@ -23,29 +26,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import perf_model
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _build, _launch, ref
 
 # Below this many f32 partial elements the plain sum runs (kept in
 # ``core/perf_model.py``, whose modelled times count the epilogue launch).
 JNP_REDUCE_MAX_ELEMS = perf_model.JNP_REDUCE_MAX_ELEMS
-# Output elements one CUDA block of the kernel sums: block_r rows of all
-# cols.
-REDUCE_BLOCK_ELEMS = 4096
 
 launches = 0   # sum_partials kernel launches; chip_smoke.py resets and reads
-
-
-def epilogue_block_r(s: int, rows: int, cols: int) -> int | None:
-    """Rows per CUDA block the kernel epilogue launches with, or None when
-    the plain ``torch.sum`` path runs (one slice, or a small stack). The
-    kernel's grid is ``ceil(rows / block_r)`` blocks."""
-    if not perf_model.reduce_kernel_runs(s, rows, cols):
-        return None
-    return block_r_for(rows, cols)
-
-
-def block_r_for(rows: int, cols: int) -> int:
-    return max(1, min(rows, REDUCE_BLOCK_ELEMS // max(cols, 1)))
 
 
 def sum_partials(p: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -66,21 +53,39 @@ def sum_partials(p: torch.Tensor, out_dtype) -> torch.Tensor:
     out = torch.empty((rows, cols), dtype=out_dtype, device=p.device)
     if out.numel() == 0:
         return out
-    _launch.launch("reduce", out_dtype, p, out, s, rows, cols,
-                   block_r_for(rows, cols))
+    _launch.launch("reduce", out_dtype, p, out, s, rows, cols)
     launches += 1
     return out
 
 
+def plan(p: torch.Tensor, out: torch.Tensor) -> tuple:
+    """(grid, threads a block, vector width, slices a chunk) of the
+    ``sum_partials`` launch from the stack ``p`` into ``out``, as
+    ``perf_model.reduce_plan`` mirrors it for ``p``'s device."""
+    spec = perf_model.device_spec(perf_model.H100, p.device)
+    return perf_model.reduce_plan(*p.shape, out.dtype, p.data_ptr(),
+                                  out.data_ptr(), spec)
+
+
+def c_plan(p: torch.Tensor, out: torch.Tensor) -> tuple:
+    """The same as the kernel's library decides it on the card (CUDA
+    tensors only)."""
+    _launch.require_cuda("sum_partials", p.device)
+    with torch.cuda.device(p.device):
+        return _build.reduce_plan(*p.shape, _launch._DTYPE_TAG[out.dtype],
+                                  p.data_ptr(), out.data_ptr())
+
+
 def reduce_partials(p: torch.Tensor,
-                    out_dtype) -> tuple[torch.Tensor, bool]:
+                    out_dtype) -> tuple[torch.Tensor, tuple | None]:
     """Sum the ``(S, rows, cols)`` partials stack to ``(rows, cols)``:
     the kernel above ``JNP_REDUCE_MAX_ELEMS`` elements, else a plain f32
-    sum. Returns the sum and whether the kernel ran (the dispatcher notes
-    that launch)."""
+    sum. Returns the sum and, where the kernel ran, its launch plan
+    (``plan``; the dispatcher records its grid), else None."""
     s, rows, cols = p.shape
     if s == 1:
-        return p[0].to(out_dtype), False
-    if epilogue_block_r(s, rows, cols) is None:
-        return torch.sum(p, dim=0, dtype=torch.float32).to(out_dtype), False
-    return sum_partials(p, out_dtype), True
+        return p[0].to(out_dtype), None
+    if not perf_model.reduce_kernel_runs(s, rows, cols):
+        return torch.sum(p, dim=0, dtype=torch.float32).to(out_dtype), None
+    out = sum_partials(p, out_dtype)
+    return out, plan(p, out)

@@ -67,8 +67,13 @@ def tsmt_split_ref(x: torch.Tensor, y: torch.Tensor, splits: int,
 
 
 def sum_partials_ref(p: torch.Tensor, out_dtype) -> torch.Tensor:
-    """Sum over the leading axis of (S, rows, cols) in f32, cast once."""
-    return torch.sum(p.float(), dim=0).to(out_dtype)
+    """Sum over the leading axis of (S, rows, cols) in f32, cast once: slice
+    by slice from +0.0 in the order 0..S-1, the kernel's order, so its
+    bits."""
+    acc = torch.zeros(p.shape[1:], dtype=torch.float32, device=p.device)
+    for part in p.float():
+        acc += part
+    return acc.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
