@@ -159,8 +159,17 @@ printing no result, when no CUDA card is present or any phase fails.
    ``test_quant.py`` max-norm relative criterion: 5%, 6% for bf16) and
    timed; at the serving shape beside the bf16 op and at PowerSGD's P
    and Q beside the f32 op, by events and on the device.
+   A ``bound_class`` line gives each main-path shape (``BOUND_SHAPES``:
+   wk/wv, P, Q, the TSQR Gram and apply at PowerSGD's P and at
+   [2^20,16,16]) its class from ``tsmm.bound_class`` beside the
+   kernel's device ms, its bytes and operations bounds and
+   ``torch.matmul``'s device ms; a ``threshold_sweep`` line (data for the
+   classifier thresholds, routing nothing) tsm2r's and tsm2r_q8's device
+   ms beside bf16 ``torch.matmul``'s at ``THRESHOLD_SWEEP``.
 3. Dispatch (a path of its own: every launch count is set to 0 just
-   before it and read just after): under ``split="never"`` the quickstart's shapes
+   before it and read just after), every launch resolved under
+   ``GemmPolicy(verify_contracts=True)``: under ``split="never"`` the
+   quickstart's shapes
    through ``tsmm``/``tsmm_t`` must route to tsm2r, tsm2l and tsmt on
    executor ``cuda``, tsmt's launch record showing the planned grid
    (a-tiles, b-tiles, S) with ``splits`` 1. A bfloat16·float32 pair and
@@ -168,15 +177,17 @@ printing no result, when no CUDA card is present or any phase fails.
    the left operand's dtype within the bf16 tolerance of the plain
    version of the widened pair (the kernel phase times each beside the
    bfloat16 pair's op, device to device). Under ``"auto"`` the paper's
-   ``[16384^2]·[16384,16]``
-   and PowerSGD's ``[65024,4096]^T·[65024,4]`` must resolve S > 1 and
-   launch tsm2r_split (with sum_partials, its launch record at the grid
-   of ``perf_model.reduce_plan``) and tsmt_split; under
-   ``"never"`` the sequential kernels. The same under ``quant="int8"``:
-   "never" routes the quickstart's shapes to tsm2r_q8, tsm2l_q8 and
-   tsmt_q8; "auto" resolves PowerSGD's TSMT and ``[4096,65536]·[65536,16]``
-   (32 row tiles) to S > 1 on tsmt_q8_split and tsm2r_q8_split, and the
-   paper's TSM2R to what the int8 chooser picks. The Python mirror of the
+   ``[16384^2]·[16384,16]`` must resolve S > 1 and launch tsm2r_split
+   (with sum_partials, its launch record at the grid of
+   ``perf_model.reduce_plan``), and PowerSGD's ``[65024,4096]^T·
+   [65024,4]`` the S its chooser resolves (the one-launch tsmt at S = 1);
+   a pinned S = 8 launches tsm2r_split and tsmt_split; under ``"never"``
+   the sequential kernels. The same under ``quant="int8"``: "never"
+   routes the quickstart's shapes to tsm2r_q8, tsm2l_q8 and tsmt_q8;
+   "auto" resolves ``[4096,65536]·[65536,16]`` (32 row tiles) to S > 1 on
+   tsm2r_q8_split, PowerSGD's TSMT to the int8 chooser's S and the
+   paper's TSM2R to what the int8 chooser picks, and a pinned S = 8 runs
+   PowerSGD's TSMT on tsmt_q8_split. The Python mirror of the
    tile table (``core/perf_model.py``) must equal the C grid query of all
    four split libraries, ``perf_model.tsm2r_plan`` the tsm2r,
    tsm2r_split (at S = 2, 5, 8), tsm2r_q8 and tsm2r_q8_split (at S = 2,
@@ -235,9 +246,9 @@ printing no result, when no CUDA card is present or any phase fails.
    a third time). Every step must be
    ``step_ok``, compress exactly embed and lm_head, launch tsm2r exactly
    66 times (wk, wv x 4 layers x 4 microbatches, twice, + 2 P
-   projections) and
-   tsmt_split exactly twice with S > 1 (the Q projections) and the
-   sequential tsmt never; every backward GEMM of wk/wv goes to
+   projections) and the Q projections twice at the S the chooser
+   resolves (the one-launch tsmt at S = 1, its plan's slices > 1) and
+   no other TSMT kernel; every backward GEMM of wk/wv goes to
    ``torch-dense``. A ``policy(mode="dense")`` arm from the same state and
    batch must match the first step's loss, grad norm and compressed
    embed/lm_head gradients within normalised error 5e-2. Prints step
@@ -247,14 +258,33 @@ printing no result, when no CUDA card is present or any phase fails.
    ``GemmPolicy(quant="int8")`` with ``PowerSGDConfig(compress="int8")``.
    Every step launches tsm2r_q8 64 times for wk/wv, the two P projections
    on tsm2r_q8 or tsm2r_q8_split at the S the int8 chooser resolves
-   (checked against it), tsmt_q8_split exactly twice with S > 1, and no
-   f32/bf16 TSM2X kernel. The dense arm (same compress setting, state and
+   (checked against it), the Q projections twice on tsmt_q8 (S = 1) or
+   tsmt_q8_split at the int8 chooser's S, and no f32/bf16 TSM2X kernel. The dense arm (same compress setting, state and
    batch) must match the first step's loss and grad norm within 5e-2 and
    its compressed embed/lm_head gradients within 0.1 (the JAX criterion
    for int8 PowerSGD and int8 gradients).
-9. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the five paths (dispatch, serve, train, serve-int8,
-   train-int8) and their numbers at their main-path shape and dtype
+9. TSQR (a path of its own): ``linalg.tsqr`` at ``TSQR_CASES`` ([65024,4]
+   f32, [2^20,16] f32 and bf16) and conditions 1e0, 1e4, 1e6 from a
+   seed: ``max|Q^T Q - I|`` within 1e-4 for f32 (0.05 for bf16 input,
+   whose Q is bf16), ``|QR - A| / |A|`` and the distance from the
+   ``mode="dense"`` arm's Q R within 1e-5 (0.05), R upper with a
+   non-negative diagonal, tsm2l and a TSMT kernel launched once a pass
+   (``linalg.default_passes``: 3 at [65024,4], 4 at [2^20,16]);
+   at condition 1 the factorization's event and device ms beside
+   ``torch.linalg.qr``'s (not gated) and, f32, the gradient against the
+   dense arm's within 1e-3. Then the train-tsqr arm (its own path): the
+   f32 train configuration with ``PowerSGDConfig(orth="tsqr")`` for 2
+   steps, each ``step_ok``, launching tsm2l 2 leaves x 3 passes a step,
+   a TSMT kernel for each Q and Gram, and tsm2r 66 times.
+10. Contracts: every launch that a record scope of a path recorded
+   (``RECORDED``; the dispatch path's under ``verify_contracts``) must
+   keep ``contracts.check_kernel_config`` and ``check_grid`` on this
+   card's limits, and its grid must equal ``contracts.launch_grid`` of
+   its params and its library's plan query (body too); a ``contracts``
+   line reports the launches checked a path and any violation.
+11. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
+   on each of the seven paths (dispatch, serve, train, serve-int8,
+   train-int8, tsqr, train-tsqr) and their numbers at their main-path shape and dtype
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
    S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8,
    tsm2r_q8_split, tsmt_q8, tsmt_q8_split, tsm2l and tsm2l_q8);
@@ -262,12 +292,15 @@ printing no result, when no CUDA card is present or any phase fails.
    tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
-10. Last line: ``{"ok": true, "device": {...}}``.
+12. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -373,6 +406,26 @@ WIDENED_OPS = (("tsm2r", "mm", (4096, 4096), (4096, 8)),
 Q8_ONE_FOLD_K = 131072
 BATCH, PROMPT, NEW = 4, 2048, 16
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
+TRAIN_TSQR_STEPS = 2
+# The tall-skinny QR's cases: PowerSGD's P factor of chatglm3's embed and
+# lm_head, and the paper's TSM2L width at 2^20 rows, f32 and bf16 input;
+# each at these 2-norm condition numbers.
+TSQR_CASES = [(65024, 4, torch.float32), (1 << 20, 16, torch.float32),
+              (1 << 20, 16, torch.bfloat16)]
+TSQR_CONDS = (1e0, 1e4, 1e6)
+# The bound_class line's shapes: (name, entry, (m, d1, d2), dtype), the
+# "mmt" ones X[m,a]^T Y[m,b].
+BOUND_SHAPES = [("wk/wv", "mm", (8192, 4096, 256), torch.bfloat16),
+                ("P", "mm", (65024, 4096, 4), torch.float32),
+                ("Q", "mmt", (65024, 4096, 4), torch.float32),
+                ("tsqr Gram", "mmt", (65024, 4, 4), torch.float32),
+                ("tsqr apply", "mm", (65024, 4, 4), torch.float32),
+                ("tsqr Gram", "mmt", (1 << 20, 16, 16), torch.float32),
+                ("tsqr apply", "mm", (1 << 20, 16, 16), torch.float32)]
+# The threshold sweep: chatglm3's wk/wv rows and depth at widths 16..256,
+# and a 16-wide output at shorter m.
+THRESHOLD_SWEEP = [(8192, 4096, n) for n in (16, 32, 64, 128, 256)] + [
+    (m, 4096, 16) for m in (512, 2048)]
 KERNEL_NAMES = ("tsm2r_q8_split", "tsmt_q8_split", "tsm2r_q8", "tsm2l_q8",
                 "tsmt_q8", "tsm2r_split", "tsmt_split", "tsm2r", "tsm2l",
                 "tsmt", "sum_partials")
@@ -496,15 +549,18 @@ def device_profile(fn) -> dict:
             "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top]}
 
 
-def device_events(run, enough, tries: int = 3) -> list:
+def device_events(run, enough, tries: int = 6) -> list:
     """The device events (kernels, memsets) of ``run()`` under
     ``torch.profiler``, in start order. Now and then a session's trace
-    comes back without them; a session whose events are not ``enough`` is
-    taken again, up to ``tries`` times."""
+    comes back without them (three sessions in a row have); a session
+    whose events are not ``enough`` is taken again after a short pause,
+    up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
@@ -1720,7 +1776,7 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict, dict]:
         op = tsmm.tsmm if entry == "mm" else tsmm.tsmm_t
         xt = x if entry == "mm" else x.t()
         with tsmm.policy(quant="int8", split=split), \
-                tsmm.record_dispatches() as log:
+                recorded() as log:
             got = op(x, y)
         oracle = torch.matmul(xt.float(), y.float())
         rel = normalised_err(got, oracle)
@@ -1808,7 +1864,7 @@ def q8_dispatch(dev, uniform, counts, expect) -> dict:
     a2, b2 = uniform((102400, 4), f32), uniform((4, 4), f32)
     x, y = uniform((65536, 128), f32), uniform((65536, 4), f32)
     with tsmm.policy(split="never", quant="int8"), \
-            tsmm.record_dispatches() as log:
+            recorded() as log:
         outs = [tsmm.tsmm(a, b), tsmm.tsmm(a2, b2), tsmm.tsmm_t(x, y)]
     torch.cuda.synchronize()
     launched = [[lm.kind for lm in e.launches] for e in log]
@@ -1831,25 +1887,34 @@ def q8_dispatch(dev, uniform, counts, expect) -> dict:
     paper_s = ops.resolve_params("tsm2r", 16384, 16384, 16, f32,
                                  tsmm.GemmPolicy(quant="int8"),
                                  device=dev)["splits"]
+    q_s = ops.resolve_params("tsmt", 65024, 4096, 4, f32,
+                             tsmm.GemmPolicy(quant="int8"),
+                             device=dev)["splits"]
     before = counts()
     with tsmm.policy(split="auto", quant="int8"), \
-            tsmm.record_dispatches() as log:
+            recorded() as log:
         outs = [tsmm.tsmm(a, b), tsmm.tsmm(a3, b3), tsmm.tsmm_t(x, y)]
+    # PowerSGD's TSMT at a pinned S = 8: the split kernel.
+    with tsmm.policy(split=8, quant="int8"), recorded() as log8:
+        outs.append(tsmm.tsmm_t(x, y))
+    log = log + log8
     torch.cuda.synchronize()
     resolved = [[(lm.kind, lm.splits) for lm in e.launches] for e in log]
     n_reduce = sum(k == "reduce" for r in resolved for k, _ in r)
     errs = [normalised_err(got, want) for got, want in
-            zip(outs, (a @ b, a3 @ b3, x.t() @ y))]
+            zip(outs, (a @ b, a3 @ b3, x.t() @ y, x.t() @ y))]
     grown = {n: v - before[n] for n, v in counts().items()}
     want = expect(tsm2r_q8=int(paper_s == 1),
-                  tsm2r_q8_split=1 + int(paper_s > 1), tsmt_q8_split=1,
+                  tsm2r_q8_split=1 + int(paper_s > 1),
+                  tsmt_q8=int(q_s == 1), tsmt_q8_split=1 + int(q_s > 1),
                   sum_partials=n_reduce)
     emit({"phase": "dispatch", "quant": "int8", "split": "auto",
           "resolved": resolved, "paper_shape_int8_splits": paper_s,
-          "launches": grown, "rel_err_vs_f32": errs})
+          "q_int8_splits": q_s, "launches": grown, "rel_err_vs_f32": errs})
     check(resolved[0][0] == ("tsm2r_q8", paper_s)
           and resolved[1][0][0] == "tsm2r_q8" and resolved[1][0][1] > 1
-          and resolved[2][0][0] == "tsmt_q8" and resolved[2][0][1] > 1,
+          and resolved[2][0] == ("tsmt_q8", q_s)
+          and resolved[3][0] == ("tsmt_q8", 8),
           f"int8 split=auto dispatch: {resolved}")
     check(grown == want, f"int8 split=auto launches {grown} != {want}")
     check(max(errs) <= Q8_REL_TOL[f32], f"int8 dispatch errors {errs}")
@@ -1877,7 +1942,7 @@ def grad_phase(dev, uniform, gpu) -> None:
         for fn in (getattr(ops, op), getattr(ref, f"{op}_ref")):
             xa = x.clone().requires_grad_(True)
             ya = y.clone().requires_grad_(True)
-            with tsmm.record_dispatches() as log:
+            with recorded() as log:
                 out = fn(xa, ya)
                 out.backward(ct)
             grads.append((out.detach(), xa.grad, ya.grad, log))
@@ -1907,7 +1972,7 @@ def grad_phase(dev, uniform, gpu) -> None:
     fd = (oracle(a.double() + eps * direction.double())
           - oracle(a.double() - eps * direction.double())) / (2 * eps)
     aa = a.clone().requires_grad_(True)
-    with tsmm.record_dispatches() as log:
+    with recorded() as log:
         torch.tanh(tsmm.tsmm(aa, b)).sum().backward()
     analytic = float((aa.grad.double() * direction.double()).sum())
     ok = (log[0].kind == "tsm2l" and log[0].executor == "cuda"
@@ -1976,7 +2041,7 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     # The dense arm: the same state and batch as the kernel arm's first
     # step, every GEMM on torch.matmul.
     state = fresh_state()
-    with tsmm.policy(mode="dense"), tsmm.record_dispatches() as log:
+    with tsmm.policy(mode="dense"), recorded() as log:
         m = make_step("dense")(state, batches[0])[1]
     check(log and all(e.executor == "torch-dense" for e in log),
           "train dense arm routes")
@@ -2009,9 +2074,16 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     p_splits = ops.resolve_params("tsm2r", *p_shape, torch.float32,
                                   pol or tsmm.GemmPolicy(),
                                   device=dev)["splits"]
+    # PowerSGD's Q = G^T P of both leaves: S = 1 is the one-launch kernel,
+    # which spreads m over its own plan of slices.
+    q_splits = ops.resolve_params("tsmt", *p_shape, torch.float32,
+                                  pol or tsmm.GemmPolicy(),
+                                  device=dev)["splits"]
+    q_kernel = ("tsmt_q8" if quant else "tsmt") + ("_split" if q_splits > 1
+                                                   else "")
     if quant:
         want_step = {n: 0 for n in counts()}
-        want_step.update(tsmt_q8_split=2)
+        want_step[q_kernel] = 2
         want_step["tsm2r_q8"] = per_step_tsm2r - 2 * (p_splits > 1)
         want_step["tsm2r_q8_split"] = 2 * (p_splits > 1)
         # Both operands of each int8 op, and int8 PowerSGD's P and Q of
@@ -2024,13 +2096,16 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with (tsmm.policy(pol) if pol else contextlib.nullcontext()), \
-                tsmm.record_dispatches() as log:
+                recorded() as log:
             state, m = step(state, batches[i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         grown = {n: v - before[n] for n, v in counts().items()}
         per_step.append(grown)
         tsmt_splits = [lm.splits for e in log if e.kind == "tsmt"
+                       for lm in e.launches if lm.kind in ("tsmt",
+                                                           "tsmt_q8")]
+        tsmt_slices = [lm.grid[2] for e in log if e.kind == "tsmt"
                        for lm in e.launches if lm.kind in ("tsmt",
                                                            "tsmt_q8")]
         p_resolved = [lm.splits for e in log
@@ -2042,8 +2117,8 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
         rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
                                         "accuracy", "powersgd_compression")}
         rec.update(step=i + 1, step_ok=bool(m["step_ok"]), launches=grown,
-                   tsmt_splits=tsmt_splits, p_splits=p_resolved,
-                   ms=step_ms[-1])
+                   tsmt_splits=tsmt_splits, tsmt_slices=tsmt_slices,
+                   p_splits=p_resolved, ms=step_ms[-1])
         records.append(rec)
         check(rec["step_ok"], f"{phase} step {i + 1} not ok: {rec}")
         check(p_resolved == [p_splits, p_splits],
@@ -2054,10 +2129,13 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
         else:
             check(grown["tsm2r"] == per_step_tsm2r,
                   f"tsm2r launches in step {i + 1}: {grown['tsm2r']}")
-            check(grown["tsmt_split"] == 2 and grown["tsmt"] == 0,
+            check(grown[q_kernel] == 2
+                  and grown["tsmt"] + grown["tsmt_split"] == 2,
                   f"tsmt launches in step {i + 1}: {grown}")
-        check(len(tsmt_splits) == 2 and min(tsmt_splits) > 1,
-              f"{phase} Q projections in step {i + 1}: S={tsmt_splits}")
+        # Q at the resolved S, its slices spread over the card either way.
+        check(tsmt_splits == [q_splits] * 2 and min(tsmt_slices) > 1,
+              f"{phase} Q projections in step {i + 1}: S={tsmt_splits}, "
+              f"slices {tsmt_slices}")
         check(len(bwd) == 2 * 2 * TRAIN_LAYERS * n_micro
               and all(e.executor == "torch-dense" for e in bwd),
               f"wk/wv backward routes in step {i + 1}: {len(bwd)}")
@@ -2090,6 +2168,7 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
           "dense_arm_grad_norm_err": gnorm_err,
           "dense_arm_compressed_grad_err": head_err,
           "compressed_grad_tol": head_tol, "p_splits": p_splits,
+          "q_splits": q_splits, "q_kernel": q_kernel,
           "remat": cfg.remat, "tsm2r_launches_per_step": per_step_tsm2r,
           "gpu": gpu})
     emit({"phase": "profile", "window": f"{phase} step", **prof,
@@ -2170,7 +2249,7 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
 
     zero_counts()
-    with tsmm.record_dispatches() as log:
+    with recorded() as log:
         t0 = time.perf_counter()
         out = engine.generate(qw, cfg, prompts, NEW, policy=pol, device=dev)
         torch.cuda.synchronize()
@@ -2212,7 +2291,7 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
 
     dense_prefill, _ = engine.make_serve_fns(
         cfg, policy=tsmm.GemmPolicy(mode="dense", quant="int8"))
-    with tsmm.record_dispatches() as log:
+    with recorded() as log:
         dense_logits, _ = dense_prefill(
             qw, {"tokens": prompts},
             model.init_cache(cfg, BATCH, PROMPT, device=dev))
@@ -2288,6 +2367,366 @@ def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
         del cache
 
 
+# The dispatch events that each path's record scopes saw, kept for the
+# contracts line: path name -> DispatchEvents.
+RECORDED: dict = {}
+PATH = {"name": "kernel"}
+
+
+@contextlib.contextmanager
+def recorded():
+    """``tsmm.record_dispatches()``, whose events are also kept under the
+    current path (``PATH``) for the contracts line."""
+    from repro_torch.core import tsmm
+
+    with tsmm.record_dispatches() as log:
+        yield log
+    RECORDED.setdefault(PATH["name"], []).extend(log)
+
+
+def _c_plan(kind, lm) -> tuple:
+    """(body, grid) of a recorded launch as its library's plan query
+    decides them: tsm2r's and tsm2r_q8's plan and split_plan queries,
+    tsm2l's and tsm2l_q8's tsm2l_plan, tsmt_q8's and tsmt_q8_split's
+    tsmt_q8_plan (its slices from the Python plan, which the launcher is
+    given), and for f32/bf16 tsmt the tile table's grid query."""
+    from repro_torch.kernels import _build
+
+    tags = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+    (m, d1, d2), p, s = lm.shape, lm.params, lm.splits
+    tag = tags[lm.dtype]
+    if kind == "tsm2r":
+        pa, pb = p["ptrs"]["a"], p["ptrs"]["b"]
+        if s == 1:
+            return _build.plan(m, d1, d2, tag, pa, pb)
+        return _build.split_plan(m, d1, d2, s, p["slice"], tag, pa)
+    if kind == "tsm2l":
+        out = tags[p.get("out_dtype", torch.float32)]
+        body, grid, _ = _build.tsm2l_plan(m, d1, d2, tag, p["ptrs"]["a"], out)
+        return body, grid
+    if lm.dtype == torch.int8:
+        body, tiles = _build.tsmt_q8_plan(m, d1, d2, p["ptrs"]["x"],
+                                          p["ptrs"]["y"], s > 1)
+        return body, (*tiles, p["slices"])
+    return "simt", _build.grid("tsmt_split", m, d1, d2, p["slices"])
+
+
+def contracts_phase(dev, gpu) -> None:
+    """Every launch that a record scope of every path recorded (the
+    dispatch path ran under ``verify_contracts=True``) against the
+    contracts on this card's limits, its grid against ``launch_grid`` of
+    its params and against the library's plan query, and its body against
+    the query's."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import _build
+
+    limits = contracts.card_limits(dev)
+    tags = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    seen, per_path, bad, drift = set(), {}, [], []
+    for path, events in RECORDED.items():
+        per_path[path] = 0
+        for e in events:
+            for lm in e.launches:
+                per_path[path] += 1
+                p = lm.params
+                key = (lm.kind, lm.shape, str(lm.dtype), lm.splits,
+                       tuple(sorted((k, v % 16)
+                                    for k, v in p["ptrs"].items())),
+                       str(p.get("out_dtype")))
+                if key in seen:
+                    continue
+                seen.add(key)
+                if lm.kind == "reduce":
+                    s, rows, cols = lm.shape
+                    vios = contracts.check_grid("reduce", lm.shape, p)
+                    want = contracts.launch_grid("reduce", lm.shape, p)
+                    c_grid, _, c_body, _ = _build.reduce_plan(
+                        s, rows, cols, tags[p["out_dtype"]], p["ptrs"]["p"],
+                        p["ptrs"]["c"])
+                    body = p["vec"]     # the vector width
+                else:
+                    kind = lm.kind.removesuffix("_q8")
+                    vios = (contracts.check_kernel_config(
+                        kind, lm.shape, p, lm.dtype, limits,
+                        out_dtype=p.get("out_dtype"))
+                        + contracts.check_grid(kind, lm.shape, p))
+                    want = contracts.launch_grid(kind, lm.shape, p)
+                    (c_body, c_grid), body = _c_plan(kind, lm), p["body"]
+                bad.extend(dict(v.to_json(), path=path) for v in vios)
+                if not (lm.grid == want == tuple(c_grid) and body == c_body):
+                    drift.append({"path": path, "kind": lm.kind,
+                                  "shape": lm.shape, "recorded": lm.grid,
+                                  "launch_grid": want, "c_grid": c_grid,
+                                  "body": body, "c_body": c_body})
+    emit({"phase": "contracts", "limits": dataclasses.asdict(limits),
+          "launches_checked": per_path, "distinct_launches": len(seen),
+          "violations": bad, "grid_or_body_mismatches": drift, "gpu": gpu})
+    check(not bad, f"contract violations on the paths: {bad[:5]}")
+    check(not drift, f"grids or bodies off their statement: {drift[:5]}")
+    check(all(per_path.get(p, 0) > 0 for p in (
+        "dispatch", "serve", "serve_int8", "train", "train_int8", "tsqr",
+        "train_tsqr")), f"paths without recorded launches: {per_path}")
+
+
+def _bounds_ms(nbytes, flops, rate) -> dict:
+    return {"bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "flops_bound_ms": flops / rate * 1e3}
+
+
+def bound_class_phase(dev, uniform, gpu) -> None:
+    """A ``bound_class`` line: each main-path shape's class (the paper's
+    section 3.1.8 on the H100's ridges) beside the kernel's device ms, its
+    bytes and operations bounds, and ``torch.matmul``'s device ms."""
+    from repro_torch.core import tsmm
+    from repro_torch.kernels import tsm2l as k_tsm2l
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    kerns = {"tsm2r": k_tsm2r.tsm2r, "tsm2l": k_tsm2l.tsm2l,
+             "tsmt": k_tsmt.tsmt}
+    rows = []
+    for name, entry, (m, d1, d2), dtype in BOUND_SHAPES:
+        if entry == "mm":
+            x, y = uniform((m, d1), dtype), uniform((d1, d2), dtype)
+            kind = tsmm.classify_gemm(m, d1, d2)
+            shape, lib = (m, d1, d2), (lambda: torch.matmul(x, y))
+            nbytes = (m * d1 + d1 * d2 + m * d2) * x.element_size()
+        else:   # X[m,a]^T Y[m,b]: an (a, m, b) product
+            x, y = uniform((m, d1), dtype), uniform((m, d2), dtype)
+            kind = tsmm.classify_gemm_t(m, d1, d2)
+            shape, lib = (d1, m, d2), (lambda: torch.matmul(x.t(), y))
+            nbytes = (m * d1 + m * d2 + d1 * d2) * x.element_size()
+        fn = (lambda k=kerns[kind]: k(x, y))
+        rows.append({"shape": name, "entry": entry, "mkn": list(shape),
+                     "dtype": str(dtype)[6:], "kernel": kind,
+                     "class": tsmm.bound_class(*shape, dtype),
+                     "device_ms": device_ms(fn, kind),
+                     "call_device_ms": call_device_ms(fn),
+                     **_bounds_ms(nbytes, 2 * m * d1 * d2,
+                                  PEAK_FLOPS[dtype]),
+                     "library_device_ms": call_device_ms(lib)})
+        del x, y
+    emit({"phase": "bound_class", "rows": rows, "gpu": gpu})
+    check(all(r["class"] in ("memory", "compute", "latency") for r in rows),
+          f"bound classes {rows}")
+
+
+def threshold_sweep(dev, uniform, gpu) -> None:
+    """Data for the H100 classifier thresholds, routing nothing: tsm2r
+    (bf16) and tsm2r_q8 (int8 codes, bf16 out) against ``torch.matmul`` in
+    bf16, device ms each, at ``THRESHOLD_SWEEP``'s shapes; beside them the
+    bf16 op the dispatcher would run there as tsm2r (at the S its chooser
+    resolves, with the split's epilogue), every device kernel of the
+    call."""
+    from repro_torch.core import perf_model, tsmm
+    from repro_torch.kernels import ops, quant
+    from repro_torch.kernels import tsm2r as k_tsm2r
+
+    bf16, band = torch.bfloat16, perf_model.Q8_BAND
+    ops16, ops8, libs, rows = [], [], [], []
+    for m, k, n in THRESHOLD_SWEEP:
+        a, b = uniform((m, k), bf16), uniform((k, n), bf16)
+        kmajor = perf_model.tsm2r_body(k, n, torch.int8) == "wgmma"
+        a_q, a_s = quant.quantize_blocks(a, band)
+        b_q, b_s = quant.quantize_tensor(b, kmajor=kmajor)
+        ops16.append(lambda a=a, b=b: k_tsm2r.tsm2r(a, b))
+        ops8.append(lambda a_q=a_q, b_q=b_q, a_s=a_s, b_s=b_s:
+                    k_tsm2r.tsm2r_q8(a_q, b_q, a_s, b_s, band, bf16))
+        libs.append(lambda a=a, b=b: torch.matmul(a, b))
+        rows.append({"mkn": [m, k, n], "route": tsmm.classify_gemm(m, k, n),
+                     "class_bf16": tsmm.bound_class(m, k, n, bf16),
+                     "class_int8": tsmm.bound_class(m, k, n, torch.int8),
+                     "op_splits": ops.resolve_params(
+                         "tsm2r", m, k, n, bf16, tsmm.GemmPolicy(),
+                         device=dev)["splits"],
+                     "op_device_ms": call_device_ms(
+                         lambda a=a, b=b: tsmm.tsmm(a, b, mode="tsm2r"))})
+    ms16 = device_ms_each(ops16, "tsm2r", reps=5)
+    ms8 = device_ms_each(ops8, "tsm2r_q8", reps=5)
+    for row, t16, t8, lib in zip(rows, ms16, ms8, libs):
+        row.update(tsm2r_device_ms=t16, tsm2r_q8_device_ms=t8,
+                   matmul_bf16_device_ms=call_device_ms(lib))
+        row["tsm2r_over_matmul"] = t16 / row["matmul_bf16_device_ms"]
+        row["op_over_matmul"] = (row["op_device_ms"]
+                                 / row["matmul_bf16_device_ms"])
+        row["tsm2r_q8_over_matmul"] = t8 / row["matmul_bf16_device_ms"]
+    emit({"phase": "threshold_sweep", "rows": rows, "gpu": gpu})
+    del ops16, ops8, libs
+    torch.cuda.empty_cache()
+
+
+def conditioned(m, r, cond, dtype, gen, dev):
+    """A = U diag(logspace(0, -log10 cond)) V^T with U, V orthonormal from
+    seeded normals: its 2-norm condition number is ``cond``."""
+    u = torch.linalg.qr(torch.randn((m, r), generator=gen, device=dev))[0]
+    v = torch.linalg.qr(torch.randn((r, r), generator=gen, device=dev))[0]
+    s = torch.logspace(0, -math.log10(cond), r, device=dev)
+    return ((u * s) @ v.t()).to(dtype)
+
+
+def orth_err(q) -> float:
+    q = q.float()
+    eye = torch.eye(q.shape[1], device=q.device)
+    return float((q.t() @ q - eye).abs().max())
+
+
+def tsqr_phase(dev, gpu, counts, zero_counts) -> dict:
+    """The tall-skinny QR (its own path: counts zeroed before, read
+    after): ``linalg.tsqr`` at ``TSQR_CASES`` and conditions 1e0, 1e4,
+    1e6, each held to its orthogonality bar, reconstructing A, agreeing
+    with the ``mode="dense"`` arm's Q R, and launching tsm2l and a TSMT
+    kernel once a pass; at the first condition its event and device ms
+    beside ``torch.linalg.qr``'s, and for f32 the gradient of a weighted
+    sum of Q and R against the dense arm's. Returns the path's counts:
+    the factorizations' launches, not the timing loops' or the
+    gradients'."""
+    from repro_torch import linalg
+    from repro_torch.core import tsmm
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    zero_counts()
+    path = {n: 0 for n in counts()}
+    for m, r, dtype in TSQR_CASES:
+        f32 = dtype == torch.float32
+        passes = linalg.default_passes(m, r)
+        for cond in TSQR_CONDS:
+            a = conditioned(m, r, cond, dtype, gen, dev)
+            before = counts()
+            with recorded() as log:
+                q, rr = linalg.tsqr(a)
+            torch.cuda.synchronize()
+            grown = {n: v - before[n] for n, v in counts().items()}
+            path = {n: path[n] + grown[n] for n in path}
+            with tsmm.policy(mode="dense"):
+                qd, rd = linalg.tsqr(a)
+            af = a.float()
+            rec = float(torch.linalg.norm(q.float() @ rr - af)
+                        / torch.linalg.norm(af))
+            arms = float((q.float() @ rr - qd.float() @ rd).abs().max()
+                         / af.abs().max())
+            orth, orth_tol = orth_err(q), 1e-4 if f32 else 0.05
+            rec_tol = 1e-5 if f32 else 0.05
+            stages = [(e.kind, [lm.kind for lm in e.launches]) for e in log]
+            line = {"phase": "tsqr", "shape": [m, r], "dtype": str(dtype)[6:],
+                    "cond": cond, "passes": passes, "orth_err": orth,
+                    "orth_tol": orth_tol, "rec_err": rec,
+                    "dense_arm_err": arms, "rec_tol": rec_tol,
+                    "launches": {n: v for n, v in grown.items() if v},
+                    "stages": stages,
+                    "r_upper": bool((torch.tril(rr, -1) == 0).all()
+                                    and (torch.diagonal(rr) >= 0).all()),
+                    "gpu": gpu}
+            tsmt_runs = grown["tsmt"] + grown["tsmt_split"]
+            ok = (orth <= orth_tol and rec <= rec_tol and arms <= rec_tol
+                  and line["r_upper"] and q.dtype == dtype
+                  and grown["tsm2l"] == passes and tsmt_runs == passes
+                  and all(k in ("tsmt", "tsm2l") for k, _ in stages))
+            if cond == TSQR_CONDS[0]:
+                line.update(
+                    ms=time_ms(lambda: linalg.tsqr(a)),
+                    device_ms=call_device_ms(lambda: linalg.tsqr(a)),
+                    torch_qr_ms=time_ms(lambda: torch.linalg.qr(af)),
+                    torch_qr_device_ms=call_device_ms(
+                        lambda: torch.linalg.qr(af)))
+                if f32:
+                    line["grad_vs_dense"] = tsqr_grad_err(a, dev)
+                    ok = ok and line["grad_vs_dense"] <= 1e-3
+            line["ok"] = ok
+            emit(line)
+            check(ok, f"tsqr {m}x{r} {dtype} cond {cond}: {line}")
+            del a, q, rr, qd, rd, af
+    torch.cuda.empty_cache()
+    return path
+
+
+def tsqr_grad_err(a, dev) -> float:
+    """Normalised distance between the gradients of sum(Q W_q) + sum(R
+    W_r) through the kernels and through the ``mode="dense"`` arm."""
+    from repro_torch import linalg
+    from repro_torch.core import tsmm
+
+    m, r = a.shape
+    w_q = torch.cos(torch.arange(m * r, device=dev,
+                                 dtype=torch.float32)).reshape(m, r)
+    w_r = torch.sin(torch.arange(r * r, device=dev,
+                                 dtype=torch.float32)).reshape(r, r)
+    grads = []
+    for mode in ("auto", "dense"):
+        x = a.detach().clone().requires_grad_(True)
+        with tsmm.policy(mode=mode):
+            q, rr = linalg.tsqr(x)
+            (torch.sum(q * w_q) + torch.sum(rr * w_r)).backward()
+        grads.append(x.grad)
+    return normalised_err(*grads)
+
+
+def train_tsqr_phase(dev, gpu, counts, zero_counts) -> dict:
+    """The train-tsqr arm (its own path): the f32-PowerSGD train
+    configuration with ``PowerSGDConfig(orth="tsqr")``, TRAIN_TSQR_STEPS
+    steps, each ``step_ok``, launching tsm2l once a pass for each of the
+    two compressed leaves' P, a TSMT kernel for each Gram and each Q, and
+    tsm2r as the train path does. Returns the path's counts."""
+    import dataclasses
+
+    from repro_torch import linalg
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw, powersgd, schedule
+    from repro_torch.train import train_step
+
+    cfg = dataclasses.replace(registry.get_config("chatglm3-6b"),
+                              n_layers=TRAIN_LAYERS)
+    dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH,
+                               vocab_size=cfg.vocab_size)
+    opt = adamw.AdamWConfig(
+        lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
+        weight_decay=0.1)
+    ps = powersgd.PowerSGDConfig(rank=4, orth="tsqr")
+    state = train_step.init_train_state(0, cfg, opt, device=dev)
+    state["extra"] = powersgd.init(ps, state["params"])
+    leaves = len(state["extra"])
+    step = train_step.make_train_step(
+        cfg, opt, n_micro=cfg.microbatch,
+        grad_transform=lambda g, st: powersgd.compress_tree(ps, g, st))
+    per_step_tsm2r = 2 * TRAIN_LAYERS * cfg.microbatch * 2 + leaves
+    passes = linalg.default_passes(cfg.vocab_size, ps.rank)   # P's rows
+    want_tsm2l = leaves * passes
+    want_tsmt = leaves * (1 + passes)   # Q, and each Gram
+    zero_counts()
+    records, step_ms = [], []
+    for i in range(TRAIN_TSQR_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in pipeline.batch_for_step(dcfg, i).items()}
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded():
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        grown = {n: v - before[n] for n, v in counts().items()}
+        rec = {"step": i + 1, "step_ok": bool(m["step_ok"]),
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "launches": {n: v for n, v in grown.items() if v},
+               "ms": step_ms[-1]}
+        records.append(rec)
+        check(rec["step_ok"], f"train-tsqr step {i + 1} not ok: {rec}")
+        check(grown["tsm2l"] == want_tsm2l
+              and grown["tsm2r"] == per_step_tsm2r
+              and grown["tsmt"] + grown["tsmt_split"] == want_tsmt,
+              f"train-tsqr launches in step {i + 1}: {grown}")
+        del batch, m
+    emit({"phase": "train-tsqr", "model": cfg.name, "layers": cfg.n_layers,
+          "orth": ps.orth, "passes": passes,
+          "compressed_leaves": leaves, "steps": records, "step_ms": step_ms,
+          "median_step_ms": statistics.median(step_ms),
+          "tsm2l_launches_per_step": want_tsm2l, "gpu": gpu})
+    del state
+    torch.cuda.empty_cache()
+    return counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2300,7 +2739,7 @@ def main() -> int:
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
     from repro_torch.core import perf_model
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import quant as k_quant
     from repro_torch.kernels import reduce as k_reduce
     from repro_torch.kernels import tsm2l as k_tsm2l
@@ -2505,6 +2944,8 @@ def main() -> int:
     skinny_sweep(dev, uniform, gpu)
     tsmt_q8_sweep(dev, uniform, gpu)
     reduce_sweep(dev, uniform, gpu)
+    bound_class_phase(dev, uniform, gpu)
+    threshold_sweep(dev, uniform, gpu)
 
     # -- 3. dispatch (its own path: counts zeroed before, read after) ------
     counters = {"tsm2r": (k_tsm2r, "launches"),
@@ -2539,6 +2980,11 @@ def main() -> int:
                             + fake_quants)
         return want
 
+    # The dispatch path runs with every resolved launch checked against
+    # the contracts before it launches.
+    PATH["name"] = "dispatch"
+    verified = contextlib.ExitStack()
+    verified.enter_context(tsmm.policy(verify_contracts=True))
     zero_counts()
     a, b = uniform((4096, 4096), torch.float32), uniform((4096, 8),
                                                          torch.float32)
@@ -2547,7 +2993,7 @@ def main() -> int:
     a4 = uniform((8, 512, 4), torch.float32)
     x, y = uniform((65536, 128), torch.float32), uniform((65536, 4),
                                                          torch.float32)
-    with tsmm.policy(split="never"), tsmm.record_dispatches() as log:
+    with tsmm.policy(split="never"), recorded() as log:
         outs = [tsmm.tsmm(a, b), tsmm.tsmm(a2, b2), tsmm.tsmm(a4, b2),
                 tsmm.tsmm_t(x, y)]
     torch.cuda.synchronize()
@@ -2586,7 +3032,7 @@ def main() -> int:
                        (torch.float16, torch.float16)):
             x, y = uniform(sa, da), uniform(sb, db)
             with tsmm.policy(split="never"), \
-                    tsmm.record_dispatches() as log:
+                    recorded() as log:
                 got = op(x, y)
             want = plain(x.float(), y.float()).to(da)
             torch.cuda.synchronize()
@@ -2606,15 +3052,19 @@ def main() -> int:
     check(grown == expect(tsm2r=2, tsm2l=2, tsmt=2),
           f"mixed/f16 dispatch launches {grown}")
 
-    # Split-K: "auto" splits the paper's TSM2R (128 row tiles) and
-    # PowerSGD's TSMT (32 output tiles); "never" keeps them sequential.
+    # Split-K: "auto" splits the paper's TSM2R (128 row tiles) and runs
+    # PowerSGD's TSMT (32 output tiles) at the S its chooser resolves (the
+    # one-launch tsmt at S = 1, which spreads m itself); a pinned S = 8
+    # runs both split kernels; "never" keeps them sequential.
     a, b = uniform((16384, 16384), torch.float32), uniform((16384, 16),
                                                            torch.float32)
     x, y = uniform((65024, 4096), torch.float32), uniform((65024, 4),
                                                           torch.float32)
-    for split in ("auto", "never"):
+    q_s = ops.resolve_params("tsmt", 65024, 4096, 4, torch.float32,
+                             tsmm.GemmPolicy(), device=dev)["splits"]
+    for split in ("auto", 8, "never"):
         before = counts()
-        with tsmm.policy(split=split), tsmm.record_dispatches() as log:
+        with tsmm.policy(split=split), recorded() as log:
             outs = [tsmm.tsmm(a, b), tsmm.tsmm_t(x, y)]
         torch.cuda.synchronize()
         grown = {n: v - before[n] for n, v in counts().items()}
@@ -2622,11 +3072,12 @@ def main() -> int:
         # the epilogue's launch record: the grid of its plan
         reduce_grids = [lm.grid for e in log for lm in e.launches
                         if lm.kind == "reduce"]
-        if split == "auto":
+        if split != "never":
             s = resolved[0][0][1]
-            ok = (grown == expect(tsm2r_split=1, tsmt_split=1,
-                                sum_partials=1)
-                  and s > 1 and resolved[1][0][1] > 1
+            qs = q_s if split == "auto" else split
+            ok = (grown == expect(tsm2r_split=1, sum_partials=1,
+                                  tsmt=int(qs == 1), tsmt_split=int(qs > 1))
+                  and s > 1 and resolved[1][0] == ("tsmt", qs)
                   and resolved[0][-1][0] == "reduce"
                   and reduce_grids == [perf_model.reduce_plan(
                       s, 16384, 16, torch.float32,
@@ -2635,7 +3086,8 @@ def main() -> int:
         else:
             ok = grown == expect(tsm2r=1, tsmt=1)
         emit({"phase": "dispatch", "split": split, "resolved": resolved,
-              "reduce_grids": reduce_grids, "launches": grown})
+              "q_splits_auto": q_s, "reduce_grids": reduce_grids,
+              "launches": grown})
         check(ok, f"split={split} dispatch: {resolved} {grown}")
         for got, ref_out in zip(outs, (ref.tsm2r_ref(a, b),
                                        ref.tsmt_ref(x, y))):
@@ -2737,13 +3189,15 @@ def main() -> int:
                       f"{ptr_x, ptr_y}: C {c_plan} vs Python {py_plan}")
     emit({"phase": "dispatch", "tile_grids_match_c_query": mirror})
     q8_launched = q8_dispatch(dev, uniform, counts, expect)
+    verified.close()
     dispatch_launches = counts()
-    base = expect(tsm2r=4, tsm2l=4, tsmt=4, tsm2r_split=1, tsmt_split=1,
-                  sum_partials=1)
+    base = expect(tsm2r=4, tsm2l=4, tsmt=4 + (q_s == 1), tsm2r_split=2,
+                  tsmt_split=1 + (q_s > 1), sum_partials=2)
     check(dispatch_launches == {n: base[n] + q8_launched[n] for n in base},
           f"dispatch path launches {dispatch_launches}")
 
     # -- 4. serve chatglm3-6b (the serving main path) ----------------------
+    PATH["name"] = "serve"
     zero_counts()
     cfg = registry.get_config("chatglm3-6b")
     torch.cuda.reset_peak_memory_stats()
@@ -2758,7 +3212,7 @@ def main() -> int:
     kv = cfg.n_kv_heads * cfg.resolved_head_dim
 
     before = k_tsm2r.launches
-    with tsmm.record_dispatches() as log:
+    with recorded() as log:
         t0 = time.perf_counter()
         out = engine.generate(params, cfg, prompts, NEW, device=dev)
         torch.cuda.synchronize()
@@ -2808,7 +3262,7 @@ def main() -> int:
 
     dense_prefill, _ = engine.make_serve_fns(
         cfg, policy=tsmm.GemmPolicy(mode="dense"))
-    with tsmm.record_dispatches() as log:
+    with recorded() as log:
         dense_logits, _ = dense_prefill(
             params, {"tokens": prompts},
             model.init_cache(cfg, BATCH, PROMPT, device=dev))
@@ -2843,24 +3297,41 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. serve chatglm3-6b from int8 records (the serve-int8 path) ------
+    PATH["name"] = "serve_int8"
     serve8_launches = serve_int8_phase(dev, gpu, counts, zero_counts, expect)
 
     # -- 6. grad -----------------------------------------------------------
+    PATH["name"] = "grad"
     grad_phase(dev, uniform, gpu)
 
     # -- 7. train chatglm3-6b (the training main path) ---------------------
+    PATH["name"] = "train"
     train_launches = train_phase(dev, gpu, counts, zero_counts)
-    for name in ("tsm2r", "tsmt_split"):
-        check(train_launches[name] > 0,
-              f"{name} was not launched on the training main path")
+    check(train_launches["tsm2r"] > 0
+          and train_launches["tsmt"] + train_launches["tsmt_split"] > 0,
+          f"tsm2r or a TSMT kernel was not launched on the training main "
+          f"path: {train_launches}")
 
     # -- 8. train chatglm3-6b under int8 (the train-int8 path) -------------
+    PATH["name"] = "train_int8"
     train8_launches = train_phase(dev, gpu, counts, zero_counts, quant=True)
-    for name in ("tsm2r_q8", "tsmt_q8_split"):
-        check(train8_launches[name] > 0,
-              f"{name} was not launched on the train-int8 main path")
+    check(train8_launches["tsm2r_q8"] > 0
+          and train8_launches["tsmt_q8"] + train8_launches["tsmt_q8_split"]
+          > 0, f"tsm2r_q8 or an int8 TSMT kernel was not launched on the "
+          f"train-int8 main path: {train8_launches}")
 
-    # -- 9. kernels line ---------------------------------------------------
+    # -- 9. the tall-skinny QR, and training with PowerSGD on it -----------
+    PATH["name"] = "tsqr"
+    tsqr_launches = tsqr_phase(dev, gpu, counts, zero_counts)
+    PATH["name"] = "train_tsqr"
+    train_tsqr_launches = train_tsqr_phase(dev, gpu, counts, zero_counts)
+    check(train_tsqr_launches["tsm2l"] > 0,
+          "tsm2l was not launched on the train-tsqr path")
+
+    # -- 10. every recorded launch against the contracts -------------------
+    contracts_phase(dev, gpu)
+
+    # -- 11. kernels line --------------------------------------------------
     replaces = {"tsm2r": "src/repro/kernels/tsm2r.py:62",
                 "tsm2l": "src/repro/kernels/tsm2l.py:48",
                 "tsmt": "src/repro/kernels/tsmt.py:63",
@@ -2874,7 +3345,8 @@ def main() -> int:
                 "tsmt_q8_split": "src/repro/kernels/quant.py:448"}
     paths = {"dispatch": dispatch_launches, "serve": serve_launches,
              "train": train_launches, "serve_int8": serve8_launches,
-             "train_int8": train8_launches}
+             "train_int8": train8_launches, "tsqr": tsqr_launches,
+             "train_tsqr": train_tsqr_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"

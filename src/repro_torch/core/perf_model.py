@@ -26,8 +26,16 @@ S at PowerSGD's shapes). The TSMT slice
 quantum is then the scale band ``Q8_BAND``, so no band straddles two
 slices.
 
-The classifier thresholds stay the JAX package's (``core/tsmm.py``);
-re-deriving them from H100 measurements is later work.
+The launch rules (each body's preconditions, its shared memory against
+the card's limits, the grid) live in ``analysis/contracts.py``: the body
+choices below are its predicates, every grid is its ``launch_grid``, and
+the choosers score only the S candidates its ``feasible`` accepts.
+``kernel_params`` states a launch in the contracts' terms.
+
+The paper's bound classifier (section 3.1.8: memory, compute or latency
+bound) is ``classify``, over this card's ridges. The dispatch thresholds
+stay the JAX package's (``core/tsmm.py``); re-deriving them from H100
+measurements is later work.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.kernels.ref import split_len
 
 
@@ -59,6 +68,10 @@ class GPUSpec:
     launch_s: float = 4e-6              # one extra kernel launch
 
     def peak_flops(self, dtype) -> float:
+        """Peak rate of ``dtype``'s multiply-adds: the tensor cores' for
+        bf16 and int8, the CUDA cores' for f32."""
+        if dtype == torch.int8:
+            return self.peak_ops_int8
         return (self.peak_flops_bf16 if dtype == torch.bfloat16
                 else self.peak_flops_f32)
 
@@ -102,13 +115,12 @@ Q8_BAND = 256
 # bf16, ``csrc/tsm2r_q8_wgmma.cuh`` for int8): their one output tile, and
 # the widest output that stays on the CUDA cores.
 TSM2R_WGMMA_TILE = (64, 128)
-WGMMA_MIN_WIDTH = 16
+WGMMA_MIN_WIDTH = contracts.WGMMA_MIN_WIDTH
 # TSM2R's streaming body for outputs at most 16 wide
 # (``csrc/tsm2r_skinny.cuh``): f32, bf16 and int8 (tsm2r_q8), sequential
 # and split. Its blocks own 128 rows, the simt table's tile at n <= 16, so
 # the grid does not depend on which of the two runs.
-SKINNY_MAX_WIDTH = 16
-_SKINNY_SIZES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+SKINNY_MAX_WIDTH = contracts.SKINNY_MAX_WIDTH
 
 
 def skinny_fits(k: int, n: int, dtype, ptr_a: int = 0,
@@ -118,13 +130,16 @@ def skinny_fits(k: int, n: int, dtype, ptr_a: int = 0,
     k > 0, A's rows and each slice whole 16-byte chunks (TMA's strides; k
     a multiple of 16 at int8's 1 byte an element), A's base ``ptr_a``
     16-byte aligned. A split launch's slice is ``split_len(k, splits,
-    TSM2R_BLOCK_K)``, the sequential kernel's is k."""
-    size = _SKINNY_SIZES.get(dtype)
-    if size is None:
-        return False
-    slice_ = k if splits == 1 else split_len(k, splits, TSM2R_BLOCK_K)
-    return (1 <= n <= SKINNY_MAX_WIDTH and k > 0 and k * size % 16 == 0
-            and slice_ * size % 16 == 0 and ptr_a % 16 == 0)
+    TSM2R_BLOCK_K)``, the sequential kernel's is k
+    (``contracts.skinny_fits``)."""
+    return contracts.skinny_fits(k, n, dtype, ptr_a,
+                                 tsm2r_slice(k, splits))
+
+
+def tsm2r_slice(k: int, splits: int) -> int:
+    """The k values a TSM2R launch's slice holds: k for the sequential
+    kernel, else ``split_len(k, S, TSM2R_BLOCK_K)``."""
+    return k if splits == 1 else split_len(k, splits, TSM2R_BLOCK_K)
 
 
 def tsm2r_body(k: int, n: int, dtype, ptr_a: int = 0, ptr_b: int = 0,
@@ -141,13 +156,8 @@ def tsm2r_body(k: int, n: int, dtype, ptr_a: int = 0, ptr_b: int = 0,
     misses the skinny body's chunks or alignment."""
     if skinny_fits(k, n, dtype, ptr_a, splits):
         return "skinny"
-    if (splits != 1 or n <= WGMMA_MIN_WIDTH or k <= 0 or ptr_a % 16
-            or ptr_b % 16):
-        return "simt"
-    if dtype == torch.bfloat16:
-        return "wgmma" if k % 8 == 0 and n % 8 == 0 else "simt"
-    if dtype == torch.int8:
-        return "wgmma" if k % 16 == 0 else "simt"
+    if contracts.wgmma_fits(k, n, dtype, ptr_a, ptr_b, splits):
+        return "wgmma"
     return "simt"
 
 
@@ -173,8 +183,8 @@ def tsm2r_grid(m: int, k: int, n: int, splits: int = 1,
                dtype=torch.float32, ptr_a: int = 0, ptr_b: int = 0) -> tuple:
     """The launch grid of TSM2R (S = 1) or its split kernel, for the body
     that ``tsm2r_body`` gives these operands."""
-    bm, bn = tsm2r_tile(n, tsm2r_body(k, n, dtype, ptr_a, ptr_b, splits))
-    return (-(-m // bm), -(-n // bn), splits)
+    return contracts.launch_grid("tsm2r", (m, k, n), kernel_params(
+        "tsm2r", m, k, n, dtype, splits, ptrs=(ptr_a, ptr_b)))
 
 
 def tsm2r_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
@@ -196,8 +206,8 @@ def tsm2r_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
 
 # The stream body takes n in 1..16, k in 1..256 (every k the classifier
 # routes to TSM2L at its default ``max_skinny``) and a 16-byte aligned A.
-TSM2L_STREAM_MAX_WIDTH = 16
-TSM2L_STREAM_MAX_K = 256
+TSM2L_STREAM_MAX_WIDTH = contracts.STREAM_MAX_WIDTH
+TSM2L_STREAM_MAX_K = contracts.STREAM_MAX_K
 # Its constants (``stream::`` in the header): consumer threads a block, the
 # bulk copies a stage of A is cut into, the bytes of A a stage aims at,
 # the dynamic shared memory a block may take (two blocks an SM), the
@@ -216,10 +226,9 @@ _STREAM_SIZES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 def tsm2l_body(k: int, n: int, dtype, ptr_a: int = 0) -> str:
     """The body a tsm2l (f32, bf16) or tsm2l_q8 (int8) launch runs:
     "stream" for n in 1..16 and k in 1..256 with A's base ``ptr_a``
-    16-byte aligned (``stream::fits``), else "tile"."""
-    fits = (dtype in _STREAM_SIZES and 1 <= n <= TSM2L_STREAM_MAX_WIDTH
-            and 1 <= k <= TSM2L_STREAM_MAX_K and ptr_a % 16 == 0)
-    return "stream" if fits else "tile"
+    16-byte aligned (``stream::fits``, ``contracts.stream_fits``), else
+    "tile"."""
+    return "stream" if contracts.stream_fits(k, n, dtype, ptr_a) else "tile"
 
 
 def _up16(x: int) -> int:
@@ -248,7 +257,7 @@ def tsm2l_stream_geometry(k: int, n: int, dtype, out_dtype=None,
     size = _STREAM_SIZES[dtype]
     out_dtype = out_dtype or (torch.float32 if dtype == torch.int8
                               else dtype)
-    usize = torch.empty((), dtype=out_dtype).element_size()
+    usize = out_dtype.itemsize
     rs = k * size
     vec = rs % 16 == 0
     units = rs // 16 if vec else -(-rs // 4)
@@ -293,25 +302,22 @@ def tsm2l_plan(m: int, k: int, n: int, dtype, ptr_a: int = 0,
     an SM or one a row tile if fewer; the tile body's is its table's row
     and column tiles (the launch runs at most the blocks resident on the
     card over the row tiles, by the card's occupancy query)."""
-    body = tsm2l_body(k, n, dtype, ptr_a)
-    if body == "stream":
-        bm = tsm2l_stream_geometry(k, n, dtype, out_dtype)["block_m"]
-        return body, (min(-(-m // bm), STREAM_BLOCKS_PER_SM * spec.n_sms),
-                      1, 1)
-    bm, bn = tsm2l_tile(n)
-    return body, (-(-m // bm), -(-n // bn), 1)
+    p = kernel_params("tsm2l", m, k, n, dtype, 1, spec, ptrs=(ptr_a, 0),
+                      out_dtype=out_dtype)
+    return p["body"], contracts.launch_grid("tsm2l", (m, k, n), p)
 
 
 def tsmt_grid(m: int, a: int, b: int, splits: int = 1) -> tuple:
-    del m
-    ba, bb = tsmt_tile(b)
-    return (-(-a // ba), -(-b // bb), splits)
+    """(a-tiles, b-tiles, ``splits``) of TSMT: the split kernel's grid at
+    S = ``splits``, or the one-launch kernel's at its plan's S."""
+    return contracts.launch_grid("tsmt", (m, a, b),
+                                 {"tile": tsmt_tile(b), "slices": splits})
 
 
 # Output widths at which the int8 TSMT kernels (tsmt_q8 and tsmt_q8_split
 # alike) run their packed body (``csrc/tsmt_q8_packed.cuh``): each row of
 # Y whole 32-bit words, within the b <= 16 tiles.
-TSMT_Q8_PACKED_WIDTHS = (4, 8, 12, 16)
+TSMT_Q8_PACKED_WIDTHS = contracts.PACKED_WIDTHS
 
 
 def tsmt_q8_body(a: int, b: int, ptr_x: int = 0, ptr_y: int = 0) -> str:
@@ -319,9 +325,7 @@ def tsmt_q8_body(a: int, b: int, ptr_x: int = 0, ptr_y: int = 0) -> str:
     "packed" for b in ``TSMT_Q8_PACKED_WIDTHS`` with a a multiple of 16
     and X's and Y's bases ``ptr_x``/``ptr_y`` 16-byte aligned, else
     "simt"."""
-    fits = (b in TSMT_Q8_PACKED_WIDTHS and a > 0 and a % 16 == 0
-            and ptr_x % 16 == 0 and ptr_y % 16 == 0)
-    return "packed" if fits else "simt"
+    return "packed" if contracts.packed_fits(a, b, ptr_x, ptr_y) else "simt"
 
 
 def tsmt_q8_plan(m: int, a: int, b: int, ptr_x: int = 0,
@@ -364,6 +368,118 @@ def tsmt_slices(m: int, a: int, b: int, spec: GPUSpec = H100,
     # Whole-quantum slices may cover m in fewer than S: drop the empty ones.
     s = max(1, -(-m // split_len(m, s, q)))
     return s, split_len(m, s, q)
+
+
+# ---------------------------------------------------------------------------
+# Shared memory of each body, and a launch in the contracts' terms
+# ---------------------------------------------------------------------------
+
+# The wgmma bodies' ring (``tsm2r_wgmma.cuh``, ``tsm2r_q8_wgmma.cuh``): 4
+# stages of a 64-row A tile and a 128-column B tile, 24 KB either way (bf16
+# 64 k values a stage, int8 128), and 1 KB of alignment slack.
+WGMMA_STAGES = 4
+WGMMA_STAGE_BYTES = 24576
+# The skinny body's ring (``tsm2r_skinny.cuh``): a stage is 128 rows x 128
+# bytes of A and its k values' staged B (4 bytes a value and column at
+# f32 and bf16, a byte at int8); its default is 3 stages and 2 k groups,
+# whose partial tiles reuse the ring after the last stage.
+SKINNY_STAGES = 3
+SKINNY_GROUPS = 2
+SKINNY_A_BYTES = 128 * 128
+_SKINNY_STAGE_K = {torch.float32: 32, torch.bfloat16: 64, torch.int8: 128}
+# The static partials of TSMT's simt tile (``common.cuh``: "a 16 KB
+# partials buffer in every shape") and of the packed int8 body.
+TSMT_SIMT_SMEM = 16384
+TSMT_PACKED_SMEM = 32768
+# TSM2L's tile body: k values of B resident a chunk at each tile width
+# (``with_tsm2l_tile``'s KC).
+_TSM2L_TILE_KC = {4: 32, 16: 64, 64: 256}
+
+
+def _width(n: int) -> int:
+    """The template width that holds n outputs (``with_width``)."""
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def body_smem(kind: str, body: str, k: int, n: int, dtype,
+              out_dtype=None) -> int:
+    """Bytes of shared memory (dynamic and static) one block of ``kind``'s
+    ``body`` takes at k (tsmt: a), n (tsmt: b) for ``dtype`` operands:
+    the mirror of each launcher's size."""
+    if body == "wgmma":
+        return WGMMA_STAGES * WGMMA_STAGE_BYTES + 1024
+    if body == "skinny":
+        nw = _width(n)
+        stage_b = 1 if dtype == torch.int8 else 4
+        ring = SKINNY_STAGES * (SKINNY_A_BYTES
+                                + _SKINNY_STAGE_K[dtype] * nw * stage_b)
+        return max(ring, SKINNY_GROUPS * 128 * nw * 4) + 1024
+    if body == "stream":
+        return tsm2l_stream_geometry(k, n, dtype, out_dtype)["smem"]
+    if body == "packed":
+        return TSMT_PACKED_SMEM
+    if kind == "tsmt":
+        return TSMT_SIMT_SMEM
+    pack = 4 if dtype == torch.int8 else 1       # k values a 4-byte word
+    if kind == "tsm2l":
+        bm, bn = tsm2l_tile(n)
+        kw = -(-min(k, _TSM2L_TILE_KC[bn]) // pack)
+        return 4 * (kw * bn + bm * (kw + 1))
+    bm, bn = tsm2r_tile(n, body)                 # tsm2r's simt tile
+    kw = TSM2R_BLOCK_K // pack
+    return 4 * (bm * (kw + 1) + kw * bn)
+
+
+def kernel_params(kind: str, m: int, d1: int, d2: int, dtype,
+                  splits: int = 1, spec: GPUSpec = H100, *,
+                  ptrs: tuple[int, int] = (0, 0),
+                  out_dtype=None) -> dict:
+    """The launch of ``kind`` (``dtype`` int8 for its int8 kernel) at
+    (m, d1, d2) and S = ``splits``, in the terms of
+    ``analysis/contracts.py``: the split resolution's ``splits`` and
+    block, the plan's ``body``, ``tile``, ``smem``, ``blocks_per_sm``
+    (the residency each body is built for), the slices of the reduction,
+    ``ptrs`` (the operands' base addresses; fresh allocations are
+    aligned), and under int8 the scale ``band`` (and for tsm2r whether B
+    is quantized K-major, as ``kernels/ops.py`` does for the wgmma body).
+    ``contracts.launch_grid`` of it is the grid the launch runs."""
+    pa, pb = ptrs
+    q8 = dtype == torch.int8
+    if kind == "tsm2r":
+        body = tsm2r_body(d1, d2, dtype, pa, pb, splits)
+        p = {"splits": splits, "block_k": TSM2R_BLOCK_K,
+             "slice": tsm2r_slice(d1, splits), "body": body,
+             "tile": tsm2r_tile(d2, body), "ptrs": {"a": pa, "b": pb}}
+        if q8:
+            p.update(b_kmajor=body == "wgmma", band=Q8_BAND)
+    elif kind == "tsm2l":
+        body = tsm2l_body(d1, d2, dtype, pa)
+        p = {"body": body, "ptrs": {"a": pa},
+             "max_blocks": STREAM_BLOCKS_PER_SM * spec.n_sms,
+             "tile": (tsm2l_stream_geometry(d1, d2, dtype,
+                                            out_dtype)["block_m"], d2)
+                     if body == "stream" else tsm2l_tile(d2),
+             "blocks_per_sm": STREAM_BLOCKS_PER_SM if body == "stream"
+             else 1}
+        if q8:
+            p["band"] = Q8_BAND
+        if out_dtype is not None:
+            p["out_dtype"] = out_dtype
+    elif kind == "tsmt":
+        q = tsmt_block_m(dtype)
+        slices, slice_ = (tsmt_slices(m, d1, d2, spec, dtype) if splits == 1
+                          else (splits, split_len(m, splits, q)))
+        body = tsmt_q8_body(d1, d2, pa, pb) if q8 else "simt"
+        p = {"splits": splits, "block_m": q, "slices": slices,
+             "slice": slice_, "body": body, "tile": tsmt_tile(d2),
+             "blocks_per_sm": TSMT_BLOCKS_PER_SM, "ptrs": {"x": pa, "y": pb}}
+        if q8:
+            p["band"] = Q8_BAND
+    else:
+        raise ValueError(f"unknown kernel kind {kind!r}: valid kinds are "
+                         f"{', '.join(contracts.KINDS)}")
+    p["smem"] = body_smem(kind, p["body"], d1, d2, dtype, out_dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -425,13 +541,13 @@ def reduce_plan(s: int, rows: int, cols: int, out_dtype, ptr_p: int = 0,
     (``kernels/_build.reduce_plan``). One vector a thread, at most
     ``REDUCE_BLOCKS_PER_SM`` blocks an SM (the kernel strides past that);
     the grid does not depend on S."""
-    del s
     n = rows * cols
-    usize = torch.empty((), dtype=out_dtype).element_size()
-    vec = reduce_vector_width(n, ptr_p, ptr_c, usize)
-    blocks = max(1, min(-(-(n // vec) // REDUCE_THREADS),
-                        REDUCE_BLOCKS_PER_SM * spec.n_sms))
-    return (blocks, 1, 1), REDUCE_THREADS, vec, REDUCE_CHUNK
+    vec = reduce_vector_width(n, ptr_p, ptr_c, out_dtype.itemsize)
+    grid = contracts.launch_grid(
+        "reduce", (s, rows, cols),
+        {"vec": vec, "threads": REDUCE_THREADS,
+         "max_blocks": REDUCE_BLOCKS_PER_SM * spec.n_sms})
+    return grid, REDUCE_THREADS, vec, REDUCE_CHUNK
 
 
 def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
@@ -464,28 +580,38 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
 
 def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                     dtype=torch.float32, *, splits: int = 1) -> float:
-    """Modelled seconds of TSMT or its split variant: X once per column
-    tile, Y once per row tile, the output and the partials' round trip;
-    FMAs at the f32 rate (at int8 the rate of the body that runs,
-    ``tsmt_q8_body`` at aligned operands: ``__dp4a``'s for "packed", one
-    int32 multiply-add a product for "simt"). S = 1 is priced
-    as one block per output tile, which the sequential kernel no longer
-    is: it spreads m over the card itself (``tsmt_slices``), so at
-    PowerSGD and ABFT shapes (b <= 16) this model overprices S = 1."""
-    b = torch.empty((), dtype=dtype).element_size()
+    """Modelled seconds of TSMT (S = 1) or its split variant: X once per
+    column tile, Y once per row tile, the output and the partials' round
+    trip, over the bandwidth of the busy SMs' share; FMAs at the f32 rate
+    (at int8 the rate of the body that runs, ``tsmt_q8_body`` at aligned
+    operands: ``__dp4a``'s for "packed", one int32 multiply-add a product
+    for "simt").
+
+    S = 1 is priced as the one-launch kernel runs it: the plan of
+    ``tsmt_slices`` (its tiles x slices counted against the SMs), its f32
+    partials written and read inside the launch, and one launch, since
+    each tile's last block sums the slices in order itself. S > 1 is the
+    split kernel's S slices plus the epilogue op that sums its partials
+    (``torch.sum`` or sum_partials): two launches. At equal slices the
+    two move the same bytes, so S = 1 wins unless a split buys blocks
+    the plan does not have (a short m, whose slices the plan keeps at
+    ``TSMT_MIN_SLICE_ROWS`` or more)."""
+    b = dtype.itemsize
     if dtype != torch.int8:
         rate = spec.peak_flops_f32
     elif tsmt_q8_body(a, bdim) == "packed":
         rate = spec.peak_ops_dp4a
     else:
         rate = spec.peak_ops_imad
-    ga, gb, _ = tsmt_grid(m, a, bdim, splits)
+    slices = tsmt_slices(m, a, bdim, spec, dtype)[0] if splits == 1 \
+        else splits
+    ga, gb, _ = tsmt_grid(m, a, bdim, slices)
     nbytes = (m * a * b * gb + m * bdim * b * ga + a * bdim * b
-              + split_partials_bytes(splits, a, bdim))
-    occ = occupancy(ga * gb * splits, spec)
+              + split_partials_bytes(slices, a, bdim))
+    occ = occupancy(ga * gb * slices, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
     t_comp = 2.0 * m * a * bdim / (rate * occ)
-    launches = 1 + reduce_kernel_runs(splits, a, bdim)
+    launches = 1 if splits == 1 else 2
     return max(t_mem, t_comp) + launches * spec.launch_s
 
 
@@ -497,15 +623,15 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
 # n_sms slices to occupy a 132-SM card (the JAX package's 1..16 was sized
 # for a 2-core TPU).
 SPLIT_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128)
-# Splitting is offered only for the narrow tiles (output width <= 16),
-# where the card ran the split kernels faster than the sequential ones
-# (PERF.md: tsmt 5.2x at b = 4, 22x at one tile). The split TSMT's 64 x 64
-# tile runs each row about 3.8x slower than the sequential kernel (its
-# build issues the loads of a row one after another), so a split of a wide
-# output pays only past S ~ 4, and the split TSM2R's 64 x 64 tile ran no
-# faster at S = 4; wider outputs stay sequential until that is fixed. So
-# both wgmma bodies (n > 16) always run at S = 1: pricing them moves no
-# route.
+# Splitting is offered only for the narrow tiles (output width <= 16).
+# TSM2R: the split kernel's 64 x 64 tile ran no faster at S = 4 than the
+# sequential kernel, and both wgmma bodies (n > 16) run only at S = 1, so
+# wide outputs stay sequential. TSMT: the one-launch kernel spreads m over
+# the card itself and is priced so (``tsmt_model_time``), which puts S = 1
+# below every split wherever its plan fills the card; the cap still keeps
+# wide outputs off the split TSMT's 64 x 64 tile, whose build issues the
+# loads of a row one after another (about 3.8x slower a row), a cost the
+# model does not price.
 SPLIT_MAX_WIDTH = 16
 _TIE_EPS = 1e-12
 
@@ -525,11 +651,22 @@ def _argmin(scored) -> int:
     return min(s for t, s in scored if t <= best + _TIE_EPS)
 
 
+def _candidates(kind, m, d1, d2, spec, dtype, cap) -> list[int]:
+    """The S candidates up to ``cap`` whose launch the contracts accept
+    (aligned operands, the data sheet's limits). Where none is, all are
+    scored, and ``GemmPolicy.verify_contracts`` reports the launch."""
+    cands = [s for s in SPLIT_CANDIDATES if s <= cap]
+    return [s for s in cands if contracts.feasible(
+        kind, (m, d1, d2), kernel_params(kind, m, d1, d2, dtype, s, spec),
+        dtype)] or cands
+
+
 def choose_splits_tsm2r(m: int, k: int, n: int, spec: GPUSpec = H100,
                         dtype=torch.float32) -> int:
     cap = max_splits(k, TSM2R_BLOCK_K) if n <= SPLIT_MAX_WIDTH else 1
     return _argmin([(tsm2r_model_time(m, k, n, spec, dtype, splits=s), s)
-                    for s in SPLIT_CANDIDATES if s <= cap])
+                    for s in _candidates("tsm2r", m, k, n, spec, dtype,
+                                         cap)])
 
 
 def tsmt_block_m(dtype) -> int:
@@ -542,5 +679,62 @@ def choose_splits_tsmt(m: int, a: int, bdim: int, spec: GPUSpec = H100,
     cap = (max_splits(m, tsmt_block_m(dtype)) if bdim <= SPLIT_MAX_WIDTH
            else 1)
     return _argmin([(tsmt_model_time(m, a, bdim, spec, dtype, splits=s), s)
-                    for s in SPLIT_CANDIDATES if s <= cap])
+                    for s in _candidates("tsmt", m, a, bdim, spec, dtype,
+                                         cap)])
+
+
+# ---------------------------------------------------------------------------
+# The bound classifier (the paper's section 3.1.8)
+# ---------------------------------------------------------------------------
+
+# The latency test's two constants. A streaming body reads A through a
+# ring of 128-byte rows of k (one TMA box row of the skinny body, eight
+# 16-byte chunks of the stream body), 3 to 6 stages deep. To hide one
+# device-memory round trip (~0.6 us) at its share of the bandwidth
+# (3.35 TB/s over 132 SMs), an SM keeps ~15 KB of loads in flight, which
+# those rings hold only when a block has more stages of work than ring
+# slots. A reduction of at most LATENCY_ROW_BYTES (four such rows) ends
+# before a block's ring is full; and with k at most LATENCY_K_PER_N times
+# n (the m >> k ~ n regime, short of TSM2R's skinny ratio) each row's few
+# loads feed n-wide multiply-adds at once. The time is then how many rows
+# are in flight, not the bytes or the operations.
+LATENCY_ROW_BYTES = 4 * 128
+LATENCY_K_PER_N = 16
+
+
+def t2_threshold(spec: GPUSpec = H100, dtype=torch.bfloat16) -> float:
+    """The paper's boundary value of t2 (here: of n): below it a TSM2
+    problem is memory-bound. On the H100 it is the ridge (peak rate over
+    the memory rate) times the element's bytes: bf16 989 / 3.35 = 295
+    flop/B, so ~590; f32 on the CUDA cores ~20 flop/B, so ~80; int8 ~591
+    op/B at 1 byte, so ~591."""
+    return spec.peak_flops(dtype) / spec.hbm_bw * dtype.itemsize
+
+
+def arithmetic_intensity(m: int, k: int, n: int,
+                         dtype=torch.bfloat16) -> float:
+    """Operations per device-memory byte, each operand moved once."""
+    flops = 2.0 * m * k * n
+    return flops / ((m * k + k * n + m * n) * dtype.itemsize)
+
+
+def classify(m: int, k: int, n: int, spec: GPUSpec = H100,
+             dtype=torch.bfloat16) -> str:
+    """The paper's three regimes of a tall-and-skinny ``[m,k]·[k,n]``:
+
+    * "latency": k so shallow that a block cannot hide a memory round
+      trip (k * size <= ``LATENCY_ROW_BYTES`` and k <= ``LATENCY_K_PER_N``
+      * n; the TSM2L case, m >> k ~ n; derivation at the constants);
+    * "memory": arithmetic intensity below the card's ridge for
+      ``dtype`` (``spec.peak_flops(dtype) / spec.hbm_bw``): TSM2R's main
+      case;
+    * "compute": at or above the ridge.
+    """
+    if (k * dtype.itemsize <= LATENCY_ROW_BYTES
+            and k <= LATENCY_K_PER_N * n):
+        return "latency"
+    ridge = spec.peak_flops(dtype) / spec.hbm_bw
+    if arithmetic_intensity(m, k, n, dtype) < ridge:
+        return "memory"
+    return "compute"
 

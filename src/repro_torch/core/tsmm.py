@@ -32,6 +32,10 @@ band, the small operand of tsm2r/tsm2l per tensor, both tsmt operands per
 band, and the output comes back in the caller's dtype. The dense path
 ignores the knob, so a ``mode="dense"`` arm stays exact.
 
+``GemmPolicy.verify_contracts=True`` checks every resolved launch against
+``analysis/contracts.py`` before it runs. ``bound_class`` is the paper's
+bound classifier (memory, compute or latency) on the H100's ridges.
+
 Both entries are differentiable: the ops they dispatch to are
 ``torch.autograd.Function``s whose backward re-enters this dispatcher under
 ``backward_policy`` of the caller's scope.
@@ -46,10 +50,12 @@ import math
 
 import torch
 
+from repro_torch.core import perf_model
 from repro_torch.kernels import ops
 
 __all__ = [
     "GemmPolicy",
+    "bound_class",
     "policy",
     "current_policy",
     "backward_policy",
@@ -61,10 +67,15 @@ __all__ = [
     "DispatchEvent",
     "LaunchMeta",
     "note_launch",
+    "recording",
 ]
 
-# Classifier threshold defaults, the JAX package's (core/tsmm.py:124-128).
-# Re-deriving them for the H100 waits for measurements.
+# Classifier threshold defaults, the JAX package's (core/tsmm.py:124-128),
+# kept as they are on purpose: at chatglm3's wk/wv ([8192,4096]·[4096,256]
+# bf16) tsm2r runs 1.26x slower than torch.matmul, so an H100 MAX_SKINNY
+# would likely send the serve paths' wk/wv to the dense route, a decision
+# about the main path to be judged on end-to-end numbers once a benchmark
+# exists. chip_smoke.py's threshold_sweep line records the crossover.
 SKINNY_RATIO = 16
 MAX_SKINNY = 256
 MIN_TALL = 2048
@@ -99,6 +110,11 @@ class GemmPolicy:
     (the kernel kinds quantize their operands and run the int8 kernels,
     the chooser pricing int8 operands; the dense path ignores it). It is
     scope-wide numeric intent, so ``backward_policy`` keeps it.
+
+    ``verify_contracts``: check each resolved launch (S, the body, its
+    shared memory, the grid) against ``analysis/contracts.py`` before it
+    launches, and raise ``ValueError`` on a violation
+    (``ops.resolve_params``). ``backward_policy`` keeps it.
     """
 
     mode: str = "auto"
@@ -110,6 +126,7 @@ class GemmPolicy:
     executor: str | None = None
     split: str | int = "auto"
     quant: str = "none"
+    verify_contracts: bool = False
 
     def __post_init__(self):
         s = self.split
@@ -196,6 +213,18 @@ def classify_gemm_t(m: int, a_dim: int, b_dim: int,
     return "dense"
 
 
+def bound_class(m: int, k: int, n: int, dtype=torch.bfloat16,
+                policy: GemmPolicy | None = None) -> str:
+    """The paper's bound class of ``[m,k]·[k,n]`` on the H100 ("memory",
+    "compute" or "latency", ``perf_model.classify``). Under a
+    ``quant="int8"`` policy the operands stream as int8, so they are
+    classified at int8's ridge."""
+    p = policy if policy is not None else current_policy()
+    if p.quant == "int8":
+        dtype = torch.int8
+    return perf_model.classify(m, k, n, perf_model.H100, dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch spy
 # ---------------------------------------------------------------------------
@@ -212,11 +241,20 @@ class LaunchMeta:
     the tile body's row and column tiles; for "reduce" the grid of
     ``perf_model.reduce_plan``: one vector of outputs a thread, at most
     ``REDUCE_BLOCKS_PER_SM`` blocks an SM) and the
-    resolved ``splits`` (S; 1 for a sequential kernel)."""
+    resolved ``splits`` (S; 1 for a sequential kernel). ``shape`` (m, d1,
+    d2; the ``(S, rows, cols)`` stack for "reduce"), ``dtype`` (what the
+    operands stream as: int8 for the int8 kernels) and ``params`` (the
+    launch in ``analysis/contracts.py``'s terms, ``perf_model.
+    kernel_params``) state it so, that ``contracts.launch_grid(kind,
+    shape, params)`` is ``grid`` and ``contracts.check_kernel_config``
+    can check it."""
 
     kind: str
     grid: tuple
     splits: int = 1
+    shape: tuple = ()
+    dtype: torch.dtype | None = None
+    params: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,11 +282,18 @@ _LISTENERS: list = []
 _LAUNCH_NOTES: list = []
 
 
-def note_launch(kind: str, grid, splits: int = 1) -> None:
+def recording() -> bool:
+    """Whether a dispatch is collecting launch records (a spy listens)."""
+    return bool(_LAUNCH_NOTES)
+
+
+def note_launch(kind: str, grid, splits: int = 1, *, shape=(), dtype=None,
+                params=None) -> None:
     """Record one resolved kernel launch onto the current dispatch's event
     (a no-op outside a listened-to dispatch)."""
     if _LAUNCH_NOTES:
-        _LAUNCH_NOTES[-1].append(LaunchMeta(kind, tuple(grid), splits))
+        _LAUNCH_NOTES[-1].append(LaunchMeta(kind, tuple(grid), splits,
+                                            tuple(shape), dtype, params))
 
 
 @contextlib.contextmanager

@@ -33,6 +33,14 @@ since the quantize pass reads each operand on its own. The output is the
 left operand's dtype, as in JAX: a kernel that cannot write it (float16)
 writes float32, which is then cast once.
 
+Under ``GemmPolicy(verify_contracts=True)`` (JAX ``ops.py:317-346``)
+``resolve_params`` states the resolved launch in the terms of
+``analysis/contracts.py`` (``perf_model.kernel_params``: S, the body,
+its tile and shared memory, the grid) and raises ``ValueError`` before
+anything launches if a contract breaks. While ``tsmm.record_dispatches``
+listens, every launch is recorded with the same statement, its grid from
+``contracts.launch_grid``.
+
 Each entry is a ``torch.autograd.Function`` whose backward sends the
 cotangent GEMMs back through ``core.tsmm`` under
 ``tsmm.backward_policy`` of the policy captured at forward time, as the
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.core import perf_model
 from repro_torch.kernels import quant, reduce, ref
 from repro_torch.kernels import tsm2l as _tsm2l
@@ -54,9 +63,9 @@ from repro_torch.kernels import tsm2r as _tsm2r
 from repro_torch.kernels import tsmt as _tsmt
 
 # The TSMT kernel sizes its per-block partials for a small output dim; past
-# this the shape belongs to the dense path. Copied from the JAX package's
-# ``analysis/contracts.py`` (TSMT_MAX_B), so both refuse the same shapes.
-TSMT_MAX_B = 512
+# this the shape belongs to the dense path (a contract, so it lives in
+# ``analysis/contracts.py``, as in the JAX package).
+TSMT_MAX_B = contracts.TSMT_MAX_B
 
 
 def _dispatcher():
@@ -76,7 +85,8 @@ def _policy_split(policy) -> int | None:
 
 
 def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
-                   device: torch.device | None = None) -> dict:
+                   device: torch.device | None = None,
+                   ptrs: tuple[int, int] = (0, 0)) -> dict:
     """The launch parameters dispatch would use, without running: for
     tsm2r ``{"splits", "block_k"}``, for tsmt ``{"splits", "block_m"}``,
     for tsm2l ``{}`` (it has no reduction to split). ``(d1, d2)`` are
@@ -86,15 +96,25 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     "auto" resolves to S = 1 (pins still split). Without ``device`` the
     chooser models the data sheet's H100 (``perf_model.H100``). Under
     ``policy.quant="int8"`` the chooser prices int8 operands and the tsmt
-    slice quantum is the scale band."""
-    if kind == "tsm2l":
-        return {}
-    if kind not in ("tsm2r", "tsmt"):
+    slice quantum is the scale band.
+
+    Under ``policy.verify_contracts`` the resolved launch (``ptrs``: the
+    operands' base addresses) is checked against the contracts on the
+    limits of ``device``'s card (the data sheet's without one), and a
+    violation raises ``ValueError``, listing ``[rule] detail`` for each."""
+    if kind not in contracts.KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}: valid kinds are "
                          "tsm2r, tsm2l, tsmt")
-    splits = _policy_split(policy)
-    if policy.quant == "int8":
+    out_dtype = dtype
+    q8 = policy.quant == "int8"
+    if q8:
         dtype = torch.int8
+    if kind == "tsm2l":
+        if policy.verify_contracts:
+            _verify(kind, m, d1, d2, dtype, 1, device, ptrs, out_dtype, q8,
+                    policy)
+        return {}
+    splits = _policy_split(policy)
     if kind == "tsm2r":
         depth, block, choose = (d1, perf_model.TSM2R_BLOCK_K,
                                 perf_model.choose_splits_tsm2r)
@@ -113,13 +133,54 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     # Whole-block slices may cover the depth in fewer than S; drop the
     # slices that would be empty.
     splits = max(1, -(-depth // ref.split_len(depth, splits, block)))
+    if policy.verify_contracts:
+        _verify(kind, m, d1, d2, dtype, splits, device, ptrs, out_dtype, q8,
+                policy)
     key = "block_k" if kind == "tsm2r" else "block_m"
     return {"splits": splits, key: block}
 
 
-def _resolve(kind, x, d1, d2, policy):
+def _verify(kind, m, d1, d2, dtype, splits, device, ptrs, out_dtype, q8,
+            policy):
+    """Raise unless the launch ``resolve_params`` resolved keeps every
+    contract (``GemmPolicy.verify_contracts``)."""
+    kernel_out = _kernel_out(out_dtype) if q8 else None
+    params = perf_model.kernel_params(
+        kind, m, d1, d2, dtype, splits,
+        _spec(device) if device is not None else perf_model.H100,
+        ptrs=ptrs, out_dtype=kernel_out)
+    shape = (m, d1, d2)
+    bad = (contracts.check_kernel_config(
+        kind, shape, params, dtype, contracts.card_limits(device),
+        max_b=policy.max_skinny_t, out_dtype=kernel_out)
+        + contracts.check_grid(kind, shape, params))
+    if bad:
+        raise ValueError(
+            "GemmPolicy.verify_contracts: resolved kernel config breaks "
+            f"{len(bad)} contract(s): "
+            + "; ".join(f"[{v.rule}] {v.detail}" for v in bad))
+
+
+def _resolve(kind, x, d1, d2, policy, y=None):
+    ptrs = (0, 0) if policy.quant == "int8" or y is None else \
+        (x.data_ptr(), y.data_ptr())
     return resolve_params(kind, x.shape[0], d1, d2, x.dtype, policy,
-                          device=x.device)
+                          device=x.device, ptrs=ptrs)
+
+
+def _note(name, kind, shape, dtype, splits, device, ptrs, out_dtype=None):
+    """Record the launch of kernel ``name`` (of ``kind``, on ``dtype``
+    operands at ``ptrs``) onto the dispatch's event, stated as
+    ``perf_model.kernel_params`` and its ``contracts.launch_grid``; a
+    no-op unless ``tsmm.record_dispatches`` listens."""
+    tsmm = _dispatcher()
+    if not tsmm.recording():
+        return
+    params = perf_model.kernel_params(kind, *shape, dtype, splits,
+                                      _spec(device), ptrs=ptrs,
+                                      out_dtype=out_dtype)
+    tsmm.note_launch(name, contracts.launch_grid(kind, shape, params),
+                     splits, shape=shape, dtype=dtype, params=params)
 
 
 # What the kernels read and write: float32 or bfloat16, one dtype a pair.
@@ -156,7 +217,6 @@ def _kernel_out(dtype):
 # ---------------------------------------------------------------------------
 
 def _tsm2r_impl(a, b, policy):
-    tsmm = _dispatcher()
     out_dtype = a.dtype
     (m, k), n = a.shape, b.shape[1]
     if policy.quant == "int8":
@@ -169,8 +229,8 @@ def _tsm2r_impl(a, b, policy):
         kmajor = perf_model.tsm2r_body(k, n, torch.int8, splits=s) == "wgmma"
         a_q, a_s = quant.quantize_blocks(a, band)
         b_q, b_s = quant.quantize_tensor(b, kmajor=kmajor)
-        tsmm.note_launch("tsm2r_q8", perf_model.tsm2r_grid(
-            m, k, n, s, torch.int8, a_q.data_ptr(), b_q.data_ptr()), s)
+        _note("tsm2r_q8", "tsm2r", (m, k, n), torch.int8, s, a.device,
+              (a_q.data_ptr(), b_q.data_ptr()))
         if s == 1:
             return _tsm2r.tsm2r_q8(a_q, b_q, a_s, b_s, band,
                                    _kernel_out(out_dtype)).to(out_dtype)
@@ -178,10 +238,10 @@ def _tsm2r_impl(a, b, policy):
                                       p["block_k"])
         return _epilogue(parts, out_dtype)
     a, b = _kernel_pair(a.contiguous(), b.contiguous())
-    p = _resolve("tsm2r", a, k, n, policy)
+    p = _resolve("tsm2r", a, k, n, policy, b)
     s = p["splits"]
-    tsmm.note_launch("tsm2r", perf_model.tsm2r_grid(
-        m, k, n, s, a.dtype, a.data_ptr(), b.data_ptr()), s)
+    _note("tsm2r", "tsm2r", (m, k, n), a.dtype, s, a.device,
+          (a.data_ptr(), b.data_ptr()))
     if s == 1:
         return _tsm2r.tsm2r(a, b).to(out_dtype)
     parts = _tsm2r.tsm2r_split(a, b, s, p["block_k"])
@@ -189,7 +249,6 @@ def _tsm2r_impl(a, b, policy):
 
 
 def _tsmt_impl(x, y, policy):
-    tsmm = _dispatcher()
     out_dtype = x.dtype
     q8 = policy.quant == "int8"
     if q8:
@@ -197,23 +256,23 @@ def _tsmt_impl(x, y, policy):
     else:
         x, y = _kernel_pair(x.contiguous(), y.contiguous())
     (m, a), b = x.shape, y.shape[1]
-    p = _resolve("tsmt", x, a, b, policy)
+    p = _resolve("tsmt", x, a, b, policy, y)
     s = p["splits"]
     # S = 1 is the sequential kernel, which spreads m over its own plan of
-    # slices in one launch: record the grid that runs.
-    slices = s if s > 1 else _tsmt._plan(
-        m, a, b, x.device, torch.int8 if q8 else x.dtype, p["block_m"])[0]
-    tsmm.note_launch("tsmt_q8" if q8 else "tsmt",
-                     perf_model.tsmt_grid(m, a, b, slices), s)
+    # slices in one launch: the record's grid is that plan's.
     if q8:
         band = p["block_m"]
         x_q, x_s = quant.quantize_blocks(x, band)
         y_q, y_s = quant.quantize_blocks(y, band)
+        _note("tsmt_q8", "tsmt", (m, a, b), torch.int8, s, x.device,
+              (x_q.data_ptr(), y_q.data_ptr()))
         if s == 1:
             return _tsmt.tsmt_q8(x_q, y_q, x_s, y_s, band,
                                  _kernel_out(out_dtype)).to(out_dtype)
         parts = _tsmt.tsmt_q8_split(x_q, y_q, x_s, y_s, band, s)
         return _epilogue(parts, out_dtype)
+    _note("tsmt", "tsmt", (m, a, b), x.dtype, s, x.device,
+          (x.data_ptr(), y.data_ptr()))
     if s == 1:
         return _tsmt.tsmt(x, y).to(out_dtype)
     parts = _tsmt.tsmt_split(x, y, s, p["block_m"])
@@ -224,28 +283,35 @@ def _epilogue(parts, out_dtype):
     """The (S, rows, cols) f32 partials summed, in ``out_dtype``."""
     out, plan = reduce.reduce_partials(parts, _kernel_out(out_dtype))
     if plan is not None:   # the grid the sum_partials launch has
-        _dispatcher().note_launch("reduce", plan[0], parts.shape[0])
+        _dispatcher().note_launch(
+            "reduce", plan[0], parts.shape[0], shape=tuple(parts.shape),
+            dtype=torch.float32,
+            params={"vec": plan[2], "threads": plan[1],
+                    "max_blocks": perf_model.REDUCE_BLOCKS_PER_SM
+                    * _spec(parts.device).n_sms,
+                    "ptrs": {"p": parts.data_ptr(), "c": out.data_ptr()},
+                    "out_dtype": out.dtype})
     return out.to(out_dtype)
 
 
 def _tsm2l_impl(a, b, policy):
-    tsmm = _dispatcher()
     out_dtype = a.dtype
     (m, k), n = a.shape, b.shape[1]
     if policy.quant == "int8":
         a, b = _q8_operand(a).contiguous(), _q8_operand(b).contiguous()
+        _resolve("tsm2l", a, k, n, policy)
         band = perf_model.Q8_BAND
         a_q, a_s = quant.quantize_blocks(a, band)
         b_q, b_s = quant.quantize_tensor(b)
         kernel_out = _kernel_out(out_dtype)
-        tsmm.note_launch("tsm2l_q8", perf_model.tsm2l_plan(
-            m, k, n, torch.int8, a_q.data_ptr(), _spec(a.device),
-            out_dtype=kernel_out)[1])
+        _note("tsm2l_q8", "tsm2l", (m, k, n), torch.int8, 1, a.device,
+              (a_q.data_ptr(), b_q.data_ptr()), kernel_out)
         return _tsm2l.tsm2l_q8(a_q, b_q, a_s, b_s, band,
                                kernel_out).to(out_dtype)
     a, b = _kernel_pair(a.contiguous(), b.contiguous())
-    tsmm.note_launch("tsm2l", perf_model.tsm2l_plan(
-        m, k, n, a.dtype, a.data_ptr(), _spec(a.device))[1])
+    _resolve("tsm2l", a, k, n, policy, b)
+    _note("tsm2l", "tsm2l", (m, k, n), a.dtype, 1, a.device,
+          (a.data_ptr(), b.data_ptr()))
     return _tsm2l.tsm2l(a, b).to(out_dtype)
 
 
@@ -346,3 +412,12 @@ def tsmt(x: torch.Tensor, y: torch.Tensor, *, policy=None) -> torch.Tensor:
 tsm2r_ref = ref.tsm2r_ref
 tsm2l_ref = ref.tsm2l_ref
 tsmt_ref = ref.tsmt_ref
+
+
+def tsqr(a: torch.Tensor, *, policy=None, passes: int | None = None,
+         shift_rel: float | None = None):
+    """Tall-skinny QR (CholeskyQR2) on tsmt and tsm2l: a re-export of
+    ``repro_torch.linalg.tsqr``, imported lazily (``linalg`` consumes the
+    dispatcher, which imports this module)."""
+    from repro_torch import linalg
+    return linalg.tsqr(a, policy=policy, passes=passes, shift_rel=shift_rel)

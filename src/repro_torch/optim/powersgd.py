@@ -3,20 +3,24 @@ kernels.
 
 Counterpart of the replicated half of ``src/repro/optim/powersgd.py``
 (``PowerSGDConfig`` :61, ``init`` :101, ``_orthonormalize`` :112,
-``compress_one`` :151, ``compress_tree`` :296), on one process
+``_orth_factor`` :143, ``compress_one`` :151, ``compress_tree`` :296), on
+one process
 (``psum=None``). Each eligible gradient G (d1 x d2) is compressed to rank
 r:
 
     P = G @ Q          # (d1, r)  -- tsm2r
-    Q' = G^T @ P_orth  # (d2, r)  -- tsmt; on the H100 its 32 output tiles
-                       #             (d2 = 4096, r = 4) leave SMs idle, so
-                       #             "auto" runs the split kernel
+    Q' = G^T @ P_orth  # (d2, r)  -- tsmt; its 32 output tiles (d2 =
+                       #             4096, r = 4) leave SMs idle, so the
+                       #             one-launch kernel spreads m over S
+                       #             slices itself
 
 with error feedback. Both projections go through ``core.tsmm`` and follow
 the active ``tsmm.policy(...)`` scope (or ``policy=``). ``compress="int8"``
 applies ``kernels.quant.fake_quant`` to P after the TSM2R projection and
 to Q after the TSMT, and counts each factor at 1 byte an element plus its
-f32 scale (the JAX package's int8 wire format).
+f32 scale (the JAX package's int8 wire format). ``orth="tsqr"``
+orthonormalizes P with ``linalg.tsqr`` (CholeskyQR2: per pass a tsmt
+Gram and a tsm2l apply) instead of Gram-Schmidt.
 
 Which leaves compress is decided on the JAX package's layout
 (``repro_torch.layout``), where a segment's layers are stacked on a
@@ -36,7 +40,6 @@ Deliberate differences from the JAX package:
 * ``_orthonormalize``'s fresh direction for a degenerate column comes from
   a generator seeded with the column index, not ``jax.random.PRNGKey(i)``:
   the two agree only while no column degenerates.
-* ``orth="tsqr"`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import zlib
 
 import torch
 
-from repro_torch import layout
+from repro_torch import layout, linalg
 from repro_torch.core import tsmm
 from repro_torch.kernels import quant
 
@@ -71,10 +74,6 @@ class PowerSGDConfig:
             raise ValueError(
                 f"unknown PowerSGDConfig compress {self.compress!r}: valid "
                 f"values are {', '.join(_COMPRESS_MODES)}")
-        if self.orth != "gram_schmidt":
-            raise NotImplementedError(
-                f"PowerSGDConfig orth={self.orth!r} is not ported yet "
-                "(it needs the tall-skinny QR slice)")
 
 
 def init(cfg: PowerSGDConfig, params, seed: int = 0) -> dict:
@@ -123,6 +122,14 @@ def _orthonormalize(m: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def _orth_factor(cfg: PowerSGDConfig, p: torch.Tensor, policy=None):
+    """Orthonormalize the P factor per ``cfg.orth``."""
+    if cfg.orth == "tsqr":
+        q, _ = linalg.tsqr(p, policy=policy)
+        return q
+    return _orthonormalize(p)
+
+
 @torch.no_grad()
 def compress_one(cfg: PowerSGDConfig, grad, st, *, policy=None):
     """The protocol on one process:
@@ -135,7 +142,7 @@ def compress_one(cfg: PowerSGDConfig, grad, st, *, policy=None):
     p = tsmm.tsmm(g, st["q"], policy=policy)                      # TSM2R
     if cfg.compress == "int8":
         p = quant.fake_quant(p)
-    p = _orthonormalize(p)
+    p = _orth_factor(cfg, p, policy)
     q = tsmm.tsmm_t(g, p, policy=policy)                          # TSMT
     if cfg.compress == "int8":
         q = quant.fake_quant(q)

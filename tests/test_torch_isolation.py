@@ -108,7 +108,9 @@ def test_new_modules_are_scanned():
                 "repro_torch.optim.powersgd", "repro_torch.optim.schedule",
                 "repro_torch.train.train_step",
                 "repro_torch.data.pipeline", "repro_torch.kernels.quant",
-                "repro_torch.layout"):
+                "repro_torch.layout", "repro_torch.analysis",
+                "repro_torch.analysis.contracts", "repro_torch.linalg",
+                "repro_torch.linalg.tsqr"):
         assert mod in MODULES
 
 

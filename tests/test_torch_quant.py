@@ -446,18 +446,22 @@ def test_int8_tsmt_slices_are_whole_bands():
 
 
 def test_int8_chooser_prices_one_byte_operands():
-    """On the modelled H100 the int8 chooser still splits PowerSGD's Q
-    projection (32 output tiles) and keeps its P projection (508 row
-    tiles) sequential, as the train-int8 path expects."""
-    q = perf_model.choose_splits_tsmt(65024, 4096, 4, dtype=torch.int8)
-    assert q > 1
+    """On the modelled H100 the int8 chooser runs PowerSGD's Q projection
+    (32 output tiles) on the one-launch tsmt_q8, whose own plan spreads m
+    over 8 slices, and keeps its P projection (508 row tiles) sequential,
+    as the train-int8 path expects; int8 operands are priced below f32
+    ones at the split kernel's S = 8 and at S = 1 alike."""
+    assert perf_model.choose_splits_tsmt(65024, 4096, 4,
+                                         dtype=torch.int8) == 1
+    assert perf_model.tsmt_slices(65024, 4096, 4, dtype=torch.int8)[0] > 1
     assert perf_model.choose_splits_tsm2r(65024, 4096, 4,
                                           dtype=torch.int8) == 1
-    t8 = perf_model.tsmt_model_time(65024, 4096, 4, dtype=torch.int8,
-                                    splits=q)
-    t32 = perf_model.tsmt_model_time(65024, 4096, 4, dtype=torch.float32,
-                                     splits=q)
-    assert t8 < t32
+    for q in (1, 8):
+        t8 = perf_model.tsmt_model_time(65024, 4096, 4, dtype=torch.int8,
+                                        splits=q)
+        t32 = perf_model.tsmt_model_time(65024, 4096, 4,
+                                         dtype=torch.float32, splits=q)
+        assert t8 < t32
 
 
 def test_int8_grads_near_f32_autograd():
@@ -699,12 +703,13 @@ def test_powersgd_int8_near_f32_and_counts_bytes():
     assert 3.5 <= ratio <= 4.1
 
 
-def test_powersgd_compress_validated_and_tsqr_still_raises():
+def test_powersgd_compress_validated_and_tsqr_constructs():
     with pytest.raises(ValueError, match="compress"):
         powersgd.PowerSGDConfig(compress="fp4")
     assert powersgd.PowerSGDConfig(compress="int8").compress == "int8"
-    with pytest.raises(NotImplementedError, match="tsqr"):
-        powersgd.PowerSGDConfig(orth="tsqr")
+    assert powersgd.PowerSGDConfig(orth="tsqr").orth == "tsqr"
+    with pytest.raises(ValueError, match="orth"):
+        powersgd.PowerSGDConfig(orth="householder")
 
 
 def test_int8_train_step_matches_jax():

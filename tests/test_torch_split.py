@@ -183,8 +183,8 @@ def test_backward_policy_split(split, want):
 
 
 @pytest.mark.parametrize("kind,shape,split", [
-    ("tsmt", (65024, 4096, 4), True),     # PowerSGD Q of chatglm3's embed
-    ("tsmt", (1 << 20, 128, 4), True),    # one output tile
+    ("tsmt", (65024, 4096, 4), False),    # PowerSGD Q: the one launch
+    ("tsmt", (1 << 20, 128, 4), False),   # one output tile, 264 slices
     ("tsmt", (65536, 256, 256), False),   # 64 x 64 tiles: never split
     ("tsmt", (65536, 4096, 256), False),  # 256 tiles
     ("tsm2r", (8192, 4096, 256), False),  # chatglm3's wk/wv prefill
@@ -197,11 +197,15 @@ def test_chooser_at_132_sms(kind, shape, split):
     s = choose(*shape, perf_model.H100, torch.float32)
     assert (s > 1) == split, s
     assert perf_model.H100.n_sms == 132
+    # S = 1 at tsmt is the one-launch kernel at its own plan of slices.
+    runs = (perf_model.tsmt_slices(*shape)[0] if kind == "tsmt" and s == 1
+            else s)
     grid = (perf_model.tsmt_grid if kind == "tsmt"
-            else perf_model.tsm2r_grid)(*shape, s)
-    if split:   # a split fills the card; a sequential grid already does
-        assert grid[0] * grid[1] * s >= perf_model.H100.n_sms // 2
-    else:       # or its output is wider than the split kernels are run at
+            else perf_model.tsm2r_grid)(*shape, runs)
+    if split or kind == "tsmt":   # the slices fill the card
+        assert grid[0] * grid[1] * runs >= perf_model.H100.n_sms // 2
+    else:   # a sequential grid already does, or its output is wider than
+        # the split kernels are run at
         assert (grid[0] * grid[1] >= perf_model.H100.n_sms
                 or shape[2] > perf_model.SPLIT_MAX_WIDTH)
 

@@ -121,11 +121,13 @@ def test_body_reads_neither_m_nor_the_slices(m, splits):
 
 
 def test_chooser_and_slice_plan_stay_where_they_were():
-    """Pricing the packed body at ``__dp4a``'s rate moves neither
-    tsmt_q8_split's S at PowerSGD's Q nor tsmt_q8's plan at the dispatch
-    path's shape."""
+    """PowerSGD's Q resolves to the one-launch tsmt_q8 (S = 1), whose own
+    plan is the 8 slices the split kernel ran at, now that S = 1 is
+    priced as that kernel runs; tsmt_q8's plan at the dispatch path's
+    shape stays where it was."""
     spec = perf_model.H100
-    assert perf_model.choose_splits_tsmt(65024, 4096, 4, spec, I8) == 8
+    assert perf_model.choose_splits_tsmt(65024, 4096, 4, spec, I8) == 1
+    assert perf_model.tsmt_slices(65024, 4096, 4, spec, I8) == (8, 8192)
     assert perf_model.tsmt_slices(65536, 128, 4, spec, I8,
                                   quantum=BAND) == (128, 512)
 
@@ -137,10 +139,14 @@ def test_model_prices_the_packed_body_at_the_dp4a_rate():
     nbytes = (m * a * gb + m * b * ga + a * b
               + perf_model.split_partials_bytes(8, a, b))
     t_comp = 2.0 * m * a * b / spec.peak_ops_dp4a
-    want = (max(nbytes / spec.hbm_bw, t_comp)
-            + (1 + perf_model.reduce_kernel_runs(8, a, b)) * spec.launch_s)
+    # The split kernel and its epilogue op: two launches.
+    want = max(nbytes / spec.hbm_bw, t_comp) + 2 * spec.launch_s
     assert perf_model.tsmt_model_time(m, a, b, spec, I8,
                                       splits=8) == pytest.approx(want)
+    # S = 1 is the one-launch kernel at its plan of the same 8 slices: the
+    # same bytes, one launch.
+    assert perf_model.tsmt_model_time(m, a, b, spec, I8) == \
+        pytest.approx(want - spec.launch_s)
     # The simt body (b = 20) keeps one multiply-add a product.
     simt = perf_model.tsmt_model_time(8192, 4096, 20, spec, I8)
     assert simt >= 2.0 * 8192 * 4096 * 20 / spec.peak_ops_imad
