@@ -234,6 +234,14 @@ printing no result, when no CUDA card is present or any phase fails.
    Prints prefill
    ms, decode ms a step, peak memory, the bytes the records hold and the
    dense bytes they replace, and one profiled prefill.
+4b. ABFT, serve arm (a path of its own, after phase 4 on its model):
+   ``GemmPolicy.abft`` and ``ft/inject.py``. A prefill through a capture
+   executor (``register_executor``) finds the first wk call's fault site
+   and output; then an unguarded prefill, an ``abft="verify"`` prefill
+   (56 guarded tsm2r events, logits bit-equal to the unguarded ones) and
+   an ``abft="correct"`` prefill with a ``GemmFault`` flipping the bit
+   in f32 bit 29's place (bf16: 13) of the first wk output's largest
+   cell, applied once and repaired (logits bit-equal), each timed.
 6. Grad: each op's autograd on the card (the backward re-dispatches
    through ``tsmm``) against autograd through its plain version, f32, at
    the kernel tolerances; a directional finite difference of a
@@ -254,6 +262,27 @@ printing no result, when no CUDA card is present or any phase fails.
    embed/lm_head gradients within normalised error 5e-2. Prints step
    time, tokens/s, peak memory (and the train state's share of it), and
    a profiled fourth step's device busy share and device time by kernel.
+7b. ABFT, train arms (a path of its own, after phase 7's kernel arm): 3
+   steps under ``abft="verify"`` from the kernel arm's state and batches,
+   each ``step_ok`` with loss and grad norm bit-equal to the kernel arm's
+   and 66 guarded tsm2r and 2 guarded tsmt events (the checksum stages
+   printed by route, kernel and shape); the first through the capture
+   executor, for the fault site and the operands of the margins. Then,
+   from fresh states, one step under "verify" and one under "correct"
+   with a flip of the largest cell of the last microbatch's first wk
+   output: applied once, landing on the forward's guarded event and the
+   remat recompute's; "verify" gives a NaN loss and ``step_ok`` False,
+   "correct" the clean step's loss and grad norm bit for bit. Then the
+   offline tree API on the state's parameters: ``encode_tree`` (timed),
+   ``verify_tree`` clean, and ``verify_and_correct_tree`` after a flip of
+   the exponent's top bit in ``embed.table``'s largest cell, which must
+   restore every leaf bit for bit. An ``abft_margin`` line gives the
+   guard's largest clean ``|c_out - c_ref| / tol`` at serve wk/wv, train
+   wk/wv, P and Q on those real operands; a clean detection fails the
+   run. The kernel phase times tsmt and tsm2r at the checksum GEMMs'
+   shapes (``ABFT_SHAPES``: lines with ``"abft": true``, device and
+   library device ms, the bound, the S the dispatcher resolves there)
+   and tsmt_q8 at PowerSGD's Q beside its dequantized library call.
 8. Train-int8 (a main path of its own): the same, inside
    ``GemmPolicy(quant="int8")`` with ``PowerSGDConfig(compress="int8")``.
    Every step launches tsm2r_q8 64 times for wk/wv, the two P projections
@@ -283,8 +312,10 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 11. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the seven paths (dispatch, serve, train, serve-int8,
-   train-int8, tsqr, train-tsqr) and their numbers at their main-path shape and dtype
+   on each of the nine paths (dispatch, serve, train, serve-int8,
+   train-int8, tsqr, train-tsqr, abft-serve, abft-train) and their
+   numbers at their main-path shape and dtype (tsm2r and tsmt also
+   ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
    S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8,
    tsm2r_q8_split, tsmt_q8, tsmt_q8_split, tsm2l and tsm2l_q8);
@@ -658,6 +689,100 @@ def tsm2l_plan_check(x, y, dtype, q8_out=None) -> dict:
     return {"body": body, "grid": grid, "geometry": geo,
             "plan_ok": (body == want and (body, grid) == mirror
                         and geo == want_geo)}
+
+
+def abft_kernel_rows(dev, uniform, gpu, kernels) -> dict:
+    """The kernels at the shapes the ABFT guard's checksum GEMMs reach
+    them (``ABFT_SHAPES``, f32): each against its plain version, timed
+    like a main-path row (events, the kernel's and the library call's
+    device time, the bound), with the S the dispatcher resolves there
+    (``dispatch_splits``; > 1 runs the split kernel and its sum instead:
+    the split kernel's partials are held against their plain version and
+    the op as dispatched against the product's, each repeated bit for
+    bit, and the op is timed as ``dispatch_device_ms``)."""
+    from repro_torch.core import tsmm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.kernels import tsmt as k_tsmt
+
+    rows, bad = {}, []
+    for name, (m, d1, d2), stages in ABFT_SHAPES:
+        kern, plain, library, entry = kernels[name]
+        op = tsmm.tsmm if entry == "mm" else tsmm.tsmm_t
+        x = uniform((m, d1), torch.float32)
+        y = uniform((d1, d2) if entry == "mm" else (m, d2), torch.float32)
+        got = kern(x, y)
+        again = kern(x, y)
+        torch.cuda.synchronize()
+        want = plain(x, y)
+        depth = d1 if entry == "mm" else m
+        rtol, atol = TOL[torch.float32]
+        atol *= max(1.0, (depth / 1024) ** 0.5)
+        err = (got - want).abs()
+        ok = torch.equal(got, again) and bool(
+            (err <= atol + rtol * want.abs()).all())
+        b_ms, b_by = bound(x, y, got, 2 * m * d1 * d2)
+        rec = {"phase": "kernel", "kernel": name, "abft": True,
+               "stages": stages, "shape": [m, d1, d2], "dtype": "float32",
+               "dispatch_splits": ops.resolve_params(
+                   name, m, d1, d2, torch.float32, tsmm.GemmPolicy(),
+                   device=dev)["splits"],
+               "kernel_ms": time_ms(lambda: kern(x, y)),
+               "plain_ms": time_ms(lambda: plain(x, y)),
+               "library_ms": time_ms(lambda: library(x, y)),
+               "device_ms": device_ms(lambda: kern(x, y), name),
+               "call_device_ms": call_device_ms(lambda: kern(x, y)),
+               # the op as the guard dispatches it ("auto": the split
+               # kernel and its sum where the chooser splits)
+               "dispatch_device_ms": call_device_ms(lambda: op(x, y)),
+               "library_device_ms": call_device_ms(lambda: library(x, y)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "max_err": float(err.max()), "rtol": rtol, "atol": atol,
+               "ok": ok, "gpu": gpu}
+        if name == "tsm2r":
+            rec["body"], rec["grid"] = k_tsm2r.plan(x, y)
+        if rec["dispatch_splits"] > 1:
+            # The path runs the split kernel there, at the S and block the
+            # dispatcher resolves: the partials against their plain
+            # version and the op as dispatched (split kernel and sum)
+            # against the product's, each with a bit-identical repeat,
+            # then the split kernel's own device time.
+            mm = entry == "mm"
+            S, blk = rec["dispatch_splits"], ops.resolve_params(
+                name, m, d1, d2, torch.float32, tsmm.GemmPolicy(),
+                device=dev)["block_k" if mm else "block_m"]
+            split = k_tsm2r.tsm2r_split if mm else k_tsmt.tsmt_split
+            split_plain = ref.tsm2r_split_ref if mm else ref.tsmt_split_ref
+            part, part2 = split(x, y, S, blk), split(x, y, S, blk)
+            dop, dop2 = op(x, y), op(x, y)
+            torch.cuda.synchronize()
+            want_part = split_plain(x, y, S, blk)
+            p_atol = TOL[torch.float32][1] * max(
+                1.0, (ref.split_len(depth, S, blk) / 1024) ** 0.5)
+            p_err = (part - want_part).abs()
+            d_err = (dop - want).abs()
+            split_ok = (torch.equal(part, part2) and torch.equal(dop, dop2)
+                        and bool((p_err <= p_atol
+                                  + rtol * want_part.abs()).all())
+                        and bool((d_err <= atol + rtol * want.abs()).all()))
+            rec.update({
+                "split_kernel": f"{name}_split", "split_block": blk,
+                "split_max_err": float(p_err.max()), "split_atol": p_atol,
+                "dispatch_max_err": float(d_err.max()),
+                "split_ok": split_ok,
+                "split_ms": time_ms(lambda: split(x, y, S, blk)),
+                "split_device_ms": device_ms(lambda: split(x, y, S, blk),
+                                             f"{name}_split")})
+            rec["ok"] = ok = ok and split_ok
+            del part, part2, dop, dop2, want_part, p_err, d_err
+        emit(rec)
+        if not ok:
+            bad.append(f"{name} {m}x{d1}x{d2}")
+        rows.setdefault(name, []).append(rec)
+        del x, y, got, again, want, err
+    torch.cuda.empty_cache()
+    check(not bad, f"kernel mismatch at the ABFT shapes: {bad}")
+    return rows
 
 
 def tsm2l_sweep(dev, uniform, gpu) -> float:
@@ -1628,6 +1753,7 @@ def q8_kernel_phase(dev, uniform, gpu) -> tuple[dict, dict, dict]:
                      (1003, 129, 16, 1, False, None),
                      (4096, 255, 9, 1, False, None)],
         "tsmt_q8": [(65536, 128, 4, 1, False, "main"),
+                    (65024, 4096, 4, 1, False, "train"),   # PowerSGD's Q
                     (10000, 300, 20, 1, False, None),
                     (300000, 16, 4, 1, True, None),
                     (1000, 100, 3, 1, False, None)],    # plans S = 1
@@ -1983,13 +2109,14 @@ def grad_phase(dev, uniform, gpu) -> None:
     check(ok, f"directional finite difference {analytic} vs {fd}")
 
 
-def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
+def train_phase(dev, gpu, counts, zero_counts, quant=False):
     """Train chatglm3-6b at its published width with TRAIN_LAYERS layers:
     a dense arm's first step, then the kernel arm's TRAIN_STEPS steps (the
     training main path: counts zeroed before, read after), then one
-    profiled step. ``quant``: the train-int8 path, inside
-    ``GemmPolicy(quant="int8")`` with int8 PowerSGD. Returns the main
-    path's launch counts."""
+    profiled step, then (not ``quant``) the abft phase's train arms.
+    ``quant``: the train-int8 path, inside ``GemmPolicy(quant="int8")``
+    with int8 PowerSGD. Returns the main path's launch counts and the
+    abft arms' (launch counts, margins), None under ``quant``."""
     import contextlib
     import dataclasses
 
@@ -2174,9 +2301,405 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False) -> dict:
     emit({"phase": "profile", "window": f"{phase} step", **prof,
           "unprofiled_ms": mid_ms,
           "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
-    del state, batches
+    del state
     torch.cuda.empty_cache()
-    return main_train
+    abft = None
+    if not quant:
+        PATH["name"] = "abft_train"
+        abft = abft_train_arms(dev, gpu, cfg, step, fresh_state, batches,
+                               records, counts, zero_counts,
+                               ((mb_tokens, cfg.d_model, kv), p_shape))
+    del batches
+    torch.cuda.empty_cache()
+    return main_train, abft
+
+
+# ---------------------------------------------------------------------------
+# The abft phase: GemmPolicy.abft and ft/inject.py on the serve and train
+# paths, ft/abft.py's offline tree API on the train state
+# ---------------------------------------------------------------------------
+
+CAPTURE = "abft-capture"
+# (kernel, (m, d1, d2), stages): where the guard's checksum GEMMs meet the
+# kernels on the serve and train paths (contracts.abft_stage_shapes of
+# wk/wv, P and Q), f32. The u stage of wk/wv is dense (no kernel).
+ABFT_SHAPES = [
+    ("tsmt", (4096, 256, 2), "c_ref of wk/wv; c_out of train wk/wv"),
+    ("tsmt", (8192, 256, 2), "c_out of serve wk/wv"),
+    ("tsmt", (65024, 4096, 2), "u of P"),
+    ("tsmt", (4096, 4, 2), "c_ref of P; c_out of Q"),
+    ("tsmt", (65024, 4, 2), "c_out of P"),
+    ("tsmt", (65024, 2, 4), "c_ref of Q"),
+    ("tsm2r", (65024, 4096, 2), "v of Q"),
+]
+
+
+class Capture:
+    """A registered executor that runs the route the dispatcher would have
+    chosen (``cuda`` for a kernel kind, ``torch-dense`` else) and keeps,
+    for each watched (entry, kind, shape), copies of the operands and
+    output of its first call (the optimizer updates weights in place) and
+    the fault site and output of every call made in the ``root`` fault
+    scope (so not in a recompute's replay)."""
+
+    def __init__(self, watched):
+        self.watched, self.root = set(watched), None
+        self.first, self.calls = {}, {}
+
+    def __call__(self, entry, kind, a, b, p):
+        from repro_torch.core import tsmm
+        from repro_torch.ft import inject
+
+        route = "torch-dense" if kind == "dense" else "cuda"
+        out = tsmm.executors()[route](entry, kind, a, b, p)
+        key = (entry, kind, (a.shape[0], a.shape[1], b.shape[1]))
+        scope = inject.current_scope()
+        if key in self.watched and scope is not None and scope is self.root:
+            if key not in self.first:
+                self.first[key] = tuple(t.detach().clone()
+                                        for t in (a, b, out))
+            self.calls.setdefault(key, []).append((scope.sites_seen - 1,
+                                                   out))
+        return out
+
+
+@contextlib.contextmanager
+def capturing(watched):
+    """Register a ``Capture`` as executor ``CAPTURE`` for the scope."""
+    from repro_torch.core import tsmm
+
+    cap = Capture(watched)
+    tsmm.register_executor(CAPTURE, cap)
+    try:
+        yield cap
+    finally:
+        tsmm.unregister_executor(CAPTURE)
+
+
+def max_cell(t) -> tuple[int, int]:
+    """(row, col) of the largest |value| of a 2-D tensor."""
+    flat = int(t.float().abs().argmax())
+    return divmod(flat, t.shape[1])
+
+
+def exponent_bit(t, top: bool = False) -> int:
+    """The bit f32's 29 is in ``t``'s dtype (bf16 holds f32's top 16 bits,
+    so 13), or with ``top`` the exponent's top bit (f32 30, bf16 14)."""
+    return (30 if top else 29) - (16 if t.element_size() == 2 else 0)
+
+
+def abft_margin(name, entry, a, b, out) -> dict:
+    """The guard's detection margin on a real protected call: each
+    column's largest checksum deviation over its tolerance
+    (``ft.abft.detect``), the largest and the median over the columns."""
+    from repro_torch.core import tsmm
+    from repro_torch.ft import abft
+
+    a, b, out = a.detach(), b.detach(), out.detach()
+    c_out, c_ref, rows, red, _ = tsmm._abft_checksums(
+        entry, a, b, out, tsmm.GemmPolicy())
+    bad, tol = abft.detect(c_out, c_ref, rows=rows, reduction=red,
+                           eps=abft.tolerance_eps(out.dtype),
+                           amax=out.float().abs().amax(dim=0))
+    ratio = (c_out[:, :2] - c_ref[:, :2]).abs().amax(dim=1) / tol
+    return {"name": name, "entry": entry,
+            "shape": [a.shape[0], a.shape[1], b.shape[1]],
+            "dtype": str(out.dtype)[6:], "rows": rows, "reduction": red,
+            "margin": float(ratio.max()),
+            "median_margin": float(ratio.median()),
+            "clean_detections": int(bad.sum())}
+
+
+def guard_stages(log) -> dict:
+    """The checksum GEMMs of each guarded event in a dispatch log (the
+    three events that follow it), counted by stage route: kind, shape and
+    the kernels launched."""
+    out = {}
+    for i, e in enumerate(log):
+        if e.abft == "none":
+            continue
+        for c in log[i + 1:i + 4]:
+            key = (f"{c.entry} {c.kind} {list(c.shape)} "
+                   f"{[lm.kind for lm in c.launches]}")
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def host_sync_free(x, w) -> dict:
+    """Run one guarded ``tsmm`` on the serve wk operands under each mode,
+    with a bit flip in its output, in CUDA sync-debug "error" mode: True
+    where nothing synchronised the host with the device."""
+    from repro_torch.core import tsmm
+    from repro_torch.ft import inject
+
+    r, c = max_cell(x[:8] @ w)
+    fault = inject.GemmFault(site=0, operand="out", row=r, col=c,
+                             bit=exponent_bit(x))
+    out = {}
+    for mode in ("verify", "correct"):
+        tsmm.tsmm(x, w, policy=tsmm.GemmPolicy(abft=mode))   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with inject.faults(fault):
+                tsmm.tsmm(x, w, policy=tsmm.GemmPolicy(abft=mode))
+            out[mode] = True
+        except RuntimeError as err:
+            out[mode] = str(err)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return out
+
+
+def abft_serve_arm(dev, gpu, cfg, params, prompts, counts, zero_counts):
+    """The abft phase's serve arm (its own path): a prefill through a
+    capture executor finds the first wk call's site and output; one
+    guarded call on its operands per mode must not synchronise the host
+    (``host_sync_free``); then an unguarded prefill, a clean "verify" and
+    a clean "correct" prefill (each after a warm-up: 56 guarded events,
+    logits bit-equal) and a "correct" prefill with a bit flip in the
+    largest cell of the first wk output (repaired: logits bit-equal),
+    each timed. Returns the path's launch counts (the two clean guarded
+    prefills alone: counts zeroed just before, read just after; the fault
+    prefill's are reported apart) and the wk/wv margin."""
+    from repro_torch.core import tsmm
+    from repro_torch.ft import inject
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    key = ("mm", "tsm2r", (BATCH * PROMPT, cfg.d_model, kv))
+    prefill_step, _ = engine.make_serve_fns(cfg)
+    per_prefill = 2 * cfg.n_layers
+
+    def prefill(**pol):
+        cache = model.init_cache(cfg, BATCH, PROMPT, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tsmm.policy(**pol), recorded() as log:
+            logits, _ = prefill_step(params, {"tokens": prompts}, cache)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3, log
+
+    zero_counts()
+    with capturing({key}) as cap, inject.faults() as root:
+        cap.root = root
+        prefill(executor=CAPTURE)
+    (site, first_out) = cap.calls[key][0]
+    margin = abft_margin("serve wk/wv", "mm", *cap.first[key])
+    r, c = max_cell(first_out)
+    fault = inject.GemmFault(site=site, operand="out", row=r, col=c,
+                             bit=exponent_bit(first_out))
+    x, w, _ = cap.first[key]
+    del cap, first_out
+    no_sync = host_sync_free(x, w)
+    check(all(no_sync.values()), f"the guard synchronised the host: "
+          f"{no_sync}")
+    del x, w
+    clean, clean_ms, _ = prefill()
+    for mode in ("verify", "correct"):
+        prefill(abft=mode)       # warm-up: the guard's first launches
+    # The path: one clean "verify" and one clean "correct" prefill, each
+    # counted on its own.
+    times, per_mode = {}, {}
+    zero_counts()
+    for mode in ("verify", "correct"):
+        before = counts()
+        logits, times[mode], log = prefill(abft=mode)
+        per_mode[mode] = {n: v - before[n] for n, v in counts().items()}
+        guarded = [e for e in log if e.abft == mode]
+        check(len(guarded) == per_prefill and {e.kind for e in guarded}
+              == {"tsm2r"}, f"serve {mode}: {len(guarded)} guarded events")
+        check(same_bits(logits, clean), f"serve {mode} prefill logits "
+              "differ from the unguarded prefill's")
+        if mode == "verify":
+            vlog = log
+        del logits, log
+    launches = counts()
+    check(per_mode["verify"] == per_mode["correct"],
+          f"serve launches differ by mode: {per_mode}")
+    zero_counts()
+    with inject.faults(fault) as scope:
+        fixed, correct_ms, clog = prefill(abft="correct")
+    fault_launches = counts()
+    check(scope.applied == [fault], f"serve fault not applied: "
+          f"{scope.applied} (plan {fault})")
+    check([e.faults for e in clog if e.faults] == [(fault,)],
+          "serve fault stamped on one guarded event")
+    check(same_bits(fixed, clean), "serve correct prefill did not repair "
+          f"the fault bit for bit: {normalised_err(fixed, clean)}")
+    prof = device_profile(lambda: prefill(abft="verify"))
+    emit({"phase": "profile", "window": "abft verify prefill", **prof,
+          "unprofiled_ms": times["verify"],
+          "busy_share": prof["device_busy_ms"] / times["verify"],
+          "gpu": gpu})
+    emit({"phase": "abft", "arm": "serve", "model": cfg.name,
+          "batch": BATCH, "prompt": PROMPT, "fault": dataclasses.asdict(fault),
+          "first_wk_site": site, "guarded_per_prefill": len(guarded),
+          "checksum_stages_per_prefill": guard_stages(vlog),
+          "prefill_ms": clean_ms, "verify_prefill_ms": times["verify"],
+          "correct_prefill_ms": times["correct"],
+          "correct_fault_prefill_ms": correct_ms,
+          "clean_bit_equal": True, "correct_fault_bit_equal": True,
+          "host_sync_free": no_sync,
+          "launches": launches, "launches_per_prefill": per_mode,
+          "fault_prefill_launches": fault_launches, "gpu": gpu})
+    return launches, margin
+
+
+def abft_train_arms(dev, gpu, cfg, step, fresh_state, batches, clean,
+                    counts, zero_counts, shapes) -> tuple[dict, list]:
+    """The abft phase's train arms (their own path): 3 "verify" steps from
+    the kernel arm's state and batches (bit-equal loss and grad norm, 66
+    guarded tsm2r and 2 guarded tsmt events a step; the first through a
+    capture executor, for the sites and the margins' operands), one
+    "verify" and one "correct" step with a bit flip in the largest cell of
+    the last microbatch's first wk output (poisoned, then repaired bit for
+    bit, in the forward and in its remat recompute), and the offline tree
+    API on the last state's parameters. Returns the path's launch counts
+    (the verify steps alone: counts zeroed just before, read just after;
+    the fault arms' and the offline API's are reported apart) and the
+    margins of train wk/wv, P and Q."""
+    import math
+
+    from repro_torch.core import tsmm
+    from repro_torch.ft import abft, inject
+
+    wkv, p_shape = shapes
+    # wk/wv of every layer and microbatch, twice under remat, and P of the
+    # two compressed leaves on tsm2r; their Q on tsmt.
+    want = {"tsm2r": 2 * cfg.n_layers * cfg.microbatch
+            * (2 if cfg.remat else 1) + 2, "tsmt": 2}
+    keys = {"train wk/wv": ("mm", "tsm2r", wkv), "P": ("mm", "tsm2r", p_shape),
+            "Q": ("mmt", "tsmt", p_shape)}
+    state = fresh_state()
+    recs, logs_stages = [], None
+    with capturing(keys.values()) as cap:
+        # The path: the verify steps alone (counts zeroed just before,
+        # read just after; the fault arms and the offline API apart).
+        zero_counts()
+        for i in range(TRAIN_STEPS):
+            pin = {"executor": CAPTURE} if i == 0 else {}
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with tsmm.policy(abft="verify", **pin), \
+                    inject.faults() as root, recorded() as log:
+                cap.root = root
+                state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            guarded = {k: sum(e.abft == "verify" and e.kind == k
+                              for e in log) for k in ("tsm2r", "tsmt")}
+            rec = {"step": i + 1, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "step_ok": bool(m["step_ok"]), "ms": ms,
+                   "guarded": guarded,
+                   "launches": {n: v - before[n]
+                                for n, v in counts().items()}}
+            rec["bit_equal"] = (rec["loss"] == clean[i]["loss"]
+                                and rec["grad_norm"] == clean[i]["grad_norm"])
+            recs.append(rec)
+            if logs_stages is None:
+                logs_stages = guard_stages(log)
+            check(rec["step_ok"] and rec["bit_equal"], f"train verify step "
+                  f"{i + 1} against the unguarded arm's {clean[i]}: {rec}")
+            check(guarded == want, f"train verify step {i + 1} guarded "
+                  f"events {guarded}, expected {want}")
+            del log, m
+        launches = counts()
+        margins = [abft_margin(n, k[0], *cap.first[k])
+                   for n, k in keys.items()]
+        verify_ms = statistics.median(x["ms"] for x in recs)
+        with tsmm.policy(abft="verify"):
+            prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
+        emit({"phase": "profile", "window": "abft verify train step", **prof,
+              "unprofiled_ms": verify_ms,
+              "busy_share": prof["device_busy_ms"] / verify_ms, "gpu": gpu})
+        # The last microbatch's first wk: its forward sites follow the
+        # earlier microbatches' (backward GEMMs and recomputes are no
+        # sites), 2 wk/wv calls a layer.
+        wk_calls = cap.calls[keys["train wk/wv"]]
+        site, out = wk_calls[(cfg.microbatch - 1) * 2 * cfg.n_layers]
+        check(len(wk_calls) == cfg.microbatch * 2 * cfg.n_layers,
+              f"wk/wv calls in the root scope: {len(wk_calls)}")
+        r, c = max_cell(out)
+        fault = inject.GemmFault(site=site, operand="out", row=r, col=c,
+                                 bit=exponent_bit(out))
+        del wk_calls, out
+    arms = {}
+    for mode in ("verify", "correct"):
+        del state
+        torch.cuda.empty_cache()
+        state = fresh_state()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tsmm.policy(abft=mode), inject.faults(fault) as scope, \
+                recorded() as log:
+            state, m = step(state, batches[0])
+        torch.cuda.synchronize()
+        arm = {"ms": (time.perf_counter() - t0) * 1e3,
+               "launches": counts(),
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "step_ok": bool(m["step_ok"]),
+               "applied": [dataclasses.asdict(f) for f in scope.applied],
+               # the forward's event and the recompute's replay
+               "faulted_events": [e.abft for e in log if e.faults]}
+        arms[mode] = arm
+        check(scope.applied == [fault], f"train {mode} fault applied "
+              f"{scope.applied} (plan {fault})")
+        check(arm["faulted_events"] == [mode, mode],
+              f"train {mode}: the fault landed on {arm['faulted_events']}")
+        if mode == "verify":
+            check(math.isnan(arm["loss"]) and not arm["step_ok"],
+                  f"train verify fault not poisoned: {arm}")
+        else:
+            check(arm["step_ok"] and arm["loss"] == clean[0]["loss"]
+                  and arm["grad_norm"] == clean[0]["grad_norm"],
+                  f"train correct fault not repaired bit for bit: {arm} "
+                  f"against {clean[0]}")
+        del log, m
+    # Offline: checksums of the state's parameters, then a flip of the
+    # exponent's top bit in the largest cell of embed.table (a bf16 flip
+    # of f32 bit 29's place shrinks the cell below the bf16 tolerance).
+    params = dict(state["params"].named_parameters())
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = abft.encode_tree(params)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    ok, _ = abft.verify_tree(params, sums)
+    table = params["embed.table"]
+    r, c = max_cell(table)
+    bit = exponent_bit(table, top=True)
+    bad = {**params, "embed.table": inject.flip_bit(table, r, c, bit)}
+    caught, _ = abft.verify_tree(bad, sums)
+    ok_before, fixed = abft.verify_and_correct_tree(bad, sums)
+    restored = all(same_bits(fixed[n].detach(), t.detach())
+                   for n, t in params.items())
+    leaves = sum(v is not None for v in sums.values())
+    offline_launches = counts()
+    check(bool(ok) and not bool(caught) and not bool(ok_before) and restored,
+          f"offline ABFT: clean ok {bool(ok)}, flip caught {not bool(caught)}"
+          f", detected {not bool(ok_before)}, restored {restored}")
+    emit({"phase": "abft", "arm": "train", "model": cfg.name,
+          "layers": cfg.n_layers, "verify_steps": recs,
+          "median_verify_step_ms": verify_ms,
+          "median_unguarded_step_ms": statistics.median(
+              x["ms"] for x in clean),
+          "checksum_stages_per_step": logs_stages,
+          "fault": dataclasses.asdict(fault), "fault_arms": arms,
+          "offline": {"leaves_encoded": leaves, "leaves": len(params),
+                      "encode_ms": encode_ms, "flip": [r, c, bit],
+                      "clean_ok": bool(ok), "restored_bit_for_bit": restored,
+                      "launches": offline_launches},
+          "launches": launches, "gpu": gpu})
+    del state, params, bad, fixed, sums
+    torch.cuda.empty_cache()
+    return launches, margins
 
 
 SCHEME_BAND = 256   # the JAX ``quantize_param`` default band
@@ -2805,19 +3328,27 @@ def main() -> int:
                   (64, 24, 16)],
         "tsm2l": [(1 << 20, 16, 16), (10 ** 7, 16, 16), (102400, 4, 4),
                   (10000, 300, 20), (5000, 77, 1), (4097, 3, 5),
-                  (1003, 129, 16), (333, 1, 16), (4096, 64, 12)],
+                  (1003, 129, 16), (333, 1, 16), (4096, 64, 12),
+                  (65024, 4, 4)],
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
                  (10000, 300, 20), (4099, 100, 1),
-                 (1000, 100, 3)],       # short m: plans S = 1
+                 (1000, 100, 3),        # short m: plans S = 1
+                 (65024, 4096, 4), (65024, 4, 4), (1 << 20, 16, 16)],
     }
     # The shape and dtype each kernel meets on the main path.
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
                  "tsm2l": ((102400, 4, 4), torch.float32),
                  "tsmt": ((65536, 128, 4), torch.float32)}
     # tsm2r on the training path: wk/wv forward of a 4096-token microbatch
-    # (bf16) and PowerSGD's P = G Q of embed and lm_head (f32).
+    # (bf16) and PowerSGD's P = G Q of embed and lm_head (f32); tsmt at
+    # PowerSGD's Q and, with tsm2l, at the TSQR passes of the tsqr and
+    # train-tsqr paths (Gram and apply at [65024,4] and [2^20,16]).
     train_cases = {"tsm2r": [((4096, 4096, 256), torch.bfloat16),
-                             ((65024, 4096, 4), torch.float32)]}
+                             ((65024, 4096, 4), torch.float32)],
+                   "tsmt": [((65024, 4096, 4), torch.float32),
+                            ((65024, 4, 4), torch.float32),
+                            ((1 << 20, 16, 16), torch.float32)],
+                   "tsm2l": [((65024, 4, 4), torch.float32)]}
     # tsm2l at the paper's shapes (its stream body), timed on the device.
     paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
                              ((1 << 20, 16, 16), torch.bfloat16),
@@ -2924,6 +3455,7 @@ def main() -> int:
           f"tsm2l at {big['shape']}: body {big['body']}, "
           f"{big['device_ms']} ms on the device (tile body {tile_ms}, "
           f"limit {TSM2L_STREAM_MAX_MS})")
+    at_abft = abft_kernel_rows(dev, uniform, gpu, kernels)
     tsm2r_probes(dev, uniform, gpu)
     skinny_probes(dev, gpu)
     measured.update(split_kernel_phase(dev, uniform, gpu))
@@ -3293,7 +3825,14 @@ def main() -> int:
           "gpu": gpu})
     profile_serve(engine, model, params, cfg, prompts, out, dev,
                   {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu)
-    del params, prompts, out, step_logits, dense_logits, forced, full
+    del out, step_logits, dense_logits, forced, full
+    torch.cuda.empty_cache()
+
+    # -- 4b. abft, serve arm (its own path) ---------------------------------
+    PATH["name"] = "abft_serve"
+    abft_serve_launches, serve_margin = abft_serve_arm(
+        dev, gpu, cfg, params, prompts, counts, zero_counts)
+    del params, prompts
     torch.cuda.empty_cache()
 
     # -- 5. serve chatglm3-6b from int8 records (the serve-int8 path) ------
@@ -3306,7 +3845,18 @@ def main() -> int:
 
     # -- 7. train chatglm3-6b (the training main path) ---------------------
     PATH["name"] = "train"
-    train_launches = train_phase(dev, gpu, counts, zero_counts)
+    train_launches, (abft_train_launches, train_margins) = train_phase(
+        dev, gpu, counts, zero_counts)
+    # The guard's margins on real operands: no clean call may be detected.
+    margins = [serve_margin, *train_margins]
+    emit({"phase": "abft_margin", "tol_factor": 16.0, "shapes": margins,
+          "gpu": gpu})
+    check(all(m["clean_detections"] == 0 for m in margins),
+          f"the ABFT guard detects a clean call: {margins}")
+    check(abft_train_launches["tsm2r"] > 0 and abft_serve_launches["tsm2r"]
+          > 0 and abft_train_launches["tsmt"]
+          + abft_train_launches["tsmt_split"] > 0,
+          f"abft paths: {abft_serve_launches} {abft_train_launches}")
     check(train_launches["tsm2r"] > 0
           and train_launches["tsmt"] + train_launches["tsmt_split"] > 0,
           f"tsm2r or a TSMT kernel was not launched on the training main "
@@ -3314,7 +3864,8 @@ def main() -> int:
 
     # -- 8. train chatglm3-6b under int8 (the train-int8 path) -------------
     PATH["name"] = "train_int8"
-    train8_launches = train_phase(dev, gpu, counts, zero_counts, quant=True)
+    train8_launches, _ = train_phase(dev, gpu, counts, zero_counts,
+                                     quant=True)
     check(train8_launches["tsm2r_q8"] > 0
           and train8_launches["tsmt_q8"] + train8_launches["tsmt_q8_split"]
           > 0, f"tsm2r_q8 or an int8 TSMT kernel was not launched on the "
@@ -3346,7 +3897,9 @@ def main() -> int:
     paths = {"dispatch": dispatch_launches, "serve": serve_launches,
              "train": train_launches, "serve_int8": serve8_launches,
              "train_int8": train8_launches, "tsqr": tsqr_launches,
-             "train_tsqr": train_tsqr_launches}
+             "train_tsqr": train_tsqr_launches,
+             "abft_serve": abft_serve_launches,
+             "abft_train": abft_train_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"
@@ -3391,7 +3944,22 @@ def main() -> int:
                 "library_ms": r["library_ms"],
                 "library_dq_ms": r.get("library_dq_ms"),
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_paper[name]]} if name in at_paper else {})})
+                for r in at_paper[name]]} if name in at_paper else {}),
+            **({"at_abft_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                "stages": r["stages"], "dispatch_splits": r["dispatch_splits"],
+                "dispatch_device_ms": r["dispatch_device_ms"],
+                **({k: r[k] for k in ("split_kernel", "split_max_err",
+                                      "dispatch_max_err", "split_ms",
+                                      "split_device_ms")}
+                   if "split_device_ms" in r else {}),
+                **({"body": r["body"]} if "body" in r else {}),
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_abft[name]]} if name in at_abft else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

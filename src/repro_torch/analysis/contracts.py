@@ -70,7 +70,9 @@ __all__ = [
     "launch_grid",
     "check_backward_policy",
     "qr_stage_shapes",
+    "abft_stage_shapes",
     "TSMT_MAX_B",
+    "ABFT_TOL_FACTOR",
 ]
 
 KINDS = ("tsm2r", "tsm2l", "tsmt")
@@ -80,6 +82,13 @@ KINDS = ("tsm2r", "tsm2l", "tsmt")
 # accumulator limit, kept so both packages refuse the same shapes;
 # ``kernels/ops.py`` re-exports it).
 TSMT_MAX_B = 512
+
+# Safety margin on the online-ABFT detection tolerance (``ft/abft.py``'s
+# ``tolerance``): the threshold is ABFT_TOL_FACTOR * eps * (sqrt(rows) +
+# sqrt(reduction) + 32) * column_magnitude, the JAX package's value. The
+# sqrt terms are random-walk rounding growth over the checksum reduction
+# and the protected GEMM's own contraction; the factor absorbs the tail.
+ABFT_TOL_FACTOR = 16.0
 
 # The bodies each kind's kernels choose between (``csrc/``): tsm2r's
 # tensor-core "wgmma", streaming "skinny" and tile "simt"; tsm2l's
@@ -509,7 +518,9 @@ def check_backward_policy(fwd, bwd) -> list[Violation]:
       forward shape), while "auto"/"never" are kept (scope-wide intent);
     * the executor pin is dropped (cotangent shapes re-select);
     * a forward-kind force becomes "auto"; "dense"/"auto" stay;
-    * ``quant`` is kept (scope-wide numeric intent).
+    * ``quant`` is kept (scope-wide numeric intent);
+    * ``abft`` is kept (scope-wide integrity intent: the cotangent GEMMs
+      of a verify/correct scope get their own checksums).
     """
     subject = f"backward_policy({fwd!r})"
     out = []
@@ -537,6 +548,13 @@ def check_backward_policy(fwd, bwd) -> list[Violation]:
             f"backward quant={getattr(bwd, 'quant', 'none')!r}, expected "
             f"{want_quant!r}: quant is scope-wide numeric intent and must "
             "survive the backward's re-dispatch"))
+    want_abft = getattr(fwd, "abft", "none")
+    if getattr(bwd, "abft", "none") != want_abft:
+        out.append(Violation(
+            "abft-policy", subject,
+            f"backward abft={getattr(bwd, 'abft', 'none')!r}, expected "
+            f"{want_abft!r}: abft is scope-wide integrity intent and must "
+            "survive the backward's re-dispatch"))
     return out
 
 
@@ -560,3 +578,38 @@ def qr_stage_shapes(m: int, r: int, *, shards: int = 1
             "qr_stage_shapes: the sharded tree TSQR is not ported "
             f"(shards={shards})")
     return (("tsmt", (m, r, r)), ("tsm2l", (m, r, r)))
+
+
+# ---------------------------------------------------------------------------
+# Online-ABFT stage contracts
+# ---------------------------------------------------------------------------
+
+def abft_stage_shapes(kind: str, shape, s: int = 2
+                      ) -> tuple[tuple[str, tuple[int, int, int]], ...]:
+    """The checksum-GEMM (entry, shape) pairs the online ABFT guard
+    (``core/tsmm.py``, ``GemmPolicy.abft``) dispatches around one
+    protected ``(kind, (m, d1, d2))`` GEMM, with ``s`` checksum columns
+    (>= 2: the plain column and the ramp; fewer cannot localize).
+
+    For ``tsm2r``/``tsm2l`` (``A(m,k) @ B(k,n)``, shape ``(m, k, n)``):
+    ``u = A^T e`` (mmt over m), ``c_ref = B^T u`` (mmt over k),
+    ``c_out = C^T e`` (mmt over m). For ``tsmt`` (``X(m,a)^T Y(m,b)``,
+    shape ``(m, a, b)``): ``v = X e`` (mm over m), ``c_ref^T = v^T Y``
+    (mmt over m), ``c_out = C^T e`` (mmt over a).
+    """
+    if s < 2:
+        raise ValueError(
+            f"abft_stage_shapes: s={s} checksum columns cannot localize "
+            "(need the plain column AND the ramp: s >= 2)")
+    m, d1, d2 = shape
+    if kind in ("tsm2r", "tsm2l"):
+        return (("mmt", (m, d1, s)),       # u = A^T e
+                ("mmt", (d1, d2, s)),      # c_ref = B^T u
+                ("mmt", (m, d2, s)))       # c_out = C^T e
+    if kind == "tsmt":
+        return (("mm", (m, d1, s)),        # v = X e
+                ("mmt", (m, s, d2)),       # c_ref^T = v^T Y
+                ("mmt", (d1, d2, s)))      # c_out = C^T e
+    raise ValueError(
+        f"abft_stage_shapes: unknown kind {kind!r}: the online guard only "
+        f"protects {', '.join(KINDS)}")

@@ -36,9 +36,23 @@ ignores the knob, so a ``mode="dense"`` arm stays exact.
 ``analysis/contracts.py`` before it runs. ``bound_class`` is the paper's
 bound classifier (memory, compute or latency) on the H100's ridges.
 
+``register_executor`` adds backends; ``GemmPolicy.executor`` pins one.
+Every executor invocation passes through the deterministic fault-injection
+tap (``ft/inject.py``), and ``GemmPolicy.abft`` wraps kernel-kind results
+in an online Huang-Abraham checksum guard (verify, or locate and correct)
+whose checksum GEMMs dispatch right back through this module
+(``ft/abft.py`` owns the math).
+
+The process default is ``GemmPolicy()``. ``refresh_default_policy()``
+reads the JAX package's deprecated environment variables into it on
+request (``REPRO_TSMM=off`` gives ``mode="dense"``,
+``REPRO_BF16_PARAM_GRADS=1`` ``param_dtype_grads=True``); importing this
+module reads no environment, so a variable left set cannot turn the
+port's paths dense.
+
 Both entries are differentiable: the ops they dispatch to are
-``torch.autograd.Function``s whose backward re-enters this dispatcher under
-``backward_policy`` of the caller's scope.
+``torch.autograd.Function``s whose backward re-enters this dispatcher
+inside ``backward_scope`` of the caller's policy.
 """
 
 from __future__ import annotations
@@ -47,10 +61,15 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import os
+import warnings
 
 import torch
 
 from repro_torch.core import perf_model
+# inject sits below every layer (torch only), so the dispatcher can route
+# each executor invocation through its fault tap.
+from repro_torch.ft import inject as _inject
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -58,11 +77,19 @@ __all__ = [
     "bound_class",
     "policy",
     "current_policy",
+    "default_policy",
+    "refresh_default_policy",
     "backward_policy",
+    "backward_scope",
+    "enabled",
     "classify_gemm",
     "classify_gemm_t",
     "tsmm",
     "tsmm_t",
+    "register_executor",
+    "unregister_executor",
+    "executors",
+    "executor_reduce_contract",
     "record_dispatches",
     "DispatchEvent",
     "LaunchMeta",
@@ -86,6 +113,12 @@ _MM_KINDS = ("auto", "dense", "tsm2r", "tsm2l")
 _MMT_KINDS = ("auto", "dense", "tsmt")
 _ALL_MODES = ("auto", "dense", "tsm2r", "tsm2l", "tsmt")
 _QUANT_MODES = ("none", "int8")
+_ABFT_MODES = ("none", "verify", "correct")
+# The reference's GemmPolicy.reduce modes, which an executor declares as
+# its reduce contract. One process reduces nothing, so every built-in
+# executor implements all three; the policy field waits for the
+# multi-process executors.
+_REDUCE_MODES = ("psum", "psum_scatter", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +148,34 @@ class GemmPolicy:
     shared memory, the grid) against ``analysis/contracts.py`` before it
     launches, and raise ``ValueError`` on a violation
     (``ops.resolve_params``). ``backward_policy`` keeps it.
+
+    ``param_dtype_grads``: ``models.layers.dense`` runs the backward of
+    its projections through its own ``tsmm_t`` / ``tsmm`` pair and rounds
+    each gradient to its operand's dtype there (see ``layers.dense``).
+
+    ``abft``: online algorithm-based fault tolerance for the kernel-kind
+    dispatches (tsm2r, tsm2l, tsmt):
+
+    * "none" -- no checksums; the guard is never entered.
+    * "verify" -- every kernel-kind result is checked against weighted
+      column checksums (plain and ramp) computed through this dispatcher
+      (the checksum of the output equals the GEMM of the operand
+      checksum) at a shape- and dtype-derived tolerance
+      (``ft.abft.tolerance``); a detected fault poisons the whole output
+      with NaN on the device, no host sync, so a finiteness check
+      downstream (``step_ok``) sees it.
+    * "correct" -- also locates a single faulty output row from the
+      ramp/plain deviation ratio and repairs it, bit for bit for a bit
+      flip (a snap to the nearest single-bit-flip neighbour of a dense
+      recompute of the row); what one row cannot explain is poisoned.
+
+    The checksum GEMMs dispatch under a neutral policy (``abft="none"``,
+    "auto" mode, no executor pin, ``quant="none"``, an int ``split`` back
+    to "auto") on detached float32 operands, so they reach the kernels at
+    their own shapes. On a clean run the guarded output equals the
+    unguarded one bit for bit and its gradient passes straight through.
+    ``backward_policy`` keeps ``abft``: cotangent GEMMs of a guarded
+    scope are guarded too.
     """
 
     mode: str = "auto"
@@ -127,6 +188,8 @@ class GemmPolicy:
     split: str | int = "auto"
     quant: str = "none"
     verify_contracts: bool = False
+    param_dtype_grads: bool = False
+    abft: str = "none"
 
     def __post_init__(self):
         s = self.split
@@ -144,6 +207,33 @@ class GemmPolicy:
             raise ValueError(
                 f"unknown GemmPolicy quant {self.quant!r}: valid values are "
                 f"{', '.join(_QUANT_MODES)}")
+        if self.abft not in _ABFT_MODES:
+            raise ValueError(
+                f"unknown GemmPolicy abft {self.abft!r}: valid values are "
+                f"{', '.join(_ABFT_MODES)}")
+
+
+def _policy_from_env() -> GemmPolicy:
+    """The policy the deprecated environment variables describe, read by
+    ``refresh_default_policy`` only."""
+    kw = {}
+    raw = os.environ.get("REPRO_TSMM")
+    if raw is not None:
+        warnings.warn(
+            "REPRO_TSMM is deprecated; use `with tsmm.policy(mode=...)` or "
+            "tsmm.refresh_default_policy() after changing it",
+            DeprecationWarning, stacklevel=3)
+        if raw.lower() in ("off", "0", "false"):
+            kw["mode"] = "dense"
+    raw = os.environ.get("REPRO_BF16_PARAM_GRADS")
+    if raw is not None:
+        warnings.warn(
+            "REPRO_BF16_PARAM_GRADS is deprecated; use "
+            "`with tsmm.policy(param_dtype_grads=True)`",
+            DeprecationWarning, stacklevel=3)
+        if raw == "1":
+            kw["param_dtype_grads"] = True
+    return GemmPolicy(**kw)
 
 
 _DEFAULT_POLICY = GemmPolicy()
@@ -151,9 +241,23 @@ _POLICY_VAR: contextvars.ContextVar[GemmPolicy | None] = \
     contextvars.ContextVar("repro_torch_gemm_policy", default=None)
 
 
+def default_policy() -> GemmPolicy:
+    """The process-default policy: ``GemmPolicy()``, or what the last
+    ``refresh_default_policy`` read."""
+    return _DEFAULT_POLICY
+
+
+def refresh_default_policy() -> GemmPolicy:
+    """Read the deprecated environment variables into the process default
+    (tests, tools). Unlike the JAX package, the import does not."""
+    global _DEFAULT_POLICY
+    _DEFAULT_POLICY = _policy_from_env()
+    return _DEFAULT_POLICY
+
+
 def current_policy() -> GemmPolicy:
     """The innermost active ``with tsmm.policy(...)`` scope, else the
-    default policy."""
+    process default."""
     return _POLICY_VAR.get() or _DEFAULT_POLICY
 
 
@@ -178,13 +282,29 @@ def backward_policy(p: GemmPolicy) -> GemmPolicy:
     """Policy for the backward's re-dispatch: the caller's scope, minus a
     forward-kind force and any executor pin (cotangent shapes classify for
     themselves). An int ``split`` was chosen for the forward shape, so it
-    goes back to "auto"; "never", a "dense" mode and ``quant`` are
-    scope-wide intent and stay."""
+    goes back to "auto"; "never", a "dense" mode, ``quant``, ``abft`` and
+    ``param_dtype_grads`` are scope-wide intent and stay."""
     mode = p.mode if p.mode in ("auto", "dense") else "auto"
     split = "auto" if isinstance(p.split, int) else p.split
     if mode == p.mode and p.executor is None and split == p.split:
         return p
     return dataclasses.replace(p, mode=mode, executor=None, split=split)
+
+
+@contextlib.contextmanager
+def backward_scope(p: GemmPolicy):
+    """Where a backward re-dispatches its cotangent GEMMs: yields
+    ``backward_policy(p)`` and suspends fault injection for the block, so
+    only forward GEMMs are fault sites (``ft/inject.py``). Every
+    ``autograd.Function`` whose backward calls this dispatcher enters it."""
+    with _inject.suspended():
+        yield backward_policy(p)
+
+
+def enabled() -> bool:
+    """Deprecated alias: True unless the current policy pins the dense
+    path (the old ``REPRO_TSMM=off`` check)."""
+    return current_policy().mode != "dense"
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +385,14 @@ class DispatchEvent:
     the policy's split knob; ``quant`` its quantization knob ("none" |
     "int8"), so a spy can check that an int8 scope reached the int8
     kernels; ``launches`` the kernel launches the call resolved to (empty
-    on the dense path)."""
+    on the dense path).
+
+    ``abft`` is the guard mode wrapped around THIS dispatch's result
+    ("none" | "verify" | "correct"): the protected GEMM of a guarded scope
+    carries the mode and the checksum GEMMs of its guard carry "none", so
+    a spy sees exactly one guarded event per protected call. ``faults``
+    holds the ``ft.inject.GemmFault``s the injection tap applied inside
+    this dispatch."""
 
     entry: str       # "mm" (A @ B) | "mmt" (X^T Y)
     kind: str        # "tsm2r" | "tsm2l" | "tsmt" | "dense"
@@ -274,12 +401,17 @@ class DispatchEvent:
     split: str | int = "auto"
     quant: str = "none"
     launches: tuple = ()       # of LaunchMeta
+    abft: str = "none"
+    faults: tuple = ()         # of ft.inject.GemmFault
 
 
 _LISTENERS: list = []
 # Per-dispatch LaunchMeta collectors, pushed around an executor while a
 # spy listens; ``kernels/ops.py`` reports into the innermost one.
 _LAUNCH_NOTES: list = []
+# The parallel stack of applied-fault collectors: _run_executor reports
+# the GemmFaults the tap landed into the innermost frame.
+_FAULT_NOTES: list = []
 
 
 def recording() -> bool:
@@ -307,20 +439,36 @@ def record_dispatches():
         _LISTENERS.remove(log.append)
 
 
+def _run_executor(ex, entry, kind, a, b, p):
+    """Invoke a registered executor through the fault-injection tap
+    (``ft.inject.tap_executor``): outside an injection scope this is
+    exactly ``ex(...)``; inside one, the plan's bit flips for this site
+    apply and land on the innermost dispatch's event."""
+    out, applied = _inject.tap_executor(ex, entry, kind, a, b, p)
+    if applied and _FAULT_NOTES:
+        _FAULT_NOTES[-1].extend(applied)
+    return out
+
+
 def _dispatch(entry: str, kind: str, executor: str, shape, p: GemmPolicy,
-              run):
-    """Run the executor, then emit the spy event with the launches it
-    noted. Without listeners this is just ``run()``."""
+              run, abft: str = "none"):
+    """Run the executor, then emit the spy event with the launches and
+    faults it noted. Without listeners this is just ``run()``. ``abft`` is
+    the guard mode stamped on the event: the caller passes the policy's
+    mode only for the dispatch the guard protects."""
     if not _LISTENERS:
         return run()
     notes: list = []
+    fault_notes: list = []
     _LAUNCH_NOTES.append(notes)
+    _FAULT_NOTES.append(fault_notes)
     try:
         out = run()
     finally:
+        _FAULT_NOTES.pop()
         _LAUNCH_NOTES.pop()
     ev = DispatchEvent(entry, kind, executor, tuple(shape), p.split,
-                       p.quant, tuple(notes))
+                       p.quant, tuple(notes), abft, tuple(fault_notes))
     for cb in tuple(_LISTENERS):
         cb(ev)
     return out
@@ -371,8 +519,53 @@ def _exec_ref(entry, kind, a, b, p):
     return _exec_ops(entry, kind, a, b, p)
 
 
-_EXECUTORS = {"torch-dense": _exec_dense, "cuda": _exec_cuda,
-              "torch-ref": _exec_ref}
+_EXECUTORS: dict = {}
+# name -> the reduce modes the executor declared (its reduce contract).
+_EXECUTOR_CONTRACTS: dict = {}
+
+
+def register_executor(name: str, fn, *, reduce: tuple[str, ...] | None = None,
+                      overwrite: bool = False):
+    """Register a backend ``fn(entry, kind, a, b, policy) -> tensor``;
+    returns ``fn``. ``reduce`` declares the reduce modes it implements for
+    ``tsmm_t`` (None: all of them, right for an executor that reduces
+    nothing across processes)."""
+    if name in _EXECUTORS and not overwrite:
+        raise ValueError(f"executor {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    if reduce is not None:
+        bad = [r for r in reduce if r not in _REDUCE_MODES]
+        if bad:
+            raise ValueError(
+                f"executor {name!r} declares unknown reduce modes {bad}: "
+                f"valid values are {', '.join(_REDUCE_MODES)}")
+    _EXECUTORS[name] = fn
+    _EXECUTOR_CONTRACTS[name] = (tuple(_REDUCE_MODES) if reduce is None
+                                 else tuple(reduce))
+    return fn
+
+
+def unregister_executor(name: str) -> None:
+    """Remove a registered backend (built-ins included)."""
+    _EXECUTORS.pop(name, None)
+    _EXECUTOR_CONTRACTS.pop(name, None)
+
+
+def executors() -> dict:
+    """Snapshot of the registry (name -> executor)."""
+    return dict(_EXECUTORS)
+
+
+def executor_reduce_contract(name: str) -> tuple[str, ...]:
+    """The reduce modes executor ``name`` declared at registration."""
+    if name not in _EXECUTOR_CONTRACTS:
+        raise ValueError(f"executor {name!r} is not registered")
+    return _EXECUTOR_CONTRACTS[name]
+
+
+register_executor("torch-dense", _exec_dense, reduce=_REDUCE_MODES)
+register_executor("cuda", _exec_cuda, reduce=_REDUCE_MODES)
+register_executor("torch-ref", _exec_ref, reduce=_REDUCE_MODES)
 
 
 def _select_executor(kind: str, device: torch.device, p: GemmPolicy) -> str:
@@ -408,6 +601,73 @@ def _forced_kind(entry: str, mode: str | None, p: GemmPolicy) -> str | None:
 
 
 # ---------------------------------------------------------------------------
+# Online ABFT (GemmPolicy.abft): checksum guard around the kernel dispatches
+# ---------------------------------------------------------------------------
+
+_ABFT_KINDS = ("tsm2r", "tsm2l", "tsmt")
+
+
+def _abft_wraps(kind: str, p: GemmPolicy) -> bool:
+    """Does the online checksum guard wrap this dispatch? (The reference
+    also skips its shard_map executors, which one process does not have.)"""
+    return p.abft != "none" and kind in _ABFT_KINDS
+
+
+def _abft_checksums(entry: str, x, y, out, p: GemmPolicy):
+    """The two checksums of one protected dispatch, each ``(cols, 2)``
+    float32: ``c_out`` straight from ``out`` and ``c_ref`` pushed through
+    the operands (``e^T (A B) == (e^T A) B``), with ``rows`` and
+    ``reduction`` (what ``ft.abft.tolerance`` scales with) and
+    ``ref_row``, the dense float32 recompute of one output row at a 0-dim
+    index tensor. The checksum GEMMs re-enter this dispatcher under a
+    neutral policy, on detached float32 copies of the operands.
+
+    ``entry="mm"``: x=(m, k), y=(k, n), out=(m, n); rows = m, reduction =
+    k. ``entry="mmt"``: x=(m, a), y=(m, b), out=(a, b); rows = a,
+    reduction = m."""
+    from repro_torch.ft import abft as _abft  # deferred: ft.abft imports tsmm
+
+    pc = dataclasses.replace(
+        p, abft="none", mode="auto", executor=None, quant="none",
+        split="auto" if isinstance(p.split, int) else p.split)
+    xs, ys = x.detach().float(), y.detach().float()
+    if entry == "mm":
+        rows, red = x.shape
+        e = _abft.checksum_weights(rows, device=x.device)
+        u = tsmm_t(xs, e, policy=pc)               # (k, s) = A^T e
+        c_ref = tsmm_t(ys, u, policy=pc)           # (n, s) = B^T (A^T e)
+
+        # A multiply-and-sum, so the row is a true f32 product whatever
+        # the matmul precision flags say.
+        def ref_row(i):
+            return (xs.index_select(0, i.view(1))[0, :, None] * ys).sum(0)
+    else:
+        rows, red = out.shape[0], x.shape[0]
+        e = _abft.checksum_weights(rows, device=x.device)
+        v = tsmm(xs, e, policy=pc)                 # (m, s) = X e
+        c_ref = tsmm_t(v, ys, policy=pc).t()       # (b, s) = ((X e)^T Y)^T
+
+        def ref_row(i):
+            return (xs.index_select(1, i.view(1)) * ys).sum(0)
+    c_out = tsmm_t(out.detach().float(), e, policy=pc)   # (cols, s)
+    return c_out, c_ref, rows, red, ref_row
+
+
+def _abft_guard(entry: str, x, y, out, p: GemmPolicy):
+    """Verify, or locate and correct, one protected dispatch's 2-D
+    ``out`` (``ft.abft.locate_and_correct``). On a clean run the result
+    equals ``out`` bit for bit and its gradient passes straight through to
+    ``out``; the guard adds no backward GEMMs."""
+    from repro_torch.ft import abft as _abft
+
+    c_out, c_ref, rows, red, ref_row = _abft_checksums(entry, x, y, out, p)
+    return _abft.locate_and_correct(
+        out, c_out, c_ref, rows=rows, reduction=red, mode=p.abft,
+        eps=_abft.tolerance_eps(out.dtype, p.quant),
+        ref_row=ref_row if p.abft == "correct" else None)
+
+
+# ---------------------------------------------------------------------------
 # Public entries
 # ---------------------------------------------------------------------------
 
@@ -436,11 +696,17 @@ def tsmm(a: torch.Tensor, b: torch.Tensor, *, mode: str | None = None,
 
     def run():
         if a.dim() > 2 and name != "torch-dense":
-            return ex("mm", kind, a.reshape(m_tall, k), b, p).reshape(
-                *a.shape[:-1], n)
-        return ex("mm", kind, a, b, p)
+            return _run_executor(ex, "mm", kind, a.reshape(m_tall, k), b,
+                                 p).reshape(*a.shape[:-1], n)
+        return _run_executor(ex, "mm", kind, a, b, p)
 
-    return _dispatch("mm", kind, name, (m_tall, k, n), p, run)
+    guard = _abft_wraps(kind, p)
+    out = _dispatch("mm", kind, name, (m_tall, k, n), p, run,
+                    abft=p.abft if guard else "none")
+    if guard:
+        out = _abft_guard("mm", a.reshape(m_tall, k), b,
+                          out.reshape(m_tall, n), p).reshape(out.shape)
+    return out
 
 
 def tsmm_t(x: torch.Tensor, y: torch.Tensor, *, mode: str | None = None,
@@ -462,5 +728,11 @@ def tsmm_t(x: torch.Tensor, y: torch.Tensor, *, mode: str | None = None,
     kind = (forced if forced is not None
             else classify_gemm_t(m_tall, a_dim, b_dim, p))
     name = _select_executor(kind, x.device, p)
-    return _dispatch("mmt", kind, name, (m_tall, a_dim, b_dim), p,
-                     lambda: _EXECUTORS[name]("mmt", kind, x, y, p))
+    guard = _abft_wraps(kind, p)
+    out = _dispatch("mmt", kind, name, (m_tall, a_dim, b_dim), p,
+                    lambda: _run_executor(_EXECUTORS[name], "mmt", kind, x,
+                                          y, p),
+                    abft=p.abft if guard else "none")
+    if guard:
+        out = _abft_guard("mmt", x, y, out, p)
+    return out

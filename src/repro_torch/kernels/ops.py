@@ -42,8 +42,8 @@ listens, every launch is recorded with the same statement, its grid from
 ``contracts.launch_grid``.
 
 Each entry is a ``torch.autograd.Function`` whose backward sends the
-cotangent GEMMs back through ``core.tsmm`` under
-``tsmm.backward_policy`` of the policy captured at forward time, as the
+cotangent GEMMs back through ``core.tsmm`` inside
+``tsmm.backward_scope`` of the policy captured at forward time, as the
 JAX package's custom VJPs do (the VJP of one tall-and-skinny class lands
 in another):
 
@@ -340,12 +340,12 @@ class _MatMul(torch.autograd.Function):
     def backward(ctx, ct):
         a, b = ctx.saved_tensors
         tsmm = _dispatcher()
-        bp = tsmm.backward_policy(ctx.policy)
         da = db = None
-        if ctx.needs_input_grad[0]:
-            da = tsmm.tsmm(ct, b.transpose(0, 1), policy=bp).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            db = tsmm.tsmm_t(a, ct, policy=bp).to(b.dtype)
+        with tsmm.backward_scope(ctx.policy) as bp:
+            if ctx.needs_input_grad[0]:
+                da = tsmm.tsmm(ct, b.transpose(0, 1), policy=bp).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                db = tsmm.tsmm_t(a, ct, policy=bp).to(b.dtype)
         return da, db, None, None
 
 
@@ -363,12 +363,12 @@ class _MatMulT(torch.autograd.Function):
     def backward(ctx, ct):
         x, y = ctx.saved_tensors
         tsmm = _dispatcher()
-        bp = tsmm.backward_policy(ctx.policy)
         dx = dy = None
-        if ctx.needs_input_grad[0]:
-            dx = tsmm.tsmm(y, ct.transpose(0, 1), policy=bp).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dy = tsmm.tsmm(x, ct, policy=bp).to(y.dtype)
+        with tsmm.backward_scope(ctx.policy) as bp:
+            if ctx.needs_input_grad[0]:
+                dx = tsmm.tsmm(y, ct.transpose(0, 1), policy=bp).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dy = tsmm.tsmm(x, ct, policy=bp).to(y.dtype)
         return dx, dy, None
 
 

@@ -30,8 +30,8 @@ returns NaN and reading ``info`` on the host would synchronise each pass.
 
 ``tsqr``/``qr`` are differentiable through a ``torch.autograd.Function``
 with the QR adjoint of the JAX package's ``_qr_bwd``: ``dQ^T Q`` goes
-through ``tsmm_t`` and the two ``R^-T`` applies through ``tsmm``, under
-``tsmm.backward_policy`` of the forward's policy.
+through ``tsmm_t`` and the two ``R^-T`` applies through ``tsmm``, inside
+``tsmm.backward_scope`` of the forward's policy.
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ def _factor(a: torch.Tensor, passes: int, policy, shift_rel):
 
 class _QR(torch.autograd.Function):
     """(Q, R) of an f32 (m, r) operand; the backward is the reduced QR's
-    adjoint (m >= r), re-dispatched under ``backward_policy``."""
+    adjoint (m >= r), re-dispatched inside ``backward_scope``."""
 
     @staticmethod
     def forward(ctx, a, passes, policy, shift_rel):
@@ -127,17 +127,17 @@ class _QR(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dq, dr):
         q, r = ctx.saved_tensors
-        bp = tsmm.backward_policy(ctx.policy)
         # M = R dR^T - dQ^T Q ;  dA = (dQ + Q copyltu(M)) R^-T. dQ^T Q is
         # the huge reduction (tsmt); grouping the two small factors first
         # leaves exactly two tall applies (tsm2l).
-        m_mat = r @ dr.transpose(0, 1) - tsmm.tsmm_t(dq, q, policy=bp)
-        low = torch.tril(m_mat, -1)
-        copyltu = low + low.transpose(0, 1) + torch.diag(
-            torch.diagonal(m_mat))
-        rinv_t = _upper_inverse(r).transpose(0, 1)
-        da = (tsmm.tsmm(dq, rinv_t, policy=bp)
-              + tsmm.tsmm(q, copyltu @ rinv_t, policy=bp))
+        with tsmm.backward_scope(ctx.policy) as bp:
+            m_mat = r @ dr.transpose(0, 1) - tsmm.tsmm_t(dq, q, policy=bp)
+            low = torch.tril(m_mat, -1)
+            copyltu = low + low.transpose(0, 1) + torch.diag(
+                torch.diagonal(m_mat))
+            rinv_t = _upper_inverse(r).transpose(0, 1)
+            da = (tsmm.tsmm(dq, rinv_t, policy=bp)
+                  + tsmm.tsmm(q, copyltu @ rinv_t, policy=bp))
         return da, None, None, None
 
 

@@ -19,6 +19,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.core import tsmm
+from repro_torch.ft import inject
 
 
 def remat(fn, *args):
@@ -26,12 +27,22 @@ def remat(fn, *args):
     ``jax.checkpoint``): the backward keeps only ``args`` and recomputes
     the rest. The recompute runs under the ``tsmm.policy`` of the forward,
     because autograd may run it on its device thread, where the caller's
-    scope is not set; nothing inside draws random numbers, so no RNG state
-    is kept."""
+    scope is not set, and replays the forward's GEMM fault sites from the
+    counter at segment entry (``ft.inject.replay``), as the reference
+    evaluates its checkpointed trace twice with the same faults in it;
+    nothing inside draws random numbers, so no RNG state is kept."""
     pol = tsmm.current_policy()
+    scope = inject.current_scope()
+    start = scope.sites_seen if scope is not None else 0
+
+    @contextlib.contextmanager
+    def recompute_context():
+        with tsmm.policy(pol), inject.replay(scope, start):
+            yield
+
     return checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False,
-        context_fn=lambda: (contextlib.nullcontext(), tsmm.policy(pol)))
+        context_fn=lambda: (contextlib.nullcontext(), recompute_context()))
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -58,15 +69,58 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def _dense_raw(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` summed in f32 and cast to ``x``'s dtype: the dense
+    primitive a 1-D ``x`` takes (the JAX package's ``_dense_raw``)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+class _DensePG(torch.autograd.Function):
+    """``tsmm(x, w)`` whose backward re-dispatches through its own pair,
+    inside ``backward_scope`` of the forward's policy: ``dw = tsmm_t(x,
+    dy)`` and ``dx = tsmm(dy, w^T)``, each rounded to its operand's dtype
+    as soon as it leaves the dispatcher (the JAX package's
+    ``_dense_pg``)."""
+
+    @staticmethod
+    def forward(ctx, w, x, policy):
+        ctx.save_for_backward(w, x)
+        ctx.policy = policy
+        return tsmm.tsmm(x, w, policy=policy)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, x = ctx.saved_tensors
+        with tsmm.backward_scope(ctx.policy) as bp:
+            dw = tsmm.tsmm_t(x, dy, policy=bp).to(w.dtype)
+            dx = tsmm.tsmm(dy, w.transpose(0, 1), policy=bp).to(x.dtype)
+        return dw, dx, None
+
+
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x @ w over the trailing dim of x.
 
     Every model projection lands here, so this is where the tall-and-skinny
-    dispatcher hooks into serving: ``tsmm`` takes the (..., S, d_in)
+    dispatcher hooks into the model: ``tsmm`` takes the (..., S, d_in)
     activations as they are (it owns the leading-dim collapse) and routes to
     a TSM2X kernel when the shape qualifies, to ``torch.matmul`` otherwise,
-    following the active ``tsmm.policy(...)`` scope.
+    following the active ``tsmm.policy(...)`` scope. A 1-D ``x`` takes the
+    dense primitive, as in the JAX package.
+
+    Under ``param_dtype_grads`` the backward is ``_DensePG``'s. In JAX the
+    knob makes parameter gradients come out in the parameter's dtype
+    instead of f32; in PyTorch a parameter's gradient always has the
+    parameter's dtype, so what the knob changes here is the backward's
+    routes (``tsmm_t(x, dy)`` then ``tsmm(dy, w^T)``, for every route of
+    the forward, the dense one included) and where the rounding happens
+    (each gradient rounded once, as it leaves its GEMM). No path of the
+    port sets the knob; it is kept for the JAX package's API.
     """
+    if x.dim() < 2:
+        return _dense_raw(w, x)
+    p = tsmm.current_policy()
+    if p.param_dtype_grads:
+        return _DensePG.apply(w, x, p)
     return tsmm.tsmm(x, w)
 
 

@@ -110,7 +110,8 @@ def test_new_modules_are_scanned():
                 "repro_torch.data.pipeline", "repro_torch.kernels.quant",
                 "repro_torch.layout", "repro_torch.analysis",
                 "repro_torch.analysis.contracts", "repro_torch.linalg",
-                "repro_torch.linalg.tsqr"):
+                "repro_torch.linalg.tsqr", "repro_torch.ft",
+                "repro_torch.ft.abft", "repro_torch.ft.inject"):
         assert mod in MODULES
 
 
