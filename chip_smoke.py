@@ -305,15 +305,38 @@ printing no result, when no CUDA card is present or any phase fails.
    f32 train configuration with ``PowerSGDConfig(orth="tsqr")`` for 2
    steps, each ``step_ok``, launching tsm2l 2 leaves x 3 passes a step,
    a TSMT kernel for each Q and Gram, and tsm2r 66 times.
-10. Contracts: every launch that a record scope of a path recorded
+10. Launch (a path of its own; counts zeroed before each run, read
+   after): ``repro_torch.launch.train.main`` on the card, as a user runs
+   it, at chatglm3-6b's width with 4 layers (``chatglm3-6b-4l``,
+   registered in ``configs.registry._MODULES`` for the phase), 8 x 2048
+   tokens, PowerSGD rank 4. A: 3 clean steps. B: ``--chaos-step 1`` (a
+   NaN in ``embed.table[0, 0]``, which step 1's batch reads), rolled
+   back to the step-0 host snapshot and replayed (steps 0, 1, 1, 2).
+   C1: 1 step, ``--ckpt-every 1 --abft-every 2``: the offline ABFT check,
+   then a save, durable before the run returns. C2: 3 steps from C1's
+   checkpoint (``elastic.restore_state``), snapshots off, a NaN before
+   step 1 escalated to ``restore_latest_good`` (step 0) and replayed, the
+   check and a save at step 2. (C is two runs: a fault escalates only to
+   a committed checkpoint, and a 15.6 GB write outlasts a step.) B and C2
+   must count one fault event and one retry and end on A's final loss
+   bit for bit; every run must launch tsm2r 66 and tsmt 2 times a step
+   it executed, each offline check 4 tsmt and 16 tsmt_split
+   (``LAUNCH_CHECK``) and no other kernel. Prints the host's available
+   memory and the checkpoint directory's free disk before it, then per
+   run the step ms (the watchdog's), the snapshot's seconds and GB, the
+   save's seconds to enqueue, to write (the writer thread) and to durable
+   (``wait``), the checkpoint read and the write into the live state,
+   and the offline check's time and launches; a summary line beside the
+   train phase's median step.
+11. Contracts: every launch that a record scope of a path recorded
    (``RECORDED``; the dispatch path's under ``verify_contracts``) must
    keep ``contracts.check_kernel_config`` and ``check_grid`` on this
    card's limits, and its grid must equal ``contracts.launch_grid`` of
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
-11. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the nine paths (dispatch, serve, train, serve-int8,
-   train-int8, tsqr, train-tsqr, abft-serve, abft-train) and their
+12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
+   on each of the ten paths (dispatch, serve, train, serve-int8,
+   train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -323,7 +346,7 @@ printing no result, when no CUDA card is present or any phase fails.
    tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
-12. Last line: ``{"ok": true, "device": {...}}``.
+13. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2285,6 +2308,7 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False):
     with (tsmm.policy(pol) if pol else contextlib.nullcontext()):
         prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
     mid_ms = statistics.median(step_ms)
+    MEDIAN_STEP_MS[phase] = mid_ms
     emit({"phase": phase, "model": cfg.name, "quant": ps.compress, "layers": cfg.n_layers,
           "params": n_params, "dtype": cfg.dtype, "n_micro": n_micro,
           "tokens_per_step": tokens, "init_s": init_s, "steps": records,
@@ -2894,6 +2918,8 @@ def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
 # contracts line: path name -> DispatchEvents.
 RECORDED: dict = {}
 PATH = {"name": "kernel"}
+# Each train path's median step ms, for the launch phase's line.
+MEDIAN_STEP_MS = {}
 
 
 @contextlib.contextmanager
@@ -3248,6 +3274,224 @@ def train_tsqr_phase(dev, gpu, counts, zero_counts) -> dict:
     del state
     torch.cuda.empty_cache()
     return counts()
+
+
+# ---------------------------------------------------------------------------
+# The launch phase: launch/train.py at chatglm3-6b's width, with snapshot
+# rollback, checkpoint escalation and resume
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARCH = "chatglm3-6b-4l"
+# The offline ABFT check before a save (encode_tree, then verify_tree's
+# second encode) of the 4-layer state's parameters: 2 tsmt and 8
+# tsmt_split launches an encode, as the abft phase's four offline encodes
+# launch 8 and 32; 20 of the 30 checksummed leaves go dense.
+LAUNCH_CHECK = {"tsmt": 4, "tsmt_split": 16}
+
+
+@contextlib.contextmanager
+def launch_timers():
+    """Time what the launcher calls between its steps, by wrapping the
+    module and class attributes it reaches them through (restored after):
+    each step's watchdog time, the snapshot, the checkpoint's save (to
+    enqueue) and wait (to durable), its read and its write into the live
+    state, and the offline ABFT check (with the launches it made). Yields
+    the list of records, one dict a call."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.ft import abft, watchdog
+    from repro_torch.kernels import tsm2r, tsmt
+    from repro_torch.train import train_step
+
+    log = []
+    swapped = []
+
+    def wrap(owner, attr, what, sync=False, size=False, launches=False):
+        real = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            before = (tsm2r.launches, tsmt.launches, tsmt.split_launches)
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            rec = {"what": what, "s": time.perf_counter() - t0}
+            if size:
+                rec["gb"] = sum(t.numel() * t.element_size()
+                                for t in out.values()) / 1e9
+            if launches:
+                rec["launches"] = {
+                    n: v - b for n, v, b in zip(
+                        ("tsm2r", "tsmt", "tsmt_split"),
+                        (tsm2r.launches, tsmt.launches, tsmt.split_launches),
+                        before)}
+            log.append(rec)
+            return out
+        swapped.append((owner, attr, real))
+        setattr(owner, attr, timed)
+
+    real_end = watchdog.StepWatchdog.step_end
+
+    def step_end(self):
+        out = real_end(self)
+        log.append({"what": "step", "s": out["step_time_s"]})
+        return out
+
+    swapped.append((watchdog.StepWatchdog, "step_end", real_end))
+    watchdog.StepWatchdog.step_end = step_end
+    wrap(train_step, "host_snapshot", "snapshot", size=True)
+    wrap(train_step, "restore_snapshot", "write into state", sync=True)
+    wrap(Checkpointer, "restore", "checkpoint read")
+    wrap(Checkpointer, "save", "save enqueue")
+    wrap(Checkpointer, "wait", "save durable")
+    wrap(Checkpointer, "_write", "checkpoint write")   # the writer thread
+    wrap(abft, "encode_tree", "abft encode", sync=True, launches=True)
+    wrap(abft, "verify_tree", "abft verify", sync=True, launches=True)
+    try:
+        yield log
+    finally:
+        for owner, attr, real in reversed(swapped):
+            setattr(owner, attr, real)
+
+
+def launch_phase(gpu, counts, zero_counts) -> dict:
+    """The launch path: ``repro_torch.launch.train.main`` as a user runs
+    it, on the card (no ``--device``), at chatglm3-6b's width with
+    TRAIN_LAYERS layers (``LAUNCH_ARCH``, registered as
+    ``examples/train_lm.py`` registers its config), TRAIN_BATCH x
+    TRAIN_SEQ tokens and PowerSGD rank 4. Four runs, counts zeroed just
+    before each and read just after: A, 3 clean steps; B, a NaN in the
+    parameters before step 1, rolled back to the step-0 snapshot and
+    replayed; C1, 1 step saved after the offline ABFT check; C2, resumed
+    from C1's checkpoint, a NaN before step 1 with snapshots off,
+    escalated to that checkpoint and replayed to step 2, saved after the
+    check. B's and C2's final losses must equal A's bit for bit, each
+    run must launch tsm2r 66 and tsmt 2 times a step it executed, and the
+    checks LAUNCH_CHECK. Returns the path's counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launcher
+
+    cfg = dataclasses.replace(registry.get_config("chatglm3-6b"),
+                              name=LAUNCH_ARCH, n_layers=TRAIN_LAYERS)
+    registry._MODULES[LAUNCH_ARCH] = type(
+        "M", (), {"CONFIG": cfg, "smoke": staticmethod(lambda: cfg)})
+    per_step = {"tsm2r": 2 * TRAIN_LAYERS * cfg.microbatch * 2 + 2,
+                "tsmt": 2}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    meminfo = dict(line.split(":", 1) for line in
+                   Path("/proc/meminfo").read_text().splitlines())
+    emit({"phase": "launch", "arch": LAUNCH_ARCH, "layers": cfg.n_layers,
+          "mem_available_gb": int(meminfo["MemAvailable"].split()[0])
+          * 1024 / 1e9, "tmp": ckpt_dir,
+          "tmp_free_gb": shutil.disk_usage(ckpt_dir).free / 1e9,
+          "gpu": gpu})
+    base = ["--arch", LAUNCH_ARCH, "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--powersgd-rank", "4",
+            "--log-every", "1"]
+    runs = {
+        "A": ["--steps", "3"],
+        "B": ["--steps", "3", "--chaos-step", "1"],
+        "C1": ["--steps", "1", "--ckpt-dir", ckpt_dir, "--ckpt-every", "1",
+               "--abft-every", "2"],
+        "C2": ["--steps", "3", "--ckpt-dir", ckpt_dir, "--ckpt-every", "2",
+               "--snapshot-every", "0", "--chaos-step", "1",
+               "--abft-every", "2"],
+    }
+    want_checks = {"A": 0, "B": 0, "C1": 1, "C2": 1}
+    total = {n: 0 for n in counts()}
+    out = {}
+    try:
+        for tag, extra in runs.items():
+            torch.cuda.empty_cache()
+            zero_counts()
+            t0 = time.perf_counter()
+            with launch_timers() as log, recorded():
+                res = launcher.main(base + extra)
+            wall = time.perf_counter() - t0
+            launches = counts()
+            for n, v in launches.items():
+                total[n] += v
+            steps = [r["s"] * 1e3 for r in log if r["what"] == "step"]
+            checks = [r for r in log if r["what"].startswith("abft")]
+            check_launches = {n: sum(r["launches"][n] for r in checks)
+                              for n in ("tsm2r", "tsmt", "tsmt_split")}
+            want = {n: 0 for n in launches}
+            want["tsm2r"] = per_step["tsm2r"] * len(steps)
+            want["tsmt"] = per_step["tsmt"] * len(steps)
+            for n, v in (LAUNCH_CHECK if want_checks[tag] else {}).items():
+                want[n] += v
+            rec = {"phase": "launch", "run": tag, "argv": base + extra,
+                   "result": res, "steps_executed": len(steps),
+                   "step_ms": steps, "wall_s": wall,
+                   "offline_check_launches": check_launches,
+                   "launches": {n: v for n, v in launches.items() if v},
+                   "gpu": gpu}
+            emit(rec)     # its calls' times follow, one line a quantity
+            out[tag] = {**rec, "calls": [r for r in log
+                                         if r["what"] != "step"]}
+            check(math.isfinite(res["final_loss"]),
+                  f"launch run {tag}: final loss {res['final_loss']}")
+            check(launches == want, f"launch run {tag} launches {launches}"
+                  f", want {want}")
+            check(len(checks) == 2 * want_checks[tag]
+                  and check_launches["tsm2r"] == 0,
+                  f"launch run {tag}: offline checks {checks}")
+        faulted = {"A": (0, 0, 3), "B": (1, 1, 4), "C1": (0, 0, 1),
+                   "C2": (1, 1, 3)}
+        for tag, (events, retries, executed) in faulted.items():
+            res = out[tag]["result"]
+            check((res["fault_events"], res["fault_retries"],
+                   out[tag]["steps_executed"]) == (events, retries, executed),
+                  f"launch run {tag}: {res}, executed "
+                  f"{out[tag]['steps_executed']}")
+        for tag in ("B", "C2"):
+            check(out[tag]["result"]["final_loss"]
+                  == out["A"]["result"]["final_loss"],
+                  f"launch run {tag} final loss "
+                  f"{out[tag]['result']['final_loss']!r} is not A's "
+                  f"{out['A']['result']['final_loss']!r}")
+        # One line a quantity, each run's calls in order.
+        def calls(*whats):
+            return {t: [{k: v for k, v in c.items() if k != "launches"}
+                        for c in r["calls"] if c["what"] in whats]
+                    for t, r in out.items()}
+
+        emit({"phase": "launch", "line": "step_ms",
+              "runs": {t: r["step_ms"] for t, r in out.items()},
+              "median": {t: statistics.median(r["step_ms"])
+                         for t, r in out.items()},
+              "train_phase_median_step_ms": MEDIAN_STEP_MS.get("train"),
+              "gpu": gpu})
+        emit({"phase": "launch", "line": "snapshot",
+              "runs": calls("snapshot"), "gpu": gpu})
+        emit({"phase": "launch", "line": "save",
+              "runs": calls("save enqueue", "checkpoint write",
+                            "save durable"), "gpu": gpu})
+        emit({"phase": "launch", "line": "restore",
+              "runs": calls("checkpoint read", "write into state"),
+              "gpu": gpu})
+        emit({"phase": "launch", "line": "offline_check",
+              "runs": {t: [{"what": c["what"], "ms": c["s"] * 1e3,
+                            "launches": c["launches"]}
+                           for c in r["calls"]
+                           if c["what"].startswith("abft")]
+                       for t, r in out.items()}, "gpu": gpu})
+        emit({"phase": "launch", "line": "summary",
+              "final_loss": {t: r["result"]["final_loss"]
+                             for t, r in out.items()},
+              "bit_equal_to_A": {t: out[t]["result"]["final_loss"]
+                                 == out["A"]["result"]["final_loss"]
+                                 for t in ("B", "C2")},
+              "wall_s": {t: r["wall_s"] for t, r in out.items()},
+              "launches": {n: v for n, v in total.items() if v},
+              "gpu": gpu})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        registry._MODULES.pop(LAUNCH_ARCH, None)
+        torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -3879,10 +4123,14 @@ def main() -> int:
     check(train_tsqr_launches["tsm2l"] > 0,
           "tsm2l was not launched on the train-tsqr path")
 
-    # -- 10. every recorded launch against the contracts -------------------
+    # -- 10. the fault-tolerant launcher (the launch path) ----------------
+    PATH["name"] = "launch"
+    launch_launches = launch_phase(gpu, counts, zero_counts)
+
+    # -- 11. every recorded launch against the contracts -------------------
     contracts_phase(dev, gpu)
 
-    # -- 11. kernels line --------------------------------------------------
+    # -- 12. kernels line --------------------------------------------------
     replaces = {"tsm2r": "src/repro/kernels/tsm2r.py:62",
                 "tsm2l": "src/repro/kernels/tsm2l.py:48",
                 "tsmt": "src/repro/kernels/tsmt.py:63",
@@ -3899,7 +4147,7 @@ def main() -> int:
              "train_int8": train8_launches, "tsqr": tsqr_launches,
              "train_tsqr": train_tsqr_launches,
              "abft_serve": abft_serve_launches,
-             "abft_train": abft_train_launches}
+             "abft_train": abft_train_launches, "launch": launch_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"

@@ -2,16 +2,19 @@
 function of (seed, step, host).
 
 The port's copy of ``src/repro/data/pipeline.py`` (``DataConfig`` :30,
-``_example`` :44, ``batch_for_step`` :65), numpy only, so both packages
-make the same arrays from the same config. The token stream mixes
-repeated phrases, arithmetic ramps and bigram chains, so a model has
-something to learn. The background ``Prefetcher`` arrives with the
-launcher.
+``_example`` :44, ``batch_for_step`` :65, ``Prefetcher`` :98), numpy
+only, so both packages make the same arrays from the same config. The
+token stream mixes repeated phrases, arithmetic ramps and bigram chains,
+so a model has something to learn. A background ``Prefetcher`` thread
+keeps ``prefetch_depth`` batches ready while a step runs; a restart
+builds a new one at the step to resume from.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 
 import numpy as np
 
@@ -83,3 +86,35 @@ def batch_for_step(cfg: DataConfig, step: int) -> dict[str, np.ndarray]:
             (local, cfg.vision_seq, cfg.vision_dim)).astype(np.float32)
     batch.update(extras)
     return batch
+
+
+class Prefetcher:
+    """Background thread producing host batches in step order from
+    ``start_step``; ``get()`` returns ``(step, batch)``."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0):
+        self.cfg = cfg
+        self._q: queue.Queue = queue.Queue(maxsize=cfg.prefetch_depth)
+        self._next_step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._next_step
+        while not self._stop.is_set():
+            batch = batch_for_step(self.cfg, step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def get(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2)

@@ -1,23 +1,70 @@
-"""Fault tolerance of the port: deterministic GEMM fault injection
-(``ft.inject``) and algorithm-based fault tolerance (``ft.abft``), the
-online checksum guard ``GemmPolicy.abft`` and the offline tree API.
+"""Fault tolerance of the port: deterministic GEMM fault injection and
+checkpoint corruptors (``ft.inject``), algorithm-based fault tolerance
+(``ft.abft``: the online checksum guard ``GemmPolicy.abft`` and the
+offline tree API), the step watchdog and preemption handler
+(``ft.watchdog``) and the one-process elastic plan (``ft.elastic``).
 
 Counterpart of ``src/repro/ft``. A "tree" here is a mapping of name to
-tensor, or an ``nn.Module`` through its ``named_parameters()``; its
-leaves are taken in sorted-name order, the order ``jax.tree`` flattens a
-dict in. The checkpoint corruptors, the watchdog and the elastic plans
-come with the fault-tolerant training loop.
+tensor, an ``nn.Module`` through its ``named_parameters()``, or a mapping
+that nests either (a train state); its leaves are named by their dotted
+path and taken in sorted-name order, the order ``jax.tree`` flattens a
+dict in. ``host_copy`` takes a deep host copy of a tree (the train-state
+snapshot and the checkpointer's staging copy).
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import torch
 from torch import nn
 
 
-def named_leaves(tree) -> list[tuple[str, torch.Tensor]]:
-    """``(name, tensor)`` pairs of ``tree`` (a mapping of name to tensor,
-    or an ``nn.Module``'s parameters), sorted by name."""
+def _walk(tree, prefix: str):
     items = (tree.named_parameters() if isinstance(tree, nn.Module)
-             else tree.items())
-    return sorted(items, key=lambda kv: kv[0])
+             else tree.items() if isinstance(tree, Mapping) else None)
+    if items is None:
+        yield prefix, tree
+        return
+    for key, sub in items:
+        yield from _walk(sub, f"{prefix}.{key}" if prefix else str(key))
+
+
+def named_leaves(tree) -> list[tuple[str, torch.Tensor]]:
+    """``(dotted name, tensor)`` pairs of ``tree`` (a mapping of name to
+    tensor, an ``nn.Module``'s parameters, or mappings nesting them),
+    sorted by name."""
+    return sorted(_walk(tree, ""), key=lambda kv: kv[0])
+
+
+def host_copy(tree, out: dict | None = None) -> dict:
+    """A deep host copy of ``tree``'s leaves by dotted name, written into
+    ``out`` (an earlier ``host_copy`` of a tree with the same leaves) when
+    given, else into one new host buffer holding every leaf, page-locked
+    when a leaf lives on the card (one allocation, and the copies run at
+    the link's rate). The copy is always taken: ``.cpu()`` of a CPU
+    tensor would alias the live storage, which a train step updates in
+    place."""
+    leaves = named_leaves(tree)
+    if out is None:
+        out = _host_buffer(leaves)
+    elif [(n, t.shape, t.dtype) for n, t in out.items()] != \
+            [(n, t.shape, t.dtype) for n, t in leaves]:
+        raise ValueError("[host-copy] out does not hold this tree's leaves")
+    with torch.no_grad():
+        for n, t in leaves:
+            out[n].copy_(t.detach())
+    return out
+
+
+def _host_buffer(leaves) -> dict:
+    """Views into one flat host allocation, each leaf 64-byte aligned."""
+    sizes = [t.numel() * t.element_size() for _, t in leaves]
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // 64) * 64
+    flat = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=any(t.is_cuda for _, t in leaves))
+    return {n: flat[o:o + size].view(t.dtype).view(t.shape)
+            for (n, t), o, size in zip(leaves, offsets, sizes)}

@@ -28,11 +28,15 @@ A flipped tensor passes its gradient straight through (the reference's
 bitcast carries no tangent): a bit flip in a GEMM's result does not change
 the backward's formula, which reads the operands, not the output.
 
-``poison_tree`` is the train-loop chaos hook. The checkpoint corruptors
-come with the checkpointer (the fault-tolerant training loop).
+``poison_tree`` is the train-loop chaos hook. ``corrupt_checkpoint``
+damages a committed ``checkpoint/checkpointer.py`` directory on the host
+(a torn ``.tmp`` dir, a truncated array file, a flipped payload bit),
+every choice drawn from ``random.Random(seed)``: the same code as the
+reference's, so one seed damages the same file, byte and bit in both.
 
-Import discipline: ``torch`` and ``repro_torch.ft`` only; the dispatcher
-imports this module at the top level, so it sits below every other layer.
+Import discipline: the standard library, ``torch`` and ``repro_torch.ft``
+only; the dispatcher imports this module at the top level, so it sits
+below every other layer.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import os
+import random
 
 import torch
 
@@ -56,6 +62,7 @@ __all__ = [
     "flip_bit",
     "tap_executor",
     "poison_tree",
+    "corrupt_checkpoint",
 ]
 
 _OPERANDS = ("a", "b", "out")
@@ -214,9 +221,9 @@ def tap_executor(ex, entry, kind, a, b, policy):
 def poison_tree(tree, *, leaf_index: int = 0, value: float = float("nan")):
     """Overwrite element 0 of the ``leaf_index``-th non-empty float leaf
     (sorted-name order) with ``value`` (NaN by default): the train-loop
-    chaos hook for a transient in-memory fault. A mapping comes back as a
-    new dict holding a poisoned copy of that leaf; an ``nn.Module`` is
-    poisoned in place (its parameters are the state a step reads) and
+    chaos hook for a transient in-memory fault. A flat mapping comes back
+    as a new dict holding a poisoned copy of that leaf; an ``nn.Module``
+    is poisoned in place (its parameters are the state a step reads) and
     returned."""
     leaves = [(n, x) for n, x in named_leaves(tree)
               if isinstance(x, torch.Tensor) and x.numel() > 0
@@ -228,6 +235,82 @@ def poison_tree(tree, *, leaf_index: int = 0, value: float = float("nan")):
         with torch.no_grad():
             x.view(-1)[0] = value
         return tree
+    if name not in tree:
+        raise ValueError(f"[inject-poison] {name} lies in a nested mapping: "
+                         "pass its module or a flat mapping")
     poisoned = x.detach().clone()
     poisoned.view(-1)[0] = value
     return {**tree, name: poisoned}
+
+
+# ---------------------------------------------------------------------------
+# Host-side checkpoint corruptors
+# ---------------------------------------------------------------------------
+
+_CKPT_MODES = ("torn-tmp", "truncate", "bitflip")
+
+
+def _committed_steps(root: str) -> list[int]:
+    out = []
+    for name in os.listdir(root):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if os.path.exists(os.path.join(root, name, "manifest.json")):
+                out.append(int(name.split("_")[1]))
+    return sorted(out)
+
+
+def corrupt_checkpoint(root: str, *, mode: str, seed: int = 0,
+                       step: int | None = None) -> str:
+    """Deterministically damage a checkpoint directory; returns the damaged
+    path. Modes:
+
+    * ``"torn-tmp"``  -- create a partial ``step_*.tmp`` dir (a preempted
+      writer); restore must ignore it and the next save garbage-collects.
+    * ``"truncate"``  -- truncate one committed ``arr_*.npy`` to half size;
+      ``np.load`` / crc32 must fail the restore of that step.
+    * ``"bitflip"``   -- flip one payload bit of one committed array file;
+      the manifest crc32 must catch it.
+
+    ``seed`` drives every choice through ``random.Random`` -- same seed,
+    same damage. ``step=None`` targets the newest committed step (for
+    "torn-tmp": one past it).
+    """
+    if mode not in _CKPT_MODES:
+        raise ValueError(
+            f"[inject-ckpt-mode] unknown mode {mode!r}: valid modes are "
+            f"{', '.join(_CKPT_MODES)}"
+        )
+    rng = random.Random(seed)
+    steps = _committed_steps(root)
+    if mode == "torn-tmp":
+        torn_step = step if step is not None else (steps[-1] + 1 if steps
+                                                   else 0)
+        d = os.path.join(root, f"step_{torn_step:09d}.tmp")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "arr_00000.npy"), "wb") as f:
+            f.write(bytes(rng.getrandbits(8) for _ in range(64)))
+        return d
+    if step is None:
+        if not steps:
+            raise FileNotFoundError(
+                f"[inject-ckpt] no committed checkpoints under {root}"
+            )
+        step = steps[-1]
+    d = os.path.join(root, f"step_{step:09d}")
+    arrs = sorted(n for n in os.listdir(d) if n.endswith(".npy"))
+    target = os.path.join(d, arrs[rng.randrange(len(arrs))])
+    size = os.path.getsize(target)
+    if mode == "truncate":
+        with open(target, "r+b") as f:
+            f.truncate(max(1, size // 2))
+        return target
+    # bitflip: stay past the .npy header so the array *payload* is hit and
+    # only the crc32 (not the header parse) can catch it.
+    lo = 128 if size > 128 else 0
+    off = rng.randrange(lo, size)
+    with open(target, "r+b") as f:
+        f.seek(off)
+        byte = f.read(1)[0]
+        f.seek(off)
+        f.write(bytes([byte ^ (1 << rng.randrange(8))]))
+    return target

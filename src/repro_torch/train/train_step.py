@@ -3,15 +3,15 @@ grad-accumulation microbatching.
 
 Counterpart of ``src/repro/train/train_step.py`` (``make_loss_fn`` :26,
 ``_microbatch_grads`` :48, ``make_train_step`` :95, ``init_train_state``
-:139). PyTorch runs eagerly: the step is a plain callable, gradients come
-from ``torch.autograd.grad`` over the parameters, and the parameters,
-moments and gradient accumulators are updated in place. The state is
+:139, ``host_snapshot`` :147, ``restore_snapshot`` :157). PyTorch runs
+eagerly: the step is a plain callable, gradients come from
+``torch.autograd.grad`` over the parameters, and the parameters, moments
+and gradient accumulators are updated in place. The state is
 ``{"params": LM, "opt": adamw state[, "extra": grad-transform state]}``.
 
 Every step's metrics carry ``step_ok`` (loss and grad norm both finite),
-the device-side half of a launcher's fault-or-retry decision. The
-launcher itself (checkpoints, watchdog, rollback) arrives with the
-fault-tolerance slice.
+the device-side half of ``launch/train.py``'s fault-or-retry decision;
+``host_snapshot`` / ``restore_snapshot`` are its first line of recovery.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.ft import host_copy, named_leaves
 from repro_torch.models import losses, model
 from repro_torch.optim import adamw
 
@@ -111,4 +112,35 @@ def init_train_state(seed: int, cfg, opt_cfg: adamw.AdamWConfig, extra=None,
     state = {"params": params, "opt": adamw.init(opt_cfg, params)}
     if extra is not None:
         state["extra"] = extra
+    return state
+
+
+def host_snapshot(state, out: dict | None = None) -> dict:
+    """Deep host copy of the train state for in-memory rollback: every
+    leaf by dotted name (``ft.host_copy``), into ``out`` (the snapshot
+    it replaces) when given. Cheaper than a checkpoint (no
+    serialization, no fsync): the first line of the retry ladder; the
+    Checkpointer is the escalation."""
+    return host_copy(state, out)
+
+
+@torch.no_grad()
+def restore_snapshot(snapshot: dict, state):
+    """Write a :func:`host_snapshot` (or a restored checkpoint, the same
+    mapping of dotted name to tensor) back into the live ``state``, leaf
+    by leaf with ``copy_``, and return ``state``. The JAX version builds
+    a new tree; writing in place keeps one copy of the state on the
+    device. The names must match the state's exactly."""
+    live = dict(named_leaves(state))
+    if live.keys() != snapshot.keys():
+        missing = sorted(live.keys() - snapshot.keys())
+        extra = sorted(snapshot.keys() - live.keys())
+        raise KeyError(f"[snapshot-tree] snapshot does not match the state:"
+                       f" missing {missing[:4]}, unknown {extra[:4]}")
+    for n, t in live.items():
+        src = snapshot[n]
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(f"[snapshot-tree] {n}: {tuple(src.shape)} "
+                             f"{src.dtype} != {tuple(t.shape)} {t.dtype}")
+        t.copy_(src)
     return state

@@ -111,7 +111,10 @@ def test_new_modules_are_scanned():
                 "repro_torch.layout", "repro_torch.analysis",
                 "repro_torch.analysis.contracts", "repro_torch.linalg",
                 "repro_torch.linalg.tsqr", "repro_torch.ft",
-                "repro_torch.ft.abft", "repro_torch.ft.inject"):
+                "repro_torch.ft.abft", "repro_torch.ft.inject",
+                "repro_torch.ft.watchdog", "repro_torch.ft.elastic",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.launch.train"):
         assert mod in MODULES
 
 
