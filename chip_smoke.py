@@ -66,7 +66,13 @@ printing no result, when no CUDA card is present or any phase fails.
    it is: both sides round their f32 sums to bf16, and one bf16 step is at
    most 2^-7 of the value.
    tsm2r is also held at the training path's shapes: the wk/wv forward of
-   a 4096-token microbatch and PowerSGD's P projection. Every tsm2r line
+   a 4096-token microbatch and PowerSGD's P projection; and at rwkv6's
+   (``RWKV_TSM2R``, ``at_rwkv_shapes`` on the kernels line): the decay
+   LoRA's down projection [8192,2048]·[2048,64] and [4096,2048]·[2048,64]
+   and zamba2's shared-LoRA width [8192,2048]·[2048,128] on the wgmma
+   body, PowerSGD's P [65536,2048]·[2048,4] on the skinny body, with tsmt
+   at its Q [65536,2048]^T [65536,4]; each with its device time beside
+   ``torch.matmul``'s, ungated. Every tsm2r line
    carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
    tensor-core body) for bf16 at [8192,4096]·[4096,256],
    [4096,4096]·[4096,256], the ragged (1000, 776, 200) and the narrowest
@@ -328,6 +334,31 @@ printing no result, when no CUDA card is present or any phase fails.
    (``wait``), the checkpoint read and the write into the live state,
    and the offline check's time and launches; a summary line beside the
    train phase's median step.
+10b. rwkv-serve (a path of its own; counts zeroed before, read after):
+   rwkv6-1.6b at its published width and depth (24 layers, d_model 2048,
+   32 heads of 64, d_ff 7168, vocab 65,536, decay-LoRA rank 64, chunk
+   32), bf16, weights from seed 0 with the leaves that start constant
+   drawn from the seed (``RWKV_B_SCALE``: the LoRA's b, u, w0), 4 prompts
+   of 2048 tokens and 16 greedy tokens, a sampled run, then step by step
+   for times. Each prefill launches tsm2r 24 times, all on the wgmma
+   body at [8192,2048]·[2048,64] (the decay LoRA's down projection);
+   every decode projection goes to ``torch-dense``. The prefill logits
+   must match a ``mode="dense"`` arm and the cached decode the
+   teacher-forced forward within 5e-2, and zeroing every layer's b must
+   move the logits further than the dense arm sits (tsm2r's output
+   reaches them). Prints prefill ms, decode ms a step, tokens/s, peak
+   memory, the phase's wall time and one profiled prefill and two
+   decode steps.
+10c. rwkv-train (a path of its own): the same model at full depth,
+   PowerSGD rank 4, 8 x 2048 tokens in 4 microbatches, remat on, 3
+   steps, each ``step_ok``, compressing exactly embed and lm_head, and
+   launching tsm2r 194 times (the LoRA's down projection of 24 layers x
+   4 microbatches, forward and remat recompute, on the wgmma body at
+   [4096,2048]·[2048,64], and the 2 P on the skinny body at the S the
+   chooser resolves) and the 2 Q on the one-launch tsmt (S = 1), nothing
+   else. A dense arm's first step must match the loss and grad norm
+   within 5e-2. Prints step times, tokens/s, peak and state memory, the
+   phase's wall time and a profiled fourth step.
 11. Contracts: every launch that a record scope of a path recorded
    (``RECORDED``; the dispatch path's under ``verify_contracts``) must
    keep ``contracts.check_kernel_config`` and ``check_grid`` on this
@@ -335,14 +366,16 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the ten paths (dispatch, serve, train, serve-int8,
-   train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch) and their
+   on each of the twelve paths (dispatch, serve, train, serve-int8,
+   train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
+   rwkv-serve, rwkv-train) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
    S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8,
    tsm2r_q8_split, tsmt_q8, tsmt_q8_split, tsm2l and tsm2l_q8);
-   tsm2r and tsm2r_q8 add their numbers at the training shapes, tsm2l and
+   tsm2r and tsm2r_q8 add their numbers at the training shapes, tsm2r
+   and tsmt at rwkv6's (``at_rwkv_shapes``), tsm2l and
    tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
@@ -385,12 +418,14 @@ TSM2R_MAX_MS = {(8192, 4096, 256): 0.26, (4096, 4096, 256): 0.128}
 # bf16 tsm2r cases that take the wgmma body; every other tsm2r case (f32,
 # n <= 16, k % 8 != 0, a misaligned base) takes the skinny or the simt body.
 TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
-               (4096, 4096, 24)}
+               (4096, 4096, 24), (8192, 2048, 64), (4096, 2048, 64),
+               (8192, 2048, 128)}
 # tsm2r cases that take the skinny body, f32 and bf16 (n <= 16, rows of A
 # whole 16-byte chunks, an aligned A); the ragged (1000, 777, 16) stays on
 # the simt body, as do f32 outputs wider than 16.
 TSM2R_SKINNY = {(65024, 4096, 4), (16384, 16384, 16), (4096, 4096, 8),
-                (4096, 4096, 3), (512, 512, 1), (100, 8, 3), (64, 24, 16)}
+                (4096, 4096, 3), (512, 512, 1), (100, 8, 3), (64, 24, 16),
+                (65536, 2048, 4)}
 # Device time the skinny body must stay within, f32: tsm2r_split at
 # [16384,16384]·[16384,16], S = 2 (0.675 ms on the simt body), and tsm2r's
 # P at [65024,4096]·[4096,4] (0.662), on an H100 80GB HBM3 at 700 W.
@@ -459,6 +494,22 @@ WIDENED_OPS = (("tsm2r", "mm", (4096, 4096), (4096, 8)),
 # its result is bit-equal to the plain version (1,024 stages of 128 k).
 Q8_ONE_FOLD_K = 131072
 BATCH, PROMPT, NEW = 4, 2048, 16
+# rwkv6-1.6b's kernel shapes: the decay LoRA's down projection [T,2048]·
+# [2048,64] at the prefill's 8192 and a train microbatch's 4096 tokens,
+# zamba2's shared-LoRA width n = 128 (measured ahead of its port), and
+# PowerSGD's P [65536,2048]·[2048,4]; Q is [65536,2048]^T [65536,4].
+RWKV_TSM2R = [(8192, 2048, 64), (4096, 2048, 64), (8192, 2048, 128),
+              (65536, 2048, 4)]
+RWKV_Q = (65536, 2048, 4)
+# rwkv6's perturbation of the leaves that start constant: the decay
+# LoRA's b (zeros at init, so its product would not reach the logits),
+# drawn N(0, 1) * RWKV_B_SCALE * rank^-0.5 (the LoRA's output then has
+# a standard deviation of about RWKV_B_SCALE); u (zeros) N(0, 1) * 0.1;
+# w0 (-6 everywhere) plus N(0, 1) * 0.5. w0 + the LoRA has a mean of -6
+# and a standard deviation of about 0.7: chunk * |logw| would reach exp's
+# overflow at ~88 only past w0 + lora = 1, ten standard deviations out
+# (mu is already a U[0, 1) draw).
+RWKV_B_SCALE = 0.5
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
 TRAIN_TSQR_STEPS = 2
 # The tall-skinny QR's cases: PowerSGD's P factor of chatglm3's embed and
@@ -2889,11 +2940,42 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     return main
 
 
+def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill):
+    """A prefill of ``prompts`` and cached decode steps of ``out``'s first
+    NEW - 1 tokens through ``engine.make_serve_fns``, timed on the host
+    clock; the prefill must launch tsm2r ``per_prefill`` times. Returns
+    (the logits of every step, prefill ms, decode ms a step)."""
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    prefill_step, decode_step = engine.make_serve_fns(cfg)
+    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    before = k_tsm2r.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(k_tsm2r.launches - before == per_prefill,
+          f"{cfg.name} prefill_step launches")
+    step_logits = [logits]
+    t0 = time.perf_counter()
+    for i in range(1, NEW):
+        logits, cache = decode_step(params, out[:, i - 1:i], PROMPT + i - 1,
+                                    cache)
+        step_logits.append(logits)
+    torch.cuda.synchronize()
+    return step_logits, prefill_ms, (time.perf_counter() - t0) * 1e3 / (
+        NEW - 1)
+
+
 def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
                   gpu) -> None:
     """Trace one prefill and two decode steps with ``torch.profiler`` and
     print, per window, the device time by kernel and by category and the
-    device's busy share of the same work's unprofiled time."""
+    device's busy share of the same work's unprofiled time (each line
+    names the model)."""
     prefill_step, decode_step = engine.make_serve_fns(cfg)
     for window in ("prefill", "decode"):
         cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
@@ -2907,8 +2989,8 @@ def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
             rec = device_profile(lambda: [
                 decode_step(params, out[:, i - 1:i], PROMPT + i - 1, cache)
                 for i in (1, 2)])
-        emit({"phase": "profile", "window": window, **rec,
-              "unprofiled_ms": step_ms[window],
+        emit({"phase": "profile", "window": window, "model": cfg.name,
+              **rec, "unprofiled_ms": step_ms[window],
               "busy_share": rec["device_busy_ms"] / step_ms[window],
               "gpu": gpu})
         del cache
@@ -3014,7 +3096,8 @@ def contracts_phase(dev, gpu) -> None:
     check(not drift, f"grids or bodies off their statement: {drift[:5]}")
     check(all(per_path.get(p, 0) > 0 for p in (
         "dispatch", "serve", "serve_int8", "train", "train_int8", "tsqr",
-        "train_tsqr")), f"paths without recorded launches: {per_path}")
+        "train_tsqr", "rwkv_serve", "rwkv_train")),
+        f"paths without recorded launches: {per_path}")
 
 
 def _bounds_ms(nbytes, flops, rate) -> dict:
@@ -3494,6 +3577,294 @@ def launch_phase(gpu, counts, zero_counts) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# rwkv6-1.6b served and trained at its published width and depth
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+
+
+@torch.no_grad()
+def rwkv_perturb_(params, cfg, gen) -> None:
+    """Give the rwkv6 leaves that start constant values drawn from
+    ``gen``, in place (``RWKV_B_SCALE``): the LoRA's ``b``, ``u`` and
+    ``w0`` of every layer."""
+    scale = RWKV_B_SCALE * cfg.rwkv.decay_lora_rank ** -0.5
+    for lp in params.layers:
+        tm = lp.time_mix
+        for t, sd in ((tm.w_lora.b, scale), (tm.u, 0.1), (tm.w0, 0.5)):
+            draw = torch.randn(t.shape, generator=gen, device=t.device) * sd
+            t.copy_(t + draw if t is tm.w0 else draw)
+
+
+def rwkv_serve_phase(dev, gpu, counts, zero_counts, expect) -> dict:
+    """The rwkv-serve path: rwkv6-1.6b at full width and depth, bf16,
+    seeded weights perturbed by ``rwkv_perturb_``; 4 x 2048 prompt tokens
+    and 16 greedy tokens, a sampled run, then step by step for times (the
+    counts are read there). Each prefill launches tsm2r once a layer, at
+    the decay LoRA's down projection on the wgmma body; every decode GEMM
+    is dense. Then the checks: the prefill against a ``mode="dense"`` arm,
+    the LoRA's reach (zeroing every ``b`` must move the logits further
+    than the dense arm sits), cached decode against the teacher-forced
+    forward; and a profiled prefill. Returns the path's launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.core import tsmm
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(RWKV_ARCH)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=0, device=dev)
+    rwkv_perturb_(params, cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    per_prefill = cfg.n_layers
+    down = (BATCH * PROMPT, cfg.d_model, cfg.rwkv.decay_lora_rank)
+
+    with recorded() as log:
+        t0 = time.perf_counter()
+        out = engine.generate(params, cfg, prompts, NEW, device=dev)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    routed = [e for e in log if e.kind != "dense"]
+    bodies = sorted({lm.params["body"] for e in routed for lm in e.launches})
+    check(len(routed) == per_prefill and bodies == ["wgmma"] and all(
+        e.kind == "tsm2r" and e.executor == "cuda" and e.shape == down
+        for e in routed), f"rwkv prefill routes {routed[:2]} {bodies}")
+    decode_events = [e for e in log if e.shape[0] == BATCH]
+    # wr, wk, wv, wg, the LoRA's a and b, wo; the channel mix's wk, wv, wr
+    check(len(decode_events) == (NEW - 1) * cfg.n_layers * 10 and all(
+        e.executor == "torch-dense" for e in decode_events),
+        "every rwkv decode projection goes to torch-dense")
+    check(out.shape == (BATCH, NEW), f"greedy output shape {out.shape}")
+    sampler = torch.Generator(device=dev).manual_seed(2)
+    sampled = engine.generate(params, cfg, prompts, NEW, generator=sampler,
+                              temperature=1.0, device=dev)
+    check(sampled.shape == (BATCH, NEW) and bool(
+        ((sampled >= 0) & (sampled < cfg.vocab_size)).all()),
+        "rwkv sampled tokens in vocabulary")
+
+    step_logits, prefill_ms, decode_ms = serve_step_by_step(
+        params, cfg, prompts, out, dev, per_prefill)
+    # The main path ends here; what follows only checks it.
+    launches = counts()
+    check(launches == expect(tsm2r=3 * per_prefill),
+          f"rwkv serving path launches {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    dense_prefill, _ = engine.make_serve_fns(
+        cfg, policy=tsmm.GemmPolicy(mode="dense"))
+    with recorded() as log:
+        dense_logits, _ = dense_prefill(
+            params, {"tokens": prompts},
+            model.init_cache(cfg, BATCH, PROMPT, device=dev))
+    check(all(e.executor == "torch-dense" for e in log),
+          "rwkv dense arm routes")
+    dense_err = normalised_err(step_logits[0], dense_logits)
+    check(dense_err <= LOGIT_TOL, f"rwkv kernel vs dense arm {dense_err}")
+    saved = [lp.time_mix.w_lora.b.clone() for lp in params.layers]
+    with torch.no_grad():
+        for lp in params.layers:
+            lp.time_mix.w_lora.b.zero_()
+    no_lora, _ = engine.make_serve_fns(cfg)[0](
+        params, {"tokens": prompts},
+        model.init_cache(cfg, BATCH, PROMPT, device=dev))
+    with torch.no_grad():
+        for lp, b in zip(params.layers, saved):
+            lp.time_mix.w_lora.b.copy_(b)
+    lora_effect = normalised_err(no_lora, step_logits[0])
+    check(lora_effect > dense_err, f"zeroing the LoRA's b moves the logits "
+          f"by {lora_effect}, within the dense arm's {dense_err}")
+    del saved, no_lora, dense_logits
+    # 2064 tokens (the prompt and every generated token; the last logits
+    # go unused): the chunk rule takes chunks of 24.
+    full = torch.cat([prompts, out], dim=1)
+    before = k_tsm2r.launches
+    with torch.no_grad():
+        forced, _ = model.forward(params, cfg, {"tokens": full})
+    check(k_tsm2r.launches - before == per_prefill, "rwkv forward launches")
+    forward_err = max(normalised_err(step_logits[i], forced[:, PROMPT - 1 + i])
+                      for i in range(NEW))
+    check(forward_err <= LOGIT_TOL,
+          f"rwkv decode vs forward error {forward_err}")
+    greedy_agree = sum(int((torch.argmax(step_logits[i], -1) == out[:, i])
+                           .sum()) for i in range(NEW))
+    del forced, full
+    torch.cuda.empty_cache()
+    profile_serve(engine, model, params, cfg, prompts, out, dev,
+                  {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu)
+    emit({"phase": "rwkv-serve", "model": cfg.name, "params": n_params,
+          "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": BATCH,
+          "prompt": PROMPT, "new": NEW, "init_s": init_s,
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": BATCH * PROMPT / prefill_ms * 1e3,
+          "decode_ms_per_step": decode_ms,
+          "decode_tokens_per_s": BATCH / decode_ms * 1e3,
+          "greedy_request_s": greedy_s,
+          "tsm2r_launches_per_prefill": per_prefill, "tsm2r_shape": down,
+          "tsm2r_body": bodies, "dense_arm_err": dense_err,
+          "lora_b_zeroed_err": lora_effect,
+          "decode_vs_forward_err": forward_err,
+          "greedy_argmax_agree": f"{greedy_agree}/{BATCH * NEW}",
+          "peak_mem_gb": peak_gb, "launches": launches,
+          "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
+    del params, prompts, out, step_logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
+    """The rwkv-train path: rwkv6-1.6b at full width and depth, bf16
+    parameters from seed 0 perturbed by ``rwkv_perturb_``, PowerSGD rank
+    4, 8 x 2048 tokens in the config's 4 microbatches, remat on, 3 steps.
+    Every step must be ``step_ok``, compress exactly embed and lm_head,
+    and launch tsm2r twice a layer and microbatch at the LoRA's down
+    projection on the wgmma body (forward and remat recompute), P twice at
+    the S the chooser resolves and Q twice on a TSMT kernel, and nothing
+    else. A ``mode="dense"`` arm from the same state and batch must match
+    the first step's loss and grad norm within 5e-2. Returns the path's
+    launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.core import tsmm
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw, powersgd, schedule
+    from repro_torch.train import train_step
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(RWKV_ARCH)
+    n_micro = cfg.microbatch
+    check(cfg.remat and n_micro == 4, f"rwkv-train config {cfg}")
+    dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH,
+                               vocab_size=cfg.vocab_size)
+    opt = adamw.AdamWConfig(
+        lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
+        weight_decay=0.1)
+    ps = powersgd.PowerSGDConfig(rank=4)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long)
+                for k, v in pipeline.batch_for_step(dcfg, i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    heads = ["embed.table", "lm_head.table"]
+    step = train_step.make_train_step(
+        cfg, opt, n_micro=n_micro,
+        grad_transform=lambda g, st: powersgd.compress_tree(ps, g, st))
+
+    def fresh_state():
+        state = train_step.init_train_state(0, cfg, opt, device=dev)
+        rwkv_perturb_(state["params"], cfg,
+                      torch.Generator(device=dev).manual_seed(0))
+        state["extra"] = powersgd.init(ps, state["params"])
+        return state
+
+    state = fresh_state()
+    with tsmm.policy(mode="dense"), recorded() as log:
+        m = step(state, batches[0])[1]
+    check(log and all(e.executor == "torch-dense" for e in log),
+          "rwkv train dense arm routes")
+    dense = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del state, m, log
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    state = fresh_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 2**30 - before_gb
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    check(sorted(state["extra"]) == heads,
+          f"rwkv compressed leaves {sorted(state['extra'])}")
+    down = (tokens // n_micro, cfg.d_model, cfg.rwkv.decay_lora_rank)
+    p_shape = (cfg.vocab_size, cfg.d_model, ps.rank)
+    p_splits, q_splits = (ops.resolve_params(
+        kind, *p_shape, torch.float32, tsmm.GemmPolicy(),
+        device=dev)["splits"] for kind in ("tsm2r", "tsmt"))
+    # The LoRA's down projection of every layer and microbatch, twice under
+    # remat. Its up projection is dense, and a dense product's backward is
+    # autograd's, so the up projection's dh = dy b^T reaches no kernel.
+    per_step_down = 2 * cfg.n_layers * n_micro
+    want_step = expect(tsm2r=per_step_down + 2 * (p_splits == 1),
+                       tsm2r_split=2 * (p_splits > 1),
+                       sum_partials=2 * (p_splits > 1),
+                       tsmt=2 * (q_splits == 1), tsmt_split=2 * (q_splits > 1))
+    zero_counts()
+    step_ms, records = [], []
+    for i in range(TRAIN_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded() as log:
+            state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        grown = {n: v - before[n] for n, v in counts().items()}
+        kern = [e for e in log if e.kind != "dense"]
+        downs = [e for e in kern if e.shape == down]
+        p_ev = [e for e in kern if (e.entry, e.shape) == ("mm", p_shape)]
+        q_ev = [e for e in kern if (e.entry, e.shape) == ("mmt", p_shape)]
+        rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                        "accuracy", "powersgd_compression")}
+        rec.update(step=i + 1, step_ok=bool(m["step_ok"]), launches={
+            n: v for n, v in grown.items() if v}, ms=step_ms[-1],
+            p_body=[lm.params["body"] for e in p_ev for lm in e.launches
+                    if lm.kind != "reduce"],
+            q_splits=[lm.splits for e in q_ev for lm in e.launches
+                      if lm.kind != "reduce"])
+        records.append(rec)
+        check(rec["step_ok"], f"rwkv-train step {i + 1} not ok: {rec}")
+        check(grown == want_step,
+              f"rwkv-train launches in step {i + 1}: {grown}")
+        check(len(downs) == per_step_down and all(
+            e.kind == "tsm2r" and e.executor == "cuda"
+            and lm.params["body"] == "wgmma"
+            for e in downs for lm in e.launches),
+            f"rwkv-train LoRA routes in step {i + 1}: {downs[:2]}")
+        check(len(p_ev) == len(q_ev) == 2 and len(kern) == per_step_down + 4
+              and rec["q_splits"] == [q_splits] * 2,
+              f"rwkv-train P/Q in step {i + 1}: {rec}")
+        del log, m
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # The main path ends here; what follows checks it and measures it.
+    loss_err = abs(records[0]["loss"] - dense["loss"]) / abs(dense["loss"])
+    gnorm_err = (abs(records[0]["grad_norm"] - dense["grad_norm"])
+                 / dense["grad_norm"])
+    check(loss_err <= LOGIT_TOL and gnorm_err <= LOGIT_TOL,
+          f"rwkv-train kernel vs dense arm: loss {loss_err} grad norm "
+          f"{gnorm_err}")
+    prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
+    mid_ms = statistics.median(step_ms)
+    emit({"phase": "rwkv-train", "model": cfg.name, "layers": cfg.n_layers,
+          "params": n_params, "dtype": cfg.dtype, "n_micro": n_micro,
+          "tokens_per_step": tokens, "init_s": init_s, "steps": records,
+          "step_ms": step_ms, "median_step_ms": mid_ms,
+          "tokens_per_s": tokens / mid_ms * 1e3, "peak_mem_gb": peak_gb,
+          "state_mem_gb": state_gb, "mem_before_state_gb": before_gb,
+          "dense_arm": dense, "dense_arm_loss_err": loss_err,
+          "dense_arm_grad_norm_err": gnorm_err, "p_splits": p_splits,
+          "q_splits": q_splits, "remat": cfg.remat,
+          "launches_per_step": {n: v for n, v in want_step.items() if v},
+          "launches": launches, "wall_s": time.perf_counter() - t_phase,
+          "gpu": gpu})
+    emit({"phase": "profile", "window": "rwkv-train step", "model": cfg.name,
+          **prof, "unprofiled_ms": mid_ms,
+          "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
+    del state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3569,7 +3940,7 @@ def main() -> int:
                   (16384, 16384, 16), (1000, 777, 16), (4096, 4096, 8),
                   (4096, 4096, 3), (512, 512, 1), (1000, 776, 200),
                   (1000, 777, 200), (4096, 4096, 24), (100, 8, 3),
-                  (64, 24, 16)],
+                  (64, 24, 16), *RWKV_TSM2R],
         "tsm2l": [(1 << 20, 16, 16), (10 ** 7, 16, 16), (102400, 4, 4),
                   (10000, 300, 20), (5000, 77, 1), (4097, 3, 5),
                   (1003, 129, 16), (333, 1, 16), (4096, 64, 12),
@@ -3577,7 +3948,8 @@ def main() -> int:
         "tsmt": [(1 << 20, 128, 4), (65536, 256, 256), (65536, 128, 4),
                  (10000, 300, 20), (4099, 100, 1),
                  (1000, 100, 3),        # short m: plans S = 1
-                 (65024, 4096, 4), (65024, 4, 4), (1 << 20, 16, 16)],
+                 (65024, 4096, 4), (65024, 4, 4), (1 << 20, 16, 16),
+                 RWKV_Q],
     }
     # The shape and dtype each kernel meets on the main path.
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
@@ -3593,12 +3965,20 @@ def main() -> int:
                             ((65024, 4, 4), torch.float32),
                             ((1 << 20, 16, 16), torch.float32)],
                    "tsm2l": [((65024, 4, 4), torch.float32)]}
+    # rwkv6-1.6b's paths: the decay LoRA's down projection in prefill
+    # (8192 tokens) and training (4096), zamba2's shared-LoRA width
+    # (n = 128), and PowerSGD's P and Q of its embed and lm_head.
+    rwkv_cases = {"tsm2r": [(RWKV_TSM2R[0], torch.bfloat16),
+                            (RWKV_TSM2R[1], torch.bfloat16),
+                            (RWKV_TSM2R[2], torch.bfloat16),
+                            (RWKV_TSM2R[3], torch.float32)],
+                  "tsmt": [(RWKV_Q, torch.float32)]}
     # tsm2l at the paper's shapes (its stream body), timed on the device.
     paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
                              ((1 << 20, 16, 16), torch.bfloat16),
                              ((10 ** 7, 16, 16), torch.float32),
                              ((10 ** 7, 16, 16), torch.bfloat16)]}
-    measured, at_train, at_paper, bad = {}, {}, {}, []
+    measured, at_train, at_paper, at_rwkv, bad = {}, {}, {}, {}, []
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -3644,7 +4024,8 @@ def main() -> int:
                 is_main = main_case[name] == ((m, d1, d2), dtype)
                 is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
                 is_paper = ((m, d1, d2), dtype) in paper_cases.get(name, ())
-                if is_main or is_train or is_paper:
+                is_rwkv = ((m, d1, d2), dtype) in rwkv_cases.get(name, ())
+                if is_main or is_train or is_paper or is_rwkv:
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                     rec["call_device_ms"] = call_device_ms(
                         lambda: kern(x, y))
@@ -3659,6 +4040,8 @@ def main() -> int:
                     at_train.setdefault(name, []).append(rec)
                 if is_paper:
                     at_paper.setdefault(name, []).append(rec)
+                if is_rwkv:
+                    at_rwkv.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
@@ -4013,24 +4396,8 @@ def main() -> int:
         "sampled tokens in vocabulary")
 
     # Step by step through the serve functions, for times and logits.
-    prefill_step, decode_step = engine.make_serve_fns(cfg)
-    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
-    before = k_tsm2r.launches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": prompts}, cache)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    check(k_tsm2r.launches - before == per_prefill, "prefill_step launches")
-    step_logits = [logits]
-    t0 = time.perf_counter()
-    for i in range(1, NEW):
-        logits, cache = decode_step(params, out[:, i - 1:i], PROMPT + i - 1,
-                                    cache)
-        step_logits.append(logits)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
-    del cache
+    step_logits, prefill_ms, decode_ms = serve_step_by_step(
+        params, cfg, prompts, out, dev, per_prefill)
     # The main path ends here; what follows only checks it.
     serve_launches = counts()
     check(serve_launches == expect(tsm2r=3 * per_prefill),
@@ -4127,6 +4494,15 @@ def main() -> int:
     PATH["name"] = "launch"
     launch_launches = launch_phase(gpu, counts, zero_counts)
 
+    # -- 10b. rwkv6-1.6b served at full width and depth (rwkv-serve path) --
+    PATH["name"] = "rwkv_serve"
+    rwkv_serve_launches = rwkv_serve_phase(dev, gpu, counts, zero_counts,
+                                           expect)
+    # -- 10c. rwkv6-1.6b trained at full width and depth (rwkv-train path) -
+    PATH["name"] = "rwkv_train"
+    rwkv_train_launches = rwkv_train_phase(dev, gpu, counts, zero_counts,
+                                           expect)
+
     # -- 11. every recorded launch against the contracts -------------------
     contracts_phase(dev, gpu)
 
@@ -4147,7 +4523,9 @@ def main() -> int:
              "train_int8": train8_launches, "tsqr": tsqr_launches,
              "train_tsqr": train_tsqr_launches,
              "abft_serve": abft_serve_launches,
-             "abft_train": abft_train_launches, "launch": launch_launches}
+             "abft_train": abft_train_launches, "launch": launch_launches,
+             "rwkv_serve": rwkv_serve_launches,
+             "rwkv_train": rwkv_train_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"
@@ -4207,7 +4585,18 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_abft[name]]} if name in at_abft else {})})
+                for r in at_abft[name]]} if name in at_abft else {}),
+            **({"at_rwkv_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                **({"body": r["body"]} if "body" in r else {}),
+                **({"splits": r["plan_splits"]} if "plan_splits" in r
+                   else {}),
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_rwkv[name]]} if name in at_rwkv else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

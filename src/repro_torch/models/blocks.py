@@ -1,9 +1,15 @@
 """Per-layer blocks: init / forward / prefill / decode.
 
-Counterpart of ``src/repro/models/blocks.py`` for the ``attn_mlp`` kind
-(dense transformer layer: GQA + SwiGLU, pre-norm RMSNorm residuals), the
-kind of llama, qwen, chatglm and mistral. The other kinds arrive with their
-models.
+Counterpart of ``src/repro/models/blocks.py`` for two kinds:
+
+  attn_mlp   dense transformer layer (GQA + SwiGLU)   [llama/qwen/chatglm/
+                                                       mistral]
+  rwkv       RWKV6 time-mix + channel-mix             [rwkv6]
+
+Residual/pre-norm convention: x = x + f(norm(x)) everywhere; the norm is
+LayerNorm where ``cfg.norm == "ln"`` (rwkv6), RMSNorm otherwise, f32
+parameters either way (the reference's ``_norm_init``, :27-37). The
+other kinds arrive with their models.
 """
 
 from __future__ import annotations
@@ -11,22 +17,32 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv6
 
-KINDS = ("attn_mlp",)
+KINDS = ("attn_mlp", "rwkv")
 
 
 def _check(cfg, kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(f"block kind {kind!r} is not ported yet "
                          f"(ported: {', '.join(KINDS)})")
-    if cfg.norm != "rms" or cfg.mlp_type != "swiglu" or cfg.attn_window:
-        raise ValueError(f"{cfg.name}: only RMSNorm, SwiGLU and full "
-                         "attention are ported so far")
+    if cfg.norm not in ("rms", "ln"):
+        raise ValueError(f"{cfg.name}: unknown norm {cfg.norm!r}")
+    if kind == "attn_mlp" and (cfg.mlp_type != "swiglu" or cfg.attn_window):
+        raise ValueError(f"{cfg.name}: only SwiGLU and full attention are "
+                         "ported so far")
+    if kind == "rwkv" and cfg.rwkv is None:
+        raise ValueError(f"{cfg.name}: the rwkv kind needs cfg.rwkv")
 
 
-def norm_apply(cfg, p: layers.RMSNorm, x):
-    return layers.rmsnorm(p.scale, x, cfg.norm_eps)
+def norm_init(cfg, device=None) -> nn.Module:
+    return (layers.LayerNorm(cfg.d_model, device=device) if cfg.norm == "ln"
+            else layers.RMSNorm(cfg.d_model, device))
+
+
+def norm_apply(cfg, p, x):
+    return (layers.layernorm(p, x, cfg.norm_eps) if cfg.norm == "ln"
+            else layers.rmsnorm(p.scale, x, cfg.norm_eps))
 
 
 def _mlp_fwd(cfg, p: layers.SwiGLU, x):
@@ -40,18 +56,24 @@ def _attn_kwargs(cfg):
 
 
 class Block(nn.Module):
-    """One ``attn_mlp`` layer; attribute names are the JAX pytree keys."""
+    """One layer of ``kind``; attribute names are the JAX pytree keys."""
 
     def __init__(self, cfg, kind: str = "attn_mlp", device=None):
         super().__init__()
         _check(cfg, kind)
         dt = getattr(torch, cfg.dtype)
-        self.norm1 = layers.RMSNorm(cfg.d_model, device)
+        self.norm1 = norm_init(cfg, device)
+        if kind == "rwkv":
+            self.time_mix = rwkv6.TimeMix(cfg.d_model, cfg.rwkv, dt, device)
+            self.norm2 = norm_init(cfg, device)
+            self.channel_mix = rwkv6.ChannelMix(cfg.d_model, cfg.d_ff, dt,
+                                                device)
+            return
         self.attn = attention.GQA(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.resolved_head_dim,
                                   qkv_bias=cfg.qkv_bias, dtype=dt,
                                   device=device)
-        self.norm2 = layers.RMSNorm(cfg.d_model, device)
+        self.norm2 = norm_init(cfg, device)
         self.ffn = layers.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
 
 
@@ -70,21 +92,49 @@ def _layer(p: Block, x, cfg):
 
 def block_fwd(p: Block, x, cfg, kind: str = "attn_mlp"):
     """Full-sequence forward without a cache. Returns (x, metrics)."""
+    if kind == "rwkv":
+        x = x + rwkv6.rwkv6_time_mix(p.time_mix,
+                                     norm_apply(cfg, p.norm1, x), cfg.rwkv)
+        return x + rwkv6.rwkv6_channel_mix(
+            p.channel_mix, norm_apply(cfg, p.norm2, x)), {}
     return _layer(p, x, cfg)[0], {}
 
 
 def cache_init(cfg, kind: str, batch: int, max_len: int, device) -> dict:
-    """Zero cache entry for one layer of this kind."""
+    """Zero cache entry for one layer of this kind: attention's K/V for
+    ``max_len`` positions, RWKV6's f32 WKV state and the last normed
+    inputs of its two mixers."""
     _check(cfg, kind)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = getattr(torch, cfg.dtype)
+    if kind == "rwkv":
+        r = cfg.rwkv
+        return {"wkv": torch.zeros((batch, r.n_heads, r.head_dim,
+                                    r.head_dim), dtype=torch.float32,
+                                   device=device),
+                "tm_prev": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                                       device=device),
+                "cm_prev": torch.zeros((batch, 1, cfg.d_model), dtype=dt,
+                                       device=device)}
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
-    """Full-sequence forward that also fills the cache's first S slots in
-    place. Returns (x, cache)."""
+    """Full-sequence forward that also fills the cache. Attention writes
+    the first S slots of its K/V in place; RWKV6 returns a new entry.
+    Returns (x, cache)."""
+    if kind == "rwkv":
+        n1 = norm_apply(cfg, p.norm1, x)
+        h, (wkv, tm_prev) = rwkv6.rwkv6_time_mix(p.time_mix, n1, cfg.rwkv,
+                                                 return_state=True)
+        x = x + h
+        n2 = norm_apply(cfg, p.norm2, x)
+        h2, cm_prev = rwkv6.rwkv6_channel_mix(p.channel_mix, n2,
+                                              return_state=True)
+        # Cache the *normed* last inputs: decode re-normalizes the new
+        # token, so store what the mixers actually consumed.
+        return x + h2, {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": cm_prev}
     s = x.shape[1]
     x, (k, v) = _layer(p, x, cfg)
     cache["k"][:, :s] = k
@@ -94,6 +144,15 @@ def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
 
 def block_decode(p: Block, x, cfg, kind: str, cache: dict, pos: int):
     """One-token step. x: (B, 1, d). Returns (x, cache)."""
+    if kind == "rwkv":
+        n1 = norm_apply(cfg, p.norm1, x)
+        h, wkv, tm_prev = rwkv6.rwkv6_time_mix_decode(
+            p.time_mix, n1, cache["wkv"], cache["tm_prev"], cfg.rwkv)
+        x = x + h
+        n2 = norm_apply(cfg, p.norm2, x)
+        h2 = rwkv6.rwkv6_channel_mix(p.channel_mix, n2,
+                                     x_prev=cache["cm_prev"])
+        return x + h2, {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": n2}
     h, ck, cv = attention.gqa_decode(
         p.attn, norm_apply(cfg, p.norm1, x), cache["k"], cache["v"], pos,
         **_attn_kwargs(cfg))

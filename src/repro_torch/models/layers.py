@@ -1,4 +1,5 @@
-"""Shared model layers: dense projection, RMSNorm, RoPE, SwiGLU, embeddings.
+"""Shared model layers: dense projection, RMSNorm, LayerNorm, RoPE, SwiGLU,
+embeddings, LoRA.
 
 Counterpart of ``src/repro/models/layers.py``. Parameters live in small
 ``nn.Module``s whose attribute names are the JAX pytree's keys; the
@@ -51,21 +52,33 @@ def param(t: torch.Tensor) -> nn.Parameter:
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter of ``module`` as the JAX package's initialisers
-    do: RMSNorm ``scale`` ones, biases zeros, embedding ``table`` rows
+    do: norm ``scale`` ones, biases zeros, embedding ``table`` rows
     N(0, 1) * d_model^-0.5, ``w[in, out]`` weights N(0, 1) * in^-0.5.
-    Draws are f32 from ``generator`` (on the parameters' device), in
-    parameter registration order, then cast to the parameter dtype."""
-    for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
-            p.data.fill_(1.0)
-        elif p.dim() == 1:
-            p.data.zero_()
-        else:
-            fan = p.shape[1] if leaf == "table" else p.shape[0]
-            w = torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32)
-            p.data.copy_(w.mul_(fan ** -0.5))
+    A module overrides those rules for its own leaves with an ``INIT``
+    dict of leaf name to "zeros", "uniform" (U[0, 1)) or a constant (the
+    RWKV6 mixers' ``mu``, ``w0`` and ``u``, and the LoRA's ``b``). Draws
+    are f32 from ``generator`` (on the parameters' device), in parameter
+    registration order, then cast to the parameter dtype."""
+    for mod in module.modules():
+        rules = getattr(mod, "INIT", {})
+        for leaf, p in mod.named_parameters(recurse=False):
+            rule = rules.get(leaf)
+            if rule == "zeros":
+                p.data.zero_()
+            elif rule == "uniform":
+                p.data.copy_(torch.rand(p.shape, generator=generator,
+                                        device=p.device, dtype=torch.float32))
+            elif rule is not None:
+                p.data.fill_(rule)
+            elif leaf == "scale":
+                p.data.fill_(1.0)
+            elif p.dim() == 1:
+                p.data.zero_()
+            else:
+                fan = p.shape[1] if leaf == "table" else p.shape[0]
+                w = torch.randn(p.shape, generator=generator,
+                                device=p.device, dtype=torch.float32)
+                p.data.copy_(w.mul_(fan ** -0.5))
     return module
 
 
@@ -141,6 +154,26 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """``scale`` ones and ``bias`` zeros, f32 unless ``dtype`` says (the
+    RWKV6 time mix's ``ln_x`` keeps the model dtype, as in JAX)."""
+
+    def __init__(self, d: int, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.scale = param(torch.ones((d,), **kw))
+        self.bias = param(torch.zeros((d,), **kw))
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p.scale.float() + p.bias.float()
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -211,3 +244,33 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     outputs never classify tall-and-skinny, and the JAX package leaves this
     dot to XLA as well."""
     return torch.matmul(x.float(), table.float().transpose(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# LoRA
+# ---------------------------------------------------------------------------
+
+class LoRA(nn.Module):
+    """Low-rank adapter: a tall-and-skinny GEMM pair (TSM2X shapes).
+    ``a[d_in, rank]`` is drawn as a weight, ``b[rank, d_out]`` starts at
+    zero (the reference's ``lora_init``)."""
+
+    INIT = {"b": "zeros"}
+
+    def __init__(self, d_in: int, d_out: int, rank: int, dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.a = param(torch.empty((d_in, rank), **kw))
+        self.b = param(torch.empty((rank, d_out), **kw))
+
+
+def lora_init(generator, d_in: int, d_out: int, rank: int, dtype,
+              device=None) -> LoRA:
+    return init_random_(LoRA(d_in, d_out, rank, dtype, device), generator)
+
+
+def lora_apply(p: LoRA, x: torch.Tensor) -> torch.Tensor:
+    """``x @ a @ b``, both projections through ``dense`` (so ``tsmm``):
+    the down projection ``[T, d_in]·[d_in, rank]`` is TSM2R's shape. (The
+    reference's ``base_out`` argument has no caller in either package.)"""
+    return dense(p.b, dense(p.a, x))

@@ -1,11 +1,12 @@
-"""LM assembly for the dense family.
+"""LM assembly for the dense and RWKV6 families.
 
 Counterpart of ``src/repro/models/model.py`` (``segments`` :40, ``init``
 :73, ``forward`` :219, ``unembed_fn`` :225, ``init_cache`` :282,
 ``prefill`` :308, ``decode_step`` :361). Where JAX stacks a segment's
 layers on a leading axis and ``lax.scan``s over them, the port keeps them
 in an ``nn.ModuleList`` and walks it with a Python loop. The cache is a list of
-per-layer ``{"k", "v"}`` tensors, updated in place.
+per-layer dicts: attention's ``{"k", "v"}``, updated in place, or RWKV6's
+``{"wkv", "tm_prev", "cm_prev"}``, replaced by each step.
 
 ``forward_hidden`` and ``forward`` are differentiable (the training path
 runs them under autograd; parameters that require grad get gradients),
@@ -32,13 +33,15 @@ class Segment:
 def segments(cfg) -> list[Segment]:
     if cfg.family == "dense":
         return [Segment("attn_mlp", cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [Segment("rwkv", cfg.n_layers)]
     raise ValueError(f"model family {cfg.family!r} is not ported yet "
-                     "(ported: dense)")
+                     "(ported: dense, ssm)")
 
 
 class LM(nn.Module):
-    """Parameters of a dense LM; attribute names follow the JAX pytree
-    (``embed``, ``layers`` for the stacked segment, ``final_norm``,
+    """Parameters of an LM of one segment; attribute names follow the JAX
+    pytree (``embed``, ``layers`` for the stacked segment, ``final_norm``,
     ``lm_head``)."""
 
     def __init__(self, cfg, device=None):
@@ -49,7 +52,7 @@ class LM(nn.Module):
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dt, device)
         self.layers = nn.ModuleList(
             blocks.Block(cfg, seg.kind, device) for _ in range(seg.n))
-        self.final_norm = layers.RMSNorm(cfg.d_model, device)
+        self.final_norm = blocks.norm_init(cfg, device)
         if not cfg.tie_embeddings:
             self.lm_head = layers.Embedding(cfg.vocab_size, cfg.d_model, dt,
                                             device)

@@ -76,15 +76,26 @@ class PowerSGDConfig:
                 f"values are {', '.join(_COMPRESS_MODES)}")
 
 
+def compressible(cfg: PowerSGDConfig, params) -> dict:
+    """The leaves PowerSGD compresses, ``{JAX path: (JAX shape, port
+    names)}``: 2-D in the JAX layout with at least ``min_size``
+    elements. Reads only shapes, so a model on the meta device answers
+    for its full size."""
+    named = dict(params.named_parameters())
+    out = {}
+    for path, names in layout.jax_leaves(named).items():
+        shape = layout.jax_shape(named, names)
+        if len(shape) == 2 and shape[0] * shape[1] >= cfg.min_size:
+            out[path] = (shape, names)
+    return out
+
+
 def init(cfg: PowerSGDConfig, params, seed: int = 0) -> dict:
     """Per-leaf state for the compressible leaves: the error-feedback
     buffer and a warm-started Q, ``{path: {"err", "q"}}``."""
     named = dict(params.named_parameters())
     state = {}
-    for path, names in layout.jax_leaves(named).items():
-        shape = layout.jax_shape(named, names)
-        if len(shape) != 2 or shape[0] * shape[1] < cfg.min_size:
-            continue
+    for path, (shape, names) in compressible(cfg, params).items():
         dev = named[names[0]].device
         gen = torch.Generator(device=dev).manual_seed(
             zlib.crc32(path.encode()) ^ seed)

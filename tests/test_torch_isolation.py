@@ -114,7 +114,11 @@ def test_new_modules_are_scanned():
                 "repro_torch.ft.abft", "repro_torch.ft.inject",
                 "repro_torch.ft.watchdog", "repro_torch.ft.elastic",
                 "repro_torch.checkpoint.checkpointer",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.models.rwkv6",
+                "repro_torch.configs.rwkv6_1p6b",
+                "repro_torch.configs.llama3p2_3b",
+                "repro_torch.configs.mistral_nemo_12b",
+                "repro_torch.configs.qwen2_72b"):
         assert mod in MODULES
 
 
