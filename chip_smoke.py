@@ -9,7 +9,8 @@ printing no result, when no CUDA card is present or any phase fails.
 
 1. Build: every kernel from ``src/repro_torch/kernels/csrc/`` (one nvcc per
    source, all started together: twelve libraries, the eleven TPU
-   kernels' and the quantize pass's); prints the build time,
+   kernels' and the quantize pass's; ptxas's report below compiles
+   beside them); prints the build time,
    ptxas's registers, static shared memory and spills of every kernel of
    tsmt_q8 and tsmt_q8_split (``resources``: none may spill, or their two
    blocks an SM would not hold) and of tsm2l and tsm2l_q8 (reported), the card's name and power limit, and
@@ -71,7 +72,17 @@ printing no result, when no CUDA card is present or any phase fails.
    LoRA's down projection [8192,2048]·[2048,64] and [4096,2048]·[2048,64]
    and zamba2's shared-LoRA width [8192,2048]·[2048,128] on the wgmma
    body, PowerSGD's P [65536,2048]·[2048,4] on the skinny body, with tsmt
-   at its Q [65536,2048]^T [65536,4]; each with its device time beside
+   at its Q [65536,2048]^T [65536,4]; and at zamba2's (``ZAMBA_TSM2R``,
+   ``ZAMBA_P``, ``ZAMBA_Q``, ``at_zamba_shapes``): the shared LoRAs' down
+   projection [8192,2048]·[2048,128] and [2048,2048]·[2048,128] on the
+   wgmma body, tsm2r_split at PowerSGD's P of the shared block
+   ([2048,2048]·[2048,4] and [2048,8192]·[8192,4] at S = 16,
+   [8192,2048]·[2048,4] at S = 4, ``ZAMBA_P_SPLITS``: the chooser's S on
+   the card, the skinny body, the op and the sequential kernel beside
+   it) against its plain partials, tsmt at w_down's Q
+   [8192,2048]^T [8192,4], and P and Q of embed and lm_head
+   ([32000,2048]·[2048,4] on the skinny body, [32000,2048]^T [32000,4],
+   ``ZAMBA_HEADS``); each with its device time beside
    ``torch.matmul``'s, ungated. Every tsm2r line
    carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
    tensor-core body) for bf16 at [8192,4096]·[4096,256],
@@ -334,6 +345,9 @@ printing no result, when no CUDA card is present or any phase fails.
    (``wait``), the checkpoint read and the write into the live state,
    and the offline check's time and launches; a summary line beside the
    train phase's median step.
+10b-e. The model paths, one serve and one train phase each
+   (``model_serve_phase`` and ``model_train_phase``, given a
+   ``ModelPath``: ``RWKV_PATH``, ``ZAMBA_PATH``).
 10b. rwkv-serve (a path of its own; counts zeroed before, read after):
    rwkv6-1.6b at its published width and depth (24 layers, d_model 2048,
    32 heads of 64, d_ff 7168, vocab 65,536, decay-LoRA rank 64, chunk
@@ -345,8 +359,8 @@ printing no result, when no CUDA card is present or any phase fails.
    every decode projection goes to ``torch-dense``. The prefill logits
    must match a ``mode="dense"`` arm and the cached decode the
    teacher-forced forward within 5e-2, and zeroing every layer's b must
-   move the logits further than the dense arm sits (tsm2r's output
-   reaches them). Prints prefill ms, decode ms a step, tokens/s, peak
+   move the logits 10x further than the dense arm sits and past 5e-2
+   (tsm2r's output reaches them). Prints prefill ms, decode ms a step, tokens/s, peak
    memory, the phase's wall time and one profiled prefill and two
    decode steps.
 10c. rwkv-train (a path of its own): the same model at full depth,
@@ -356,9 +370,45 @@ printing no result, when no CUDA card is present or any phase fails.
    4 microbatches, forward and remat recompute, on the wgmma body at
    [4096,2048]·[2048,64], and the 2 P on the skinny body at the S the
    chooser resolves) and the 2 Q on the one-launch tsmt (S = 1), nothing
-   else. A dense arm's first step must match the loss and grad norm
-   within 5e-2. Prints step times, tokens/s, peak and state memory, the
-   phase's wall time and a profiled fourth step.
+   else (``RWKV_TRAIN_LAUNCHES``, predicted from the classifier and the
+   chooser on the card). A dense arm's first step must match the loss
+   and grad norm within 5e-2. Prints step times (with the allocator's
+   retries and reserved memory after each), tokens/s, peak and state
+   memory, the phase's wall time and a profiled fourth step.
+10d. zamba-serve (a path of its own): zamba2-1.2b at its published
+   width and depth (38 Mamba2 layers, d_model 2048, d_inner 4096, 64
+   heads, state 64, chunk 128; the shared attention and SwiGLU block
+   after every 6, with per-group LoRAs of rank 128; vocab 32,000), bf16,
+   weights from seed 0 with both LoRAs' b drawn from the seed
+   (``ZAMBA_B_SCALE``), 4 prompts of 2048 tokens and 16 greedy tokens, a
+   sampled run, then step by step for times. Each prefill launches tsm2r
+   12 times (6 groups x the attention and FFN LoRAs), all on the wgmma
+   body at [8192,2048]·[2048,128]; every decode projection goes to
+   ``torch-dense`` (``zamba_decode_gemms``). The prefill logits must
+   match a ``mode="dense"`` arm within 5e-2, zeroing every LoRA's b must
+   move them 10x further than the dense arm sits and past 5e-2, and the
+   cached decode must match a teacher-forced forward of
+   ``ZAMBA_FORCED`` tokens (17 chunks of 128) on a ladder of depths (the
+   model cut to its first 1, 2 and 4 groups and its tail, then whole;
+   ``ZAMBA_LADDER``): at every rung with the weights cast to f32 within
+   1e-3 (``ZAMBA_F32_TOL``), and in bf16 no further from that f32
+   forward than 1.25 times the bf16 forward is (``ZAMBA_FLOOR_X``) and
+   no further from the bf16 forward than that forward is from f32 (the
+   bf16 rounding floor grows with depth at full width). Prints prefill
+   ms, decode ms a step, tokens/s, peak memory, a ``zamba-ladder`` line,
+   the wall time and one profiled prefill and two decode steps.
+10e. zamba-train (a path of its own): the same model, PowerSGD rank 4,
+   8 x 2048 tokens in its 8 microbatches, remat on (each Mamba2 layer
+   checkpointed, the shared block not), 3 steps, each ``step_ok`` with a
+   finite loss and gradient norm, compressing embed, lm_head and the
+   shared block's seven matrices, and launching what the classifier and
+   the chooser on the card predict, which must be
+   ``ZAMBA_TRAIN_LAUNCHES``: tsm2r 98 (96 LoRA-down on the wgmma body at
+   [2048,2048]·[2048,128], 2 P), tsm2r_split 7 on the skinny body (the
+   first main path to run it), the one-launch tsmt 3, nothing else. A
+   dense arm's first step must match the loss and grad norm within
+   5e-2. Prints step times, tokens/s, peak and state memory, each
+   factor's route and S, the wall time and a profiled fourth step.
 11. Contracts: every launch that a record scope of a path recorded
    (``RECORDED``; the dispatch path's under ``verify_contracts``) must
    keep ``contracts.check_kernel_config`` and ``check_grid`` on this
@@ -366,16 +416,17 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the twelve paths (dispatch, serve, train, serve-int8,
+   on each of the fourteen paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
-   rwkv-serve, rwkv-train) and their
+   rwkv-serve, rwkv-train, zamba-serve, zamba-train) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
    S for tsmt and tsmt_q8; ``body`` for tsm2r, tsm2r_split, tsm2r_q8,
    tsm2r_q8_split, tsmt_q8, tsmt_q8_split, tsm2l and tsm2l_q8);
    tsm2r and tsm2r_q8 add their numbers at the training shapes, tsm2r
-   and tsmt at rwkv6's (``at_rwkv_shapes``), tsm2l and
+   and tsmt at rwkv6's (``at_rwkv_shapes``), tsm2r, tsm2r_split and
+   tsmt at zamba2's (``at_zamba_shapes``), tsm2l and
    tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
@@ -384,6 +435,7 @@ printing no result, when no CUDA card is present or any phase fails.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -392,6 +444,7 @@ import statistics
 import subprocess
 import sys
 import time
+import typing
 from pathlib import Path
 
 import torch
@@ -419,13 +472,13 @@ TSM2R_MAX_MS = {(8192, 4096, 256): 0.26, (4096, 4096, 256): 0.128}
 # n <= 16, k % 8 != 0, a misaligned base) takes the skinny or the simt body.
 TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
                (4096, 4096, 24), (8192, 2048, 64), (4096, 2048, 64),
-               (8192, 2048, 128)}
+               (8192, 2048, 128), (2048, 2048, 128)}
 # tsm2r cases that take the skinny body, f32 and bf16 (n <= 16, rows of A
 # whole 16-byte chunks, an aligned A); the ragged (1000, 777, 16) stays on
 # the simt body, as do f32 outputs wider than 16.
 TSM2R_SKINNY = {(65024, 4096, 4), (16384, 16384, 16), (4096, 4096, 8),
                 (4096, 4096, 3), (512, 512, 1), (100, 8, 3), (64, 24, 16),
-                (65536, 2048, 4)}
+                (65536, 2048, 4), (32000, 2048, 4)}
 # Device time the skinny body must stay within, f32: tsm2r_split at
 # [16384,16384]·[16384,16], S = 2 (0.675 ms on the simt body), and tsm2r's
 # P at [65024,4096]·[4096,4] (0.662), on an H100 80GB HBM3 at 700 W.
@@ -510,6 +563,52 @@ RWKV_Q = (65536, 2048, 4)
 # overflow at ~88 only past w0 + lora = 1, ten standard deviations out
 # (mu is already a U[0, 1) draw).
 RWKV_B_SCALE = 0.5
+# zamba2-1.2b's kernel shapes: the shared LoRAs' down projection
+# [T,2048]·[2048,128] at a train microbatch's 2048 tokens (the prefill's
+# 8192 is RWKV_TSM2R's third), PowerSGD's P of the shared block's
+# matrices on tsm2r_split ([2048,2048]·[2048,4] for wq, wk, wv, wo;
+# [2048,8192]·[8192,4] for w_gate, w_up; [8192,2048]·[2048,4] for
+# w_down), and Q of w_down [8192,2048]^T [8192,4] on the one-launch tsmt;
+# P and Q of embed and lm_head ([32000,2048]·[2048,4] on tsm2r's skinny
+# body at S = 1, [32000,2048]^T [32000,4] on the one-launch tsmt).
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_TSM2R = (2048, 2048, 128)
+ZAMBA_P = [(2048, 2048, 4), (2048, 8192, 4), (8192, 2048, 4)]
+ZAMBA_Q = (8192, 2048, 4)
+ZAMBA_HEADS = (32000, 2048, 4)
+# The chooser's S at the three P shapes on 132 SMs (the launch counts
+# below follow from it): each split's epilogue is a plain sum
+# (S * rows * cols <= 2^18, perf_model.reduce_kernel_runs).
+ZAMBA_P_SPLITS = {(2048, 2048, 4): 16, (2048, 8192, 4): 16,
+                  (8192, 2048, 4): 4}
+# A zamba-train step's launches, predicted from the classifier and the
+# chooser: tsm2r 12 LoRA-down a microbatch x 8 + P of embed and lm_head;
+# tsm2r_split P of the shared block's seven matrices; tsmt Q of w_down,
+# embed and lm_head (the other six Q products are dense).
+ZAMBA_TRAIN_LAUNCHES = {"tsm2r": 98, "tsm2r_split": 7, "tsmt": 3}
+# The LoRAs' b (zeros at init, so their products would not reach the
+# logits), drawn N(0, 1) * ZAMBA_B_SCALE * rank^-0.5: each LoRA's output
+# then has a standard deviation of about ZAMBA_B_SCALE. No other leaf is
+# moved: A_log and dt_bias keep the reference's init.
+ZAMBA_B_SCALE = 0.5
+# The teacher-forced forward of zamba-serve: the prompt, the 16 generated
+# tokens and 112 more from the seed, 2176 = 17 chunks of 128 (2064 tokens
+# would fall to chunks of 86); causal, so the tail moves no earlier logit.
+ZAMBA_FORCED = 2176
+# Cached decode against that forward, on a ladder of depths: the served
+# model cut to its first ZAMBA_LADDER groups and its tail (8, 14 and 26
+# layers), then whole. At full width the bf16 forward's own distance from
+# the same weights in f32 grows with depth (0.109, 0.163, 0.253, 0.309 of
+# the largest logit on an H100 80GB HBM3 at 700 W), so no fixed limit
+# fits every rung. At every rung: an f32 copy of the weights must match
+# its own forward within ZAMBA_F32_TOL (the cache's logic; read
+# 1.6e-5-5.6e-5); the bf16 decode may sit at most ZAMBA_FLOOR_X times as
+# far from the f32 forward as the bf16 forward does (read 0.97-1.02
+# times), and no further from the bf16 forward than that forward is from
+# f32 (read 0.48-0.53 of it): the cache's bf16 numerics.
+ZAMBA_LADDER = (1, 2, 4)
+ZAMBA_FLOOR_X = 1.25
+ZAMBA_F32_TOL = 1e-3
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 8, 3
 TRAIN_TSQR_STEPS = 2
 # The tall-skinny QR's cases: PowerSGD's P factor of chatglm3's embed and
@@ -627,20 +726,20 @@ def category(name: str) -> str:
 
 
 def device_profile(fn) -> dict:
-    """Run ``fn`` under ``torch.profiler`` and return the device time by
-    kernel and by category and the number of device kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``fn`` under ``torch.profiler`` (device activity only: a train
+    step's ~200,000 host op events would take minutes to collect) and
+    return the device time by kernel and by category, the number of
+    device kernels, and ``runs``: the calls of ``fn`` it took. A trace
+    that came back empty is taken again, so past one run the profile
+    covers a later call than the first (for a train step, a later
+    step)."""
+    by_kernel, by_cat, n_kernels, runs = {}, {}, 0, []
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def run():
+        runs.append(1)
         fn()
-        torch.cuda.synchronize()
-    by_kernel, by_cat, n_kernels = {}, {}, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+
+    for e in device_events(run, bool):
         n_kernels += 1
         us = e.time_range.elapsed_us()
         by_kernel[e.name] = by_kernel.get(e.name, 0) + us
@@ -648,7 +747,7 @@ def device_profile(fn) -> dict:
         by_cat[cat] = by_cat.get(cat, 0) + us
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     return {"device_busy_ms": sum(by_kernel.values()) / 1e3,
-            "device_kernels": n_kernels,
+            "device_kernels": n_kernels, "runs": len(runs),
             "by_category_ms": {k: v / 1e3 for k, v in sorted(
                 by_cat.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": [[n[:90], v / 1e3] for n, v in top]}
@@ -3096,7 +3195,8 @@ def contracts_phase(dev, gpu) -> None:
     check(not drift, f"grids or bodies off their statement: {drift[:5]}")
     check(all(per_path.get(p, 0) > 0 for p in (
         "dispatch", "serve", "serve_int8", "train", "train_int8", "tsqr",
-        "train_tsqr", "rwkv_serve", "rwkv_train")),
+        "train_tsqr", "rwkv_serve", "rwkv_train", "zamba_serve",
+        "zamba_train")),
         f"paths without recorded launches: {per_path}")
 
 
@@ -3582,6 +3682,13 @@ def launch_phase(gpu, counts, zero_counts) -> dict:
 # ---------------------------------------------------------------------------
 
 RWKV_ARCH = "rwkv6-1.6b"
+# A rwkv-train step's launches: tsm2r at the decay LoRA's down projection
+# twice a layer and microbatch (forward and remat recompute, 2 x 24 x 4)
+# and P of embed and lm_head at S = 1; the one-launch tsmt at Q of both.
+RWKV_TRAIN_LAUNCHES = {"tsm2r": 194, "tsmt": 2}
+# Zeroing every LoRA's b must move the prefill logits LORA_X times as far
+# from the kernel arm as the dense arm sits, and past LOGIT_TOL.
+LORA_X = 10.0
 
 
 @torch.no_grad()
@@ -3597,37 +3704,278 @@ def rwkv_perturb_(params, cfg, gen) -> None:
             t.copy_(t + draw if t is tm.w0 else draw)
 
 
-def rwkv_serve_phase(dev, gpu, counts, zero_counts, expect) -> dict:
-    """The rwkv-serve path: rwkv6-1.6b at full width and depth, bf16,
-    seeded weights perturbed by ``rwkv_perturb_``; 4 x 2048 prompt tokens
-    and 16 greedy tokens, a sampled run, then step by step for times (the
-    counts are read there). Each prefill launches tsm2r once a layer, at
-    the decay LoRA's down projection on the wgmma body; every decode GEMM
-    is dense. Then the checks: the prefill against a ``mode="dense"`` arm,
-    the LoRA's reach (zeroing every ``b`` must move the logits further
-    than the dense arm sits), cached decode against the teacher-forced
-    forward; and a profiled prefill. Returns the path's launch counts."""
+def zamba_split_rows(dev, uniform, gpu) -> list:
+    """tsm2r_split at zamba-train's three P shapes (``ZAMBA_P``), f32, at
+    the S the chooser resolves on this card (which must be
+    ``ZAMBA_P_SPLITS``' and plan no sum_partials), against its plain
+    partials at the f32 tolerance, bit-identical on a second launch, on
+    the skinny body; its device time beside ``torch.matmul``'s, the
+    bound, the sequential kernel and the whole op (split plus the plain
+    sum). Returns one record a shape."""
+    from repro_torch.core import perf_model, tsmm
+    from repro_torch.kernels import ops, ref, reduce
+    from repro_torch.kernels import tsm2r as k_tsm2r
+
+    rows = []
+    for m, k, n in ZAMBA_P:
+        x, y = uniform((m, k), torch.float32), uniform((k, n), torch.float32)
+        res = ops.resolve_params("tsm2r", m, k, n, torch.float32,
+                                 tsmm.GemmPolicy(), device=dev)
+        S, block = res["splits"], res["block_k"]
+        got = k_tsm2r.tsm2r_split(x, y, S, block)
+        again = k_tsm2r.tsm2r_split(x, y, S, block)
+        torch.cuda.synchronize()
+        want = ref.tsm2r_split_ref(x, y, S, block)
+        rtol, atol = TOL[torch.float32]
+        atol *= max(1.0, (ref.split_len(k, S, block) / 1024) ** 0.5)
+        err = (got - want).abs()
+        same = torch.equal(got, again)
+        body, grid = k_tsm2r.split_plan(x, y, S, block)
+        ok = (same and bool((err <= atol + rtol * want.abs()).all())
+              and body == "skinny" and S == ZAMBA_P_SPLITS[(m, k, n)]
+              and not perf_model.reduce_kernel_runs(S, m, n))
+        b_ms, b_by = bound(x, y, got, 2 * m * k * n)
+        rec = {"phase": "kernel", "kernel": "tsm2r_split", "zamba": True,
+               "shape": [m, k, n], "splits": S, "block_k": block,
+               "dtype": "float32", "body": body, "grid": grid,
+               "kernel_ms": time_ms(lambda: k_tsm2r.tsm2r_split(
+                   x, y, S, block)),
+               "op_ms": time_ms(lambda: reduce.reduce_partials(
+                   k_tsm2r.tsm2r_split(x, y, S, block), torch.float32)[0]),
+               "seq_ms": time_ms(lambda: k_tsm2r.tsm2r(x, y)),
+               "plain_ms": time_ms(lambda: ref.tsm2r_split_ref(x, y, S,
+                                                               block)),
+               "library_ms": time_ms(lambda: torch.matmul(x, y)),
+               "device_ms": device_ms(lambda: k_tsm2r.tsm2r_split(
+                   x, y, S, block), "tsm2r_split"),
+               "library_device_ms": call_device_ms(
+                   lambda: torch.matmul(x, y)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "max_err": float(err.max()), "rtol": rtol, "atol": atol,
+               "deterministic": same, "ok": ok, "gpu": gpu}
+        emit(rec)
+        check(ok, f"tsm2r_split at zamba2's P {rec}")
+        rows.append(rec)
+        del x, y, got, again, want, err
+    torch.cuda.empty_cache()
+    return rows
+
+
+@torch.no_grad()
+def zamba_perturb_(params, cfg, gen) -> None:
+    """Draw both shared LoRAs' ``b`` of every group from ``gen``, in place
+    (``ZAMBA_B_SCALE``)."""
+    scale = ZAMBA_B_SCALE * cfg.shared_lora_rank ** -0.5
+    for group in params.groups:
+        for lora in (group.lora_attn, group.lora_ffn):
+            lora.b.copy_(torch.randn(lora.b.shape, generator=gen,
+                                     device=lora.b.device) * scale)
+
+
+def zamba_decode_gemms(cfg) -> int:
+    """The projections of one zamba2 decode step, every one dense at 4
+    rows: in_proj and out_proj of each Mamba2 layer; per application of
+    the shared block wq, wk, wv, wo, the FFN's three and both LoRAs' a
+    and b."""
+    return 2 * cfg.n_layers + 11 * (cfg.n_layers // cfg.hybrid_period)
+
+
+@torch.no_grad()
+def decode_and_forward(params, cfg, prompts, out, tail, dev):
+    """A prefill of ``prompts``, cached decode of ``out``'s first NEW - 1
+    tokens, and the teacher-forced forward of the prompt, ``out`` and
+    ``tail``. Returns (the logits of every step, the forward's logits at
+    the NEW positions)."""
+    from repro_torch.models import model
+
+    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    logits, cache = model.prefill(params, cfg, {"tokens": prompts}, cache)
+    steps = [logits]
+    for i in range(1, NEW):
+        logits, cache = model.decode_step(params, cfg, out[:, i - 1:i],
+                                          PROMPT + i - 1, cache)
+        steps.append(logits)
+    del cache
+    forced, _ = model.forward(
+        params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1)})
+    rows = forced[:, PROMPT - 1:PROMPT - 1 + NEW].clone()
+    del forced
+    torch.cuda.empty_cache()
+    return steps, rows
+
+
+def max_step_err(steps, rows) -> float:
+    """The largest normalised error of a step's logits against ``rows``'
+    at its position."""
+    return max(normalised_err(steps[i], rows[:, i]) for i in range(NEW))
+
+
+@torch.no_grad()
+def f32_copy(params, cfg, dev):
+    """The model's weights in f32 (``load_state_dict`` casts each leaf)."""
+    from repro_torch.models import model
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = model.LM(cfg32, device=dev)
+    p32.load_state_dict(params.state_dict())
+    return p32, cfg32
+
+
+def zamba_cut(params, cfg, groups):
+    """The served zamba2 model cut to its first ``groups`` groups and its
+    tail: the same tensors (no copy), the same shared block."""
+    from repro_torch.models import model
+
+    cut_cfg = dataclasses.replace(
+        cfg, n_layers=groups * cfg.hybrid_period + len(params.tail))
+    cut = model.LM(cut_cfg, device="meta")
+    cut.load_state_dict({k: v for k, v in params.state_dict().items()
+                         if not k.startswith("groups.")
+                         or int(k.split(".")[1]) < groups}, assign=True)
+    return cut, cut_cfg
+
+
+def zamba_depth_rung(params, cfg, prompts, out, tail, dev, bf16=None):
+    """One rung of the depth ladder: cached decode against the
+    teacher-forced forward in bf16 and in an f32 copy of the same
+    weights, and the bf16 forward's and decode's distance from the f32
+    forward. ``bf16``: the bf16 (steps, rows) if already taken."""
+    steps, rows = bf16 or decode_and_forward(params, cfg, prompts, out,
+                                             tail, dev)
+    p32, cfg32 = f32_copy(params, cfg, dev)
+    steps32, exact = decode_and_forward(p32, cfg32, prompts, out, tail, dev)
+    del p32
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers,
+            "groups": cfg.n_layers // cfg.hybrid_period,
+            "decode_vs_forward_err": max_step_err(steps, rows),
+            "forward_vs_f32_err": max_step_err(
+                [rows[:, i] for i in range(NEW)], exact),
+            "decode_vs_f32_err": max_step_err(steps, exact),
+            "f32_decode_vs_forward_err": max_step_err(steps32, exact)}
+
+
+def zamba_decode_check(params, cfg, prompts, out, tail, step_logits, rows,
+                       dev) -> dict:
+    """zamba-serve's cached decode against the teacher-forced forward, on a
+    ladder of depths (``ZAMBA_LADDER``: the model cut to its first groups
+    and its tail, then whole). At every rung: the f32 copy's decode within
+    ``ZAMBA_F32_TOL`` of its forward (the cache's logic); the bf16 decode
+    no further from the f32 forward than ``ZAMBA_FLOOR_X`` times the bf16
+    forward is, and no further from the bf16 forward than that forward is
+    from f32 (the cache's bf16 numerics, against the rounding floor of
+    that depth). Returns the rungs."""
+    ladder = []
+    for groups in ZAMBA_LADDER:
+        cut, cut_cfg = zamba_cut(params, cfg, groups)
+        ladder.append(zamba_depth_rung(cut, cut_cfg, prompts, out, tail,
+                                       dev))
+        del cut
+    ladder.append(zamba_depth_rung(params, cfg, prompts, out, tail, dev,
+                                   bf16=(step_logits, rows)))
+    emit({"phase": "zamba-ladder", "rungs": ladder})
+    for rung in ladder:
+        check(rung["f32_decode_vs_forward_err"] <= ZAMBA_F32_TOL,
+              f"zamba f32 decode vs forward at {rung}")
+        floor = rung["forward_vs_f32_err"]
+        check(rung["decode_vs_f32_err"] <= ZAMBA_FLOOR_X * floor
+              and rung["decode_vs_forward_err"] <= floor,
+              f"zamba bf16 decode against the forward at {rung}")
+    return {"ladder": ladder}
+
+
+def rwkv_decode_check(params, cfg, prompts, out, tail, step_logits, rows,
+                      dev) -> dict:
+    """rwkv-serve's cached decode within ``LOGIT_TOL`` of the
+    teacher-forced forward."""
+    err = max_step_err(step_logits, rows)
+    check(err <= LOGIT_TOL, f"rwkv decode vs forward error {err}")
+    return {}
+
+
+class ModelPath(typing.NamedTuple):
+    """What a model's serve and train phases take from it."""
+    tag: str                 # the phases are "<tag>-serve", "<tag>-train"
+    arch: str
+    perturb: object          # (params, cfg, gen): draws the constant leaves
+    loras: object            # params -> the LoRAs whose b the gate zeroes
+    rank: object             # cfg -> the LoRA's rank: tsm2r's n
+    prefill_downs: object    # cfg -> tsm2r launches a prefill
+    decode_gemms: object     # cfg -> dense projections a decode step
+    forced: int              # tokens of the teacher-forced forward
+    decode_check: object     # holds the decode against that forward
+    n_micro: int             # the config's microbatches
+    micro_downs: object      # cfg -> LoRA-down tsm2r a train microbatch
+    leaves: tuple            # the leaves PowerSGD compresses
+    train_launches: dict     # a step's launches
+
+
+RWKV_PATH = ModelPath(
+    tag="rwkv", arch=RWKV_ARCH, perturb=rwkv_perturb_,
+    loras=lambda p: [lp.time_mix.w_lora for lp in p.layers],
+    rank=lambda cfg: cfg.rwkv.decay_lora_rank,
+    prefill_downs=lambda cfg: cfg.n_layers,
+    # wr, wk, wv, wg, the LoRA's a and b, wo; the channel mix's wk, wv, wr
+    decode_gemms=lambda cfg: 10 * cfg.n_layers,
+    # the prompt and every generated token (the last logits go unused):
+    # the chunk rule takes chunks of 24
+    forced=PROMPT + NEW, decode_check=rwkv_decode_check, n_micro=4,
+    # forward and remat recompute; the up projection is dense, and a dense
+    # product's backward is autograd's, so its dh = dy b^T reaches no kernel
+    micro_downs=lambda cfg: 2 * cfg.n_layers,
+    leaves=("embed.table", "lm_head.table"),
+    train_launches=RWKV_TRAIN_LAUNCHES)
+ZAMBA_PATH = ModelPath(
+    tag="zamba", arch=ZAMBA_ARCH, perturb=zamba_perturb_,
+    loras=lambda p: [lo for g in p.groups
+                     for lo in (g.lora_attn, g.lora_ffn)],
+    rank=lambda cfg: cfg.shared_lora_rank,
+    prefill_downs=lambda cfg: 2 * (cfg.n_layers // cfg.hybrid_period),
+    decode_gemms=zamba_decode_gemms, forced=ZAMBA_FORCED,
+    decode_check=zamba_decode_check, n_micro=8,
+    # the attention and FFN LoRAs of every group; the shared block is not
+    # checkpointed, so no recompute
+    micro_downs=lambda cfg: 2 * (cfg.n_layers // cfg.hybrid_period),
+    leaves=("embed.table", "lm_head.table", *(f"shared_block.{k}" for k in (
+        "attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.w_gate",
+        "ffn.w_up", "ffn.w_down"))),
+    train_launches=ZAMBA_TRAIN_LAUNCHES)
+
+
+def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
+    """A model's serve path (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``) at full
+    width and depth, bf16, seeded weights perturbed by ``mp.perturb``; 4 x
+    2048 prompt tokens and 16 greedy tokens, a sampled run, then step by
+    step for times (the counts are read there). Each prefill launches
+    tsm2r ``mp.prefill_downs`` times, at the LoRAs' down projection on the
+    wgmma body; every decode GEMM is dense. Then the checks: the prefill
+    against a ``mode="dense"`` arm, the LoRAs' reach (zeroing every ``b``
+    must move the logits ``LORA_X`` times as far as the dense arm sits,
+    and past ``LOGIT_TOL``), cached decode against the teacher-forced
+    forward of ``mp.forced`` tokens (``mp.decode_check``); and a profiled
+    prefill. Returns the path's launch counts."""
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
     from repro_torch.kernels import tsm2r as k_tsm2r
     from repro_torch.models import model
     from repro_torch.serve import engine
 
+    name = f"{mp.tag}-serve"
     t_phase = time.perf_counter()
-    cfg = registry.get_config(RWKV_ARCH)
+    cfg = registry.get_config(mp.arch)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(cfg, seed=0, device=dev)
-    rwkv_perturb_(params, cfg, gen)
+    mp.perturb(params, cfg, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
-    per_prefill = cfg.n_layers
-    down = (BATCH * PROMPT, cfg.d_model, cfg.rwkv.decay_lora_rank)
+    per_prefill = mp.prefill_downs(cfg)
+    down = (BATCH * PROMPT, cfg.d_model, mp.rank(cfg))
 
     with recorded() as log:
         t0 = time.perf_counter()
@@ -3638,26 +3986,26 @@ def rwkv_serve_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     bodies = sorted({lm.params["body"] for e in routed for lm in e.launches})
     check(len(routed) == per_prefill and bodies == ["wgmma"] and all(
         e.kind == "tsm2r" and e.executor == "cuda" and e.shape == down
-        for e in routed), f"rwkv prefill routes {routed[:2]} {bodies}")
+        for e in routed), f"{name} prefill routes {routed[:2]} {bodies}")
     decode_events = [e for e in log if e.shape[0] == BATCH]
-    # wr, wk, wv, wg, the LoRA's a and b, wo; the channel mix's wk, wv, wr
-    check(len(decode_events) == (NEW - 1) * cfg.n_layers * 10 and all(
+    check(len(decode_events) == (NEW - 1) * mp.decode_gemms(cfg) and all(
         e.executor == "torch-dense" for e in decode_events),
-        "every rwkv decode projection goes to torch-dense")
+        f"every {name} decode projection goes to torch-dense: "
+        f"{len(decode_events)}")
     check(out.shape == (BATCH, NEW), f"greedy output shape {out.shape}")
     sampler = torch.Generator(device=dev).manual_seed(2)
     sampled = engine.generate(params, cfg, prompts, NEW, generator=sampler,
                               temperature=1.0, device=dev)
     check(sampled.shape == (BATCH, NEW) and bool(
         ((sampled >= 0) & (sampled < cfg.vocab_size)).all()),
-        "rwkv sampled tokens in vocabulary")
+        f"{name} sampled tokens in vocabulary")
 
     step_logits, prefill_ms, decode_ms = serve_step_by_step(
         params, cfg, prompts, out, dev, per_prefill)
     # The main path ends here; what follows only checks it.
     launches = counts()
     check(launches == expect(tsm2r=3 * per_prefill),
-          f"rwkv serving path launches {launches}")
+          f"{name} path launches {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     dense_prefill, _ = engine.make_serve_fns(
@@ -3667,41 +4015,47 @@ def rwkv_serve_phase(dev, gpu, counts, zero_counts, expect) -> dict:
             params, {"tokens": prompts},
             model.init_cache(cfg, BATCH, PROMPT, device=dev))
     check(all(e.executor == "torch-dense" for e in log),
-          "rwkv dense arm routes")
+          f"{name} dense arm routes")
     dense_err = normalised_err(step_logits[0], dense_logits)
-    check(dense_err <= LOGIT_TOL, f"rwkv kernel vs dense arm {dense_err}")
-    saved = [lp.time_mix.w_lora.b.clone() for lp in params.layers]
+    check(dense_err <= LOGIT_TOL, f"{name} kernel vs dense arm {dense_err}")
+    loras = mp.loras(params)
+    saved = [lo.b.clone() for lo in loras]
     with torch.no_grad():
-        for lp in params.layers:
-            lp.time_mix.w_lora.b.zero_()
+        for lo in loras:
+            lo.b.zero_()
     no_lora, _ = engine.make_serve_fns(cfg)[0](
         params, {"tokens": prompts},
         model.init_cache(cfg, BATCH, PROMPT, device=dev))
     with torch.no_grad():
-        for lp, b in zip(params.layers, saved):
-            lp.time_mix.w_lora.b.copy_(b)
+        for lo, b in zip(loras, saved):
+            lo.b.copy_(b)
     lora_effect = normalised_err(no_lora, step_logits[0])
-    check(lora_effect > dense_err, f"zeroing the LoRA's b moves the logits "
-          f"by {lora_effect}, within the dense arm's {dense_err}")
+    check(lora_effect > LOGIT_TOL and lora_effect >= LORA_X * dense_err,
+          f"zeroing the {name} LoRAs' b moves the logits by {lora_effect}: "
+          f"not {LORA_X}x the dense arm's {dense_err} and past {LOGIT_TOL}")
     del saved, no_lora, dense_logits
-    # 2064 tokens (the prompt and every generated token; the last logits
-    # go unused): the chunk rule takes chunks of 24.
-    full = torch.cat([prompts, out], dim=1)
+    tail = torch.randint(0, cfg.vocab_size,
+                         (BATCH, mp.forced - PROMPT - NEW),
+                         generator=gen, device=dev)
     before = k_tsm2r.launches
     with torch.no_grad():
-        forced, _ = model.forward(params, cfg, {"tokens": full})
-    check(k_tsm2r.launches - before == per_prefill, "rwkv forward launches")
-    forward_err = max(normalised_err(step_logits[i], forced[:, PROMPT - 1 + i])
-                      for i in range(NEW))
-    check(forward_err <= LOGIT_TOL,
-          f"rwkv decode vs forward error {forward_err}")
+        forced, _ = model.forward(
+            params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1)})
+    check(k_tsm2r.launches - before == per_prefill,
+          f"{name} forward launches")
+    rows = forced[:, PROMPT - 1:PROMPT - 1 + NEW].clone()
+    del forced
+    torch.cuda.empty_cache()
+    forward_err = max_step_err(step_logits, rows)
     greedy_agree = sum(int((torch.argmax(step_logits[i], -1) == out[:, i])
                            .sum()) for i in range(NEW))
-    del forced, full
+    decode = mp.decode_check(params, cfg, prompts, out, tail, step_logits,
+                             rows, dev)
+    del rows, tail
     torch.cuda.empty_cache()
     profile_serve(engine, model, params, cfg, prompts, out, dev,
                   {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu)
-    emit({"phase": "rwkv-serve", "model": cfg.name, "params": n_params,
+    emit({"phase": name, "model": cfg.name, "params": n_params,
           "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": BATCH,
           "prompt": PROMPT, "new": NEW, "init_s": init_s,
           "prefill_ms": prefill_ms,
@@ -3711,8 +4065,8 @@ def rwkv_serve_phase(dev, gpu, counts, zero_counts, expect) -> dict:
           "greedy_request_s": greedy_s,
           "tsm2r_launches_per_prefill": per_prefill, "tsm2r_shape": down,
           "tsm2r_body": bodies, "dense_arm_err": dense_err,
-          "lora_b_zeroed_err": lora_effect,
-          "decode_vs_forward_err": forward_err,
+          "lora_b_zeroed_err": lora_effect, "forced_tokens": mp.forced,
+          "decode_vs_forward_err": forward_err, **decode,
           "greedy_argmax_agree": f"{greedy_agree}/{BATCH * NEW}",
           "peak_mem_gb": peak_gb, "launches": launches,
           "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
@@ -3721,28 +4075,31 @@ def rwkv_serve_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     return launches
 
 
-def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
-    """The rwkv-train path: rwkv6-1.6b at full width and depth, bf16
-    parameters from seed 0 perturbed by ``rwkv_perturb_``, PowerSGD rank
-    4, 8 x 2048 tokens in the config's 4 microbatches, remat on, 3 steps.
-    Every step must be ``step_ok``, compress exactly embed and lm_head,
-    and launch tsm2r twice a layer and microbatch at the LoRA's down
-    projection on the wgmma body (forward and remat recompute), P twice at
-    the S the chooser resolves and Q twice on a TSMT kernel, and nothing
-    else. A ``mode="dense"`` arm from the same state and batch must match
-    the first step's loss and grad norm within 5e-2. Returns the path's
-    launch counts."""
+def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
+    """A model's train path (``mp``) at full width and depth, bf16
+    parameters from seed 0 perturbed by ``mp.perturb``, PowerSGD rank 4, 8
+    x 2048 tokens in the config's ``mp.n_micro`` microbatches, remat on,
+    3 steps. Every step must be ``step_ok`` with a finite loss and grad
+    norm, compress exactly ``mp.leaves``, and launch what the classifier
+    and the chooser on this card predict, which must be
+    ``mp.train_launches``: tsm2r ``mp.micro_downs`` a microbatch at the
+    LoRAs' down projection on the wgmma body, and P and Q of every
+    compressed leaf that does not classify dense at the chooser's S (P on
+    the skinny body). A ``mode="dense"`` arm from the same state and batch
+    must match the first step's loss and grad norm within 5e-2. Returns
+    the path's launch counts."""
     from repro_torch.configs import registry
-    from repro_torch.core import tsmm
+    from repro_torch.core import perf_model, tsmm
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw, powersgd, schedule
     from repro_torch.train import train_step
 
+    name = f"{mp.tag}-train"
     t_phase = time.perf_counter()
-    cfg = registry.get_config(RWKV_ARCH)
+    cfg = registry.get_config(mp.arch)
     n_micro = cfg.microbatch
-    check(cfg.remat and n_micro == 4, f"rwkv-train config {cfg}")
+    check(cfg.remat and n_micro == mp.n_micro, f"{name} config {cfg}")
     dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH,
                                vocab_size=cfg.vocab_size)
@@ -3754,15 +4111,14 @@ def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
                 for k, v in pipeline.batch_for_step(dcfg, i).items()}
                for i in range(TRAIN_STEPS + 1)]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    heads = ["embed.table", "lm_head.table"]
     step = train_step.make_train_step(
         cfg, opt, n_micro=n_micro,
         grad_transform=lambda g, st: powersgd.compress_tree(ps, g, st))
 
     def fresh_state():
         state = train_step.init_train_state(0, cfg, opt, device=dev)
-        rwkv_perturb_(state["params"], cfg,
-                      torch.Generator(device=dev).manual_seed(0))
+        mp.perturb(state["params"], cfg,
+                   torch.Generator(device=dev).manual_seed(0))
         state["extra"] = powersgd.init(ps, state["params"])
         return state
 
@@ -3770,7 +4126,7 @@ def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     with tsmm.policy(mode="dense"), recorded() as log:
         m = step(state, batches[0])[1]
     check(log and all(e.executor == "torch-dense" for e in log),
-          "rwkv train dense arm routes")
+          f"{name} dense arm routes")
     dense = {k: float(m[k]) for k in ("loss", "grad_norm")}
     del state, m, log
     torch.cuda.empty_cache()
@@ -3783,25 +4139,38 @@ def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated() / 2**30 - before_gb
     n_params = sum(p.numel() for p in state["params"].parameters())
-    check(sorted(state["extra"]) == heads,
-          f"rwkv compressed leaves {sorted(state['extra'])}")
-    down = (tokens // n_micro, cfg.d_model, cfg.rwkv.decay_lora_rank)
-    p_shape = (cfg.vocab_size, cfg.d_model, ps.rank)
-    p_splits, q_splits = (ops.resolve_params(
-        kind, *p_shape, torch.float32, tsmm.GemmPolicy(),
-        device=dev)["splits"] for kind in ("tsm2r", "tsmt"))
-    # The LoRA's down projection of every layer and microbatch, twice under
-    # remat. Its up projection is dense, and a dense product's backward is
-    # autograd's, so the up projection's dh = dy b^T reaches no kernel.
-    per_step_down = 2 * cfg.n_layers * n_micro
-    want_step = expect(tsm2r=per_step_down + 2 * (p_splits == 1),
-                       tsm2r_split=2 * (p_splits > 1),
-                       sum_partials=2 * (p_splits > 1),
-                       tsmt=2 * (q_splits == 1), tsmt_split=2 * (q_splits > 1))
+    shapes = {path: st["err"].shape for path, st in state["extra"].items()}
+    check(sorted(shapes) == sorted(mp.leaves),
+          f"{name} compressed leaves {sorted(shapes)}")
+    down = (tokens // n_micro, cfg.d_model, mp.rank(cfg))
+    # P and Q of every compressed leaf as the dispatcher will route them:
+    # the classifier, then the chooser's S on this card.
+    pol = tsmm.GemmPolicy()
+    per_step_down = mp.micro_downs(cfg) * n_micro
+    want = {"tsm2r": per_step_down}
+    factors = []
+    for path, (d1, d2) in shapes.items():
+        for entry, kind, classify in (("mm", "tsm2r", tsmm.classify_gemm),
+                                      ("mmt", "tsmt", tsmm.classify_gemm_t)):
+            if classify(d1, d2, ps.rank, pol) == "dense":
+                continue
+            s = ops.resolve_params(kind, d1, d2, ps.rank, torch.float32, pol,
+                                   device=dev)["splits"]
+            kern = kind if s == 1 else f"{kind}_split"
+            want[kern] = want.get(kern, 0) + 1
+            rows = d1 if kind == "tsm2r" else d2
+            if s > 1 and perf_model.reduce_kernel_runs(s, rows, ps.rank):
+                want["sum_partials"] = want.get("sum_partials", 0) + 1
+            factors.append({"leaf": path, "entry": entry, "kind": kern,
+                            "shape": (d1, d2, ps.rank), "splits": s})
+    check(want == mp.train_launches, f"{name} predicted launches {want}, "
+          f"not {mp.train_launches}: {factors}")
+    want_step = expect(**want)
     zero_counts()
     step_ms, records = [], []
     for i in range(TRAIN_STEPS):
         before = counts()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with recorded() as log:
@@ -3811,28 +4180,32 @@ def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
         grown = {n: v - before[n] for n, v in counts().items()}
         kern = [e for e in log if e.kind != "dense"]
         downs = [e for e in kern if e.shape == down]
-        p_ev = [e for e in kern if (e.entry, e.shape) == ("mm", p_shape)]
-        q_ev = [e for e in kern if (e.entry, e.shape) == ("mmt", p_shape)]
+        factor_ev = [(e.entry, e.shape, lm) for e in kern if e.shape != down
+                     for lm in e.launches if lm.kind != "reduce"]
         rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
                                         "accuracy", "powersgd_compression")}
         rec.update(step=i + 1, step_ok=bool(m["step_ok"]), launches={
             n: v for n, v in grown.items() if v}, ms=step_ms[-1],
-            p_body=[lm.params["body"] for e in p_ev for lm in e.launches
-                    if lm.kind != "reduce"],
-            q_splits=[lm.splits for e in q_ev for lm in e.launches
-                      if lm.kind != "reduce"])
+            alloc_retries=torch.cuda.memory_stats().get(
+                "num_alloc_retries", 0) - retries,
+            reserved_gb=torch.cuda.memory_reserved() / 2**30,
+            p_bodies=sorted({lm.params["body"] for entry, _, lm in factor_ev
+                             if entry == "mm"}))
         records.append(rec)
-        check(rec["step_ok"], f"rwkv-train step {i + 1} not ok: {rec}")
-        check(grown == want_step,
-              f"rwkv-train launches in step {i + 1}: {grown}")
+        check(rec["step_ok"] and math.isfinite(rec["loss"])
+              and math.isfinite(rec["grad_norm"]),
+              f"{name} step {i + 1} not ok: {rec}")
+        check(grown == want_step, f"{name} launches in step {i + 1}: {grown}")
         check(len(downs) == per_step_down and all(
             e.kind == "tsm2r" and e.executor == "cuda"
             and lm.params["body"] == "wgmma"
             for e in downs for lm in e.launches),
-            f"rwkv-train LoRA routes in step {i + 1}: {downs[:2]}")
-        check(len(p_ev) == len(q_ev) == 2 and len(kern) == per_step_down + 4
-              and rec["q_splits"] == [q_splits] * 2,
-              f"rwkv-train P/Q in step {i + 1}: {rec}")
+            f"{name} LoRA routes in step {i + 1}: {downs[:2]}")
+        check(sorted((entry, shape, lm.splits) for entry, shape, lm
+                     in factor_ev) == sorted(
+                         (f["entry"], f["shape"], f["splits"])
+                         for f in factors) and rec["p_bodies"] == ["skinny"],
+              f"{name} P/Q in step {i + 1}: {rec}")
         del log, m
     launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -3841,23 +4214,23 @@ def rwkv_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     gnorm_err = (abs(records[0]["grad_norm"] - dense["grad_norm"])
                  / dense["grad_norm"])
     check(loss_err <= LOGIT_TOL and gnorm_err <= LOGIT_TOL,
-          f"rwkv-train kernel vs dense arm: loss {loss_err} grad norm "
+          f"{name} kernel vs dense arm: loss {loss_err} grad norm "
           f"{gnorm_err}")
     prof = device_profile(lambda: step(state, batches[TRAIN_STEPS]))
     mid_ms = statistics.median(step_ms)
-    emit({"phase": "rwkv-train", "model": cfg.name, "layers": cfg.n_layers,
+    emit({"phase": name, "model": cfg.name, "layers": cfg.n_layers,
           "params": n_params, "dtype": cfg.dtype, "n_micro": n_micro,
           "tokens_per_step": tokens, "init_s": init_s, "steps": records,
           "step_ms": step_ms, "median_step_ms": mid_ms,
           "tokens_per_s": tokens / mid_ms * 1e3, "peak_mem_gb": peak_gb,
           "state_mem_gb": state_gb, "mem_before_state_gb": before_gb,
           "dense_arm": dense, "dense_arm_loss_err": loss_err,
-          "dense_arm_grad_norm_err": gnorm_err, "p_splits": p_splits,
-          "q_splits": q_splits, "remat": cfg.remat,
+          "dense_arm_grad_norm_err": gnorm_err, "factors": factors,
+          "remat": cfg.remat,
           "launches_per_step": {n: v for n, v in want_step.items() if v},
           "launches": launches, "wall_s": time.perf_counter() - t_phase,
           "gpu": gpu})
-    emit({"phase": "profile", "window": "rwkv-train step", "model": cfg.name,
+    emit({"phase": "profile", "window": f"{name} step", "model": cfg.name,
           **prof, "unprofiled_ms": mid_ms,
           "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
     del state, batches
@@ -3891,14 +4264,18 @@ def main() -> int:
     gpu = card()
 
     # -- 1. build ----------------------------------------------------------
+    # ptxas's report compiles four sources again: beside the build, on a
+    # thread of its own (both wait on nvcc processes).
     t0 = time.perf_counter()
-    secs = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": secs, "nvcc": _build.nvcc()})
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        report = pool.submit(_build.resource_usage, (
+            "tsmt_q8", "tsmt_q8_split", "tsm2l", "tsm2l_q8"))
+        secs = _build.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "per_kernel_s": secs, "nvcc": _build.nvcc()})
+        resources = report.result()
     # The int8 TSMT bodies fit two blocks of 256 threads an SM (launch
     # bounds cap a thread at 128 registers) only if nothing spills.
-    resources = _build.resource_usage(("tsmt_q8", "tsmt_q8_split",
-                                       "tsm2l", "tsm2l_q8"))
     emit({"phase": "resources", "kernels": resources})
     tsmt8 = [r for r in resources if r["source"].startswith("tsmt_q8")]
     check(tsmt8 and all(r["spilled_bytes"] == 0 and "registers" in r
@@ -3940,7 +4317,7 @@ def main() -> int:
                   (16384, 16384, 16), (1000, 777, 16), (4096, 4096, 8),
                   (4096, 4096, 3), (512, 512, 1), (1000, 776, 200),
                   (1000, 777, 200), (4096, 4096, 24), (100, 8, 3),
-                  (64, 24, 16), *RWKV_TSM2R],
+                  (64, 24, 16), *RWKV_TSM2R, ZAMBA_TSM2R, ZAMBA_HEADS],
         "tsm2l": [(1 << 20, 16, 16), (10 ** 7, 16, 16), (102400, 4, 4),
                   (10000, 300, 20), (5000, 77, 1), (4097, 3, 5),
                   (1003, 129, 16), (333, 1, 16), (4096, 64, 12),
@@ -3949,7 +4326,7 @@ def main() -> int:
                  (10000, 300, 20), (4099, 100, 1),
                  (1000, 100, 3),        # short m: plans S = 1
                  (65024, 4096, 4), (65024, 4, 4), (1 << 20, 16, 16),
-                 RWKV_Q],
+                 RWKV_Q, ZAMBA_Q, ZAMBA_HEADS],
     }
     # The shape and dtype each kernel meets on the main path.
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
@@ -3973,12 +4350,21 @@ def main() -> int:
                             (RWKV_TSM2R[2], torch.bfloat16),
                             (RWKV_TSM2R[3], torch.float32)],
                   "tsmt": [(RWKV_Q, torch.float32)]}
+    # zamba2-1.2b's paths: the shared LoRAs' down projection in prefill
+    # (8192 tokens) and a train microbatch (2048), Q of w_down, and P and
+    # Q of embed and lm_head.
+    zamba_cases = {"tsm2r": [(RWKV_TSM2R[2], torch.bfloat16),
+                             (ZAMBA_TSM2R, torch.bfloat16),
+                             (ZAMBA_HEADS, torch.float32)],
+                   "tsmt": [(ZAMBA_Q, torch.float32),
+                            (ZAMBA_HEADS, torch.float32)]}
     # tsm2l at the paper's shapes (its stream body), timed on the device.
     paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
                              ((1 << 20, 16, 16), torch.bfloat16),
                              ((10 ** 7, 16, 16), torch.float32),
                              ((10 ** 7, 16, 16), torch.bfloat16)]}
-    measured, at_train, at_paper, at_rwkv, bad = {}, {}, {}, {}, []
+    measured, at_train, at_paper, at_rwkv, at_zamba, bad = ({}, {}, {}, {},
+                                                             {}, [])
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -4025,7 +4411,8 @@ def main() -> int:
                 is_train = ((m, d1, d2), dtype) in train_cases.get(name, ())
                 is_paper = ((m, d1, d2), dtype) in paper_cases.get(name, ())
                 is_rwkv = ((m, d1, d2), dtype) in rwkv_cases.get(name, ())
-                if is_main or is_train or is_paper or is_rwkv:
+                is_zamba = ((m, d1, d2), dtype) in zamba_cases.get(name, ())
+                if is_main or is_train or is_paper or is_rwkv or is_zamba:
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                     rec["call_device_ms"] = call_device_ms(
                         lambda: kern(x, y))
@@ -4042,6 +4429,8 @@ def main() -> int:
                     at_paper.setdefault(name, []).append(rec)
                 if is_rwkv:
                     at_rwkv.setdefault(name, []).append(rec)
+                if is_zamba:
+                    at_zamba.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
@@ -4099,6 +4488,7 @@ def main() -> int:
         check(rec["plan_splits"] > 1 and rec["device_ms"] <= TSMT_MAX_MS,
               f"{name} at {rec['shape']}: S = {rec['plan_splits']}, "
               f"{rec['device_ms']} ms on the device")
+    at_zamba["tsm2r_split"] = zamba_split_rows(dev, uniform, gpu)
     tsmt_sweep(dev, uniform, gpu)
     skinny_sweep(dev, uniform, gpu)
     tsmt_q8_sweep(dev, uniform, gpu)
@@ -4494,14 +4884,17 @@ def main() -> int:
     PATH["name"] = "launch"
     launch_launches = launch_phase(gpu, counts, zero_counts)
 
-    # -- 10b. rwkv6-1.6b served at full width and depth (rwkv-serve path) --
-    PATH["name"] = "rwkv_serve"
-    rwkv_serve_launches = rwkv_serve_phase(dev, gpu, counts, zero_counts,
-                                           expect)
-    # -- 10c. rwkv6-1.6b trained at full width and depth (rwkv-train path) -
-    PATH["name"] = "rwkv_train"
-    rwkv_train_launches = rwkv_train_phase(dev, gpu, counts, zero_counts,
-                                           expect)
+    # -- 10b-e. rwkv6-1.6b and zamba2-1.2b served and trained at full
+    # width and depth (rwkv-serve, rwkv-train, zamba-serve, zamba-train) --
+    model_launches = {}
+    for mp in (RWKV_PATH, ZAMBA_PATH):
+        for kind, phase in (("serve", model_serve_phase),
+                            ("train", model_train_phase)):
+            PATH["name"] = f"{mp.tag}_{kind}"
+            model_launches[PATH["name"]] = phase(mp, dev, gpu, counts,
+                                                 zero_counts, expect)
+    check(model_launches["zamba_train"]["tsm2r_split"] > 0,
+          "tsm2r_split not on zamba-train")
 
     # -- 11. every recorded launch against the contracts -------------------
     contracts_phase(dev, gpu)
@@ -4524,8 +4917,7 @@ def main() -> int:
              "train_tsqr": train_tsqr_launches,
              "abft_serve": abft_serve_launches,
              "abft_train": abft_train_launches, "launch": launch_launches,
-             "rwkv_serve": rwkv_serve_launches,
-             "rwkv_train": rwkv_train_launches}
+             **model_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"
@@ -4596,7 +4988,18 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_rwkv[name]]} if name in at_rwkv else {})})
+                for r in at_rwkv[name]]} if name in at_rwkv else {}),
+            **({"at_zamba_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                **({"body": r["body"]} if "body" in r else {}),
+                **({k: r[k] for k in ("plan_splits", "splits", "op_ms",
+                                      "seq_ms") if k in r}),
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_zamba[name]]} if name in at_zamba else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 The port's own copy of ``src/repro/configs/base.py`` (``ModelConfig``
 :28, ``param_count`` :85, ``active_param_count`` :122, ``ShapeConfig``
 and ``SHAPES`` :133-146), with the fields of the families this package
-serves: dense ``attn_mlp`` and RWKV6 (``family="ssm"``). The sub-configs
-of the other families (MoE, MLA, Mamba2, vision, audio) and
-``remat_group`` arrive with the slices that port those modules.
+serves: dense ``attn_mlp``, RWKV6 (``family="ssm"``) and the zamba2
+hybrid (Mamba2 with a weight-shared attention block). The sub-configs of
+the other families (MoE, MLA, vision, audio) arrive with the slices that
+port those modules, and ``remat_group`` (remat of several layers as one)
+with the first config that sets it past 1.
 """
 
 from __future__ import annotations
@@ -13,13 +15,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.models.mamba2 import Mamba2Config
 from repro_torch.models.rwkv6 import RWKV6Config
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm (rwkv6): the ported ones
+    family: str                    # dense | ssm (rwkv6) | hybrid (zamba2):
+                                   # the ported ones
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,8 +40,11 @@ class ModelConfig:
     norm: str = "rms"              # rms|ln
     # ffn
     mlp_type: str = "swiglu"
-    # ssm
+    # ssm / hybrid
+    ssm: Optional[Mamba2Config] = None
     rwkv: Optional[RWKV6Config] = None
+    hybrid_period: int = 0         # zamba2: shared attn block every N mamba layers
+    shared_lora_rank: int = 0      # zamba2: per-application LoRA rank
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -53,7 +60,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (for 6ND roofline math), the
-        reference's formulas for the dense and RWKV6 branches."""
+        reference's formulas for the dense, RWKV6 and Mamba2 branches."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         hd = self.resolved_head_dim
         total = v * d * (1 if self.tie_embeddings else 2)
@@ -61,10 +68,18 @@ class ModelConfig:
             per = 5 * d * d + 2 * d * self.rwkv.decay_lora_rank + d * self.d_ff + \
                 d * self.d_ff + d * d
             return total + L * per
+        if self.ssm is not None:
+            di = self.ssm.d_inner
+            per_m = d * (2 * di + 2 * self.ssm.n_groups * self.ssm.state_dim
+                         + self.ssm.n_heads) + di * d
+            n_shared = (L // self.hybrid_period) if self.hybrid_period else 0
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+            shared = attn + 3 * d * f if n_shared else 0
+            return total + L * per_m + shared
         if self.family != "dense":
             raise NotImplementedError(
                 f"{self.name}: param_count of family {self.family!r} arrives "
-                "with its modules (ported: dense, ssm with rwkv)")
+                "with its modules (ported: dense, ssm, hybrid)")
         per_attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
         ff_mult = 3 if self.mlp_type == "swiglu" else 2
         return total + L * (per_attn + ff_mult * d * f)

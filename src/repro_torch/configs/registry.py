@@ -9,10 +9,11 @@ cell of a ported arch is skipped for the same reason in both packages.
 from __future__ import annotations
 
 from repro_torch.configs import (chatglm3_6b, llama3p2_3b, mistral_nemo_12b,
-                                 qwen2_72b, rwkv6_1p6b)
+                                 qwen2_72b, rwkv6_1p6b, zamba2_1p2b)
 from repro_torch.configs.base import SHAPES, ModelConfig
 
 _MODULES = {
+    "zamba2-1.2b": zamba2_1p2b,
     "chatglm3-6b": chatglm3_6b,
     "llama3.2-3b": llama3p2_3b,
     "mistral-nemo-12b": mistral_nemo_12b,

@@ -4,7 +4,8 @@
 ``models.model.init`` returns, with every leaf already a numpy array
 (``jax.tree.map(np.asarray, params)``), and returns the port's ``LM``. A
 segment's layers arrive stacked on a leading axis (the JAX package's
-``_stack_init``); they are split into the ``nn.ModuleList``.
+``_stack_init``; a zamba2 group's Mamba2 layers on two, ``layout``); they
+are split into the ``nn.ModuleList``s.
 A tree whose leaves include int8 weight records (the JAX package's
 ``kernels.quant.quantize_weights``: ``{"q8", "q8_scale"}`` dicts) gives a
 ``kernels.quant.QuantizedWeights``: the records are carried as they are,
@@ -44,11 +45,11 @@ def _node(tree, path: str):
 def _leaf(tree, name: str, field: str | None = None):
     """The JAX leaf for one port parameter name; ``field`` picks an entry
     of a per-parameter dict leaf (the AdamW moments' "m"/"v")."""
-    path, i = layout.jax_path(name)
+    path, idx = layout.jax_path(name)
     node = _node(tree, path)
     if field is not None:
         node = node[field]
-    return node if i is None else node[i]
+    return node[idx] if idx else node
 
 
 def _walk(tree, prefix=""):

@@ -245,8 +245,8 @@ def quantize_weights(params: torch.nn.Module, *, block_rows: int = 256,
         if (len(shape) != 2 or math.prod(shape) < min_size
                 or not named[names[0]].is_floating_point()):
             continue
-        w = (torch.stack([named[n] for n in names]) if layout.stacked(names)
-             else named[names[0]])
+        w = (torch.stack([named[n] for n in names]).reshape(shape)
+             if layout.stacked(names) else named[names[0]])
         records[path] = quantize_param(w, block_rows=block_rows)
         for n in names:
             release_param(named[n])
@@ -258,11 +258,14 @@ def has_quantized_weights(params) -> bool:
 
 
 def _groups(q: QuantizedWeights):
+    """(record, its parameters in index order, the record's stacked axes
+    in the JAX layout) for every record."""
     named = dict(q.model.named_parameters())
     groups = layout.jax_leaves(named)
     for path, rec in q.records.items():
-        yield rec, [named[n] for n in groups[path]], layout.stacked(
-            groups[path])
+        names = groups[path]
+        yield rec, [named[n] for n in names], len(layout.jax_path(
+            names[0])[1])
 
 
 @torch.no_grad()
@@ -270,10 +273,12 @@ def dequantize_weights(q: QuantizedWeights) -> torch.nn.Module:
     """Fill every recorded parameter of ``q.model`` with its dequantized
     values, in the parameter's own dtype, and return the model.
     ``release_weights`` frees them again."""
-    for rec, params, stacked in _groups(q):
+    for rec, params, n_stacked in _groups(q):
         dense = dequantize_param(rec, params[0].dtype)
+        if n_stacked:   # one tensor a parameter, in index order
+            dense = dense.reshape(len(params), *dense.shape[n_stacked:])
         for i, p in enumerate(params):
-            p.data = dense[i] if stacked else dense
+            p.data = dense[i] if n_stacked else dense
     return q.model
 
 

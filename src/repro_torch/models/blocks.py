@@ -1,9 +1,11 @@
 """Per-layer blocks: init / forward / prefill / decode.
 
-Counterpart of ``src/repro/models/blocks.py`` for two kinds:
+Counterpart of ``src/repro/models/blocks.py`` for three kinds:
 
   attn_mlp   dense transformer layer (GQA + SwiGLU)   [llama/qwen/chatglm/
-                                                       mistral]
+                                                       mistral; zamba2's
+                                                       shared block]
+  mamba      Mamba2 layer                             [zamba2 backbone]
   rwkv       RWKV6 time-mix + channel-mix             [rwkv6]
 
 Residual/pre-norm convention: x = x + f(norm(x)) everywhere; the norm is
@@ -17,9 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import attention, layers, rwkv6
+from repro_torch.models import attention, layers, mamba2, rwkv6
 
-KINDS = ("attn_mlp", "rwkv")
+KINDS = ("attn_mlp", "mamba", "rwkv")
 
 
 def _check(cfg, kind: str) -> None:
@@ -33,11 +35,13 @@ def _check(cfg, kind: str) -> None:
                          "ported so far")
     if kind == "rwkv" and cfg.rwkv is None:
         raise ValueError(f"{cfg.name}: the rwkv kind needs cfg.rwkv")
+    if kind == "mamba" and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: the mamba kind needs cfg.ssm")
 
 
 def norm_init(cfg, device=None) -> nn.Module:
     return (layers.LayerNorm(cfg.d_model, device=device) if cfg.norm == "ln"
-            else layers.RMSNorm(cfg.d_model, device))
+            else layers.RMSNorm(cfg.d_model, device=device))
 
 
 def norm_apply(cfg, p, x):
@@ -63,6 +67,9 @@ class Block(nn.Module):
         _check(cfg, kind)
         dt = getattr(torch, cfg.dtype)
         self.norm1 = norm_init(cfg, device)
+        if kind == "mamba":
+            self.mixer = mamba2.Mamba2(cfg.d_model, cfg.ssm, dt, device)
+            return
         if kind == "rwkv":
             self.time_mix = rwkv6.TimeMix(cfg.d_model, cfg.rwkv, dt, device)
             self.norm2 = norm_init(cfg, device)
@@ -92,6 +99,9 @@ def _layer(p: Block, x, cfg):
 
 def block_fwd(p: Block, x, cfg, kind: str = "attn_mlp"):
     """Full-sequence forward without a cache. Returns (x, metrics)."""
+    if kind == "mamba":
+        return x + mamba2.mamba2_fwd(p.mixer, norm_apply(cfg, p.norm1, x),
+                                     cfg.ssm), {}
     if kind == "rwkv":
         x = x + rwkv6.rwkv6_time_mix(p.time_mix,
                                      norm_apply(cfg, p.norm1, x), cfg.rwkv)
@@ -102,10 +112,19 @@ def block_fwd(p: Block, x, cfg, kind: str = "attn_mlp"):
 
 def cache_init(cfg, kind: str, batch: int, max_len: int, device) -> dict:
     """Zero cache entry for one layer of this kind: attention's K/V for
-    ``max_len`` positions, RWKV6's f32 WKV state and the last normed
-    inputs of its two mixers."""
+    ``max_len`` positions, Mamba2's f32 SSM state and the conv's last W - 1
+    inputs, RWKV6's f32 WKV state and the last normed inputs of its two
+    mixers."""
     _check(cfg, kind)
     dt = getattr(torch, cfg.dtype)
+    if kind == "mamba":
+        s = cfg.ssm
+        return {"ssm": torch.zeros((batch, s.n_heads, s.state_dim,
+                                    s.d_inner // s.n_heads),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros((batch, s.conv_width - 1,
+                                     s.d_inner + 2 * s.n_groups * s.state_dim),
+                                    dtype=dt, device=device)}
     if kind == "rwkv":
         r = cfg.rwkv
         return {"wkv": torch.zeros((batch, r.n_heads, r.head_dim,
@@ -122,8 +141,12 @@ def cache_init(cfg, kind: str, batch: int, max_len: int, device) -> dict:
 
 def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
     """Full-sequence forward that also fills the cache. Attention writes
-    the first S slots of its K/V in place; RWKV6 returns a new entry.
-    Returns (x, cache)."""
+    the first S slots of its K/V in place; Mamba2 and RWKV6 return a new
+    entry. Returns (x, cache)."""
+    if kind == "mamba":
+        h, (ssm, conv) = mamba2.mamba2_fwd(
+            p.mixer, norm_apply(cfg, p.norm1, x), cfg.ssm, return_state=True)
+        return x + h, {"ssm": ssm, "conv": conv}
     if kind == "rwkv":
         n1 = norm_apply(cfg, p.norm1, x)
         h, (wkv, tm_prev) = rwkv6.rwkv6_time_mix(p.time_mix, n1, cfg.rwkv,
@@ -144,6 +167,11 @@ def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
 
 def block_decode(p: Block, x, cfg, kind: str, cache: dict, pos: int):
     """One-token step. x: (B, 1, d). Returns (x, cache)."""
+    if kind == "mamba":
+        h, ssm, conv = mamba2.mamba2_decode(
+            p.mixer, norm_apply(cfg, p.norm1, x), cache["ssm"],
+            cache["conv"], cfg.ssm)
+        return x + h, {"ssm": ssm, "conv": conv}
     if kind == "rwkv":
         n1 = norm_apply(cfg, p.norm1, x)
         h, wkv, tm_prev = rwkv6.rwkv6_time_mix_decode(

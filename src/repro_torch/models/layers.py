@@ -56,9 +56,10 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     N(0, 1) * d_model^-0.5, ``w[in, out]`` weights N(0, 1) * in^-0.5.
     A module overrides those rules for its own leaves with an ``INIT``
     dict of leaf name to "zeros", "uniform" (U[0, 1)) or a constant (the
-    RWKV6 mixers' ``mu``, ``w0`` and ``u``, and the LoRA's ``b``). Draws
-    are f32 from ``generator`` (on the parameters' device), in parameter
-    registration order, then cast to the parameter dtype."""
+    RWKV6 mixers' ``mu``, ``w0`` and ``u``, the LoRA's ``b`` and the
+    Mamba2 mixer's ``D``). Draws are f32 from ``generator`` (on the
+    parameters' device), in parameter registration order, then cast to
+    the parameter dtype."""
     for mod in module.modules():
         rules = getattr(mod, "INIT", {})
         for leaf, p in mod.named_parameters(recurse=False):
@@ -142,10 +143,12 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, device=None):
+    """``scale`` ones, f32 unless ``dtype`` says (the Mamba2 mixer's gated
+    norm keeps the model dtype, as in JAX)."""
+
+    def __init__(self, d: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.scale = param(torch.ones((d,), dtype=torch.float32,
-                                      device=device))
+        self.scale = param(torch.ones((d,), dtype=dtype, device=device))
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):

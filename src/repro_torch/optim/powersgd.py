@@ -24,11 +24,12 @@ Gram and a tsm2l apply) instead of Gram-Schmidt.
 
 Which leaves compress is decided on the JAX package's layout
 (``repro_torch.layout``), where a segment's layers are stacked on a
-leading axis: a leaf is eligible when
-its JAX shape is 2-D with at least ``min_size`` elements. Layer weights
-are 3-D there and stay dense; a per-layer vector (norm scale, bias) is a
-2-D ``(L, d)`` leaf there and is compressed as that stacked matrix here
-too. State is keyed by the JAX leaf path (``embed.table``,
+leading axis (a zamba2 group's Mamba2 layers on two): a leaf is
+eligible when its JAX shape is 2-D with at least ``min_size`` elements.
+Layer weights are 3-D there and stay dense; a per-layer vector (norm
+scale, bias) is a 2-D ``(L, d)`` leaf there and is compressed as that
+stacked matrix here too; zamba2's shared block is not stacked, so its
+matrices compress as they are. State is keyed by the JAX leaf path (``embed.table``,
 ``segments.0.attn.bq``), so ``convert.state_from_jax`` carries it over.
 
 Deliberate differences from the JAX package:
@@ -179,14 +180,16 @@ def compress_tree(cfg: PowerSGDConfig, grads: dict, state: dict, *,
             bytes_sent += size * 4
             continue
         stacked = layout.stacked(names)
-        g = (torch.stack([grads[n] for n in names]) if stacked
-             else grads[names[0]])
+        g = (torch.stack([grads[n] for n in names]).reshape(st["err"].shape)
+             if stacked else grads[names[0]])
         approx, new_state[path] = compress_one(cfg, g, st, policy=policy)
         # int8 wire format: 1 byte an element plus one f32 scale a factor.
         fb, ov = (1, 2 * 4) if cfg.compress == "int8" else (4, 0)
         bytes_sent += (new_state[path]["q"].numel()
                        + approx.shape[0] * cfg.rank) * fb + ov
         approx = approx.to(g.dtype)
+        if stacked:     # back to one tensor a port name, in index order
+            approx = approx.reshape(len(names), *grads[names[0]].shape)
         for i, n in enumerate(names):
             out[n] = approx[i] if stacked else approx
     metrics = {"powersgd_compression": bytes_dense / max(bytes_sent, 1)}

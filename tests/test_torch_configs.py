@@ -8,7 +8,10 @@
   dtype that differs). ``param_count`` / ``active_param_count`` and the
   cell skip matrix must equal the reference's, and PowerSGD's default
   ``min_size`` must pick the reference's leaves (for rwkv6 ``embed`` and
-  ``lm_head`` only).
+  ``lm_head`` only; for zamba2 those and the shared block's seven
+  matrices). zamba2's leaves stacked twice (``(6, 6, ...)``) are held
+  with the rest, and its dtypes leaf by leaf (bf16 mixer norm, f32
+  ``A_log`` / ``D`` / ``dt_bias`` and block norms).
 * Smoke size: llama3.2-3b (tied embeddings), mistral-nemo-12b (head_dim
   != d_model / n_heads) and qwen2-72b (QKV bias) forward and greedy
   generate against JAX from the JAX parameters (biases and norm scales
@@ -33,8 +36,8 @@ from repro_torch.models import model
 from repro_torch.optim import powersgd
 from repro_torch.serve import engine
 
-PORTED = ["chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b", "qwen2-72b",
-          "rwkv6-1.6b"]
+PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
+          "qwen2-72b", "rwkv6-1.6b"]
 DENSE_NEW = ["llama3.2-3b", "mistral-nemo-12b", "qwen2-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -52,7 +55,7 @@ def test_registry_lists_the_ported_archs_in_reference_order():
     assert registry.ARCH_NAMES == PORTED
     assert [a for a in jregistry.ARCH_NAMES if a in PORTED] == PORTED
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("zamba2-1.2b")
+        registry.get_config("mixtral-8x7b")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -107,6 +110,39 @@ def test_cells_are_the_references():
     assert not registry.cell_supported("qwen2-72b", "long_500k")[0]
 
 
+def test_zamba2_param_count_value_and_leaves():
+    """1,169,424,384 by the reference's formula, which leaves out the conv
+    and the per-channel leaves (``conv_w``, the norms, ``conv_b``,
+    ``A_log``, ``D``, ``dt_bias``: 27,456 a Mamba2 layer; the shared
+    block's two norms and the final norm) and the per-group LoRAs (6 x 2
+    x 2 x 2048 x 128), all of which the model holds; and the stacked
+    shapes and dtypes of the leaves that differ by kind."""
+    cfg = registry.get_config("zamba2-1.2b")
+    assert cfg.param_count() == 1_169_424_384
+    lm = model.LM(cfg, device="meta")
+    named = dict(lm.named_parameters())
+    per_layer = 2048 + 4224 + 3 * 64 + 4096 + 4 * 4224
+    assert sum(p.numel() for p in lm.parameters()) == (
+        1_169_424_384 + 38 * per_layer + 3 * 2048 + 6 * 2 * 2 * 2048 * 128)
+    groups = layout.jax_leaves(named)
+
+    def leaf(path):
+        names = groups[path]
+        return layout.jax_shape(named, names), named[names[0]].dtype
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert leaf("segments.0.mamba.mixer.in_proj") == ((6, 6, 2048, 8384),
+                                                       bf16)
+    assert leaf("segments.0.mamba.mixer.norm.scale") == ((6, 6, 4096), bf16)
+    for key in ("A_log", "D", "dt_bias"):
+        assert leaf(f"segments.0.mamba.mixer.{key}") == ((6, 6, 64), f32)
+        assert leaf(f"segments.1.mixer.{key}") == ((2, 64), f32)
+    assert leaf("segments.0.mamba.norm1.scale") == ((6, 6, 2048), f32)
+    assert leaf("segments.0.lora_attn.a") == ((6, 2048, 128), bf16)
+    assert leaf("shared_block.norm2.scale") == ((2048,), f32)
+    assert leaf("shared_block.ffn.w_down") == ((8192, 2048), bf16)
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_powersgd_default_compresses_the_references_leaves(arch):
     """At full width and the default ``min_size`` the port picks the JAX
@@ -126,6 +162,11 @@ def test_powersgd_default_compresses_the_references_leaves(arch):
     assert sorted(got) == want
     if arch == "rwkv6-1.6b":
         assert want == ["embed.table", "lm_head.table"]
+    if arch == "zamba2-1.2b":
+        assert want == ["embed.table", "lm_head.table", *(
+            f"shared_block.{k}" for k in ("attn.wk", "attn.wo", "attn.wq",
+                                          "attn.wv", "ffn.w_down",
+                                          "ffn.w_gate", "ffn.w_up"))]
 
 
 @pytest.fixture(scope="module", params=DENSE_NEW)

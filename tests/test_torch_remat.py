@@ -167,3 +167,25 @@ def test_prefill_under_inference_mode_does_not_checkpoint(monkeypatch):
     with torch.inference_mode():
         out, _ = model.forward(params, cfg, {"tokens": tokens})
     assert out.shape == (b, s, cfg.vocab_size)
+
+
+def test_zamba2_checkpoints_each_mamba_layer_and_not_the_shared_block(
+        monkeypatch):
+    """The reference's hybrid remat: each Mamba2 layer of a group on its
+    own (``_maybe_remat(cfg, mamba_body)``), each tail layer (a plain
+    segment at ``remat_group`` 1), and the shared block not at all (its
+    group body has no ``jax.checkpoint``); the attention's kv steps are
+    checkpointed as everywhere."""
+    cfg = registry.get_config("zamba2-1.2b", smoke=True)
+    real, calls = layers.remat, []
+
+    def counting(fn, *args):
+        if fn is not attention._kv_step:
+            calls.append((fn.__name__, args[-1]))
+        return real(fn, *args)
+
+    monkeypatch.setattr(layers, "remat", counting)
+    _loss_and_grads(cfg, _params(cfg), _batch())
+    n_groups = cfg.n_layers // cfg.hybrid_period
+    assert n_groups * cfg.hybrid_period < cfg.n_layers   # a tail
+    assert calls == [("block_fwd", "mamba")] * cfg.n_layers
