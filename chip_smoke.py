@@ -409,6 +409,32 @@ printing no result, when no CUDA card is present or any phase fails.
    dense arm's first step must match the loss and grad norm within
    5e-2. Prints step times, tokens/s, peak and state memory, each
    factor's route and S, the wall time and a profiled fourth step.
+10f. dist (a path of its own; counts zeroed before, read after): the
+   multi-process executors in a world of one under NCCL
+   (``init_method="file://"`` on a temporary file; one card, and NCCL
+   puts no two ranks on one device) and a ``("data",)`` ``DeviceMesh``.
+   With the executor pinned, chatglm3-6b's wk/wv [8192,4096]·[4096,256]
+   bf16 on a ``Shard(0)`` A and a replicated B must record an outer
+   ``shard_map`` event and an inner ``cuda`` tsm2r on the wgmma body, and
+   PowerSGD's Q [65024,4096]^T [65024,4] f32 under ``reduce="psum"``,
+   ``"none"`` (``shard_map``) and ``"psum_scatter"``
+   (``shard_map-scatter``) an inner tsmt each; every output equal to the
+   unsharded dispatch's bit for bit. Then ``compress_tree_sharded`` over
+   a chatglm3-6b-4l gradient tree (one backward of the train phase's
+   first batch in its microbatches) under gram_schmidt, tsqr (tree TSQR
+   of one rank: the local factorization) and int8 (inside
+   ``GemmPolicy(quant="int8")``): its gradients and state equal to
+   ``compress_tree``'s on the same tree and state bit for bit, and the
+   path's launches those the classifier and the chooser predict
+   (``dist_launches``). A ``dist`` line prints each sharded call's time
+   beside its unsharded counterpart's (CUDA events, and device ms from
+   the profiler: null where no session saw device work, and
+   ``profiler_sees_device`` says whether one did before and after NCCL
+   started), both protocols' compression metrics, and the device time
+   of NCCL's ``all_reduce`` at P's shape and ``reduce_scatter_tensor``
+   at Q's (DTensor moves nothing on a mesh dim of one rank, so the
+   sharded calls run no collective). The process group is destroyed
+   after.
 11. Contracts: every launch that a record scope of a path recorded
    (``RECORDED``; the dispatch path's under ``verify_contracts``) must
    keep ``contracts.check_kernel_config`` and ``check_grid`` on this
@@ -416,9 +442,9 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the fourteen paths (dispatch, serve, train, serve-int8,
+   on each of the fifteen paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
-   rwkv-serve, rwkv-train, zamba-serve, zamba-train) and their
+   rwkv-serve, rwkv-train, zamba-serve, zamba-train, dist) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -4238,6 +4264,322 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The dist phase: the shard_map executors, tree TSQR and sharded PowerSGD
+# in a world of one under NCCL
+# ---------------------------------------------------------------------------
+
+DIST_WKWV = (8192, 4096, 256)     # chatglm3-6b's wk/wv, bf16
+DIST_Q = (65024, 4096, 4)         # PowerSGD's P and Q of embed / lm_head
+# (tag, orth, compress): the sharded PowerSGD arms.
+DIST_ARMS = (("gram_schmidt", "gram_schmidt", "none"),
+             ("tsqr", "tsqr", "none"), ("int8", "gram_schmidt", "int8"))
+# tsmm_t's reduce modes with the executor pinned for each.
+DIST_REDUCES = (("psum", "shard_map"), ("none", "shard_map"),
+                ("psum_scatter", "shard_map-scatter"))
+
+
+def dist_launches(kind, shape, dtype, pol, dev) -> dict:
+    """The launches one dispatch of ``kind`` at ``shape`` resolves to under
+    ``pol`` on the card: the chooser's S (``ops.resolve_params``), the
+    split kernel past S = 1 and the epilogue where it runs; the int8
+    kernels under ``quant="int8"`` (their quantize passes are
+    ``expect``'s)."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import ops
+
+    name = kind + ("_q8" if pol.quant == "int8" else "")
+    s = ops.resolve_params(kind, *shape, dtype, pol,
+                           device=dev).get("splits", 1)
+    if s == 1:
+        return {name: 1}
+    rows, cols = ((shape[0], shape[2]) if kind == "tsm2r"
+                  else (shape[1], shape[2]))
+    return {f"{name}_split": 1,
+            "sum_partials": int(perf_model.reduce_kernel_runs(s, rows,
+                                                              cols))}
+
+
+def add_launches(total: dict, *parts, times: int = 1) -> dict:
+    for part in parts:
+        for n, v in part.items():
+            total[n] = total.get(n, 0) + v * times
+    return total
+
+
+def traced(dev) -> bool:
+    """Whether a profiler session sees the device work of one small op
+    (the dist line reports it before and after NCCL starts)."""
+    x = torch.ones(1024, device=dev)
+    return bool(device_events(lambda: x.add_(1), bool, tries=2))
+
+
+def device_ms_or_none(fn, reps: int = 5):
+    """``call_device_ms``, or None where no profiler session sees device
+    work (the dist line says so; its CUDA-event times still stand)."""
+    def run():
+        for _ in range(reps):
+            fn()
+
+    fn()
+    events = device_events(run, bool)
+    if not events:
+        return None
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+
+
+def nccl_device_ms(fn) -> dict:
+    """The device activity of one collective call (the mean of 5): its
+    kernels' and copies' names and their device ms."""
+    fn()
+
+    def run():
+        for _ in range(5):
+            fn()
+
+    events = device_events(run, bool, tries=2)
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in events)
+            / 5 / 1e3, "events": sorted({e.name[:60] for e in events})}
+
+
+def dist_phase(dev, gpu, counts, zero_counts, expect) -> dict:
+    """The dist path: a world of one under NCCL (``init_method="file://"``
+    on a temporary file) and a one-dim ``("data",)`` mesh. With the
+    executors pinned, chatglm3-6b's wk/wv on a ``Shard(0)`` A and a
+    replicated B (outer ``shard_map``, inner ``cuda`` tsm2r on the wgmma
+    body) and PowerSGD's Q under each reduce mode (an inner tsmt each),
+    every output bit-equal to the unsharded dispatch; then
+    ``compress_tree_sharded`` over a chatglm3-6b-4l gradient tree (one
+    backward, as the train phase makes it) under gram_schmidt, tsqr and
+    int8, its gradients and state bit-equal to ``compress_tree``'s, with
+    the launches the classifier and the chooser predict. Then times each
+    sharded call beside its unsharded counterpart and the NCCL
+    collectives' own device time at the factors' shapes (device ms are
+    None where no profiler session sees device work; the line reports
+    whether one did before and after NCCL started). Returns the path's
+    launch counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    profiler = {"before_nccl": traced(dev)}
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        profiler["after_nccl"] = traced(dev)
+        return _dist_path(dev, gpu, mesh, counts, zero_counts, expect,
+                          profiler)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dist_path(dev, gpu, mesh, counts, zero_counts, expect,
+               profiler) -> dict:
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import linalg
+    from repro_torch.configs import registry
+    from repro_torch.core import tsmm
+    from repro_torch.data import pipeline
+    from repro_torch.models import model
+    from repro_torch.optim import powersgd
+    from repro_torch.train import train_step
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    m, k, n = DIST_WKWV
+    a, b = normal((m, k), torch.bfloat16), normal((k, n), torch.bfloat16)
+    x = normal(DIST_Q[:2], torch.float32)
+    y = normal((DIST_Q[0], DIST_Q[2]), torch.float32)
+    a_d = distribute_tensor(a, mesh, [Shard(0)])
+    b_d = distribute_tensor(b, mesh, [Replicate()])
+    x_d = distribute_tensor(x, mesh, [Shard(0)])
+    y_d = distribute_tensor(y, mesh, [Shard(0)])
+
+    # The gradient tree: one backward of chatglm3-6b at 4 layers over the
+    # train phase's first batch, in its microbatches.
+    cfg = dataclasses.replace(registry.get_config("chatglm3-6b"),
+                              n_layers=TRAIN_LAYERS)
+    params = model.init(cfg, 0, device=dev)
+    params.requires_grad_(True)
+    dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH,
+                               vocab_size=cfg.vocab_size)
+    batch = {key: torch.from_numpy(v).to(dev, torch.long)
+             for key, v in pipeline.batch_for_step(dcfg, 0).items()}
+    _, grads, _ = train_step._microbatch_grads(
+        train_step.make_loss_fn(cfg), params, batch, cfg.microbatch)
+    del batch
+
+    # The unsharded counterparts, before the path's counts are zeroed.
+    ref_mm = tsmm.tsmm(a, b)
+    ref_q = tsmm.tsmm_t(x, y)
+    arms = {}
+    for tag, orth, compress in DIST_ARMS:
+        ps = powersgd.PowerSGDConfig(rank=4, orth=orth, compress=compress)
+        pol = tsmm.GemmPolicy(quant="int8" if compress == "int8" else "none")
+        st0 = powersgd.init(ps, params)
+        with tsmm.policy(pol):
+            ref = powersgd.compress_tree(ps, grads, st0)
+        arms[tag] = (ps, pol, st0, ref)
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+
+    # -- the path ----------------------------------------------------------
+    zero_counts()
+    with recorded() as log:
+        with tsmm.policy(executor="shard_map"):
+            out_mm = tsmm.tsmm(a_d, b_d)
+        mm_log = list(log)
+        out_q, q_logs = {}, {}
+        for red, executor in DIST_REDUCES:
+            start = len(log)
+            with tsmm.policy(executor=executor, reduce=red):
+                out_q[red] = tsmm.tsmm_t(x_d, y_d)
+            q_logs[red] = log[start:]
+        sharded = {}
+        for tag, (ps, pol, st0, ref) in arms.items():
+            with tsmm.policy(pol):
+                sharded[tag] = powersgd.compress_tree_sharded(
+                    ps, grads, powersgd.shard_state(st0, mesh=mesh,
+                                                    axis="data"),
+                    mesh=mesh, axis="data")
+        torch.cuda.synchronize()
+    launches = counts()
+    # The path ends here; what follows checks it and times it.
+
+    def route(events, outer, entry, kind, shape):
+        outer_ev = [e for e in events if e.executor == outer]
+        inner = [e for e in events if e.executor == "cuda"]
+        check(len(outer_ev) == 1 and outer_ev[0].launches == ()
+              and (outer_ev[0].entry, outer_ev[0].kind, outer_ev[0].shape)
+              == (entry, kind, shape) and len(inner) == 1
+              and (inner[0].entry, inner[0].kind, inner[0].shape)
+              == (entry, kind, shape) and inner[0].launches,
+              f"dist {outer} route of {entry} {shape}: {events}")
+        return inner[0].launches
+
+    lm = route(mm_log, "shard_map", "mm", "tsm2r", DIST_WKWV)
+    check([x.kind for x in lm] == ["tsm2r"]
+          and lm[0].params["body"] == "wgmma",
+          f"dist wk/wv: {[(x.kind, x.params.get('body')) for x in lm]}")
+    check(type(out_mm).__name__ == "DTensor"
+          and same_bits(out_mm.to_local(), ref_mm),
+          "dist wk/wv differs from the unsharded dispatch")
+    q_kernels = {}
+    for red, executor in DIST_REDUCES:
+        lq = route(q_logs[red], executor, "mmt", "tsmt", DIST_Q)
+        q_kernels[red] = [x.kind for x in lq]
+        check(lq[0].kind == "tsmt", f"dist Q {red}: {q_kernels[red]}")
+        check(tuple(out_q[red].shape) == (DIST_Q[1], DIST_Q[2])
+              and same_bits(out_q[red].to_local(), ref_q),
+              f"dist Q under reduce={red} differs from the unsharded "
+              "dispatch")
+
+    # compress_tree_sharded: bit-equal to compress_tree on one rank.
+    metrics = {}
+    for tag, (ps, pol, st0, ref) in arms.items():
+        out, st, met = sharded[tag]
+        r_out, r_st, r_met = ref
+        bad = [name for name in grads
+               if not torch.equal(out[name], r_out[name])]
+        bad += [f"{path}.{key}" for path in r_st for key in ("q", "err")
+                if not torch.equal(st[path][key], r_st[path][key])]
+        check(not bad and sorted(st) == sorted(r_st)
+              == ["embed.table", "lm_head.table"],
+              f"dist {tag}: compress_tree_sharded differs from "
+              f"compress_tree at {bad[:4]}")
+        metrics[tag] = {"sharded": met, "replicated": r_met}
+        sharded[tag] = arms[tag] = (ps, pol, st0, None)   # free both
+
+    # The launches the classifier and the chooser predict.
+    f32 = tsmm.GemmPolicy()
+    leaves = 2
+    want = add_launches({}, dist_launches("tsm2r", DIST_WKWV, torch.bfloat16,
+                                          f32, dev))
+    q_once = dist_launches("tsmt", DIST_Q, torch.float32, f32, dev)
+    add_launches(want, q_once, times=len(DIST_REDUCES))
+    passes = linalg.default_passes(DIST_Q[0], DIST_Q[2])
+    gram = (DIST_Q[0], DIST_Q[2], DIST_Q[2])
+    fake_quants = 0
+    for tag, (ps, pol, _, _) in arms.items():
+        per_leaf = [dist_launches("tsm2r", DIST_Q, torch.float32, pol, dev),
+                    dist_launches("tsmt", DIST_Q, torch.float32, pol, dev)]
+        if ps.orth == "tsqr":
+            per_leaf += [dist_launches("tsmt", gram, torch.float32, pol,
+                                       dev)] * passes
+            per_leaf += [{"tsm2l": 1}] * passes
+        add_launches(want, *per_leaf, times=leaves)
+        fake_quants += 2 * leaves * (ps.compress == "int8")
+    want = expect(fake_quants=fake_quants, **want)
+    check(launches == want, f"dist path launches {launches}, predicted "
+          f"{want}")
+
+    # -- times ---------------------------------------------------------------
+    def both(fn):
+        return {"ms": time_ms(fn), "device_ms": device_ms_or_none(fn)}
+
+    def pinned(executor, red, fn):
+        def run():
+            with tsmm.policy(executor=executor, reduce=red):
+                return fn()
+        return run
+
+    times = {"wk/wv": {
+        "sharded": both(pinned("shard_map", "psum",
+                               lambda: tsmm.tsmm(a_d, b_d))),
+        "unsharded": both(lambda: tsmm.tsmm(a, b))}}
+    for red, executor in DIST_REDUCES:
+        times[f"Q {red}"] = {
+            "sharded": both(pinned(executor, red,
+                                   lambda: tsmm.tsmm_t(x_d, y_d))),
+            "unsharded": both(lambda: tsmm.tsmm_t(x, y))}
+    for tag, (ps, pol, st0, _) in arms.items():
+        sst = powersgd.shard_state(st0, mesh=mesh, axis="data")
+
+        def sharded_call():
+            with tsmm.policy(pol):
+                powersgd.compress_tree_sharded(ps, grads, sst, mesh=mesh,
+                                               axis="data")
+
+        def replicated_call():
+            with tsmm.policy(pol):
+                powersgd.compress_tree(ps, grads, st0)
+
+        times[f"compress {tag}"] = {"sharded": both(sharded_call),
+                                    "unsharded": both(replicated_call)}
+    group = mesh.get_group("data")
+    p_buf = torch.ones((DIST_Q[0], DIST_Q[2]), device=dev)
+    q_buf = torch.ones((DIST_Q[1], DIST_Q[2]), device=dev)
+    q_out = torch.empty_like(q_buf)
+    nccl = {"all_reduce P": nccl_device_ms(
+                lambda: dist.all_reduce(p_buf, group=group)),
+            "reduce_scatter_tensor Q": nccl_device_ms(
+                lambda: dist.reduce_scatter_tensor(q_out, q_buf,
+                                                   group=group))}
+    emit({"phase": "dist", "world": dist.get_world_size(),
+          "backend": dist.get_backend(), "mesh": list(mesh.mesh_dim_names),
+          "wk_wv": list(DIST_WKWV), "q": list(DIST_Q),
+          "q_kernels": q_kernels, "tsqr_passes": passes,
+          "launches": {n: v for n, v in launches.items() if v},
+          "times": times, "nccl": nccl, "powersgd_metrics": metrics,
+          "profiler_sees_device": profiler,
+          "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
+    del grads, arms, sharded, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4896,6 +5238,10 @@ def main() -> int:
     check(model_launches["zamba_train"]["tsm2r_split"] > 0,
           "tsm2r_split not on zamba-train")
 
+    # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
+    PATH["name"] = "dist"
+    dist_launches_ = dist_phase(dev, gpu, counts, zero_counts, expect)
+
     # -- 11. every recorded launch against the contracts -------------------
     contracts_phase(dev, gpu)
 
@@ -4917,7 +5263,7 @@ def main() -> int:
              "train_tsqr": train_tsqr_launches,
              "abft_serve": abft_serve_launches,
              "abft_train": abft_train_launches, "launch": launch_launches,
-             **model_launches}
+             **model_launches, "dist": dist_launches_}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"

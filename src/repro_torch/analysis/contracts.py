@@ -69,6 +69,9 @@ __all__ = [
     "check_grid",
     "launch_grid",
     "check_backward_policy",
+    "scatter_divisible",
+    "check_scatter",
+    "executor_reduce_ok",
     "qr_stage_shapes",
     "abft_stage_shapes",
     "TSMT_MAX_B",
@@ -506,14 +509,41 @@ def check_kernel_config(kind: str, shape, params, dtype, limits=None, *,
 
 
 # ---------------------------------------------------------------------------
+# Collective-layout contracts
+# ---------------------------------------------------------------------------
+
+def scatter_divisible(rows: int, shards: int) -> bool:
+    """psum_scatter's existence condition: the scattered output rows must
+    tile exactly over the dp shards (the dispatcher falls back to dense
+    otherwise; a pinned scatter executor raises)."""
+    return shards >= 1 and rows % shards == 0
+
+
+def check_scatter(rows: int, shards: int) -> list[Violation]:
+    if scatter_divisible(rows, shards):
+        return []
+    return [Violation(
+        "psum-scatter-divisibility", f"rows={rows} shards={shards}",
+        f"psum_scatter output rows ({rows}) do not divide the {shards} "
+        "shards: the row-sharded layout cannot exist")]
+
+
+def executor_reduce_ok(declared, reduce: str) -> bool:
+    """Does an executor whose declared reduce contract is ``declared``
+    (an iterable of mode names) implement ``reduce``?"""
+    return reduce in tuple(declared)
+
+
+# ---------------------------------------------------------------------------
 # Policy contracts
 # ---------------------------------------------------------------------------
 
 def check_backward_policy(fwd, bwd) -> list[Violation]:
-    """The re-dispatch invariants ``tsmm.backward_policy`` must honour,
-    for the fields the port's ``GemmPolicy`` has (duck-typed, so this
-    layer stays pure):
+    """The re-dispatch invariants ``tsmm.backward_policy`` must honour
+    (duck-typed on the GemmPolicy fields, so this layer stays pure):
 
+    * ``reduce`` is kept, but "none" becomes "psum" (stacked partials
+      would give the cotangent another shape than its primal);
     * an int ``split`` pin goes back to "auto" (it was chosen for the
       forward shape), while "auto"/"never" are kept (scope-wide intent);
     * the executor pin is dropped (cotangent shapes re-select);
@@ -524,6 +554,12 @@ def check_backward_policy(fwd, bwd) -> list[Violation]:
     """
     subject = f"backward_policy({fwd!r})"
     out = []
+    want_reduce = "psum" if fwd.reduce == "none" else fwd.reduce
+    if bwd.reduce != want_reduce:
+        out.append(Violation(
+            "backward-reduce", subject,
+            f"backward reduce={bwd.reduce!r}, expected {want_reduce!r} "
+            f"(forward reduce={fwd.reduce!r})"))
     want_split = "auto" if isinstance(fwd.split, int) else fwd.split
     if bwd.split != want_split:
         out.append(Violation(
@@ -568,16 +604,16 @@ def qr_stage_shapes(m: int, r: int, *, shards: int = 1
     resolves: ``repro_torch.linalg``'s CholeskyQR2 factors an ``(m, r)``
     operand through the Gram ``A^T A`` (a tsmt at ``(m, r, r)``) and the
     ``R^-1`` apply (a tsm2l at ``(m, r, r)``); the small Cholesky and
-    triangular solve between them never reach the kernels. Only the
-    one-process factorization is ported (``shards=1``); the tree variant
-    waits for the multi-process executors."""
-    if shards < 1:
-        raise ValueError(f"qr_stage_shapes: shards={shards} must be >= 1")
-    if shards > 1:
-        raise NotImplementedError(
-            "qr_stage_shapes: the sharded tree TSQR is not ported "
-            f"(shards={shards})")
-    return (("tsmt", (m, r, r)), ("tsm2l", (m, r, r)))
+    triangular solve between them never reach the kernels. ``shards > 1``
+    describes ``linalg.tree_tsqr``, whose local factor runs the same two
+    stages on the per-shard row count (``m`` must tile over the shards,
+    the divisibility the shard_map executors require)."""
+    if shards < 1 or (shards > 1 and m % shards != 0):
+        raise ValueError(
+            f"qr_stage_shapes: m={m} does not tile over shards={shards} "
+            "(tree-TSQR requires the tall dim to divide the shard count)")
+    m_loc = m // shards
+    return (("tsmt", (m_loc, r, r)), ("tsm2l", (m_loc, r, r)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
 """Shape-dispatched tall-and-skinny matmul behind a scoped ``GemmPolicy``.
 
-Counterpart of ``src/repro/core/tsmm.py``, with what serving and
-single-process training need.
+Counterpart of ``src/repro/core/tsmm.py``.
 ``tsmm(a, b)`` classifies ``A[..., m, k] @ B[k, n]`` (leading dims collapse
 into the tall dim) and routes to:
 
@@ -17,7 +16,26 @@ Executors:
 
 * ``cuda``        -- the hand-written kernels (CUDA tensors only),
 * ``torch-ref``   -- their plain versions, selected only for CPU tensors,
-* ``torch-dense`` -- ``torch.matmul``, the analogue of ``dense-xla``.
+* ``torch-dense`` -- ``torch.matmul``, the analogue of ``dense-xla``; on
+  DTensor operands DTensor's own sharding propagation partitions it, as
+  GSPMD partitions the reference's dense dot under a mesh,
+* ``shard_map``   -- per-shard dispatch over the data-parallel dims of the
+  operands' ``DeviceMesh`` (the reference's sharded ``jax.Array`` is a
+  ``DTensor`` here): the tall dim shards, each rank re-enters this
+  dispatcher on its local tensors (still tall-and-skinny), and
+  ``tsmm_t``'s per-shard partial products combine per
+  ``GemmPolicy.reduce`` -- all-reduced to a replicated output ("psum"),
+  or stacked (``reduce="none"``: global ``(shards * a, b)``),
+* ``shard_map-scatter`` -- ``tsmm_t`` whose partials reduce-scatter
+  (``reduce="psum_scatter"``): the ``(a, b)`` product comes back
+  row-sharded over the data-parallel dims.
+
+A plain tensor is local to its process and never reaches the shard_map
+executors unless one is pinned, which then raises. Data-parallel dims are
+derived from the mesh's dim names (:func:`derive_dp_axes`) unless
+``GemmPolicy.dp_axes`` names them. A mesh of one rank never auto-selects
+shard_map: its DTensors reach ``cuda`` / ``torch-ref`` as their local
+tensors and come back wrapped.
 
 ``GemmPolicy.split`` drives the split-reduction (split-K) kernels of
 tsm2r and tsmt: "auto" lets the occupancy-aware chooser of
@@ -62,6 +80,7 @@ import contextvars
 import dataclasses
 import math
 import os
+import sys
 import warnings
 
 import torch
@@ -70,7 +89,7 @@ from repro_torch.core import perf_model
 # inject sits below every layer (torch only), so the dispatcher can route
 # each executor invocation through its fault tap.
 from repro_torch.ft import inject as _inject
-from repro_torch.kernels import ops
+from repro_torch.kernels import compat, ops
 
 __all__ = [
     "GemmPolicy",
@@ -84,6 +103,7 @@ __all__ = [
     "enabled",
     "classify_gemm",
     "classify_gemm_t",
+    "derive_dp_axes",
     "tsmm",
     "tsmm_t",
     "register_executor",
@@ -109,16 +129,33 @@ MIN_TALL = 2048
 MAX_SKINNY_T = 512
 SKINNY_RATIO_T = SKINNY_RATIO // 4
 
+# The convention for which mesh dims carry the batch. They seed
+# ``derive_dp_axes``, which reads the operands' mesh; GemmPolicy.dp_axes
+# still pins dims per scope.
+DP_AXIS_NAMES = ("pod", "data")
+
+# Names treated as data-parallel when deriving dp dims from a mesh, besides
+# DP_AXIS_NAMES, and names that mark a dim as model/pipeline parallel
+# (never DP). A dim in neither set is DP only when no conventional DP name
+# is on the mesh.
+_DP_NAME_HINTS = DP_AXIS_NAMES + ("dp", "batch", "replica", "replicas")
+_MODEL_NAME_HINTS = frozenset({
+    "model", "tensor", "tp", "mp", "expert", "experts", "ep",
+    "pipe", "pipeline", "stage", "pp", "seq", "sequence", "sp",
+})
+
 _MM_KINDS = ("auto", "dense", "tsm2r", "tsm2l")
 _MMT_KINDS = ("auto", "dense", "tsmt")
 _ALL_MODES = ("auto", "dense", "tsm2r", "tsm2l", "tsmt")
+_SHARD_MAP_MODES = ("auto", "never", "require", "local")
+# GemmPolicy.reduce: how tsmm_t's per-shard partial products combine under
+# the shard_map executors. Each executor declares the modes it implements
+# (its reduce contract): the one-process executors all three (one shard:
+# psum == psum_scatter == none), shard_map ("psum", "none") and
+# shard_map-scatter ("psum_scatter",).
+_REDUCE_MODES = ("psum", "psum_scatter", "none")
 _QUANT_MODES = ("none", "int8")
 _ABFT_MODES = ("none", "verify", "correct")
-# The reference's GemmPolicy.reduce modes, which an executor declares as
-# its reduce contract. One process reduces nothing, so every built-in
-# executor implements all three; the policy field waits for the
-# multi-process executors.
-_REDUCE_MODES = ("psum", "psum_scatter", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +212,30 @@ class GemmPolicy:
     their own shapes. On a clean run the guarded output equals the
     unguarded one bit for bit and its gradient passes straight through.
     ``backward_policy`` keeps ``abft``: cotangent GEMMs of a guarded
-    scope are guarded too.
+    scope are guarded too. The outer shard_map dispatch is not guarded:
+    its per-shard re-dispatch inherits ``abft``, so each shard verifies
+    (or corrects) its own local GEMM.
+
+    ``shard_map``: what DTensor operands on a mesh of more than one rank
+    do. "auto" dispatches per shard when the tall dim divides the
+    data-parallel dims and the local shape still classifies
+    tall-and-skinny, and falls back to ``torch-dense`` otherwise; "never"
+    always takes ``torch-dense``; "require" raises instead of falling
+    back; "local" ignores the mesh and dispatches on the shapes as seen
+    (what the shard_map executors set for their per-shard bodies).
+    ``dp_axes``: the mesh dim names that carry the batch; None derives
+    them from the mesh (:func:`derive_dp_axes`). An explicit tuple is
+    filtered against the mesh's dim names.
+
+    ``reduce``: how ``tsmm_t``'s per-shard partial products combine under
+    the shard_map executors (no effect elsewhere, and none on ``tsmm``,
+    whose shards never reduce): "psum" all-reduces to a replicated
+    output; "psum_scatter" reduce-scatters, so the global ``(a, b)``
+    output is row-sharded over the dp dims (``torch-dense`` when its rows
+    do not divide the shards; "require" raises); "none" returns each
+    shard's partial product, stacked: the global output is ``(shards *
+    a, b)`` and the caller owns the reduction. ``backward_policy`` keeps
+    it, but "none" becomes "psum".
     """
 
     mode: str = "auto"
@@ -190,6 +250,9 @@ class GemmPolicy:
     verify_contracts: bool = False
     param_dtype_grads: bool = False
     abft: str = "none"
+    shard_map: str = "auto"
+    dp_axes: tuple[str, ...] | None = None
+    reduce: str = "psum"
 
     def __post_init__(self):
         s = self.split
@@ -203,6 +266,14 @@ class GemmPolicy:
             raise ValueError(
                 f"unknown GemmPolicy mode {self.mode!r}: valid modes are "
                 f"{', '.join(_ALL_MODES)}")
+        if self.shard_map not in _SHARD_MAP_MODES:
+            raise ValueError(
+                f"unknown GemmPolicy shard_map {self.shard_map!r}: valid "
+                f"values are {', '.join(_SHARD_MAP_MODES)}")
+        if self.reduce not in _REDUCE_MODES:
+            raise ValueError(
+                f"unknown GemmPolicy reduce {self.reduce!r}: valid "
+                f"values are {', '.join(_REDUCE_MODES)}")
         if self.quant not in _QUANT_MODES:
             raise ValueError(
                 f"unknown GemmPolicy quant {self.quant!r}: valid values are "
@@ -211,6 +282,9 @@ class GemmPolicy:
             raise ValueError(
                 f"unknown GemmPolicy abft {self.abft!r}: valid values are "
                 f"{', '.join(_ABFT_MODES)}")
+
+    def with_(self, **overrides) -> "GemmPolicy":
+        return dataclasses.replace(self, **overrides)
 
 
 def _policy_from_env() -> GemmPolicy:
@@ -281,14 +355,21 @@ def policy(base: GemmPolicy | None = None, /, **overrides):
 def backward_policy(p: GemmPolicy) -> GemmPolicy:
     """Policy for the backward's re-dispatch: the caller's scope, minus a
     forward-kind force and any executor pin (cotangent shapes classify for
-    themselves). An int ``split`` was chosen for the forward shape, so it
-    goes back to "auto"; "never", a "dense" mode, ``quant``, ``abft`` and
+    themselves, and a pinned shard_map executor must not recurse per
+    shard). ``reduce="none"`` becomes "psum": stacked partials would give
+    a cotangent another shape than its primal; "psum_scatter" stays, so
+    the backward's weight-gradient ``tsmm_t``s land sharded too. An int
+    ``split`` was chosen for the forward shape, so it goes back to
+    "auto"; "never", a "dense" mode, ``quant``, ``abft`` and
     ``param_dtype_grads`` are scope-wide intent and stay."""
     mode = p.mode if p.mode in ("auto", "dense") else "auto"
+    reduce_ = "psum" if p.reduce == "none" else p.reduce
     split = "auto" if isinstance(p.split, int) else p.split
-    if mode == p.mode and p.executor is None and split == p.split:
+    if (mode == p.mode and p.executor is None and reduce_ == p.reduce
+            and split == p.split):
         return p
-    return dataclasses.replace(p, mode=mode, executor=None, split=split)
+    return dataclasses.replace(p, mode=mode, executor=None, reduce=reduce_,
+                               split=split)
 
 
 @contextlib.contextmanager
@@ -385,7 +466,8 @@ class DispatchEvent:
     the policy's split knob; ``quant`` its quantization knob ("none" |
     "int8"), so a spy can check that an int8 scope reached the int8
     kernels; ``launches`` the kernel launches the call resolved to (empty
-    on the dense path).
+    on the dense path, and on the outer event of a shard_map dispatch:
+    the per-shard events carry their own).
 
     ``abft`` is the guard mode wrapped around THIS dispatch's result
     ("none" | "verify" | "correct"): the protected GEMM of a guarded scope
@@ -563,25 +645,282 @@ def executor_reduce_contract(name: str) -> tuple[str, ...]:
     return _EXECUTOR_CONTRACTS[name]
 
 
+# ---------------------------------------------------------------------------
+# The shard_map executors: DTensor operands on a DeviceMesh
+# ---------------------------------------------------------------------------
+#
+# The reference's sharded jax.Array under ``with mesh:`` is a DTensor here,
+# and its mesh is the operands' ``device_mesh``; ``shard_map`` is
+# ``to_local`` -> the per-shard body on local tensors -> ``from_local``;
+# ``lax.psum`` / ``psum_scatter`` over the dp axes are a ``Partial``
+# placement redistributed to ``Replicate`` / ``Shard(0)``.
+
+def _is_dtensor(t) -> bool:
+    # A DTensor exists only once torch.distributed.tensor is imported, so
+    # the check never imports it (this module stays cheap to import).
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _operand_mesh(a, b):
+    """The operands' DeviceMesh, or None for plain tensors. A DTensor and a
+    plain tensor do not mix (a plain tensor is local to its process)."""
+    da, db = _is_dtensor(a), _is_dtensor(b)
+    if not (da or db):
+        return None
+    if da != db:
+        raise ValueError(
+            "tsmm got a DTensor and a plain tensor: a plain tensor is local "
+            "to its process, so wrap both operands as DTensors on one "
+            "DeviceMesh, or pass both local tensors")
+    if a.device_mesh != b.device_mesh:
+        raise ValueError(
+            f"tsmm operands lie on different meshes: {a.device_mesh} and "
+            f"{b.device_mesh}")
+    return a.device_mesh
+
+
+def derive_dp_axes(mesh) -> tuple[str, ...]:
+    """Data-parallel dims of ``mesh``, derived from its dim *names*
+    (``mesh_dim_names``; order kept):
+
+    1. dims named by the DP convention (``DP_AXIS_NAMES`` plus
+       "dp"/"batch"/"replica(s)") are DP when any is present;
+    2. otherwise every dim whose name does not hint model/pipeline
+       parallelism ("model", "tensor", "tp", "expert", "pipe", "stage",
+       "seq", ...) is DP -- a one-dim mesh with a novel name too.
+
+    A model-named dim is never DP, even alone: a pure tensor-parallel
+    ``("model",)`` mesh keeps the dense fallback. May return ()."""
+    names = tuple(mesh.mesh_dim_names or ())
+    conv = tuple(a for a in names if a in _DP_NAME_HINTS)
+    if conv:
+        return conv
+    return tuple(a for a in names if a not in _MODEL_NAME_HINTS)
+
+
+def _dp_axes(mesh, p: GemmPolicy) -> tuple[str, ...]:
+    if p.dp_axes is not None:
+        return tuple(a for a in p.dp_axes
+                     if a in (mesh.mesh_dim_names or ()))
+    return derive_dp_axes(mesh)
+
+
+def _axes_size(mesh, axes) -> int:
+    sizes = compat.mesh_axis_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def _placements(mesh, dp, on_dp):
+    """``on_dp`` on the mesh's dp dims, ``Replicate()`` on the others (the
+    reference's ``PartitionSpec(dp, None)`` over the mesh)."""
+    from torch.distributed.tensor import Replicate
+    return [on_dp if name in dp else Replicate()
+            for name in mesh.mesh_dim_names]
+
+
+def _shard_map_env(a, b, p: GemmPolicy):
+    """(mesh, dp dims, inner per-shard policy) for the shard_map executors.
+    The inner policy dispatches on local shapes (``shard_map="local"``)
+    and drops the executor pin, so the per-shard re-dispatch cannot
+    recurse."""
+    mesh = _operand_mesh(a, b)
+    if mesh is None:
+        raise RuntimeError("shard_map executor requires an active "
+                           "`with mesh:` scope: DTensor operands on a "
+                           "DeviceMesh")
+    dp = _dp_axes(mesh, p)
+    if not dp:
+        raise RuntimeError(
+            f"shard_map executor found no data-parallel axes on mesh "
+            f"{mesh.mesh_dim_names} (policy dp_axes={p.dp_axes}; derived "
+            "axes follow tsmm.derive_dp_axes)")
+    inner = dataclasses.replace(p, shard_map="local", executor=None)
+    return mesh, dp, inner
+
+
+def _sharded_locals(mesh, dp, *ts):
+    """Each operand row-sharded over the dp dims, as its local tensor."""
+    from torch.distributed.tensor import Shard
+    rows = _placements(mesh, dp, Shard(0))
+    return [t.redistribute(mesh, rows).to_local() for t in ts]
+
+
+def _exec_shard_map(entry, kind, a, b, p):
+    """Per-shard dispatch over the dp dims of the operands' mesh.
+
+    ``mm``: the tall dim shards, B replicates; each rank re-enters the
+    dispatcher on its local (still tall-and-skinny) shape, and the output
+    is row-sharded. B's local gradient is this shard's part of the sum
+    (``grad_placements`` Partial on the dp dims), as the transpose of the
+    reference's shard_map psums a replicated operand's cotangent.
+    ``mmt``: both operands shard over the tall reduction; the per-shard
+    partial products combine per ``p.reduce`` -- all-reduced to a
+    replicated output ("psum"), or stacked (``reduce="none"``: global
+    ``(shards * a, b)``). The scatter variant is ``shard_map-scatter``.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    del kind
+    mesh, dp, inner = _shard_map_env(a, b, p)
+    rows = _placements(mesh, dp, Shard(0))
+    if entry == "mm":
+        (a_s,) = _sharded_locals(mesh, dp, a)
+        b_s = b.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=_placements(mesh, dp, Partial()))
+        return DTensor.from_local(tsmm(a_s, b_s, policy=inner), mesh, rows)
+    if p.reduce == "psum_scatter":
+        # Selection never lands here with a scatter scope; only a pinned
+        # executor="shard_map" can. Refuse rather than psum: the caller
+        # asked for a row-sharded layout.
+        raise RuntimeError(
+            "GemmPolicy pins executor='shard_map' but reduce="
+            "'psum_scatter': the sharded-output layout lives on the "
+            "'shard_map-scatter' executor -- pin that instead, or drop "
+            "the pin and let selection match the collective")
+    x_s, y_s = _sharded_locals(mesh, dp, a, b)
+    out = tsmm_t(x_s, y_s, policy=inner)
+    if p.reduce == "none":
+        return DTensor.from_local(out, mesh, rows)
+    return DTensor.from_local(
+        out, mesh, _placements(mesh, dp, Partial())).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
+
+
+def _exec_shard_map_scatter(entry, kind, a, b, p):
+    """Sharded-output ``tsmm_t``: the per-shard partials reduce-scatter
+    over the dp dims, so the global ``(a, b)`` product comes back
+    row-sharded instead of replicated. ``mm`` has no cross-shard
+    reduction to scatter, so a pin around ``tsmm`` raises."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    del kind
+    if entry != "mmt":
+        raise RuntimeError(
+            "the shard_map-scatter executor only applies to tsmm_t (its "
+            "output is the cross-shard reduction being scattered); tsmm "
+            "has nothing to scatter -- use the shard_map executor")
+    if p.reduce != "psum_scatter":
+        # Only a pin reaches this: a psum/none scope on the scatter
+        # executor would change the layout (or shape) reduce= asked for.
+        raise RuntimeError(
+            f"GemmPolicy pins executor='shard_map-scatter' but reduce="
+            f"{p.reduce!r}: the scatter executor implements exactly "
+            "reduce='psum_scatter' -- set that, or drop the pin")
+    mesh, dp, inner = _shard_map_env(a, b, p)
+    shards = _axes_size(mesh, dp)
+    if a.shape[1] % shards != 0:
+        raise RuntimeError(
+            f"psum_scatter output rows ({a.shape[1]}) do not divide the "
+            f"{shards} shards of dp axes {dp}; auto-selection falls back "
+            "to dense for this shape -- only an explicit executor pin "
+            "reaches this error")
+    x_s, y_s = _sharded_locals(mesh, dp, a, b)
+    return DTensor.from_local(
+        tsmm_t(x_s, y_s, policy=inner), mesh,
+        _placements(mesh, dp, Partial())).redistribute(
+            mesh, _placements(mesh, dp, Shard(0)))
+
+
+# The one-process executors implement every reduce mode (one shard: psum
+# == psum_scatter == none); the shard_map pair splits the collective
+# modes between them.
 register_executor("torch-dense", _exec_dense, reduce=_REDUCE_MODES)
 register_executor("cuda", _exec_cuda, reduce=_REDUCE_MODES)
 register_executor("torch-ref", _exec_ref, reduce=_REDUCE_MODES)
+register_executor("shard_map", _exec_shard_map, reduce=("psum", "none"))
+register_executor("shard_map-scatter", _exec_shard_map_scatter,
+                  reduce=("psum_scatter",))
+# Executors that take DTensor operands as they are; any other gets them as
+# replicated local tensors (``_runs_local``).
+_MESH_EXECUTORS = ("torch-dense", "shard_map", "shard_map-scatter")
 
 
-def _select_executor(kind: str, device: torch.device, p: GemmPolicy) -> str:
+def _select_executor(entry: str, kind: str, m_tall: int, d1: int, d2: int,
+                     p: GemmPolicy, forced: bool, device: torch.device,
+                     mesh) -> str:
     if p.executor is not None:
         if p.executor not in _EXECUTORS:
             raise ValueError(
                 f"GemmPolicy.executor {p.executor!r} is not registered: "
                 f"known executors are {sorted(_EXECUTORS)}")
+        if entry == "mmt":
+            # A pinned executor refuses a collective outside its declared
+            # reduce contract rather than silently change the output
+            # layout the scope's reduce= asked for (mm shards never
+            # reduce, so every contract holds there).
+            contract = _EXECUTOR_CONTRACTS.get(p.executor,
+                                               tuple(_REDUCE_MODES))
+            if p.reduce not in contract:
+                compatible = sorted(n for n, c in _EXECUTOR_CONTRACTS.items()
+                                    if p.reduce in c)
+                raise RuntimeError(
+                    f"GemmPolicy pins executor={p.executor!r}, whose "
+                    f"declared reduce contract is {contract}, but the scope "
+                    f"asks reduce={p.reduce!r}: a pinned executor must not "
+                    "silently change the output layout the collective asked "
+                    f"for. Executors declaring {p.reduce!r}: {compatible} "
+                    "-- pin one of those, or drop the pin and let selection "
+                    "match the collective.")
         return p.executor
     if kind == "dense":
+        return "torch-dense"
+    if (mesh is not None and mesh.size() > 1 and not forced
+            and p.shard_map != "local"):
+        # The kernels have no DTensor partitioning rule: on a mesh of more
+        # than one rank they run per shard or not at all. A forced kind or
+        # a shard_map="local" scope bypasses this branch.
+        if p.shard_map == "never":
+            return "torch-dense"
+        dp = _dp_axes(mesh, p)
+        shards = _axes_size(mesh, dp) if dp else 0
+        ok = bool(dp) and m_tall % shards == 0
+        if ok:
+            local = (classify_gemm(m_tall // shards, d1, d2, p)
+                     if entry == "mm"
+                     else classify_gemm_t(m_tall // shards, d1, d2, p))
+            ok = local != "dense"
+        scatter = entry == "mmt" and p.reduce == "psum_scatter"
+        if ok and scatter:
+            # The scatter dim is the output's rows (d1); where they do not
+            # tile over the shards the sharded output cannot exist: dense,
+            # not a silent psum.
+            ok = d1 % shards == 0
+        if ok:
+            return "shard_map-scatter" if scatter else "shard_map"
+        if p.shard_map == "require":
+            raise RuntimeError(
+                f"GemmPolicy(shard_map='require') but shape "
+                f"({m_tall}, {d1}, {d2}) cannot shard over dp axes "
+                f"{dp or '(none)'} of mesh {compat.mesh_axis_sizes(mesh)}"
+                + (" with reduce='psum_scatter'" if scatter else ""))
         return "torch-dense"
     if device.type == "cuda":
         return "cuda"
     if device.type == "cpu":
         return "torch-ref"
     raise ValueError(f"no TSM2X executor for tensors on {device}")
+
+
+def _runs_local(mesh, name: str, guard: bool) -> bool:
+    """Whether a dispatch on the operands of ``mesh`` (None: plain
+    tensors) runs on their local tensors: every executor but the
+    ``_MESH_EXECUTORS``, and a guarded ``torch-dense`` fallback (the
+    checksum guard works on local tensors)."""
+    return mesh is not None and (name not in _MESH_EXECUTORS or guard)
+
+
+def _local_operands(mesh, *ts):
+    """DTensor operands as the local, whole tensors a one-process executor
+    takes: replicated first (a no-op on a mesh of one rank, where a shard
+    is the whole tensor; an all-gather on the card otherwise -- only a
+    forced kind, a "local" scope or a pinned executor gets here then)."""
+    from torch.distributed.tensor import Replicate
+    rep = [Replicate()] * mesh.ndim
+    return [t.redistribute(mesh, rep).to_local() for t in ts]
+
+
+def _wrap_replicated(mesh, out):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim)
 
 
 def _forced_kind(entry: str, mode: str | None, p: GemmPolicy) -> str | None:
@@ -605,12 +944,17 @@ def _forced_kind(entry: str, mode: str | None, p: GemmPolicy) -> str | None:
 # ---------------------------------------------------------------------------
 
 _ABFT_KINDS = ("tsm2r", "tsm2l", "tsmt")
+# The outer shard_map dispatch is not guarded: its per-shard re-dispatch
+# inherits abft through _shard_map_env's inner policy, so every shard
+# verifies or corrects its local GEMM (a global checksum would need a
+# collective of its own and would break the reduce="none" layout).
+_ABFT_SKIP_EXECUTORS = ("shard_map", "shard_map-scatter")
 
 
-def _abft_wraps(kind: str, p: GemmPolicy) -> bool:
-    """Does the online checksum guard wrap this dispatch? (The reference
-    also skips its shard_map executors, which one process does not have.)"""
-    return p.abft != "none" and kind in _ABFT_KINDS
+def _abft_wraps(kind: str, executor: str, p: GemmPolicy) -> bool:
+    """Does the online checksum guard wrap this dispatch?"""
+    return (p.abft != "none" and kind in _ABFT_KINDS
+            and executor not in _ABFT_SKIP_EXECUTORS)
 
 
 def _abft_checksums(entry: str, x, y, out, p: GemmPolicy):
@@ -676,7 +1020,9 @@ def tsmm(a: torch.Tensor, b: torch.Tensor, *, mode: str | None = None,
     """``A[..., m, k] @ B[k, n]`` via the best path for the shape.
 
     Leading dims of ``a`` collapse into the tall dim for kernel dispatch;
-    the dense path contracts the trailing dim in place.
+    the dense path contracts the trailing dim in place. DTensor operands
+    on a mesh of more than one rank dispatch per shard (``shard_map``)
+    where the shape allows, and return a DTensor.
     """
     p = policy if policy is not None else current_policy()
     if a.dim() < 2 or b.dim() != 2:
@@ -691,8 +1037,14 @@ def tsmm(a: torch.Tensor, b: torch.Tensor, *, mode: str | None = None,
     m_tall = math.prod(a.shape[:-1])
     forced = _forced_kind("mm", mode, p)
     kind = forced if forced is not None else classify_gemm(m_tall, k, n, p)
-    name = _select_executor(kind, a.device, p)
+    mesh = _operand_mesh(a, b)
+    name = _select_executor("mm", kind, m_tall, k, n, p, forced is not None,
+                            a.device, mesh)
     ex = _EXECUTORS[name]
+    guard = _abft_wraps(kind, name, p)
+    local = _runs_local(mesh, name, guard)
+    if local:
+        a, b = _local_operands(mesh, a, b)
 
     def run():
         if a.dim() > 2 and name != "torch-dense":
@@ -700,20 +1052,21 @@ def tsmm(a: torch.Tensor, b: torch.Tensor, *, mode: str | None = None,
                                  p).reshape(*a.shape[:-1], n)
         return _run_executor(ex, "mm", kind, a, b, p)
 
-    guard = _abft_wraps(kind, p)
     out = _dispatch("mm", kind, name, (m_tall, k, n), p, run,
                     abft=p.abft if guard else "none")
     if guard:
         out = _abft_guard("mm", a.reshape(m_tall, k), b,
                           out.reshape(m_tall, n), p).reshape(out.shape)
-    return out
+    return _wrap_replicated(mesh, out) if local else out
 
 
 def tsmm_t(x: torch.Tensor, y: torch.Tensor, *, mode: str | None = None,
            policy: GemmPolicy | None = None) -> torch.Tensor:
     """``X[..., m, a]^T @ Y[..., m, b] -> (a, b)`` via TSMT when the
     reduction is huge and a, b small-ish. Leading dims (shared by both
-    operands) collapse into the reduction."""
+    operands) collapse into the reduction. DTensor operands on a mesh of
+    more than one rank dispatch per shard where the shape allows, the
+    partial products combining per ``GemmPolicy.reduce``."""
     p = policy if policy is not None else current_policy()
     if x.dim() < 2 or x.dim() != y.dim() or x.shape[:-1] != y.shape[:-1]:
         raise ValueError(
@@ -727,12 +1080,17 @@ def tsmm_t(x: torch.Tensor, y: torch.Tensor, *, mode: str | None = None,
     forced = _forced_kind("mmt", mode, p)
     kind = (forced if forced is not None
             else classify_gemm_t(m_tall, a_dim, b_dim, p))
-    name = _select_executor(kind, x.device, p)
-    guard = _abft_wraps(kind, p)
+    mesh = _operand_mesh(x, y)
+    name = _select_executor("mmt", kind, m_tall, a_dim, b_dim, p,
+                            forced is not None, x.device, mesh)
+    guard = _abft_wraps(kind, name, p)
+    local = _runs_local(mesh, name, guard)
+    if local:
+        x, y = _local_operands(mesh, x, y)
     out = _dispatch("mmt", kind, name, (m_tall, a_dim, b_dim), p,
                     lambda: _run_executor(_EXECUTORS[name], "mmt", kind, x,
                                           y, p),
                     abft=p.abft if guard else "none")
     if guard:
         out = _abft_guard("mmt", x, y, out, p)
-    return out
+    return _wrap_replicated(mesh, out) if local else out

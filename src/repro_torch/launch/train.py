@@ -21,8 +21,8 @@ parameters before step N to exercise exactly this path.
 
 The state lives on ``--device`` (the card unless the caller names
 another; with no card and no ``--device`` it raises). One process drives
-one device: ``--distributed`` waits for the multi-process executors
-(ROADMAP.md, Queue 1 item 8).
+one device: ``--distributed`` waits for the mesh plumbing (ROADMAP.md,
+Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -81,9 +81,8 @@ def main(argv=None):
 
     if args.distributed:
         raise NotImplementedError(
-            "[train-distributed] one process drives one device: the "
-            "multi-process executors (ROADMAP.md, Queue 1 item 8) are not "
-            "ported yet")
+            "[train-distributed] one process drives one device: the mesh "
+            "plumbing (ROADMAP.md, Queue 1 item 8b) is not ported yet")
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, smoke=args.smoke)
     plan = elastic.rescale_plan(devices=[dev], model_axis=args.model_axis)

@@ -24,6 +24,7 @@ import torch
 
 from repro.analysis import contracts as jcontracts
 from repro.core import perf_model as jperf
+from repro.core import tsmm as jtsmm
 from repro_torch.analysis import contracts
 from repro_torch.core import perf_model, tsmm
 from repro_torch.kernels import ops
@@ -390,8 +391,51 @@ def test_qr_stage_shapes_match_jax():
             jcontracts.qr_stage_shapes(m, r)
     with pytest.raises(ValueError):
         contracts.qr_stage_shapes(100, 8, shards=0)
-    with pytest.raises(NotImplementedError, match="tree"):
-        contracts.qr_stage_shapes(8192, 16, shards=4)
+    # the tree TSQR's local stages, and the reference's non-tiling error
+    assert contracts.qr_stage_shapes(8192, 16, shards=4) == \
+        jcontracts.qr_stage_shapes(8192, 16, shards=4)
+    with pytest.raises(ValueError, match="tile") as got:
+        contracts.qr_stage_shapes(100, 8, shards=3)
+    with pytest.raises(ValueError) as want:
+        jcontracts.qr_stage_shapes(100, 8, shards=3)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("rows,shards", [(64, 2), (63, 2), (64, 1),
+                                         (8, 16), (0, 4), (12, 0)])
+def test_check_scatter_matches_jax(rows, shards):
+    assert contracts.scatter_divisible(rows, shards) == \
+        jcontracts.scatter_divisible(rows, shards)
+    got = contracts.check_scatter(rows, shards)
+    want = jcontracts.check_scatter(rows, shards)
+    assert [(v.rule, v.subject, v.detail) for v in got] == \
+        [(v.rule, v.subject, v.detail) for v in want]
+
+
+@pytest.mark.parametrize("name", ["torch-dense", "cuda", "torch-ref",
+                                  "shard_map", "shard_map-scatter"])
+def test_executor_reduce_ok_matches_jax(name):
+    jname = {"torch-dense": "dense-xla", "cuda": "pallas-tpu",
+             "torch-ref": "interpret"}.get(name, name)
+    declared = tsmm.executor_reduce_contract(name)
+    for mode in ("psum", "psum_scatter", "none"):
+        assert contracts.executor_reduce_ok(declared, mode) == \
+            jcontracts.executor_reduce_ok(
+                jtsmm.executor_reduce_contract(jname), mode)
+
+
+def test_backward_reduce_rule_as_jax():
+    for reduce_ in ("psum", "psum_scatter", "none"):
+        fwd = tsmm.GemmPolicy(reduce=reduce_, executor="shard_map")
+        assert contracts.check_backward_policy(
+            fwd, tsmm.backward_policy(fwd)) == []
+    fwd = tsmm.GemmPolicy(reduce="none", executor="shard_map")
+    bad = dataclasses.replace(tsmm.backward_policy(fwd), reduce="none")
+    jfwd = jtsmm.GemmPolicy(reduce="none", executor="shard_map")
+    jbad = dataclasses.replace(jtsmm.backward_policy(jfwd), reduce="none")
+    assert _rules(contracts.check_backward_policy(fwd, bad)) == \
+        _rules(jcontracts.check_backward_policy(jfwd, jbad)) == \
+        ["backward-reduce"]
 
 
 def test_ceil_mult_and_reduction_axis_match_jax():

@@ -118,7 +118,9 @@ def test_new_modules_are_scanned():
                 "repro_torch.configs.rwkv6_1p6b",
                 "repro_torch.configs.llama3p2_3b",
                 "repro_torch.configs.mistral_nemo_12b",
-                "repro_torch.configs.qwen2_72b"):
+                "repro_torch.configs.qwen2_72b",
+                "repro_torch.kernels.compat",
+                "repro_torch.linalg.tree_tsqr"):
         assert mod in MODULES
 
 
