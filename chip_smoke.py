@@ -433,8 +433,29 @@ printing no result, when no CUDA card is present or any phase fails.
    started), both protocols' compression metrics, and the device time
    of NCCL's ``all_reduce`` at P's shape and ``reduce_scatter_tensor``
    at Q's (DTensor moves nothing on a mesh dim of one rank, so the
-   sharded calls run no collective). The process group is destroyed
-   after.
+   sharded calls run no collective). Then, in the same world, the mesh
+   path's first two runs on a ``("data", "model")`` ``(1, 1)`` mesh
+   from ``launch.mesh.make_host_mesh`` (``mesh_serve``): pipeline,
+   chatglm3-6b's 28 layers as 4 GPipe stages of 7
+   (``distributed.pipeline``) over 4 microbatches of 2 x 2048 tokens,
+   forward, bit-equal to the sequential forward of each microbatch, 224
+   tsm2r as the schedule predicts (each microbatch through each stage
+   once, 2 a layer); mesh-serve, chatglm3-6b at published width and
+   depth (bf16, seed 0) on DTensor parameters placed by
+   ``sharding.make_param_specs``, caches from ``cache_specs``, through
+   ``generate`` and ``make_serve_fns(sharded_projections=True)``: the
+   serve phase's prompts, its greedy tokens and every step's logits bit
+   for bit, 56 tsm2r a prefill, and prefill and decode ms beside the
+   plain path's. The process group is destroyed after.
+10g. mesh (the same path, run right after the launch phase;
+   ``mesh_launch``): the launcher's ``--distributed`` in a world of one, in this process under torchrun's
+   environment (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free
+   MASTER_PORT; the launcher starts and destroys its NCCL group) at the
+   launch phase's argv: run B must roll back once and end on the launch
+   phase's B loss bit for bit, and a 1-step ``--ckpt-every 1`` run
+   resumed through ``elastic.restore_state`` to step 3 on its A loss,
+   each launching tsm2r 66 and tsmt 2 times a step. The mesh phase must
+   take under ``MESH_MAX_S``.
 11. Contracts: every launch that a record scope of a path recorded
    (``RECORDED``; the dispatch path's under ``verify_contracts``) must
    keep ``contracts.check_kernel_config`` and ``check_grid`` on this
@@ -442,9 +463,9 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the fifteen paths (dispatch, serve, train, serve-int8,
+   on each of the sixteen paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
-   rwkv-serve, rwkv-train, zamba-serve, zamba-train, dist) and their
+   rwkv-serve, rwkv-train, zamba-serve, zamba-train, dist, mesh) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -466,6 +487,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3655,6 +3677,9 @@ def launch_phase(gpu, counts, zero_counts) -> dict:
                    out[tag]["steps_executed"]) == (events, retries, executed),
                   f"launch run {tag}: {res}, executed "
                   f"{out[tag]['steps_executed']}")
+        LAUNCH_LOSS.update({t: r["result"]["final_loss"]
+                            for t, r in out.items()},
+                           step_ms={t: r["step_ms"] for t, r in out.items()})
         for tag in ("B", "C2"):
             check(out[tag]["result"]["final_loss"]
                   == out["A"]["result"]["final_loss"],
@@ -4342,7 +4367,7 @@ def nccl_device_ms(fn) -> dict:
             / 5 / 1e3, "events": sorted({e.name[:60] for e in events})}
 
 
-def dist_phase(dev, gpu, counts, zero_counts, expect) -> dict:
+def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
     """The dist path: a world of one under NCCL (``init_method="file://"``
     on a temporary file) and a one-dim ``("data",)`` mesh. With the
     executors pinned, chatglm3-6b's wk/wv on a ``Shard(0)`` A and a
@@ -4356,8 +4381,9 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     sharded call beside its unsharded counterpart and the NCCL
     collectives' own device time at the factors' shapes (device ms are
     None where no profiler session sees device work; the line reports
-    whether one did before and after NCCL started). Returns the path's
-    launch counts."""
+    whether one did before and after NCCL started). Then, in the same
+    world, the mesh path's serve and pipeline runs (``mesh_serve``).
+    Returns the dist path's launch counts and the mesh path's."""
     import shutil
     import tempfile
 
@@ -4371,8 +4397,16 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     try:
         mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
         profiler["after_nccl"] = traced(dev)
-        return _dist_path(dev, gpu, mesh, counts, zero_counts, expect,
-                          profiler)
+        launches = _dist_path(dev, gpu, mesh, counts, zero_counts, expect,
+                              profiler)
+        # The mesh path's serve and pipeline runs, in the same world.
+        from repro_torch.launch.mesh import make_host_mesh
+        PATH["name"] = "mesh"
+        t0 = time.perf_counter()
+        mesh_launches = mesh_serve(dev, gpu, make_host_mesh(), counts,
+                                   zero_counts, expect)
+        MESH_WALL["serve"] = time.perf_counter() - t0
+        return launches, mesh_launches
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4578,6 +4612,242 @@ def _dist_path(dev, gpu, mesh, counts, zero_counts, expect,
     del grads, arms, sharded, params
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: chatglm3-6b on DTensor parameters, GPipe, --distributed
+# ---------------------------------------------------------------------------
+
+# What the serve and launch phases leave for the mesh phase to hold its
+# runs against: the serve phase's prompts, greedy tokens, every step's
+# logits and times (host copies); each launch run's final loss.
+SERVE_REF: dict = {}
+LAUNCH_LOSS: dict = {}
+MESH_WALL: dict = {}
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 2
+MESH_MAX_S = 120.0
+
+
+def mesh_serve(dev, gpu, mesh, counts, zero_counts, expect) -> dict:
+    """mesh-serve: chatglm3-6b at published width and depth (bf16, seed 0)
+    on DTensor parameters that ``sharding.make_param_specs`` places on
+    the ``(1, 1)`` ``("data", "model")`` mesh, caches from
+    ``cache_specs``, through ``make_serve_fns(sharded_projections=True)``
+    and ``generate(sharded_projections=True)``: the serve phase's 4 x 2048
+    prompt tokens and 16 greedy ones. The tokens and every step's logits
+    must equal the plain serve phase's bit for bit and each prefill must
+    launch tsm2r 2 x n_layers times. Prints prefill ms and decode ms a
+    step beside the plain path's (host clock; DTensor's dispatch is host
+    work). First, on the same weights as plain tensors, the pipeline
+    run: the 28 layers as PIPE_STAGES GPipe stages over PIPE_MICRO
+    microbatches, bit-equal to the sequential forward, with the tsm2r
+    launches the schedule predicts. Returns both runs' launch counts."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import pipeline, sharding
+    from repro_torch.models import blocks, model
+    from repro_torch.serve import engine
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config("chatglm3-6b")
+    per_prefill = 2 * cfg.n_layers
+    params = model.init(cfg, seed=0, device=dev)
+
+    # -- pipeline: the 28 layers as 4 stages of 7 (plain tensors) ---------
+    gen = torch.Generator(device=dev).manual_seed(29)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PIPE_MICRO * PIPE_ROWS, PROMPT), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        micro = params.embed.table[tokens].view(
+            PIPE_MICRO, PIPE_ROWS, PROMPT, cfg.d_model)
+        stages = pipeline.split_stages(list(params.layers), PIPE_STAGES)
+        stage_fn = pipeline.make_stage_fn(
+            lambda lp, x: blocks.block_fwd(lp, x, cfg)[0])
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with recorded():
+            piped = pipeline.pipeline_apply(stage_fn, stages, micro)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        pipe_launches = counts()
+        # The prediction from the schedule: every microbatch passes every
+        # stage once (bubbles skipped), 2 tsm2r (wk, wv) a layer.
+        want_pipe = expect(tsm2r=PIPE_MICRO * cfg.n_layers * 2)
+        t0 = time.perf_counter()
+        seq = torch.stack([stage_fn(list(params.layers), mb)
+                           for mb in micro])
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    check(pipe_launches == want_pipe, f"pipeline launches {pipe_launches}, "
+          f"predicted {want_pipe}")
+    check(same_bits(piped, seq), "pipeline output differs from the "
+          "sequential forward")
+    emit({"phase": "mesh", "line": "pipeline", "stages": PIPE_STAGES,
+          "layers_a_stage": cfg.n_layers // PIPE_STAGES,
+          "microbatches": PIPE_MICRO, "rows": PIPE_ROWS, "seq": PROMPT,
+          "ticks": PIPE_MICRO + PIPE_STAGES - 1, "pipeline_s": pipe_s,
+          "sequential_s": seq_s, "bit_equal": True,
+          "launches": {n: v for n, v in pipe_launches.items() if v},
+          "gpu": gpu})
+    del micro, stages, piped, seq, tokens
+
+    # -- mesh-serve --------------------------------------------------------
+    specs = sharding.make_param_specs(cfg, params, mesh)
+    sharding.named(mesh, specs, params)
+    prompts = SERVE_REF["prompts"].to(dev)
+    out_ref = SERVE_REF["out"].to(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    with recorded():
+        t0 = time.perf_counter()
+        out = engine.generate(params, cfg, prompts, NEW, device=dev,
+                              sharded_projections=True)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+        prefill_step, decode_step = engine.make_serve_fns(
+            cfg, sharded_projections=True)
+        cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev,
+                                 mesh=mesh)
+        batch = sharding.named(mesh, sharding.batch_specs(
+            cfg, mesh, {"tokens": prompts}), {"tokens": prompts})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, batch, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_logits = [logits.full_tensor()]
+        t0 = time.perf_counter()
+        for i in range(1, NEW):
+            logits, cache = decode_step(params, out[:, i - 1:i],
+                                        PROMPT + i - 1, cache)
+            step_logits.append(logits.full_tensor())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
+    launches = counts()
+    check(launches == expect(tsm2r=2 * per_prefill),
+          f"mesh-serve launches {launches}, want {2 * per_prefill} tsm2r")
+    check(sharding.on_mesh(params)
+          and type(cache[0]["k"]).__name__ == "DTensor",
+          "mesh-serve parameters and caches are not DTensors")
+    check(torch.equal(out, out_ref), "mesh-serve tokens differ from the "
+          "plain serve phase's")
+    bad = [i for i, (a, b) in enumerate(zip(step_logits,
+                                            SERVE_REF["step_logits"]))
+           if not same_bits(a, b.to(dev))]
+    check(not bad, f"mesh-serve logits differ from the plain serve phase's"
+          f" at steps {bad}")
+    emit({"phase": "mesh", "line": "mesh-serve", "model": cfg.name,
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "placements": {n: [repr(p) for p in sharding.placements(mesh, sp)]
+                         for n, sp in specs.items() if n.startswith(
+                             ("embed", "lm_head", "layers.0."))},
+          "prefill_ms": prefill_ms, "plain_prefill_ms":
+              SERVE_REF["prefill_ms"],
+          "decode_ms_per_step": decode_ms,
+          "plain_decode_ms_per_step": SERVE_REF["decode_ms"],
+          "greedy_request_s": greedy_s,
+          "tsm2r_launches_per_prefill": per_prefill,
+          "bit_equal": {"tokens": True, "logits": True},
+          "launches": {n: v for n, v in launches.items() if v},
+          "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
+    del params, cache, logits, step_logits, out
+    torch.cuda.empty_cache()
+    return add_launches(dict(launches), pipe_launches)
+
+
+def mesh_launch(gpu, counts, zero_counts) -> dict:
+    """mesh-launch: ``repro_torch.launch.train.main`` with
+    ``--distributed`` in a world of one, in this process under torchrun's
+    environment (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free MASTER_PORT;
+    the launcher starts and destroys its NCCL group), at the launch
+    phase's ``LAUNCH_ARCH`` and argv. Run B (``--chaos-step 1``) must roll
+    back once and end on the launch phase's B loss bit for bit; then R1
+    (1 step, ``--ckpt-every 1``) and R2 (resumed through
+    ``elastic.restore_state`` to step 3) must end on its A loss bit for
+    bit. Each run launches tsm2r 66 and tsmt 2 times a step it executed.
+    Returns the runs' launch counts."""
+    import shutil
+    import socket
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launcher
+
+    cfg = dataclasses.replace(registry.get_config("chatglm3-6b"),
+                              name=LAUNCH_ARCH, n_layers=TRAIN_LAYERS)
+    registry._MODULES[LAUNCH_ARCH] = type(
+        "M", (), {"CONFIG": cfg, "smoke": staticmethod(lambda: cfg)})
+    per_step = {"tsm2r": 2 * TRAIN_LAYERS * cfg.microbatch * 2 + 2,
+                "tsmt": 2}
+    base = ["--arch", LAUNCH_ARCH, "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--powersgd-rank", "4",
+            "--log-every", "1", "--distributed"]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    runs = {"B": (["--steps", "3", "--chaos-step", "1"], "B", (1, 4)),
+            "R1": (["--steps", "1", "--ckpt-dir", ckpt_dir,
+                    "--ckpt-every", "1"], None, (0, 1)),
+            "R2": (["--steps", "3", "--ckpt-dir", ckpt_dir,
+                    "--ckpt-every", "100"], "A", (0, 2))}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    total, out = {n: 0 for n in counts()}, {}
+    try:
+        for tag, (extra, want_loss, (retries, executed)) in runs.items():
+            torch.cuda.empty_cache()
+            zero_counts()
+            t0 = time.perf_counter()
+            with launch_timers() as log, recorded():
+                res = launcher.main(base + extra)
+            wall = time.perf_counter() - t0
+            launches = counts()
+            for n, v in launches.items():
+                total[n] += v
+            steps = [r["s"] * 1e3 for r in log if r["what"] == "step"]
+            want = {n: 0 for n in launches}
+            want["tsm2r"] = per_step["tsm2r"] * len(steps)
+            want["tsmt"] = per_step["tsmt"] * len(steps)
+            out[tag] = {"argv": base + extra, "result": res,
+                        "steps_executed": len(steps), "step_ms": steps,
+                        "wall_s": wall,
+                        "calls": {r["what"]: r["s"] for r in log
+                                  if r["what"] != "step"},
+                        "launches": {n: v for n, v in launches.items()
+                                     if v}}
+            check(launches == want, f"mesh-launch run {tag} launches "
+                  f"{launches}, want {want}")
+            check((res["fault_retries"], len(steps)) == (retries, executed),
+                  f"mesh-launch run {tag}: {res}, executed {len(steps)}")
+            if want_loss is not None:
+                check(res["final_loss"] == LAUNCH_LOSS[want_loss],
+                      f"mesh-launch run {tag} final loss "
+                      f"{res['final_loss']!r} is not the launch phase's "
+                      f"{want_loss} {LAUNCH_LOSS[want_loss]!r}")
+            check(not torch.distributed.is_initialized(), "the launcher "
+                  "left its process group up")
+        meminfo = dict(line.split(":", 1) for line in
+                       Path("/proc/meminfo").read_text().splitlines())
+        emit({"phase": "mesh", "line": "mesh-launch", "runs": out,
+              "mem_available_gb": int(meminfo["MemAvailable"].split()[0])
+              * 1024 / 1e9,
+              "launch_phase_loss": dict(LAUNCH_LOSS),
+              "launch_phase_step_ms": LAUNCH_LOSS.get("step_ms"),
+              "bit_equal": {"B": True, "R2": True}, "gpu": gpu})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        registry._MODULES.pop(LAUNCH_ARCH, None)
+        torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -5132,6 +5402,9 @@ def main() -> int:
         params, cfg, prompts, out, dev, per_prefill)
     # The main path ends here; what follows only checks it.
     serve_launches = counts()
+    SERVE_REF.update(prompts=prompts.cpu(), out=out.cpu(),
+                     step_logits=[t.cpu() for t in step_logits],
+                     prefill_ms=prefill_ms, decode_ms=decode_ms)
     check(serve_launches == expect(tsm2r=3 * per_prefill),
           f"serving main path launches {serve_launches}")
 
@@ -5226,6 +5499,15 @@ def main() -> int:
     PATH["name"] = "launch"
     launch_launches = launch_phase(gpu, counts, zero_counts)
 
+    # -- 10g. the launcher's --distributed in a world of one (the mesh
+    # path's launch runs), right after the launch phase whose losses they
+    # are held against: at the end of the script a checkpoint read ran
+    # at a third of the launch phase's rate (PERF.md section 7) ----------
+    PATH["name"] = "mesh"
+    t0 = time.perf_counter()
+    mesh_launch_launches = mesh_launch(gpu, counts, zero_counts)
+    MESH_WALL["launch"] = time.perf_counter() - t0
+
     # -- 10b-e. rwkv6-1.6b and zamba2-1.2b served and trained at full
     # width and depth (rwkv-serve, rwkv-train, zamba-serve, zamba-train) --
     model_launches = {}
@@ -5240,7 +5522,16 @@ def main() -> int:
 
     # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
     PATH["name"] = "dist"
-    dist_launches_ = dist_phase(dev, gpu, counts, zero_counts, expect)
+    dist_launches_, mesh_launches = dist_phase(dev, gpu, counts,
+                                               zero_counts, expect)
+
+    add_launches(mesh_launches, mesh_launch_launches)
+    emit({"phase": "mesh", "line": "summary", "wall_s": MESH_WALL,
+          "total_s": sum(MESH_WALL.values()),
+          "launches": {n: v for n, v in mesh_launches.items() if v},
+          "gpu": gpu})
+    check(sum(MESH_WALL.values()) < MESH_MAX_S,
+          f"the mesh phase took {MESH_WALL} s, over {MESH_MAX_S}")
 
     # -- 11. every recorded launch against the contracts -------------------
     contracts_phase(dev, gpu)
@@ -5263,7 +5554,8 @@ def main() -> int:
              "train_tsqr": train_tsqr_launches,
              "abft_serve": abft_serve_launches,
              "abft_train": abft_train_launches, "launch": launch_launches,
-             **model_launches, "dist": dist_launches_}
+             **model_launches, "dist": dist_launches_,
+             "mesh": mesh_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"

@@ -34,6 +34,14 @@ state (``ft/elastic.py::restore_state`` does so on resume).
 
 bfloat16 leaves go to disk as ``uint16`` (``np.save`` has no bfloat16)
 and come back by their manifest dtype, as the reference does.
+
+A tree of DTensor leaves is saved as full leaves, so a checkpoint stays
+mesh-agnostic: every rank gathers each leaf (``full_tensor``, a
+collective), rank 0 writes, and in a world of more than one process the
+others wait for the commit (rank 0 writes before ``save`` returns there,
+then every rank meets at a barrier), so every rank sees the same
+committed steps. ``restore`` hands back full leaves for
+``ft/elastic.py::restore_state`` to place on the mesh.
 """
 
 from __future__ import annotations
@@ -48,8 +56,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.ft import host_copy
+from repro_torch.ft import host_copy, is_dtensor, named_leaves
 
 # Leaves read or written at once: np.save / np.load, crc32 and fsync
 # release the GIL, so a 15.6 GB state is not one thread's disk and crc rate.
@@ -112,9 +121,17 @@ class Checkpointer:
 
     def save(self, step: int, tree, block: bool = False):
         """Copy every leaf to the host and enqueue the write. Returns once
-        the copy is taken. Raises if a previously enqueued save failed."""
+        the copy is taken. Raises if a previously enqueued save failed.
+        DTensor leaves are gathered whole first (every rank must call)."""
         self._raise_pending()
-        leaves = list(host_copy(tree).items())
+        sharded = any(is_dtensor(t) for _, t in named_leaves(tree))
+        leaves = list(host_copy(tree, whole=sharded).items())
+        if sharded and dist.is_initialized() and dist.get_world_size() > 1:
+            if dist.get_rank() == 0:
+                self.wait()
+                self._write(step, leaves)
+            dist.barrier()
+            return
         if self.async_write and not block:
             self._q.put((step, leaves))
         else:
@@ -194,6 +211,10 @@ class Checkpointer:
             except Exception as e:  # surfaces on next save()/wait()
                 self._error = (step, e)
             finally:
+                # The host copy (state-sized, page-locked for a state on
+                # the card) goes now: held until the next save arrives, it
+                # outlived the run, one a Checkpointer.
+                del leaves
                 self._q.task_done()
 
     def _write(self, step, leaves):

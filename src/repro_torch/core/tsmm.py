@@ -80,7 +80,6 @@ import contextvars
 import dataclasses
 import math
 import os
-import sys
 import warnings
 
 import torch
@@ -89,6 +88,7 @@ from repro_torch.core import perf_model
 # inject sits below every layer (torch only), so the dispatcher can route
 # each executor invocation through its fault tap.
 from repro_torch.ft import inject as _inject
+from repro_torch.ft import is_dtensor
 from repro_torch.kernels import compat, ops
 
 __all__ = [
@@ -655,17 +655,10 @@ def executor_reduce_contract(name: str) -> tuple[str, ...]:
 # ``lax.psum`` / ``psum_scatter`` over the dp axes are a ``Partial``
 # placement redistributed to ``Replicate`` / ``Shard(0)``.
 
-def _is_dtensor(t) -> bool:
-    # A DTensor exists only once torch.distributed.tensor is imported, so
-    # the check never imports it (this module stays cheap to import).
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(t, mod.DTensor)
-
-
 def _operand_mesh(a, b):
     """The operands' DeviceMesh, or None for plain tensors. A DTensor and a
     plain tensor do not mix (a plain tensor is local to its process)."""
-    da, db = _is_dtensor(a), _is_dtensor(b)
+    da, db = is_dtensor(a), is_dtensor(b)
     if not (da or db):
         return None
     if da != db:

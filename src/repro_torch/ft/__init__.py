@@ -9,15 +9,30 @@ tensor, an ``nn.Module`` through its ``named_parameters()``, or a mapping
 that nests either (a train state); its leaves are named by their dotted
 path and taken in sorted-name order, the order ``jax.tree`` flattens a
 dict in. ``host_copy`` takes a deep host copy of a tree (the train-state
-snapshot and the checkpointer's staging copy).
+snapshot and the checkpointer's staging copy). A DTensor leaf is copied
+as this rank's local shard (``local``): a snapshot is per rank.
 """
 
 from __future__ import annotations
 
+import sys
 from collections.abc import Mapping
 
 import torch
 from torch import nn
+
+
+def is_dtensor(t) -> bool:
+    # A DTensor exists only once torch.distributed.tensor is imported, so
+    # the check never imports it.
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (its storage, under ``no_grad``);
+    a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _walk(tree, prefix: str):
@@ -37,23 +52,29 @@ def named_leaves(tree) -> list[tuple[str, torch.Tensor]]:
     return sorted(_walk(tree, ""), key=lambda kv: kv[0])
 
 
-def host_copy(tree, out: dict | None = None) -> dict:
+def host_copy(tree, out: dict | None = None, *, whole: bool = False) -> dict:
     """A deep host copy of ``tree``'s leaves by dotted name, written into
     ``out`` (an earlier ``host_copy`` of a tree with the same leaves) when
     given, else into one new host buffer holding every leaf, page-locked
     when a leaf lives on the card (one allocation, and the copies run at
     the link's rate). The copy is always taken: ``.cpu()`` of a CPU
     tensor would alias the live storage, which a train step updates in
-    place."""
+    place. A DTensor leaf is copied as its local shard, or with ``whole``
+    as the full leaf, gathered one leaf at a time (a collective: every
+    rank must call)."""
+    def view(t):
+        return t if whole else local(t)
+
     leaves = named_leaves(tree)
     if out is None:
-        out = _host_buffer(leaves)
+        out = _host_buffer([(n, view(t)) for n, t in leaves])
     elif [(n, t.shape, t.dtype) for n, t in out.items()] != \
-            [(n, t.shape, t.dtype) for n, t in leaves]:
+            [(n, view(t).shape, t.dtype) for n, t in leaves]:
         raise ValueError("[host-copy] out does not hold this tree's leaves")
     with torch.no_grad():
         for n, t in leaves:
-            out[n].copy_(t.detach())
+            src = t.full_tensor() if whole and is_dtensor(t) else local(t)
+            out[n].copy_(src.detach())
     return out
 
 

@@ -49,7 +49,7 @@ import random
 
 import torch
 
-from repro_torch.ft import named_leaves
+from repro_torch.ft import is_dtensor, named_leaves
 
 __all__ = [
     "GemmFault",
@@ -218,13 +218,28 @@ def tap_executor(ex, entry, kind, a, b, policy):
     return out, hits
 
 
+def _poison_origin_(x: torch.Tensor, value: float) -> None:
+    """Write ``value`` at the global element 0 of ``x``: for a DTensor on
+    the ranks that hold it (coordinate 0 on every mesh dim that shards
+    it, so every replica of it too), as the reference writes element 0 of
+    a global array."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+        coord = x.device_mesh.get_coordinate()
+        if any(isinstance(p, Shard) and coord[i] != 0
+               for i, p in enumerate(x.placements)):
+            return
+        x = x.to_local()
+    x.view(-1)[0] = value
+
+
 def poison_tree(tree, *, leaf_index: int = 0, value: float = float("nan")):
     """Overwrite element 0 of the ``leaf_index``-th non-empty float leaf
     (sorted-name order) with ``value`` (NaN by default): the train-loop
     chaos hook for a transient in-memory fault. A flat mapping comes back
     as a new dict holding a poisoned copy of that leaf; an ``nn.Module``
     is poisoned in place (its parameters are the state a step reads) and
-    returned."""
+    returned. A DTensor leaf is poisoned at its global element 0."""
     leaves = [(n, x) for n, x in named_leaves(tree)
               if isinstance(x, torch.Tensor) and x.numel() > 0
               and x.is_floating_point()]
@@ -233,13 +248,13 @@ def poison_tree(tree, *, leaf_index: int = 0, value: float = float("nan")):
     name, x = leaves[leaf_index % len(leaves)]
     if isinstance(tree, torch.nn.Module):
         with torch.no_grad():
-            x.view(-1)[0] = value
+            _poison_origin_(x, value)
         return tree
     if name not in tree:
         raise ValueError(f"[inject-poison] {name} lies in a nested mapping: "
                          "pass its module or a flat mapping")
     poisoned = x.detach().clone()
-    poisoned.view(-1)[0] = value
+    _poison_origin_(poisoned, value)
     return {**tree, name: poisoned}
 
 

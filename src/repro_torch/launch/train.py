@@ -21,24 +21,43 @@ parameters before step N to exercise exactly this path.
 
 The state lives on ``--device`` (the card unless the caller names
 another; with no card and no ``--device`` it raises). One process drives
-one device: ``--distributed`` waits for the mesh plumbing (ROADMAP.md,
-Queue 1 item 8b).
+one device. Without ``--distributed`` the state is plain tensors on it
+(what the reference's specs amount to on a mesh of one device).
+
+``--distributed``: one process a GPU under ``torchrun`` (its ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``). The
+process group starts from that environment (``env://``; NCCL on the
+card, gloo with ``--device cpu``), the device is ``cuda:LOCAL_RANK``,
+and the state is placed on ``launch.mesh.make_host_mesh(--model-axis)``
+by ``sharding.make_param_specs`` / ``make_opt_specs`` (PowerSGD's error
+buffers as their parameters, its Q replicated). Each rank reads its data
+coordinate's slice of the global batch (``host_index`` / ``host_count``
+= the data coordinate and size) and wraps it as a ``Shard(0)``-on-dp
+DTensor; checkpoints hold full leaves and restore through
+``elastic.restore_state``. The group is destroyed when ``main`` returns.
+
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train \\
+        --arch chatglm3-6b --smoke --device cpu --distributed \\
+        --model-axis 2 --steps 6 --chaos-step 3
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import layout, resolve_device
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import registry
 from repro_torch.core import tsmm
 from repro_torch.data import pipeline
+from repro_torch.distributed import sharding
 from repro_torch.ft import abft, elastic, inject, watchdog
 from repro_torch.optim import adamw, powersgd, schedule
 from repro_torch.train import train_step as ts
@@ -79,13 +98,54 @@ def main(argv=None):
                     help="torch device of the state (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.distributed:
-        raise NotImplementedError(
-            "[train-distributed] one process drives one device: the mesh "
-            "plumbing (ROADMAP.md, Queue 1 item 8b) is not ported yet")
-    dev = resolve_device(args.device)
+    if not args.distributed:
+        return _run(args, resolve_device(args.device))
+    dev = _join_world(args.device)
+    try:
+        return _run(args, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _join_world(device) -> torch.device:
+    """Start the process group from torchrun's environment and return this
+    rank's device: ``cuda:LOCAL_RANK`` under NCCL, the CPU under gloo
+    (``--device cpu``)."""
+    if device is not None and torch.device(device).type == "cpu":
+        dist.init_process_group("gloo", init_method="env://")
+        return torch.device("cpu")
+    if device is not None:
+        raise ValueError(f"[train-distributed] --device {device}: a rank "
+                         "drives cuda:LOCAL_RANK, or the CPU under gloo")
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="env://", device_id=dev)
+    return dev
+
+
+def _world_devices(dev) -> list:
+    """Every rank's device, in rank order (one process a device)."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, str(dev))
+    return [torch.device(d) for d in out]
+
+
+def _run(args, dev):
     cfg = registry.get_config(args.arch, smoke=args.smoke)
-    plan = elastic.rescale_plan(devices=[dev], model_axis=args.model_axis)
+    if args.distributed:
+        # The rank's data coordinate and the data size of the
+        # (world // model, model) mesh: the ranks of one data slice (its
+        # model ranks) read the same rows.
+        world = dist.get_world_size()
+        plan = elastic.rescale_plan(
+            devices=_world_devices(dev), model_axis=args.model_axis,
+            host_index=dist.get_rank() // args.model_axis,
+            host_count=max(world // args.model_axis, 1))
+        mesh = plan.mesh
+    else:
+        plan = elastic.rescale_plan(devices=[dev],
+                                    model_axis=args.model_axis)
+        mesh = None
     dcfg = elastic.rescale_data_config(pipeline.DataConfig(
         seed=0, seq_len=args.seq_len, global_batch=args.global_batch,
         vocab_size=cfg.vocab_size), plan)
@@ -95,6 +155,11 @@ def main(argv=None):
         weight_decay=0.1)
 
     state = ts.init_train_state(0, cfg, opt_cfg, device=dev)
+    acc_shardings = None
+    if mesh is not None:
+        specs = elastic.state_specs(cfg, plan, state["params"])
+        sharding.named(mesh, specs, state)
+        acc_shardings = sharding.named(mesh, specs["params"])
     grad_transform = None
     if args.powersgd_rank:
         ps_cfg = powersgd.PowerSGDConfig(rank=args.powersgd_rank)
@@ -105,13 +170,28 @@ def main(argv=None):
         for st in extra.values():
             for t in st.values():
                 t.zero_()
+        if mesh is not None:
+            sharding.named(mesh, _powersgd_specs(extra, specs["params"]),
+                           extra)
         state["extra"] = extra
 
         def grad_transform(grads, st):
             return powersgd.compress_tree(ps_cfg, grads, st)
 
     step_fn = ts.make_train_step(cfg, opt_cfg, n_micro=cfg.microbatch,
-                                 grad_transform=grad_transform)
+                                 grad_transform=grad_transform,
+                                 acc_shardings=acc_shardings, mesh=mesh)
+    batch_places = (None if mesh is None else sharding.placements(
+        mesh, (sharding.dp_axes(mesh), None)))
+
+    def to_device(host_batch):
+        batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in host_batch.items()}
+        if batch_places is None:
+            return batch
+        from torch.distributed.tensor import DTensor
+        return {k: DTensor.from_local(v, mesh, batch_places, run_check=False)
+                for k, v in batch.items()}
 
     ckpt = Checkpointer(args.ckpt_dir, keep_n=3) if args.ckpt_dir else None
     start_step = 0
@@ -148,8 +228,7 @@ def main(argv=None):
             cur = start_step
             while cur < args.steps:
                 step, host_batch = prefetch.get()
-                batch = {k: torch.from_numpy(v).to(dev, torch.long)
-                         for k, v in host_batch.items()}
+                batch = to_device(host_batch)
                 if chaos_pending and step == args.chaos_step:
                     # One-shot drill: a transient in-memory fault the
                     # step_ok gate must catch and the ladder must undo.
@@ -237,6 +316,18 @@ def main(argv=None):
             "final_step": args.steps - 1,
             "fault_retries": total_retries,
             "fault_events": wd.fault_events}
+
+
+def _powersgd_specs(extra: dict, p_specs: dict) -> dict:
+    """PowerSGD's state on the mesh: a leaf's error buffer as its
+    parameter (a stacked leaf's stacked axes replicated), Q replicated."""
+    out = {}
+    for path, st in extra.items():
+        spec = next(s for n, s in p_specs.items()
+                    if layout.jax_path(n)[0] == path)
+        err = (None,) * (st["err"].dim() - len(spec)) + spec
+        out[path] = {"err": err, "q": (None,) * st["q"].dim()}
+    return out
 
 
 if __name__ == "__main__":

@@ -8,6 +8,14 @@ statistics, no ``scaled_dot_product_attention``. Sliding windows, MLA and
 cross-attention arrive with the models that need them.
 
 Layouts are the JAX package's: q (B, S, H, D), k/v (B, S, Hk, D).
+
+On DTensors (parameters placed by ``distributed.sharding``) the attention
+core runs on local tensors, PyTorch's tensor-parallel idiom: q, k, v (and
+a decode step's caches) are redistributed to one placement -- the batch
+as the activations carry it over the dp dims, the heads over "model"
+where the kv heads divide it, else whole -- and every rank attends over
+its own heads (``_local_heads``). Cache writes go into the local shard
+likewise (``write_cache``), a sequence-parallel cache's too.
 """
 
 from __future__ import annotations
@@ -15,9 +23,66 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.ft import is_dtensor
 from repro_torch.models import layers
 
 _NEG = -1e30
+
+
+def _head_placements(q, n_kv: int) -> list:
+    """Where attention runs on ``q``'s mesh: the batch dim as ``q`` shards
+    it, the heads (dim 2) over "model" when the ``n_kv`` kv heads divide
+    it, everything else whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    out = []
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, q.placements)):
+        if isinstance(p, Shard) and p.dim == 0:
+            out.append(Shard(0))
+        elif name == "model" and n_kv % mesh.size(i) == 0:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _local_heads(fn, q, *kv, n_kv: int, **kw):
+    """``fn(q, *kv, **kw)`` per rank over its heads: DTensor operands are
+    redistributed to ``_head_placements`` and taken local, the output
+    (heads on dim 2) comes back a DTensor there. Plain tensors pass
+    straight through."""
+    if not is_dtensor(q):
+        return fn(q, *kv, **kw)
+    from torch.distributed.tensor import DTensor
+    mesh, places = q.device_mesh, _head_placements(q, n_kv)
+    local = [t.redistribute(mesh, places).to_local() for t in (q, *kv)]
+    return DTensor.from_local(fn(*local, **kw), mesh, places,
+                              run_check=False)
+
+
+def write_cache(cache, t, start: int) -> None:
+    """``cache[:, start:start + S] = t`` in place. A DTensor cache takes
+    ``t`` in its own placements, whole along the sequence, and each rank
+    writes the positions its shard holds (all of them, unless the cache
+    shards its sequence: the sequence-parallel layout)."""
+    n = t.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = t
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    seq = [isinstance(p, Shard) and p.dim == 1 for p in cache.placements]
+    src = t.redistribute(mesh, [Replicate() if s else p for s, p in
+                                zip(seq, cache.placements)]).to_local()
+    local = cache.to_local()
+    lo, size = 0, cache.shape[1]
+    for i, s in enumerate(seq):
+        if s:
+            size //= mesh.size(i)
+            lo += mesh.get_coordinate()[i] * size
+    a, b = max(start, lo), min(start + n, lo + size)
+    if a < b:
+        local[:, a - lo:b - lo] = src[:, a - start:b - start]
 
 
 def _kv_step(qb, kb, vb, q0: int, k0: int, causal: bool, scale: float,
@@ -65,7 +130,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     dev = q.device
     qc, kc = min(q_chunk, sq), min(kv_chunk, skv)
     qg = q.reshape(b, sq, hk, g, dk)
-    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
+    outs = []
     grad = torch.is_grad_enabled()
 
     for q0 in range(0, sq, qc):
@@ -83,9 +148,11 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
             m_run, l_run, acc = (layers.remat(_kv_step, *args) if grad
                                  else _kv_step(*args))
         o = acc / torch.clamp(l_run, min=1e-30)[..., None]   # (b,hk,g,q,dv)
-        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
-            b, q1 - q0, h, dv).to(q.dtype)
-    return out
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(
+            b, q1 - q0, h, dv).to(q.dtype))
+    # One concatenation, not writes into a buffer: a DTensor q chunks into
+    # DTensors, which a plain buffer cannot take.
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len,
@@ -165,8 +232,8 @@ def gqa_fwd(p: GQA, x, *, n_heads, n_kv, head_dim, causal=True,
     q, k, v = gqa_project_qkv(p, x, positions, n_heads=n_heads, n_kv=n_kv,
                               head_dim=head_dim, rope_theta=rope_theta,
                               rope_fraction=rope_fraction)
-    ctx = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                            kv_chunk=kv_chunk)
+    ctx = _local_heads(chunked_attention, q, k, v, n_kv=n_kv, causal=causal,
+                       q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = layers.dense(p.wo, ctx.reshape(b, s, n_heads * head_dim))
     return out, (k, v)
 
@@ -185,8 +252,9 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, pos: int, *, n_heads, n_kv,
     q, k, v = gqa_project_qkv(p, x, positions, n_heads=n_heads, n_kv=n_kv,
                               head_dim=head_dim, rope_theta=rope_theta,
                               rope_fraction=rope_fraction)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
-    ctx = decode_attention(q, cache_k, cache_v, pos + 1)
+    write_cache(cache_k, k, pos)
+    write_cache(cache_v, v, pos)
+    ctx = _local_heads(decode_attention, q, cache_k, cache_v, n_kv=n_kv,
+                       cur_len=pos + 1)
     out = layers.dense(p.wo, ctx.reshape(b, 1, n_heads * head_dim))
     return out, cache_k, cache_v

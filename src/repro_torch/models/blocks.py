@@ -158,10 +158,9 @@ def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
         # Cache the *normed* last inputs: decode re-normalizes the new
         # token, so store what the mixers actually consumed.
         return x + h2, {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": cm_prev}
-    s = x.shape[1]
     x, (k, v) = _layer(p, x, cfg)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    attention.write_cache(cache["k"], k, 0)
+    attention.write_cache(cache["v"], v, 0)
     return x, cache
 
 

@@ -20,7 +20,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.core import tsmm
-from repro_torch.ft import inject
+from repro_torch.ft import inject, is_dtensor
 
 
 def remat(fn, *args):
@@ -239,7 +239,24 @@ class Embedding(nn.Module):
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``. A DTensor table is gathered whole (a vocab shard
+    holds only its own rows) and looked up on local tensors, the output
+    placed as the tokens are (their batch over the dp dims, or
+    replicated): DTensor's own rule for the lookup's backward
+    (``index_put``) fails on torch 2.11. The table's local gradient is
+    this rank's batch's, so it is marked a pending sum over the dims the
+    tokens are sharded on."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    places = (list(tokens.placements) if is_dtensor(tokens)
+              else [Replicate()] * mesh.ndim)
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if isinstance(p, Shard) else Replicate()
+                         for p in places])
+    ids = tokens.to_local() if is_dtensor(tokens) else tokens
+    return DTensor.from_local(whole[ids], mesh, places, run_check=False)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

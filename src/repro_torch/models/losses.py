@@ -1,13 +1,18 @@
 """Losses: masked softmax cross-entropy with optional z-loss.
 
 Counterpart of ``src/repro/models/losses.py`` (``softmax_xent`` :14,
-``lm_loss`` :41, ``chunked_lm_loss`` :48). Logits arrive in f32.
+``lm_loss`` :41, ``chunked_lm_loss`` :48). Logits arrive in f32. Vocab-sharded logits
+(a DTensor head sharded over "model") are gathered a chunk at a time
+before the log-sum-exp and the gold logit, so the extra bytes stay one
+chunk's.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils import checkpoint
+
+from repro_torch.distributed import sharding
 
 
 def softmax_xent(logits, targets, mask=None, z_loss: float = 0.0):
@@ -34,7 +39,7 @@ def lm_loss(logits, batch, z_loss: float = 0.0):
 
 
 def _chunk_sums(unembed_fn, hid, targets, mask, z_loss):
-    logits = unembed_fn(hid).float()
+    logits = sharding.replicate_dim(unembed_fn(hid).float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = lse - gold

@@ -24,16 +24,26 @@ Segments (the reference's ``segments``):
 ``forward_hidden`` and ``forward`` are differentiable (the training path
 runs them under autograd; parameters that require grad get gradients),
 while ``prefill`` and ``decode_step`` serve under ``torch.inference_mode``.
+
+Parameters may be DTensors on a ``DeviceMesh``, placed by
+``distributed.sharding`` (``named(mesh, make_param_specs(...), lm)``):
+every entry point then runs under ``sharding.replicate_constants``, so
+the plain tensors made beside the activations (positions, RoPE tables,
+masks) count as replicated, the caches come from ``init_cache(...,
+mesh=)``, and serving runs under ``torch.no_grad`` (DTensor's dispatch
+sets version counters, which inference tensors lack).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, blocks, layers
 
 
@@ -137,8 +147,8 @@ def _shared_block_fwd(shared: blocks.Block, group: ZambaGroup, x, cfg,
                                       q_chunk=cfg.q_chunk,
                                       kv_chunk=cfg.kv_chunk, **kw)
         if mode == "prefill":
-            cache["k"][:, :x.shape[1]] = k
-            cache["v"][:, :x.shape[1]] = v
+            attention.write_cache(cache["k"], k, 0)
+            attention.write_cache(cache["v"], v, 0)
     h = h + layers.lora_apply(group.lora_attn, n1)
     x = x + h
     n2 = blocks.norm_apply(cfg, shared.norm2, x)
@@ -165,6 +175,11 @@ def forward_hidden(params: LM, cfg, batch):
     block not at all (the reference's group body has no
     ``jax.checkpoint``). The backward keeps each layer's input and runs
     its forward again."""
+    with sharding.replicate_constants(params):
+        return _forward_hidden(params, cfg, batch)
+
+
+def _forward_hidden(params: LM, cfg, batch):
     x = layers.embed(params.embed.table, batch["tokens"])
     remat = cfg.remat and torch.is_grad_enabled()
     if cfg.family == "hybrid":
@@ -182,8 +197,9 @@ def forward_hidden(params: LM, cfg, batch):
 
 def forward(params: LM, cfg, batch):
     """Returns (logits f32 (B,S,V), metrics)."""
-    x, metrics = forward_hidden(params, cfg, batch)
-    return _logits(params, cfg, x), metrics
+    with sharding.replicate_constants(params):
+        x, metrics = forward_hidden(params, cfg, batch)
+        return _logits(params, cfg, x), metrics
 
 
 def unembed_fn(params: LM, cfg):
@@ -205,10 +221,14 @@ def _schedule(params: LM, cfg):
     return order + [("mamba", lp, None) for lp in params.tail]
 
 
-def init_cache(cfg, batch_size: int, max_len: int, *, device=None):
+def init_cache(cfg, batch_size: int, max_len: int, *, device=None,
+               mesh=None):
     """One entry a layer in execution order; a zamba2 model has one K/V
     entry per application of its shared block (the reference broadcasts
-    the shared block's entry over the G groups)."""
+    the shared block's entry over the G groups). With ``mesh`` every
+    entry is a DTensor placed by ``sharding.cache_specs`` (batch over the
+    dp dims, heads or sequence over "model"), for parameters on that
+    mesh."""
     dev = resolve_device(device)
     kinds = []
     for seg in segments(cfg):
@@ -216,13 +236,32 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device=None):
             kinds += (["mamba"] * seg.inner + ["attn_mlp"]) * seg.n
         else:
             kinds += [seg.kind] * seg.n
-    return [blocks.cache_init(cfg, kind, batch_size, max_len, dev)
-            for kind in kinds]
+    caches = [blocks.cache_init(cfg, kind, batch_size, max_len, dev)
+              for kind in kinds]
+    if mesh is not None:
+        sharding.named(mesh, sharding.cache_specs(cfg, mesh, caches), caches)
+    return caches
 
 
-@torch.inference_mode()
+@contextlib.contextmanager
+def _serving(params: LM):
+    """The scope of a serving step: ``torch.inference_mode`` on plain
+    tensors; on DTensors ``torch.no_grad`` and ``replicate_constants``."""
+    if sharding.on_mesh(params):
+        with torch.no_grad(), sharding.replicate_constants(params):
+            yield
+    else:
+        with torch.inference_mode():
+            yield
+
+
 def prefill(params: LM, cfg, batch, cache):
     """Returns (last-token logits (B,V), cache)."""
+    with _serving(params):
+        return _prefill(params, cfg, batch, cache)
+
+
+def _prefill(params: LM, cfg, batch, cache):
     x = layers.embed(params.embed.table, batch["tokens"])
     new_cache = []
     for (kind, lp, group), lc in zip(_schedule(params, cfg), cache):
@@ -234,9 +273,13 @@ def prefill(params: LM, cfg, batch, cache):
     return _logits(params, cfg, x[:, -1:])[:, 0], new_cache
 
 
-@torch.inference_mode()
 def decode_step(params: LM, cfg, tokens, pos: int, cache):
     """tokens: (B, 1) int; pos: int. Returns (logits (B,V), cache)."""
+    with _serving(params):
+        return _decode_step(params, cfg, tokens, pos, cache)
+
+
+def _decode_step(params: LM, cfg, tokens, pos: int, cache):
     x = layers.embed(params.embed.table, tokens)
     new_cache = []
     for (kind, lp, group), lc in zip(_schedule(params, cfg), cache):

@@ -22,18 +22,31 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import tsmm
+from repro_torch.distributed import sharding
 from repro_torch.kernels import quant
 from repro_torch.models import model
 
 
-def make_serve_fns(cfg, policy: "tsmm.GemmPolicy | None" = None):
+def make_serve_fns(cfg, policy: "tsmm.GemmPolicy | None" = None, *,
+                   sharded_projections: bool = False):
     """Build (prefill_step, decode_step).
 
     ``policy`` pins a GemmPolicy scope around both steps (e.g.
     ``GemmPolicy(mode="dense")`` for an A/B arm).
+
+    ``sharded_projections=True`` scopes ``reduce="psum_scatter"`` on top:
+    on a mesh, ``tsmm_t`` products inside the steps (ABFT checksum
+    projections, the weight-side backward paths) come back row-sharded
+    over the dp dims instead of replicated -- the right layout when the
+    consumer re-shards at once, and a no-op everywhere else (off a mesh,
+    or for shapes that cannot scatter, dispatch is the default path's).
     """
     def _scope():
-        return (tsmm.policy(policy) if policy is not None
+        base = policy
+        if sharded_projections:
+            base = ((base if base is not None else tsmm.current_policy())
+                    .with_(reduce="psum_scatter"))
+        return (tsmm.policy(base) if base is not None
                 else contextlib.nullcontext())
 
     def prefill_step(params, batch, cache):
@@ -57,12 +70,16 @@ def sample_token(generator, logits, temperature: float = 0.0):
 
 
 def generate(params, cfg, prompts, max_new: int, *, generator=None,
-             temperature: float = 0.0, policy=None, device=None):
+             temperature: float = 0.0, policy=None, device=None,
+             sharded_projections: bool = False):
     """prompts: (B, S) int. Returns (B, max_new) generated tokens.
 
     Runs on ``device`` (the card unless the caller passes one), where
     ``params`` and ``prompts`` must already lie. ``generator`` drives
     sampling (default: one seeded with 0 on that device).
+    ``sharded_projections`` is forwarded to :func:`make_serve_fns`.
+    DTensor parameters serve on their mesh (the caches and the prompts'
+    batch placed there); the tokens come back whole, a plain tensor.
     """
     dev = resolve_device(device)
     lm = params.model if isinstance(params, quant.QuantizedWeights) else params
@@ -73,15 +90,23 @@ def generate(params, cfg, prompts, max_new: int, *, generator=None,
                              f"{t.device}")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    prefill_step, decode_step = make_serve_fns(cfg, policy=policy)
+    prefill_step, decode_step = make_serve_fns(
+        cfg, policy=policy, sharded_projections=sharded_projections)
 
     b, s0 = prompts.shape
-    cache = model.init_cache(cfg, b, s0 + max_new, device=dev)
-    logits, cache = prefill_step(params, {"tokens": prompts}, cache)
+    mesh = next(lm.parameters()).device_mesh if sharding.on_mesh(lm) \
+        else None
+    cache = model.init_cache(cfg, b, s0 + max_new, device=dev, mesh=mesh)
+    batch = {"tokens": prompts}
+    if mesh is not None:
+        batch = sharding.named(mesh, sharding.batch_specs(cfg, mesh, batch),
+                               dict(batch))
+    logits, cache = prefill_step(params, batch, cache)
     tok = sample_token(generator, logits, temperature)[:, None]
     toks = [tok]
     for i in range(1, max_new):
         logits, cache = decode_step(params, tok, s0 + i - 1, cache)
         tok = sample_token(generator, logits, temperature)[:, None]
         toks.append(tok)
-    return torch.cat(toks, dim=1)
+    out = torch.cat(toks, dim=1)
+    return out.full_tensor() if mesh is not None else out

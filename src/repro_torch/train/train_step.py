@@ -19,13 +19,32 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.ft import host_copy, named_leaves
+from repro_torch.distributed import sharding
+from repro_torch.ft import host_copy, is_dtensor, local, named_leaves
 from repro_torch.models import losses, model
 from repro_torch.optim import adamw
 
 
-def make_loss_fn(cfg, z_loss: float = 1e-4, loss_chunk: int = 512):
+def _check_placements(params, param_shardings) -> None:
+    """Every parameter lies in its placements (``sharding.named``'s)."""
+    for name, p in params.named_parameters():
+        want = list(param_shardings[name])
+        got = list(getattr(p, "placements", ()))
+        if got != want:
+            raise ValueError(f"[mesh-placement] {name} lies in {got}, the "
+                             f"shardings say {want}")
+
+
+def make_loss_fn(cfg, z_loss: float = 1e-4, loss_chunk: int = 512,
+                 param_shardings=None):
+    """``param_shardings``: ``{name: placements}`` (``sharding.named`` of
+    the parameter specs). The reference pins the parameters to them (and
+    through the transpose their cotangents); DTensor parameters already
+    carry placements, so here the loss checks them, and the gradients are
+    pinned where they are made (:func:`_grads`)."""
     def loss_fn(params, batch):
+        if param_shardings is not None:
+            _check_placements(params, param_shardings)
         hidden, metrics = model.forward_hidden(params, cfg, batch)
         loss, lm = losses.chunked_lm_loss(model.unembed_fn(params, cfg),
                                           hidden, batch, chunk=loss_chunk,
@@ -34,29 +53,63 @@ def make_loss_fn(cfg, z_loss: float = 1e-4, loss_chunk: int = 512):
     return loss_fn
 
 
-def _grads(loss_fn, params, batch):
+def _whole(t):
+    """A metric as one plain tensor: a DTensor's full value (a pending sum
+    reduced), on every rank."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _grads(loss_fn, params, batch, shardings=None):
+    """(loss, {name: gradient}, aux). ``shardings`` (``{name:
+    placements}``) pins each DTensor gradient to its placements: a pending
+    sum over the batch's dp ranks (``Partial``) is all-reduced there, the
+    reference's gradient reduction."""
     named = dict(params.named_parameters())
-    loss, aux = loss_fn(params, batch)
-    gs = torch.autograd.grad(loss, list(named.values()))
-    aux = {k: v.detach() for k, v in aux.items()}
-    return loss.detach(), dict(zip(named, gs)), aux
+    # The backward recomputes checkpointed segments: it needs the scope too.
+    with sharding.replicate_constants(params):
+        loss, aux = loss_fn(params, batch)
+        gs = torch.autograd.grad(loss, list(named.values()))
+    if shardings is not None:
+        gs = [g.redistribute(g.device_mesh, shardings[n])
+              for n, g in zip(named, gs)]
+    aux = {k: _whole(v.detach()) for k, v in aux.items()}
+    return _whole(loss.detach()), dict(zip(named, gs)), aux
 
 
-def _microbatch_grads(loss_fn, params, batch, n_micro: int):
-    """Gradient accumulation over ``n_micro`` equal slices of the batch:
-    peak activation memory / n_micro. As the JAX package does, the
-    gradients are summed in f32 and divided by ``n_micro``, the aux
-    metrics are averaged, and the loss returned is the last
-    microbatch's."""
+def _microbatches(batch, n_micro: int, mesh):
+    """The ``n_micro`` equal row slices of the batch. Microbatch i is rows
+    ``[i b / n, (i + 1) b / n)`` of the *global* batch; with ``mesh`` its
+    rows are split over the dp dims (the reference's ``P(None, dp)`` pin
+    of the reshaped batch), so every rank holds its part of each
+    microbatch, not a slice of its own rows cut into n."""
     b = next(iter(batch.values())).shape[0]
     if b % n_micro:
         raise ValueError(f"batch {b} does not split into {n_micro} "
                          "microbatches")
     size = b // n_micro
+    if mesh is None:
+        return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                for i in range(n_micro)]
+    dp = sharding.dp_axes(mesh)
+    split = {k: sharding.maybe_wsc(
+        v.reshape(n_micro, size, *v.shape[1:]), None, dp)
+        for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n_micro)]
+
+
+def _microbatch_grads(loss_fn, params, batch, n_micro: int,
+                      acc_shardings=None, mesh=None):
+    """Gradient accumulation over ``n_micro`` equal slices of the batch:
+    peak activation memory / n_micro. As the JAX package does, the
+    gradients are summed in f32 and divided by ``n_micro``, the aux
+    metrics are averaged, and the loss returned is the last
+    microbatch's. ``acc_shardings`` (``{name: placements}``) pins each
+    microbatch's gradients, and so the f32 accumulator, to the
+    parameters' placements; ``mesh`` splits each microbatch over its dp
+    dims (:func:`_microbatches`)."""
     acc, auxs, loss = None, [], None
-    for i in range(n_micro):
-        mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-        loss, g, aux = _grads(loss_fn, params, mb)
+    for mb in _microbatches(batch, n_micro, mesh):
+        loss, g, aux = _grads(loss_fn, params, mb, acc_shardings)
         if acc is None:
             acc = {n: t.float() for n, t in g.items()}
         else:
@@ -71,28 +124,42 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int):
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, n_micro: int = 0,
-                    grad_transform=None):
+                    grad_transform=None, acc_shardings=None, mesh=None,
+                    opt_update_specs=None):
     """``grad_transform``: an optional (grads, extra_state) -> (grads,
     extra_state, metrics) hook; PowerSGD plugs in here
-    (``lambda g, st: powersgd.compress_tree(ps_cfg, g, st)``)."""
-    loss_fn = make_loss_fn(cfg)
+    (``lambda g, st: powersgd.compress_tree(ps_cfg, g, st)``).
+    ``acc_shardings`` (``{name: placements}``, ``sharding.named`` of the
+    parameter specs) pins the gradients and their f32 accumulator to the
+    parameters' placements; ``mesh`` splits each microbatch over its dp
+    dims; ``opt_update_specs`` (``{name: spec}``, ZeRO-1: the moments'
+    specs) pins the gradients onto the update's shards right after the
+    backward, and AdamW's update arithmetic with them."""
+    loss_fn = make_loss_fn(cfg, param_shardings=acc_shardings)
 
     def train_step(state, batch):
         params, opt_state = state["params"], state["opt"]
         extra = state.get("extra")
         if n_micro and n_micro > 1:
             loss, grads, aux = _microbatch_grads(loss_fn, params, batch,
-                                                 n_micro)
+                                                 n_micro, acc_shardings,
+                                                 mesh)
         else:
-            loss, grads, aux = _grads(loss_fn, params, batch)
+            loss, grads, aux = _grads(loss_fn, params, batch, acc_shardings)
+        if opt_update_specs is not None:
+            grads = {n: sharding.maybe_wsc_spec(g, opt_update_specs[n])
+                     for n, g in grads.items()}
         gmetrics = {}
-        if grad_transform is not None:
-            grads, extra, gmetrics = grad_transform(grads, extra)
-        params, opt_state, om = adamw.update(opt_cfg, params, grads,
-                                             opt_state)
-        metrics = {"loss": loss, **aux, **om, **gmetrics}
-        metrics["step_ok"] = (torch.isfinite(loss)
-                              & torch.isfinite(om["grad_norm"]))
+        with sharding.replicate_constants(params):
+            if grad_transform is not None:
+                grads, extra, gmetrics = grad_transform(grads, extra)
+            params, opt_state, om = adamw.update(
+                opt_cfg, params, grads, opt_state,
+                update_specs=opt_update_specs)
+        metrics = {k: _whole(v) for k, v in
+                   {"loss": loss, **aux, **om, **gmetrics}.items()}
+        metrics["step_ok"] = (torch.isfinite(metrics["loss"])
+                              & torch.isfinite(metrics["grad_norm"]))
         new_state = {"params": params, "opt": opt_state}
         if extra is not None:
             new_state["extra"] = extra
@@ -130,7 +197,10 @@ def restore_snapshot(snapshot: dict, state):
     mapping of dotted name to tensor) back into the live ``state``, leaf
     by leaf with ``copy_``, and return ``state``. The JAX version builds
     a new tree; writing in place keeps one copy of the state on the
-    device. The names must match the state's exactly."""
+    device. The names must match the state's exactly. A DTensor leaf
+    takes either its local shard (a snapshot) or the full leaf (a
+    checkpoint), of which it keeps its own shard (``sharding.
+    local_part``)."""
     live = dict(named_leaves(state))
     if live.keys() != snapshot.keys():
         missing = sorted(live.keys() - snapshot.keys())
@@ -138,9 +208,11 @@ def restore_snapshot(snapshot: dict, state):
         raise KeyError(f"[snapshot-tree] snapshot does not match the state:"
                        f" missing {missing[:4]}, unknown {extra[:4]}")
     for n, t in live.items():
-        src = snapshot[n]
-        if src.shape != t.shape or src.dtype != t.dtype:
+        src, dst = snapshot[n], local(t)
+        if is_dtensor(t) and src.shape == t.shape:
+            src = sharding.local_part(src, t.device_mesh, t.placements)
+        if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(f"[snapshot-tree] {n}: {tuple(src.shape)} "
-                             f"{src.dtype} != {tuple(t.shape)} {t.dtype}")
-        t.copy_(src)
+                             f"{src.dtype} != {tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(src)
     return state

@@ -116,6 +116,28 @@ def test_checkpoint_save_copies_before_it_returns(tmp_path):
     assert torch.equal(tree["w"], torch.zeros((256, 256)))
 
 
+def test_checkpoint_writer_frees_its_host_copy(tmp_path):
+    """Once a queued write is durable, its host copy (state-sized, and
+    page-locked for a state on the card) is freed: the writer thread must
+    not hold it until the next save, which for the last save of a run is
+    never."""
+    import gc
+    import weakref
+
+    ckpt = Checkpointer(str(tmp_path), async_write=True)
+    refs, real_write = [], ckpt._write
+
+    def watched_write(step, leaves):
+        refs.extend(weakref.ref(t) for _, t in leaves)
+        real_write(step, leaves)
+
+    ckpt._write = watched_write
+    ckpt.save(1, {"w": torch.ones((256, 256))})
+    ckpt.wait()
+    gc.collect()
+    assert refs and all(r() is None for r in refs)
+
+
 def test_checkpoint_retention_and_torn_tmp(tmp_path):
     ckpt = Checkpointer(str(tmp_path), keep_n=2, async_write=True)
     for s in (1, 2, 3, 4):

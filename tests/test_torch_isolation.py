@@ -120,7 +120,11 @@ def test_new_modules_are_scanned():
                 "repro_torch.configs.mistral_nemo_12b",
                 "repro_torch.configs.qwen2_72b",
                 "repro_torch.kernels.compat",
-                "repro_torch.linalg.tree_tsqr"):
+                "repro_torch.linalg.tree_tsqr",
+                "repro_torch.distributed",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.pipeline",
+                "repro_torch.launch.mesh"):
         assert mod in MODULES
 
 

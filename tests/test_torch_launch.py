@@ -140,11 +140,6 @@ def test_sigterm_checkpoints_and_resumes(tmp_path, clean_metrics,
     assert resumed["fault_retries"] == 0
 
 
-def test_distributed_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        _run("--distributed")
-
-
 def test_main_without_device_refuses_to_run_on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

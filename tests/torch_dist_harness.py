@@ -45,20 +45,26 @@ JAX_EXECUTOR = {"torch-ref": "pallas-tpu", "torch-dense": "dense-xla",
 
 def _rank_main(rank, fn, init_file, out_dir):
     torch.set_num_threads(THREADS)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=WORLD)
-    try:
+    if init_file is None:
         result = fn(rank, pathlib.Path(out_dir))
-    finally:
-        dist.destroy_process_group()
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=WORLD)
+        try:
+            result = fn(rank, pathlib.Path(out_dir))
+        finally:
+            dist.destroy_process_group()
     torch.save(result, pathlib.Path(out_dir) / f"rank{rank}.pt")
 
 
-def start_world(fn, workdir: pathlib.Path):
+def start_world(fn, workdir: pathlib.Path, init: bool = True):
     """Start ``fn(rank, workdir)`` on ``WORLD`` gloo ranks; returns the
-    context that :func:`join_world` waits for."""
+    context that :func:`join_world` waits for. ``init=False`` starts the
+    processes without a process group, for a ``fn`` that starts its own
+    (the launcher's ``--distributed``, from torchrun's environment)."""
+    init_file = str(workdir / "init") if init else None
     return mp.start_processes(
-        _rank_main, args=(fn, str(workdir / "init"), str(workdir)),
+        _rank_main, args=(fn, init_file, str(workdir)),
         nprocs=WORLD, join=False, start_method="spawn")
 
 
@@ -113,13 +119,13 @@ def join_jax(proc: subprocess.Popen, workdir: pathlib.Path,
 
 
 def run_both(fn, script: str, inputs: dict, workdir: pathlib.Path,
-             timeout: float = 300.0):
+             timeout: float = 300.0, init: bool = True):
     """Save ``inputs``, run the JAX side and the gloo world at once, and
     return ``(port results per rank, JAX arrays, JAX record)``."""
     np.savez(workdir / "inputs.npz", **inputs)
     proc = start_jax(script, workdir)
     try:
-        ranks = join_world(start_world(fn, workdir), workdir, timeout)
+        ranks = join_world(start_world(fn, workdir, init), workdir, timeout)
     except BaseException:
         proc.kill()
         proc.communicate()
