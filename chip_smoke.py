@@ -82,8 +82,14 @@ printing no result, when no CUDA card is present or any phase fails.
    it) against its plain partials, tsmt at w_down's Q
    [8192,2048]^T [8192,4], and P and Q of embed and lm_head
    ([32000,2048]·[2048,4] on the skinny body, [32000,2048]^T [32000,4],
-   ``ZAMBA_HEADS``); each with its device time beside
-   ``torch.matmul``'s, ungated. Every tsm2r line
+   ``ZAMBA_HEADS``); and at the MoE paths' (``MOE_TSM2R``,
+   ``MOE_ROUTERS``, ``at_moe_shapes``): mixtral's router
+   [8192,4096]·[4096,8] and [4096,4096]·[4096,8] on the skinny body,
+   deepseek's router [8192,7168]·[7168,256] and MLA's rope key
+   [8192,7168]·[7168,64] on the wgmma body, and tsm2r_split at the
+   routers of mixtral's prefill, train microbatch and long request at
+   the chooser's S (the sequential kernel beside it); each with its
+   device time beside ``torch.matmul``'s, ungated. Every tsm2r line
    carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
    tensor-core body) for bf16 at [8192,4096]·[4096,256],
    [4096,4096]·[4096,256], the ragged (1000, 776, 200) and the narrowest
@@ -345,9 +351,10 @@ printing no result, when no CUDA card is present or any phase fails.
    (``wait``), the checkpoint read and the write into the live state,
    and the offline check's time and launches; a summary line beside the
    train phase's median step.
-10b-e. The model paths, one serve and one train phase each
+10b-e, 10h. The model paths, one serve and one train phase each
    (``model_serve_phase`` and ``model_train_phase``, given a
-   ``ModelPath``: ``RWKV_PATH``, ``ZAMBA_PATH``).
+   ``ModelPath``: ``RWKV_PATH``, ``ZAMBA_PATH``, ``MIXTRAL_PATH``,
+   ``DEEPSEEK_PATH``; deepseek serves only).
 10b. rwkv-serve (a path of its own; counts zeroed before, read after):
    rwkv6-1.6b at its published width and depth (24 layers, d_model 2048,
    32 heads of 64, d_ff 7168, vocab 65,536, decay-LoRA rank 64, chunk
@@ -409,6 +416,43 @@ printing no result, when no CUDA card is present or any phase fails.
    dense arm's first step must match the loss and grad norm within
    5e-2. Prints step times, tokens/s, peak and state memory, each
    factor's route and S, the wall time and a profiled fourth step.
+10h. The MoE paths (each a path of its own, counts zeroed before and read
+   after), after zamba-train, at published width with depth cut to
+   what one card holds (``MOE_CUTS``, registered as ``LAUNCH_ARCH`` is),
+   bf16, seed 0 (``model_serve_phase``): mixtral-serve, mixtral-8x7b's
+   first 8 layers, 4 x 2048 prompt tokens and 16 greedy ones, a sampled
+   run and the request step by step: every prefill launches its router
+   ``[8192,4096]·[4096,8]`` 8 times on tsm2r_split's skinny body at the
+   chooser's S (4 on 132 SMs), decode dense; the prefill within
+   ``LOGIT_TOL`` of a dense arm (the (token, layer) routes that flip
+   between the arms counted), and swapping the router columns of
+   experts 0 and 1 must move it ``LORA_X`` times as far and past
+   ``LOGIT_TOL``; each MoE layer's drops and largest load at capacity
+   1.25; cached decode against the teacher-forced forward on a
+   drop-free copy (``DROP_FREE_CF``; the forward must drop nothing) with
+   the forward's expert ids pinned, every step within ``LOGIT_TOL`` (the
+   bf16 router logits pick another expert where two lie within a
+   rounding: the cached path's own differing choices are counted, at
+   most ``MOE_FLIP_SHARE`` of the decoded routes), and on an f32 copy of
+   the first ``MOE_F32_LAYERS`` layers within ``MOE_F32_TOL``
+   (``moe_decode_check``); a profiled prefill. mixtral-long: the same
+   model on one 6,144-token request, past its 4,096-token window, so
+   every K/V cache is a 4,096-slot ring: 8 router launches at
+   [6144,4096]·[4096,8] a prefill, ring decode against the windowed
+   forward likewise. mixtral-train: its first 2
+   layers through ``model_train_phase`` (PowerSGD rank 4, 8 x 2048
+   tokens in 4 microbatches, remat, 3 steps; 16 tsm2r_split at the
+   router, 2 tsm2r and 2 tsmt at P and Q of embed and lm_head a step;
+   the MoE metrics a step; a dense arm). deepseek-serve: deepseek-v3's
+   first 4 layers (3 dense MLA layers, 1 MoE layer of 256 experts;
+   ``router_bias`` drawn from the seed): 4 ``wkr`` at
+   [8192,7168]·[7168,64] and 1 router at [8192,7168]·[7168,256] a
+   prefill on tsm2r's wgmma body; zeroing ``router_bias`` must move the
+   logits; the absorbed and the non-absorbed decode each against the
+   forward as above (the MoE layer's routes pinned) and against each
+   other within ``LOGIT_TOL``, and both against the forward in f32 on
+   the 3 dense MLA layers. A
+   ``moe`` line reports the four phases' wall times.
 10f. dist (a path of its own; counts zeroed before, read after): the
    multi-process executors in a world of one under NCCL
    (``init_method="file://"`` on a temporary file; one card, and NCCL
@@ -463,9 +507,10 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the sixteen paths (dispatch, serve, train, serve-int8,
+   on each of the twenty paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
-   rwkv-serve, rwkv-train, zamba-serve, zamba-train, dist, mesh) and their
+   rwkv-serve, rwkv-train, zamba-serve, zamba-train, mixtral-serve,
+   mixtral-long, mixtral-train, deepseek-serve, dist, mesh) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -473,7 +518,8 @@ printing no result, when no CUDA card is present or any phase fails.
    tsm2r_q8_split, tsmt_q8, tsmt_q8_split, tsm2l and tsm2l_q8);
    tsm2r and tsm2r_q8 add their numbers at the training shapes, tsm2r
    and tsmt at rwkv6's (``at_rwkv_shapes``), tsm2r, tsm2r_split and
-   tsmt at zamba2's (``at_zamba_shapes``), tsm2l and
+   tsmt at zamba2's (``at_zamba_shapes``), tsm2r and tsm2r_split at the
+   MoE paths' (``at_moe_shapes``: ``MOE_TSM2R``, ``MOE_ROUTERS``), tsm2l and
    tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
@@ -520,13 +566,14 @@ TSM2R_MAX_MS = {(8192, 4096, 256): 0.26, (4096, 4096, 256): 0.128}
 # n <= 16, k % 8 != 0, a misaligned base) takes the skinny or the simt body.
 TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
                (4096, 4096, 24), (8192, 2048, 64), (4096, 2048, 64),
-               (8192, 2048, 128), (2048, 2048, 128)}
+               (8192, 2048, 128), (2048, 2048, 128), (8192, 7168, 256),
+               (8192, 7168, 64)}
 # tsm2r cases that take the skinny body, f32 and bf16 (n <= 16, rows of A
 # whole 16-byte chunks, an aligned A); the ragged (1000, 777, 16) stays on
 # the simt body, as do f32 outputs wider than 16.
 TSM2R_SKINNY = {(65024, 4096, 4), (16384, 16384, 16), (4096, 4096, 8),
                 (4096, 4096, 3), (512, 512, 1), (100, 8, 3), (64, 24, 16),
-                (65536, 2048, 4), (32000, 2048, 4)}
+                (65536, 2048, 4), (32000, 2048, 4), (8192, 4096, 8)}
 # Device time the skinny body must stay within, f32: tsm2r_split at
 # [16384,16384]·[16384,16], S = 2 (0.675 ms on the simt body), and tsm2r's
 # P at [65024,4096]·[4096,4] (0.662), on an H100 80GB HBM3 at 700 W.
@@ -3087,29 +3134,33 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     return main
 
 
-def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill):
-    """A prefill of ``prompts`` and cached decode steps of ``out``'s first
-    NEW - 1 tokens through ``engine.make_serve_fns``, timed on the host
-    clock; the prefill must launch tsm2r ``per_prefill`` times. Returns
-    (the logits of every step, prefill ms, decode ms a step)."""
-    from repro_torch.kernels import tsm2r as k_tsm2r
+def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill, counts):
+    """A prefill of ``prompts`` (B x S0) and cached decode steps of
+    ``out``'s first NEW - 1 tokens through ``engine.make_serve_fns``, timed
+    on the host clock; the prefill must launch ``per_prefill`` kernels (the
+    sum of ``counts()``). Returns (the logits of every step, prefill ms,
+    decode ms a step)."""
     from repro_torch.models import model
     from repro_torch.serve import engine
 
+    def count():
+        return sum(counts().values())
+
     prefill_step, decode_step = engine.make_serve_fns(cfg)
-    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
-    before = k_tsm2r.launches
+    batch, prompt = prompts.shape
+    cache = model.init_cache(cfg, batch, prompt + NEW, device=dev)
+    before = count()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, {"tokens": prompts}, cache)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    check(k_tsm2r.launches - before == per_prefill,
+    check(count() - before == per_prefill,
           f"{cfg.name} prefill_step launches")
     step_logits = [logits]
     t0 = time.perf_counter()
     for i in range(1, NEW):
-        logits, cache = decode_step(params, out[:, i - 1:i], PROMPT + i - 1,
+        logits, cache = decode_step(params, out[:, i - 1:i], prompt + i - 1,
                                     cache)
         step_logits.append(logits)
     torch.cuda.synchronize()
@@ -3244,7 +3295,8 @@ def contracts_phase(dev, gpu) -> None:
     check(all(per_path.get(p, 0) > 0 for p in (
         "dispatch", "serve", "serve_int8", "train", "train_int8", "tsqr",
         "train_tsqr", "rwkv_serve", "rwkv_train", "zamba_serve",
-        "zamba_train")),
+        "zamba_train", "mixtral_serve", "mixtral_long", "mixtral_train",
+        "deepseek_serve")),
         f"paths without recorded launches: {per_path}")
 
 
@@ -3755,22 +3807,23 @@ def rwkv_perturb_(params, cfg, gen) -> None:
             t.copy_(t + draw if t is tm.w0 else draw)
 
 
-def zamba_split_rows(dev, uniform, gpu) -> list:
-    """tsm2r_split at zamba-train's three P shapes (``ZAMBA_P``), f32, at
-    the S the chooser resolves on this card (which must be
-    ``ZAMBA_P_SPLITS``' and plan no sum_partials), against its plain
-    partials at the f32 tolerance, bit-identical on a second launch, on
-    the skinny body; its device time beside ``torch.matmul``'s, the
-    bound, the sequential kernel and the whole op (split plus the plain
-    sum). Returns one record a shape."""
+def split_rows(dev, uniform, gpu, shapes, dtype, tag, splits=None) -> list:
+    """tsm2r_split at ``shapes`` in ``dtype``, at the S the chooser
+    resolves on this card (``splits[shape]`` where given, else past 1; no
+    sum_partials planned), against its plain f32 partials at the f32
+    tolerance, bit-identical on a second launch, on the skinny body; its
+    device time beside ``torch.matmul``'s, the bound, the sequential
+    kernel and the whole op (split plus the plain sum). ``tag`` marks
+    each record ("zamba": zamba-train's P; "moe": mixtral's router).
+    Returns one record a shape."""
     from repro_torch.core import perf_model, tsmm
     from repro_torch.kernels import ops, ref, reduce
     from repro_torch.kernels import tsm2r as k_tsm2r
 
     rows = []
-    for m, k, n in ZAMBA_P:
-        x, y = uniform((m, k), torch.float32), uniform((k, n), torch.float32)
-        res = ops.resolve_params("tsm2r", m, k, n, torch.float32,
+    for m, k, n in shapes:
+        x, y = uniform((m, k), dtype), uniform((k, n), dtype)
+        res = ops.resolve_params("tsm2r", m, k, n, dtype,
                                  tsmm.GemmPolicy(), device=dev)
         S, block = res["splits"], res["block_k"]
         got = k_tsm2r.tsm2r_split(x, y, S, block)
@@ -3783,29 +3836,32 @@ def zamba_split_rows(dev, uniform, gpu) -> list:
         same = torch.equal(got, again)
         body, grid = k_tsm2r.split_plan(x, y, S, block)
         ok = (same and bool((err <= atol + rtol * want.abs()).all())
-              and body == "skinny" and S == ZAMBA_P_SPLITS[(m, k, n)]
+              and body == "skinny"
+              and (S == splits[(m, k, n)] if splits else S > 1)
               and not perf_model.reduce_kernel_runs(S, m, n))
         b_ms, b_by = bound(x, y, got, 2 * m * k * n)
-        rec = {"phase": "kernel", "kernel": "tsm2r_split", "zamba": True,
+        rec = {"phase": "kernel", "kernel": "tsm2r_split", tag: True,
                "shape": [m, k, n], "splits": S, "block_k": block,
-               "dtype": "float32", "body": body, "grid": grid,
+               "dtype": str(dtype)[6:], "body": body, "grid": grid,
                "kernel_ms": time_ms(lambda: k_tsm2r.tsm2r_split(
                    x, y, S, block)),
                "op_ms": time_ms(lambda: reduce.reduce_partials(
-                   k_tsm2r.tsm2r_split(x, y, S, block), torch.float32)[0]),
+                   k_tsm2r.tsm2r_split(x, y, S, block), dtype)[0]),
                "seq_ms": time_ms(lambda: k_tsm2r.tsm2r(x, y)),
                "plain_ms": time_ms(lambda: ref.tsm2r_split_ref(x, y, S,
                                                                block)),
                "library_ms": time_ms(lambda: torch.matmul(x, y)),
                "device_ms": device_ms(lambda: k_tsm2r.tsm2r_split(
                    x, y, S, block), "tsm2r_split"),
+               "seq_device_ms": device_ms(lambda: k_tsm2r.tsm2r(x, y),
+                                          "tsm2r"),
                "library_device_ms": call_device_ms(
                    lambda: torch.matmul(x, y)),
                "bound_ms": b_ms, "bound_by": b_by,
                "max_err": float(err.max()), "rtol": rtol, "atol": atol,
                "deterministic": same, "ok": ok, "gpu": gpu}
         emit(rec)
-        check(ok, f"tsm2r_split at zamba2's P {rec}")
+        check(ok, f"tsm2r_split at {tag}'s {rec}")
         rows.append(rec)
         del x, y, got, again, want, err
     torch.cuda.empty_cache()
@@ -3906,16 +3962,43 @@ def zamba_depth_rung(params, cfg, prompts, out, tail, dev, bf16=None):
             "f32_decode_vs_forward_err": max_step_err(steps32, exact)}
 
 
-def zamba_decode_check(params, cfg, prompts, out, tail, step_logits, rows,
+def teacher_forced(mp, params, cfg, prompts, out, gen, dev):
+    """The teacher-forced forward of the prompt, ``out`` and a tail drawn
+    from ``gen``, ``mp.forced`` tokens a request; it launches tsm2r once
+    at each of the prefill's shapes. Returns (its logits at the NEW
+    positions the cached steps predict, the tail)."""
+    from repro_torch.kernels import tsm2r as k_tsm2r
+    from repro_torch.models import model
+
+    tail = torch.randint(0, cfg.vocab_size,
+                         (BATCH, mp.forced - PROMPT - NEW),
+                         generator=gen, device=dev)
+    before = k_tsm2r.launches
+    with torch.no_grad():
+        forced, _ = model.forward(
+            params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1)})
+    check(k_tsm2r.launches - before == len(mp.prefill_shapes(
+        cfg, BATCH * mp.forced)), f"{mp.tag} forward launches")
+    rows = forced[:, PROMPT - 1:PROMPT - 1 + NEW].clone()
+    del forced
+    torch.cuda.empty_cache()
+    return rows, tail
+
+
+def zamba_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
                        dev) -> dict:
-    """zamba-serve's cached decode against the teacher-forced forward, on a
-    ladder of depths (``ZAMBA_LADDER``: the model cut to its first groups
-    and its tail, then whole). At every rung: the f32 copy's decode within
-    ``ZAMBA_F32_TOL`` of its forward (the cache's logic); the bf16 decode
-    no further from the f32 forward than ``ZAMBA_FLOOR_X`` times the bf16
-    forward is, and no further from the bf16 forward than that forward is
-    from f32 (the cache's bf16 numerics, against the rounding floor of
-    that depth). Returns the rungs."""
+    """zamba-serve's cached decode against the teacher-forced forward
+    (``teacher_forced``), on a ladder of depths (``ZAMBA_LADDER``: the
+    model cut to its first groups and its tail, then whole). At every
+    rung: the f32 copy's decode within ``ZAMBA_F32_TOL`` of its forward
+    (the cache's logic); the bf16 decode no further from the f32 forward
+    than ``ZAMBA_FLOOR_X`` times the bf16 forward is, and no further from
+    the bf16 forward than that forward is from f32 (the cache's bf16
+    numerics, against the rounding floor of that depth). Returns the
+    rungs."""
+    rows, tail = teacher_forced(mp, params, cfg, prompts, out, gen, dev)
+    rec = {"forced_tokens": mp.forced,
+           "decode_vs_forward_err": max_step_err(step_logits, rows)}
     ladder = []
     for groups in ZAMBA_LADDER:
         cut, cut_cfg = zamba_cut(params, cfg, groups)
@@ -3932,45 +4015,146 @@ def zamba_decode_check(params, cfg, prompts, out, tail, step_logits, rows,
         check(rung["decode_vs_f32_err"] <= ZAMBA_FLOOR_X * floor
               and rung["decode_vs_forward_err"] <= floor,
               f"zamba bf16 decode against the forward at {rung}")
-    return {"ladder": ladder}
+    return {**rec, "ladder": ladder}
 
 
-def rwkv_decode_check(params, cfg, prompts, out, tail, step_logits, rows,
+def rwkv_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
                       dev) -> dict:
     """rwkv-serve's cached decode within ``LOGIT_TOL`` of the
-    teacher-forced forward."""
+    teacher-forced forward (``teacher_forced``)."""
+    rows, _ = teacher_forced(mp, params, cfg, prompts, out, gen, dev)
     err = max_step_err(step_logits, rows)
     check(err <= LOGIT_TOL, f"rwkv decode vs forward error {err}")
-    return {}
+    return {"forced_tokens": mp.forced, "decode_vs_forward_err": err}
+
+
+def zeroed(leaves):
+    """A ``ModelPath.reach`` that zeroes, in place, every tensor that
+    ``leaves(params, cfg)`` gives; it returns the undo."""
+    @torch.no_grad()
+    def reach(params, cfg):
+        saved = [(t, t.clone()) for t in leaves(params, cfg)]
+        for t, _ in saved:
+            t.zero_()
+
+        @torch.no_grad()
+        def undo():
+            for t, v in saved:
+                t.copy_(v)
+        return undo
+    return reach
+
+
+@contextlib.contextmanager
+def moe_taps(pin=None):
+    """Each MoE layer call's expert ids (T, k) and metrics, in call order,
+    read from ``models.moe`` while the scope is open. ``pin``: call number
+    -> the expert ids that call takes in place of its own choice, weighted
+    by the call's own probabilities at them, renormalised (the ids tapped
+    stay the call's own choice)."""
+    from repro_torch.models import moe
+
+    routes, metrics = [], []
+    route, fwd = moe.route, moe.moe_fwd
+
+    def tapped_route(p, xt, cfg):
+        w, idx, probs = route(p, xt, cfg)
+        routes.append(idx)
+        if pin is not None:
+            idx = pin(len(routes) - 1)
+            w = torch.gather(probs, 1, idx)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return w, idx, probs
+
+    def tapped_fwd(p, x, cfg):
+        out, met = fwd(p, x, cfg)
+        metrics.append({k: float(v) for k, v in met.items()})
+        return out, met
+
+    moe.route, moe.moe_fwd = tapped_route, tapped_fwd
+    try:
+        yield routes, metrics
+    finally:
+        moe.route, moe.moe_fwd = route, fwd
+
+
+def experts(ids):
+    """Expert ids as sets: sorted along k."""
+    return torch.sort(ids, dim=-1).values
+
+
+def route_flips(a, b) -> int:
+    """(token, layer) routes whose expert sets differ between two arms."""
+    return sum(int((experts(x) != experts(y)).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def router_launches(shapes, dtype, dev) -> dict:
+    """The launches the dispatcher makes for tsm2r products at ``shapes``:
+    the chooser's S on this card picks tsm2r or tsm2r_split (and
+    sum_partials where the split's epilogue runs it). Returns (launches,
+    {shape: S})."""
+    from repro_torch.core import perf_model, tsmm
+    from repro_torch.kernels import ops
+
+    want, splits = {}, {}
+    for m, k, n in shapes:
+        s = ops.resolve_params("tsm2r", m, k, n, dtype, tsmm.GemmPolicy(),
+                               device=dev)["splits"]
+        splits[(m, k, n)] = s
+        kern = "tsm2r" if s == 1 else "tsm2r_split"
+        want[kern] = want.get(kern, 0) + 1
+        if s > 1 and perf_model.reduce_kernel_runs(s, m, n):
+            want["sum_partials"] = want.get("sum_partials", 0) + 1
+    return want, splits
+
+
+def prefill_route_check(name, log, shapes, splits, body, rows) -> list:
+    """A prefill's routed events: tsm2r on the card at ``shapes``, each at
+    the chooser's S on ``body``. Returns the bodies seen."""
+    routed = [e for e in log if e.kind != "dense" and e.shape[0] == rows]
+    metas = [(e, lm) for e in routed for lm in e.launches
+             if lm.kind != "reduce"]
+    bodies = sorted({lm.params["body"] for _, lm in metas})
+    check(sorted(e.shape for e in routed) == sorted(shapes)
+          and bodies == [body] and all(
+              e.kind == "tsm2r" and e.executor == "cuda"
+              and lm.splits == splits[e.shape] for e, lm in metas),
+          f"{name} prefill routes {routed[:2]} {bodies}")
+    return bodies
 
 
 class ModelPath(typing.NamedTuple):
     """What a model's serve and train phases take from it."""
     tag: str                 # the phases are "<tag>-serve", "<tag>-train"
-    arch: str
+    arch: str                # the registered config
     perturb: object          # (params, cfg, gen): draws the constant leaves
-    loras: object            # params -> the LoRAs whose b the gate zeroes
-    rank: object             # cfg -> the LoRA's rank: tsm2r's n
-    prefill_downs: object    # cfg -> tsm2r launches a prefill
+    prefill_shapes: object   # (cfg, rows) -> tsm2r's shapes a prefill
     decode_gemms: object     # cfg -> dense projections a decode step
-    forced: int              # tokens of the teacher-forced forward
-    decode_check: object     # holds the decode against that forward
-    n_micro: int             # the config's microbatches
-    micro_downs: object      # cfg -> LoRA-down tsm2r a train microbatch
-    leaves: tuple            # the leaves PowerSGD compresses
-    train_launches: dict     # a step's launches
+    reach: object            # (params, cfg) -> undo: a change that the
+    reach_what: str          # logits must feel, and what it is
+    decode_check: object     # holds cached decode against the forward
+    forced: int = 0          # tokens of ``teacher_forced``'s forward
+    body: str = "wgmma"      # tsm2r's body at the prefill's shapes
+    n_micro: int = 0         # the config's microbatches
+    micro_downs: object = None   # cfg -> tsm2r a train microbatch
+    leaves: tuple = ()       # the leaves PowerSGD compresses
+    train_launches: dict = None  # a step's launches
 
 
 RWKV_PATH = ModelPath(
     tag="rwkv", arch=RWKV_ARCH, perturb=rwkv_perturb_,
-    loras=lambda p: [lp.time_mix.w_lora for lp in p.layers],
-    rank=lambda cfg: cfg.rwkv.decay_lora_rank,
-    prefill_downs=lambda cfg: cfg.n_layers,
+    # the decay LoRA's down projection in every layer
+    prefill_shapes=lambda cfg, rows: [
+        (rows, cfg.d_model, cfg.rwkv.decay_lora_rank)] * cfg.n_layers,
     # wr, wk, wv, wg, the LoRA's a and b, wo; the channel mix's wk, wv, wr
     decode_gemms=lambda cfg: 10 * cfg.n_layers,
+    reach=zeroed(lambda p, cfg: [lp.time_mix.w_lora.b for lp in p.layers]),
+    reach_what="every decay LoRA's b zeroed",
+    decode_check=rwkv_decode_check,
     # the prompt and every generated token (the last logits go unused):
     # the chunk rule takes chunks of 24
-    forced=PROMPT + NEW, decode_check=rwkv_decode_check, n_micro=4,
+    forced=PROMPT + NEW, n_micro=4,
     # forward and remat recompute; the up projection is dense, and a dense
     # product's backward is autograd's, so its dh = dy b^T reaches no kernel
     micro_downs=lambda cfg: 2 * cfg.n_layers,
@@ -3978,12 +4162,15 @@ RWKV_PATH = ModelPath(
     train_launches=RWKV_TRAIN_LAUNCHES)
 ZAMBA_PATH = ModelPath(
     tag="zamba", arch=ZAMBA_ARCH, perturb=zamba_perturb_,
-    loras=lambda p: [lo for g in p.groups
-                     for lo in (g.lora_attn, g.lora_ffn)],
-    rank=lambda cfg: cfg.shared_lora_rank,
-    prefill_downs=lambda cfg: 2 * (cfg.n_layers // cfg.hybrid_period),
-    decode_gemms=zamba_decode_gemms, forced=ZAMBA_FORCED,
-    decode_check=zamba_decode_check, n_micro=8,
+    # the attention and FFN LoRAs' down projection of every group
+    prefill_shapes=lambda cfg, rows: [
+        (rows, cfg.d_model, cfg.shared_lora_rank)] * (
+            2 * (cfg.n_layers // cfg.hybrid_period)),
+    decode_gemms=zamba_decode_gemms,
+    reach=zeroed(lambda p, cfg: [lo.b for g in p.groups
+                                 for lo in (g.lora_attn, g.lora_ffn)]),
+    reach_what="every shared LoRA's b zeroed",
+    decode_check=zamba_decode_check, forced=ZAMBA_FORCED, n_micro=8,
     # the attention and FFN LoRAs of every group; the shared block is not
     # checkpointed, so no recompute
     micro_downs=lambda cfg: 2 * (cfg.n_layers // cfg.hybrid_period),
@@ -3993,21 +4180,24 @@ ZAMBA_PATH = ModelPath(
     train_launches=ZAMBA_TRAIN_LAUNCHES)
 
 
-def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
-    """A model's serve path (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``) at full
-    width and depth, bf16, seeded weights perturbed by ``mp.perturb``; 4 x
-    2048 prompt tokens and 16 greedy tokens, a sampled run, then step by
-    step for times (the counts are read there). Each prefill launches
-    tsm2r ``mp.prefill_downs`` times, at the LoRAs' down projection on the
-    wgmma body; every decode GEMM is dense. Then the checks: the prefill
-    against a ``mode="dense"`` arm, the LoRAs' reach (zeroing every ``b``
-    must move the logits ``LORA_X`` times as far as the dense arm sits,
-    and past ``LOGIT_TOL``), cached decode against the teacher-forced
-    forward of ``mp.forced`` tokens (``mp.decode_check``); and a profiled
-    prefill. Returns the path's launch counts."""
+def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> tuple:
+    """A model's serve path (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
+    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``) at published width and its
+    registered depth, bf16, seeded weights perturbed by ``mp.perturb``;
+    4 x 2048 prompt tokens and 16 greedy tokens, a sampled run, then step
+    by step for times (the counts are read there). Each prefill launches,
+    at ``mp.prefill_shapes``, what the chooser on this card resolves
+    (tsm2r, or tsm2r_split at S > 1) on ``mp.body``; every decode GEMM is
+    dense. Then the checks: the prefill against a ``mode="dense"`` arm
+    within ``LOGIT_TOL`` (the (token, layer) routes that flip between the
+    arms counted), ``mp.reach`` must move the logits past ``LOGIT_TOL``
+    and ``LORA_X`` times as far as the dense arm sits, and cached decode
+    against a teacher-forced forward (``mp.decode_check``); an MoE
+    model's drops and largest loads at the config's capacity in the
+    prefill; a profiled prefill. Returns (the path's launch counts, the
+    parameters, the config)."""
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
-    from repro_torch.kernels import tsm2r as k_tsm2r
     from repro_torch.models import model
     from repro_torch.serve import engine
 
@@ -4025,19 +4215,16 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     n_params = sum(p.numel() for p in params.parameters())
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
-    per_prefill = mp.prefill_downs(cfg)
-    down = (BATCH * PROMPT, cfg.d_model, mp.rank(cfg))
+    shapes = mp.prefill_shapes(cfg, BATCH * PROMPT)
+    per_prefill, splits = router_launches(shapes, torch.bfloat16, dev)
 
     with recorded() as log:
         t0 = time.perf_counter()
         out = engine.generate(params, cfg, prompts, NEW, device=dev)
         torch.cuda.synchronize()
         greedy_s = time.perf_counter() - t0
-    routed = [e for e in log if e.kind != "dense"]
-    bodies = sorted({lm.params["body"] for e in routed for lm in e.launches})
-    check(len(routed) == per_prefill and bodies == ["wgmma"] and all(
-        e.kind == "tsm2r" and e.executor == "cuda" and e.shape == down
-        for e in routed), f"{name} prefill routes {routed[:2]} {bodies}")
+    bodies = prefill_route_check(name, log, shapes, splits, mp.body,
+                                 BATCH * PROMPT)
     decode_events = [e for e in log if e.shape[0] == BATCH]
     check(len(decode_events) == (NEW - 1) * mp.decode_gemms(cfg) and all(
         e.executor == "torch-dense" for e in decode_events),
@@ -4052,60 +4239,53 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
         f"{name} sampled tokens in vocabulary")
 
     step_logits, prefill_ms, decode_ms = serve_step_by_step(
-        params, cfg, prompts, out, dev, per_prefill)
+        params, cfg, prompts, out, dev, sum(per_prefill.values()), counts)
     # The main path ends here; what follows only checks it.
     launches = counts()
-    check(launches == expect(tsm2r=3 * per_prefill),
+    check(launches == expect(**{k: 3 * v for k, v in per_prefill.items()}),
           f"{name} path launches {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    dense_prefill, _ = engine.make_serve_fns(
-        cfg, policy=tsmm.GemmPolicy(mode="dense"))
-    with recorded() as log:
-        dense_logits, _ = dense_prefill(
-            params, {"tokens": prompts},
-            model.init_cache(cfg, BATCH, PROMPT, device=dev))
-    check(all(e.executor == "torch-dense" for e in log),
+    def tapped_prefill(policy=None):
+        prefill = engine.make_serve_fns(cfg, policy=policy)[0]
+        with moe_taps() as (routes, mets), recorded() as plog:
+            logits, _ = prefill(params, {"tokens": prompts}, model.init_cache(
+                cfg, BATCH, PROMPT, device=dev))
+        return logits, routes, mets, plog
+
+    k_logits, k_routes, k_mets, _ = tapped_prefill()
+    d_logits, d_routes, _, dlog = tapped_prefill(
+        tsmm.GemmPolicy(mode="dense"))
+    check(all(e.executor == "torch-dense" for e in dlog),
           f"{name} dense arm routes")
-    dense_err = normalised_err(step_logits[0], dense_logits)
-    check(dense_err <= LOGIT_TOL, f"{name} kernel vs dense arm {dense_err}")
-    loras = mp.loras(params)
-    saved = [lo.b.clone() for lo in loras]
-    with torch.no_grad():
-        for lo in loras:
-            lo.b.zero_()
-    no_lora, _ = engine.make_serve_fns(cfg)[0](
+    flips = route_flips(k_routes, d_routes)
+    dense_err = normalised_err(step_logits[0], d_logits)
+    tapped_err = normalised_err(k_logits, step_logits[0])
+    check(dense_err <= LOGIT_TOL,
+          f"{name} kernel vs dense arm {dense_err} ({flips} routes flip)")
+    del k_logits, d_logits, k_routes, d_routes
+    undo = mp.reach(params, cfg)
+    moved, _ = engine.make_serve_fns(cfg)[0](
         params, {"tokens": prompts},
         model.init_cache(cfg, BATCH, PROMPT, device=dev))
-    with torch.no_grad():
-        for lo, b in zip(loras, saved):
-            lo.b.copy_(b)
-    lora_effect = normalised_err(no_lora, step_logits[0])
-    check(lora_effect > LOGIT_TOL and lora_effect >= LORA_X * dense_err,
-          f"zeroing the {name} LoRAs' b moves the logits by {lora_effect}: "
-          f"not {LORA_X}x the dense arm's {dense_err} and past {LOGIT_TOL}")
-    del saved, no_lora, dense_logits
-    tail = torch.randint(0, cfg.vocab_size,
-                         (BATCH, mp.forced - PROMPT - NEW),
-                         generator=gen, device=dev)
-    before = k_tsm2r.launches
-    with torch.no_grad():
-        forced, _ = model.forward(
-            params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1)})
-    check(k_tsm2r.launches - before == per_prefill,
-          f"{name} forward launches")
-    rows = forced[:, PROMPT - 1:PROMPT - 1 + NEW].clone()
-    del forced
-    torch.cuda.empty_cache()
-    forward_err = max_step_err(step_logits, rows)
+    undo()
+    reach_err = normalised_err(moved, step_logits[0])
+    check(reach_err > LOGIT_TOL and reach_err >= LORA_X * dense_err,
+          f"{name}: {mp.reach_what} moves the logits by {reach_err}: not "
+          f"{LORA_X}x the dense arm's {dense_err} and past {LOGIT_TOL}")
+    del moved
     greedy_agree = sum(int((torch.argmax(step_logits[i], -1) == out[:, i])
                            .sum()) for i in range(NEW))
-    decode = mp.decode_check(params, cfg, prompts, out, tail, step_logits,
-                             rows, dev)
-    del rows, tail
+    decode = mp.decode_check(mp, params, cfg, prompts, out, step_logits,
+                             gen, dev)
     torch.cuda.empty_cache()
     profile_serve(engine, model, params, cfg, prompts, out, dev,
                   {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu)
+    moe = {"moe_layers": len(k_mets),
+           "capacity_factor": cfg.moe.capacity_factor,
+           "prefill_slots": capacity(cfg, BATCH * PROMPT),
+           "prefill_moe": k_mets, "route_flips_vs_dense": flips,
+           "routes": len(k_mets) * BATCH * PROMPT} if k_mets else {}
     emit({"phase": name, "model": cfg.name, "params": n_params,
           "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": BATCH,
           "prompt": PROMPT, "new": NEW, "init_s": init_s,
@@ -4114,27 +4294,32 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
           "decode_ms_per_step": decode_ms,
           "decode_tokens_per_s": BATCH / decode_ms * 1e3,
           "greedy_request_s": greedy_s,
-          "tsm2r_launches_per_prefill": per_prefill, "tsm2r_shape": down,
-          "tsm2r_body": bodies, "dense_arm_err": dense_err,
-          "lora_b_zeroed_err": lora_effect, "forced_tokens": mp.forced,
-          "decode_vs_forward_err": forward_err, **decode,
+          "launches_per_prefill": per_prefill,
+          "tsm2r_shapes": sorted(set(shapes)),
+          "splits": {str(list(k)): v for k, v in splits.items()},
+          "tsm2r_body": bodies, "dense_arm_err": dense_err, **moe,
+          "tapped_vs_served_err": tapped_err,
+          "reach": mp.reach_what, "reach_err": reach_err, **decode,
           "greedy_argmax_agree": f"{greedy_agree}/{BATCH * NEW}",
           "peak_mem_gb": peak_gb, "launches": launches,
           "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
-    del params, prompts, out, step_logits
+    del prompts, out, step_logits
     torch.cuda.empty_cache()
-    return launches
+    return launches, params, cfg
 
 
 def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
-    """A model's train path (``mp``) at full width and depth, bf16
-    parameters from seed 0 perturbed by ``mp.perturb``, PowerSGD rank 4, 8
-    x 2048 tokens in the config's ``mp.n_micro`` microbatches, remat on,
-    3 steps. Every step must be ``step_ok`` with a finite loss and grad
-    norm, compress exactly ``mp.leaves``, and launch what the classifier
-    and the chooser on this card predict, which must be
-    ``mp.train_launches``: tsm2r ``mp.micro_downs`` a microbatch at the
-    LoRAs' down projection on the wgmma body, and P and Q of every
+    """A model's train path (``mp``) at full width (and the depth its
+    registered config has), bf16 parameters from seed 0 perturbed by
+    ``mp.perturb``, PowerSGD rank 4, 8 x 2048 tokens in the config's
+    ``mp.n_micro`` microbatches, remat on, 3 steps. Every step must be
+    ``step_ok`` with a finite loss and grad norm (an MoE model's balance
+    term included; its metrics are kept a step), compress exactly
+    ``mp.leaves``, and launch what the classifier and the chooser on this
+    card predict, which must be ``mp.train_launches``: tsm2r
+    ``mp.micro_downs`` a microbatch at the down projection (a LoRA's, a
+    router's: ``mp.prefill_shapes`` at a microbatch's rows) on
+    ``mp.body``, and P and Q of every
     compressed leaf that does not classify dense at the chooser's S (P on
     the skinny body). A ``mode="dense"`` arm from the same state and batch
     must match the first step's loss and grad norm within 5e-2. Returns
@@ -4193,12 +4378,17 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     shapes = {path: st["err"].shape for path, st in state["extra"].items()}
     check(sorted(shapes) == sorted(mp.leaves),
           f"{name} compressed leaves {sorted(shapes)}")
-    down = (tokens // n_micro, cfg.d_model, mp.rank(cfg))
+    down, = set(mp.prefill_shapes(cfg, tokens // n_micro))
     # P and Q of every compressed leaf as the dispatcher will route them:
     # the classifier, then the chooser's S on this card.
     pol = tsmm.GemmPolicy()
     per_step_down = mp.micro_downs(cfg) * n_micro
-    want = {"tsm2r": per_step_down}
+    s_down = ops.resolve_params("tsm2r", *down, getattr(torch, cfg.dtype),
+                                pol, device=dev)["splits"]
+    want = {"tsm2r" if s_down == 1 else "tsm2r_split": per_step_down}
+    if s_down > 1 and perf_model.reduce_kernel_runs(s_down, down[0],
+                                                    down[2]):
+        want["sum_partials"] = per_step_down
     factors = []
     for path, (d1, d2) in shapes.items():
         for entry, kind, classify in (("mm", "tsm2r", tsmm.classify_gemm),
@@ -4234,7 +4424,8 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
         factor_ev = [(e.entry, e.shape, lm) for e in kern if e.shape != down
                      for lm in e.launches if lm.kind != "reduce"]
         rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
-                                        "accuracy", "powersgd_compression")}
+                                        "accuracy", "powersgd_compression")
+               + tuple(k for k in MOE_METRICS if k in m)}
         rec.update(step=i + 1, step_ok=bool(m["step_ok"]), launches={
             n: v for n, v in grown.items() if v}, ms=step_ms[-1],
             alloc_retries=torch.cuda.memory_stats().get(
@@ -4249,9 +4440,11 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
         check(grown == want_step, f"{name} launches in step {i + 1}: {grown}")
         check(len(downs) == per_step_down and all(
             e.kind == "tsm2r" and e.executor == "cuda"
-            and lm.params["body"] == "wgmma"
-            for e in downs for lm in e.launches),
-            f"{name} LoRA routes in step {i + 1}: {downs[:2]}")
+            and lm.params["body"] == mp.body
+            for e in downs for lm in e.launches if lm.kind != "reduce")
+            and all(lm.splits == s_down for e in downs
+                    for lm in e.launches if lm.kind != "reduce"),
+            f"{name} down-projection routes in step {i + 1}: {downs[:2]}")
         check(sorted((entry, shape, lm.splits) for entry, shape, lm
                      in factor_ev) == sorted(
                          (f["entry"], f["shape"], f["splits"])
@@ -4287,6 +4480,407 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     del state, batches
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The MoE paths: mixtral-8x7b and deepseek-v3-671b at published width
+# ---------------------------------------------------------------------------
+
+MIXTRAL_ARCH = "mixtral-8x7b"
+DEEPSEEK_ARCH = "deepseek-v3-671b"
+# The cut configs the MoE phases register (registry._MODULES, as the launch
+# phase registers LAUNCH_ARCH): published width, the depth one card holds.
+# mixtral's first 8 layers serve (11.87 B parameters, 23.7 GB in bf16) and
+# its first 2 train (3.16 B; the f32 AdamW moments and accumulator take
+# 38 GB); deepseek's first 4 serve (its 3 dense MLA layers and 1 MoE
+# layer: 15.11 B, 30.2 GB). One deepseek MoE layer's 11.3 B expert
+# parameters need ~140 GB of train state: its train path waits for more
+# than one card.
+MOE_CUTS = {"mixtral-8x7b-8l": (MIXTRAL_ARCH, 8),
+            "mixtral-8x7b-2l": (MIXTRAL_ARCH, 2),
+            "deepseek-v3-671b-4l": (DEEPSEEK_ARCH, 4)}
+MOE_METRICS = ("moe_balance_loss", "moe_dropped_frac", "moe_max_load")
+# tsm2r's shapes on the MoE paths, bf16: mixtral's router at a prefill's
+# 8192 and a train microbatch's 4096 tokens (n = 8, the skinny body),
+# deepseek's router and MLA's rope key wkr at a prefill's 8192 (k = 7168,
+# the wgmma body). mixtral-long's router is [6144,4096]·[4096,8].
+MOE_TSM2R = [(8192, 4096, 8), (4096, 4096, 8), (8192, 7168, 256),
+             (8192, 7168, 64)]
+MOE_ROUTERS = [(8192, 4096, 8), (4096, 4096, 8), (6144, 4096, 8)]
+# mixtral-long: one request past the 4,096-token window, so its caches are
+# 4,096-slot rings and every decode step wraps.
+LONG_PROMPT = 6144
+# The capacity factors of the drop-free copies that cached decode is held
+# against the teacher-forced forward on (a 4-token decode step drops
+# nothing; a 8,192-token prefill at 1.25 drops). mixtral's E / k = 4 gives
+# every expert as many slots as tokens. deepseek's largest load at 8,256
+# tokens read 4.02 times the mean with no bias (PERF.md), past the 4x
+# slots of 4.0: 8.0 gives 2,064 slots an expert, and the phase checks
+# that the forward dropped nothing and that no expert was offered more
+# tokens than the prefill's slots.
+DROP_FREE_CF = {"mixtral": 4.0, "deepseek": 8.0}
+# deepseek's router_bias, drawn N(0, 1) * DEEPSEEK_BIAS_SCALE: a tenth of
+# the spread of the sigmoid scores (~0.2) it is added to, so it moves some
+# tokens' selection without handing a few experts every token.
+DEEPSEEK_BIAS_SCALE = 0.02
+# The f32 copy that holds cached decode against the forward: mixtral's
+# first 2 layers (12.6 GB), deepseek's 3 dense MLA layers (14.6 GB; its
+# MoE layer's 11.3 B expert parameters would take 45 GB more in f32).
+# The cache's logic alone separates them there: within MOE_F32_TOL.
+MOE_F32_LAYERS = {"mixtral": 2, "deepseek": 3}
+MOE_F32_TOL = 1e-3
+# The share of a cached path's decoded (token, MoE layer) routes whose own
+# expert choice may differ from the forward's at the same position. The
+# checks pin the forward's choice, so a near-tie that bf16 router logits
+# break the other way costs nothing; a decode path that chose wrongly at
+# every position would differ nearly everywhere. Read: 7 of mixtral's 480,
+# 4 and 5 of deepseek's 60 (256 experts, top 8), 0 of mixtral-long's 120
+# (H100 80GB HBM3, 700 W).
+MOE_FLIP_SHARE = 0.25
+
+
+def register_moe_cuts() -> None:
+    """Register ``MOE_CUTS`` in the port's registry."""
+    from repro_torch.configs import registry
+
+    for name, (arch, layers) in MOE_CUTS.items():
+        cfg = dataclasses.replace(registry.get_config(arch), name=name,
+                                  n_layers=layers)
+        registry._MODULES[name] = type(
+            "M", (), {"CONFIG": cfg, "smoke": staticmethod(lambda c=cfg: c)})
+
+
+def drop_free(cfg, tag: str):
+    """``cfg`` with ``DROP_FREE_CF[tag]`` as its capacity factor: the same
+    weights route to the same experts and drop nothing."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DROP_FREE_CF[tag]))
+
+
+def moe_layers(params, cfg) -> list:
+    """The model's MoE layers: deepseek's ``tail``, mixtral's ``layers``."""
+    return list(params.tail if cfg.mla is not None else params.layers)
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Slots an expert at ``tokens`` tokens (``moe_fwd``'s, one group)."""
+    m = cfg.moe
+    return max(8, int(m.capacity_factor * tokens * m.top_k / m.n_experts))
+
+
+@torch.no_grad()
+def cached_steps(params, cfg, prompts, out, dev, pin=None):
+    """A prefill of ``prompts`` and cached decode of ``out``'s first NEW - 1
+    tokens, with the expert ids ``pin`` gives (``moe_taps``). Returns (the
+    logits of every step, each MoE layer call's own routes: the prefill's
+    layers, then each step's)."""
+    from repro_torch.models import model
+
+    b, s0 = prompts.shape
+    cache = model.init_cache(cfg, b, s0 + NEW, device=dev)
+    with moe_taps(pin) as (routes, _):
+        logits, cache = model.prefill(params, cfg, {"tokens": prompts},
+                                      cache)
+        steps = [logits]
+        for i in range(1, NEW):
+            logits, cache = model.decode_step(params, cfg, out[:, i - 1:i],
+                                              s0 + i - 1, cache)
+            steps.append(logits)
+    del cache
+    return steps, routes
+
+
+@torch.no_grad()
+def forced_rows(params, cfg, prompts, out):
+    """The teacher-forced forward of the prompt and ``out``: its logits at
+    the NEW positions the cached steps predict, and each MoE layer's
+    routes and metrics."""
+    from repro_torch.models import model
+
+    s0 = prompts.shape[1]
+    with moe_taps() as (routes, mets):
+        forced, _ = model.forward(
+            params, cfg, {"tokens": torch.cat([prompts, out], dim=1)})
+    rows = forced[:, s0 - 1:s0 - 1 + NEW].clone()
+    del forced
+    torch.cuda.empty_cache()
+    return rows, routes, mets
+
+
+def forward_pin(forward_routes, b: int, s0: int):
+    """The ``moe_taps`` pin that gives each MoE layer call of a cached path
+    (its prefill's calls, one a layer, then one a layer a decode step) the
+    forward's expert ids at the same positions."""
+    n = len(forward_routes)
+    ids = [r.reshape(b, s0 + NEW, -1) for r in forward_routes]
+
+    def pin(call: int):
+        step, layer = divmod(call, n)
+        lo, hi = (0, s0) if step == 0 else (s0 + step - 1, s0 + step)
+        return ids[layer][:, lo:hi].reshape(-1, ids[layer].shape[-1])
+    return pin
+
+
+def by_position(routes, n: int, b: int, s0: int, cached: bool):
+    """Each MoE layer's expert sets at positions 0 .. S0 + NEW - 2, (L, B,
+    P, k): a cached path's (``cached``: its prefill's L calls, then L a
+    decode step) or a forward's (L calls over all S0 + NEW positions)."""
+    if cached:
+        return experts(torch.stack([torch.cat(
+            [routes[layer].reshape(b, s0, -1)]
+            + [routes[n * i + layer].reshape(b, 1, -1)
+               for i in range(1, NEW)], dim=1) for layer in range(n)]))
+    return experts(torch.stack([r.reshape(b, s0 + NEW, -1)[:, :s0 + NEW - 1]
+                                for r in routes]))
+
+
+def step_err(steps, ref) -> float:
+    """The largest normalised error of a step's logits against ``ref``'s
+    at its step, each request normalised by its own reference."""
+    return max(float(((s.float() - r.float()).abs().amax(-1)
+                      / r.float().abs().amax(-1)).max())
+               for s, r in zip(steps, ref))
+
+
+def pinned_check(name, steps, routes, rows, forward_routes, b, s0,
+                 tol) -> dict:
+    """Cached ``steps``, taken with the forward's expert ids pinned
+    (``forward_pin``), against the forward's ``rows``: every step of every
+    request within ``tol``. The cached path's own choices (``routes``)
+    that differ from the forward's are counted, at the prompt's and at
+    the decoded positions; at most ``MOE_FLIP_SHARE`` of the decoded
+    routes may."""
+    rec = {"err": step_err(steps, [rows[:, i] for i in range(NEW)]),
+           "tol": tol}
+    n = len(forward_routes)
+    if n:
+        flip = (by_position(routes, n, b, s0, True)
+                != by_position(forward_routes, n, b, s0, False)).any(-1)
+        rec.update(prompt_flips=int(flip[:, :, :s0].sum()),
+                   prompt_routes=flip[:, :, :s0].numel(),
+                   decode_flips=int(flip[:, :, s0:].sum()),
+                   decode_routes=flip[:, :, s0:].numel())
+    check(rec["err"] <= tol and rec.get("decode_flips", 0)
+          <= MOE_FLIP_SHARE * rec.get("decode_routes", 0),
+          f"{name}: {rec}")
+    return rec
+
+
+@torch.no_grad()
+def f32_cut(params, cfg, layers: int, dev):
+    """The model's first ``layers`` layers, its embedding, final norm and
+    head, copied in f32 (for deepseek's 3: its dense MLA layers)."""
+    from repro_torch.models import model
+
+    cut_cfg = dataclasses.replace(cfg, dtype="float32", n_layers=layers)
+    p32 = model.LM(cut_cfg, device=dev)
+    src = params.state_dict()
+    p32.load_state_dict({k: src[k] for k in p32.state_dict()})
+    return p32, cut_cfg
+
+
+def moe_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
+                     dev) -> dict:
+    """Cached decode against the teacher-forced forward, both on the
+    drop-free copy of ``cfg`` (``drop_free``). The forward must drop
+    nothing, and no expert of it may have been offered more tokens than
+    the drop-free prefill's slots (so the prefill, on a subset of the
+    same tokens, dropped nothing either).
+
+    The router's logits are products in the activations' dtype (the
+    reference's cast, ``moe.route``): in bf16 a step whose hidden state
+    differs from the forward's in its last bits picks another expert
+    where two lie within a rounding, and from there computes another
+    function. So the cached path takes the forward's expert ids
+    (``pinned_check``): every step of every request within ``LOGIT_TOL``,
+    its own differing choices counted. The cache's logic is held again on
+    an f32 copy of the first ``MOE_F32_LAYERS`` layers at full width,
+    within ``MOE_F32_TOL``. Under MLA the non-absorbed decode
+    (``mla_absorb=False``) is held likewise, and against the absorbed
+    one within ``LOGIT_TOL``. (``step_logits`` and ``gen``, which
+    ``ModelPath.decode_check`` passes, go unused.)"""
+    free = drop_free(cfg, mp.tag)
+    b, s0 = prompts.shape
+    rows, forced_routes, mets = forced_rows(params, free, prompts, out)
+    tokens = out.numel() + prompts.numel()
+    m = free.moe
+    offered = max(met["moe_max_load"] * tokens * m.top_k / m.n_experts
+                  for met in mets)
+    rec = {"drop_free_cf": m.capacity_factor,
+           "forced_dropped_frac": [met["moe_dropped_frac"] for met in mets],
+           "forced_most_offered": offered,
+           "prefill_slots": capacity(free, prompts.numel())}
+    check(all(met["moe_dropped_frac"] == 0 for met in mets)
+          and offered <= rec["prefill_slots"],
+          f"{mp.tag} drop-free copy dropped: {rec}")
+    pin = forward_pin(forced_routes, b, s0)
+    arms = [("", free)]
+    if cfg.mla is not None:
+        arms.append(("plain_", dataclasses.replace(free, mla_absorb=False)))
+    taken = {}
+    for arm, arm_cfg in arms:
+        taken[arm], routes = cached_steps(params, arm_cfg, prompts, out, dev,
+                                          pin)
+        rec[f"{arm}vs_forward"] = pinned_check(
+            f"{mp.tag} {arm}decode vs forward", taken[arm], routes, rows,
+            forced_routes, b, s0, LOGIT_TOL)
+    if cfg.mla is not None:
+        rec["absorbed_vs_plain_err"] = step_err(taken[""], taken["plain_"])
+        check(rec["absorbed_vs_plain_err"] <= LOGIT_TOL,
+              f"{mp.tag} absorbed vs plain MLA decode: {rec}")
+    del taken, rows
+    torch.cuda.empty_cache()
+    p32, cfg32 = f32_cut(params, free, MOE_F32_LAYERS[mp.tag], dev)
+    rows32, forced32, _ = forced_rows(p32, cfg32, prompts, out)
+    pin32 = forward_pin(forced32, b, s0)
+    rec["f32_layers"] = cfg32.n_layers
+    for arm, arm_cfg in arms:
+        steps32, routes32 = cached_steps(
+            p32, dataclasses.replace(arm_cfg, dtype="float32",
+                                     n_layers=cfg32.n_layers),
+            prompts, out, dev, pin32)
+        rec[f"f32_{arm}vs_forward"] = pinned_check(
+            f"{mp.tag} f32 {arm}decode vs forward", steps32, routes32, rows32,
+            forced32, b, s0, MOE_F32_TOL)
+    del p32, steps32, rows32
+    torch.cuda.empty_cache()
+    emit({"phase": f"{mp.tag}-decode", "prompt": s0, **rec})
+    return rec
+
+
+@torch.no_grad()
+def deepseek_perturb_(params, cfg, gen) -> None:
+    """Draw every MoE layer's ``router_bias`` from ``gen``
+    (``DEEPSEEK_BIAS_SCALE``), in place."""
+    for lp in moe_layers(params, cfg):
+        b = lp.ffn.router_bias
+        b.copy_(torch.randn(b.shape, generator=gen, device=b.device)
+                * DEEPSEEK_BIAS_SCALE)
+
+
+@torch.no_grad()
+def swap_router_columns(params, cfg):
+    """Swap the router columns of experts 0 and 1 in every MoE layer;
+    returns the undo."""
+    ws = [lp.ffn.router_w for lp in moe_layers(params, cfg)]
+
+    def swap():
+        with torch.no_grad():
+            for w in ws:
+                w[:, [0, 1]] = w[:, [1, 0]]
+    swap()
+    return swap
+
+
+def mixtral_prefill_shapes(cfg, rows: int) -> list:
+    """tsm2r's shapes in a mixtral prefill: the router of every layer."""
+    return [(rows, cfg.d_model, cfg.moe.n_experts)] * cfg.n_layers
+
+
+def deepseek_prefill_shapes(cfg, rows: int) -> list:
+    """tsm2r's shapes in a deepseek prefill: MLA's wkr in every layer and
+    the router of every MoE layer."""
+    return sorted([(rows, cfg.d_model, cfg.mla.rope_dim)] * cfg.n_layers
+                  + [(rows, cfg.d_model, cfg.moe.n_experts)]
+                  * (cfg.n_layers - cfg.first_k_dense))
+
+
+# A mixtral-train step's launches, predicted from the classifier and the
+# chooser (model_train_phase checks the prediction on the card): the
+# router twice a layer and microbatch (forward and remat recompute, 2 x 2
+# x 4) on tsm2r_split (the chooser's S = 8 at [4096,4096]·[4096,8]); P of
+# embed and lm_head on tsm2r at S = 1, Q of both on the one-launch tsmt.
+MIXTRAL_TRAIN_LAUNCHES = {"tsm2r_split": 16, "tsm2r": 2, "tsmt": 2}
+MIXTRAL_PATH = ModelPath(
+    tag="mixtral", arch="mixtral-8x7b-8l",
+    perturb=lambda params, cfg, gen: None,
+    prefill_shapes=mixtral_prefill_shapes,
+    # wq, wk, wv, wo and the router of every layer (the experts' grouped
+    # products are bmm, outside tsmm)
+    decode_gemms=lambda cfg: 5 * cfg.n_layers,
+    reach=swap_router_columns,
+    reach_what="router columns of experts 0 and 1 swapped",
+    decode_check=moe_decode_check, body="skinny", n_micro=4,
+    micro_downs=lambda cfg: 2 * cfg.n_layers,
+    leaves=("embed.table", "lm_head.table"),
+    train_launches=MIXTRAL_TRAIN_LAUNCHES)
+MIXTRAL_TRAIN_PATH = MIXTRAL_PATH._replace(arch="mixtral-8x7b-2l")
+DEEPSEEK_PATH = ModelPath(
+    tag="deepseek", arch="deepseek-v3-671b-4l", perturb=deepseek_perturb_,
+    prefill_shapes=deepseek_prefill_shapes,
+    # MLA's wdq, wuq, wdkv, wkr, wo every layer (the absorbed decode folds
+    # wukv into f32 einsums); the dense layers' FFN; the MoE layers'
+    # router and shared expert
+    decode_gemms=lambda cfg: (5 * cfg.n_layers + 3 * cfg.first_k_dense
+                              + 4 * (cfg.n_layers - cfg.first_k_dense)),
+    reach=zeroed(lambda p, cfg: [lp.ffn.router_bias
+                                 for lp in moe_layers(p, cfg)]),
+    reach_what="router_bias zeroed", decode_check=moe_decode_check)
+
+
+def mixtral_long_phase(params, cfg, dev, gpu, counts, zero_counts,
+                       expect) -> dict:
+    """mixtral-long: the served mixtral (``params``) on one request of
+    ``LONG_PROMPT`` tokens, past its 4,096-token window, and 16 greedy
+    tokens: every layer's K/V cache a 4,096-slot ring written in place.
+    The path (counts zeroed before, read after) is a greedy request and
+    the same request step by step for times; each prefill launches the
+    router at [6144,4096]·[4096,8] on the skinny body, at the chooser's S.
+    Then ring decode against the windowed teacher-forced forward, both on
+    the drop-free copy, within ``LOGIT_TOL`` (``moe_decode_check``).
+    Returns the path's counts."""
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    name = "mixtral-long"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                            generator=gen, device=dev)
+    shapes = mixtral_prefill_shapes(cfg, LONG_PROMPT)
+    per_prefill, splits = router_launches(shapes, torch.bfloat16, dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with recorded() as log:
+        t0 = time.perf_counter()
+        out = engine.generate(params, cfg, prompts, NEW, device=dev)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    bodies = prefill_route_check(name, log, shapes, splits, "skinny",
+                                 LONG_PROMPT)
+    decode_events = [e for e in log if e.shape[0] == 1]
+    check(len(decode_events) == (NEW - 1) * MIXTRAL_PATH.decode_gemms(cfg)
+          and all(e.executor == "torch-dense" for e in decode_events),
+          f"every {name} decode projection goes to torch-dense")
+    step_logits, prefill_ms, decode_ms = serve_step_by_step(
+        params, cfg, prompts, out, dev, sum(per_prefill.values()), counts)
+    launches = counts()
+    check(launches == expect(**{k: 2 * v for k, v in per_prefill.items()}),
+          f"{name} path launches {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    cache = model.init_cache(cfg, 1, LONG_PROMPT + NEW, device=dev)
+    ring = [tuple(c["k"].shape) for c in cache]
+    check(all(s == (1, cfg.attn_window, cfg.n_kv_heads,
+                    cfg.resolved_head_dim) for s in ring),
+          f"{name} caches {ring[:1]}")
+    del cache
+    decode = moe_decode_check(MIXTRAL_PATH, params, cfg, prompts, out,
+                              step_logits, gen, dev)
+    emit({"phase": name, "model": cfg.name, "layers": cfg.n_layers,
+          "batch": 1, "prompt": LONG_PROMPT, "new": NEW,
+          "window": cfg.attn_window, "cache_slots": cfg.attn_window,
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": LONG_PROMPT / prefill_ms * 1e3,
+          "decode_ms_per_step": decode_ms, "greedy_request_s": greedy_s,
+          "launches_per_prefill": per_prefill,
+          "splits": {str(list(k)): v for k, v in splits.items()},
+          "tsm2r_body": bodies, **decode, "peak_mem_gb": peak_gb,
+          "launches": launches, "wall_s": time.perf_counter() - t_phase,
+          "gpu": gpu})
+    del prompts, out, step_logits
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 # ---------------------------------------------------------------------------
@@ -4929,7 +5523,8 @@ def main() -> int:
                   (16384, 16384, 16), (1000, 777, 16), (4096, 4096, 8),
                   (4096, 4096, 3), (512, 512, 1), (1000, 776, 200),
                   (1000, 777, 200), (4096, 4096, 24), (100, 8, 3),
-                  (64, 24, 16), *RWKV_TSM2R, ZAMBA_TSM2R, ZAMBA_HEADS],
+                  (64, 24, 16), *RWKV_TSM2R, ZAMBA_TSM2R, ZAMBA_HEADS,
+                  *[c for c in MOE_TSM2R if c != (4096, 4096, 8)]],
         "tsm2l": [(1 << 20, 16, 16), (10 ** 7, 16, 16), (102400, 4, 4),
                   (10000, 300, 20), (5000, 77, 1), (4097, 3, 5),
                   (1003, 129, 16), (333, 1, 16), (4096, 64, 12),
@@ -4970,13 +5565,15 @@ def main() -> int:
                              (ZAMBA_HEADS, torch.float32)],
                    "tsmt": [(ZAMBA_Q, torch.float32),
                             (ZAMBA_HEADS, torch.float32)]}
+    # The MoE paths' router and rope-key shapes (MOE_TSM2R), bf16.
+    moe_cases = {"tsm2r": [(c, torch.bfloat16) for c in MOE_TSM2R]}
     # tsm2l at the paper's shapes (its stream body), timed on the device.
     paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
                              ((1 << 20, 16, 16), torch.bfloat16),
                              ((10 ** 7, 16, 16), torch.float32),
                              ((10 ** 7, 16, 16), torch.bfloat16)]}
-    measured, at_train, at_paper, at_rwkv, at_zamba, bad = ({}, {}, {}, {},
-                                                             {}, [])
+    measured, at_train, at_paper, at_rwkv, at_zamba, at_moe, bad = (
+        {}, {}, {}, {}, {}, {}, [])
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -5024,7 +5621,9 @@ def main() -> int:
                 is_paper = ((m, d1, d2), dtype) in paper_cases.get(name, ())
                 is_rwkv = ((m, d1, d2), dtype) in rwkv_cases.get(name, ())
                 is_zamba = ((m, d1, d2), dtype) in zamba_cases.get(name, ())
-                if is_main or is_train or is_paper or is_rwkv or is_zamba:
+                is_moe = ((m, d1, d2), dtype) in moe_cases.get(name, ())
+                if (is_main or is_train or is_paper or is_rwkv or is_zamba
+                        or is_moe):
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                     rec["call_device_ms"] = call_device_ms(
                         lambda: kern(x, y))
@@ -5043,6 +5642,8 @@ def main() -> int:
                     at_rwkv.setdefault(name, []).append(rec)
                 if is_zamba:
                     at_zamba.setdefault(name, []).append(rec)
+                if is_moe:
+                    at_moe.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
@@ -5100,7 +5701,11 @@ def main() -> int:
         check(rec["plan_splits"] > 1 and rec["device_ms"] <= TSMT_MAX_MS,
               f"{name} at {rec['shape']}: S = {rec['plan_splits']}, "
               f"{rec['device_ms']} ms on the device")
-    at_zamba["tsm2r_split"] = zamba_split_rows(dev, uniform, gpu)
+    at_zamba["tsm2r_split"] = split_rows(dev, uniform, gpu, ZAMBA_P,
+                                         torch.float32, "zamba",
+                                         ZAMBA_P_SPLITS)
+    at_moe["tsm2r_split"] = split_rows(dev, uniform, gpu, MOE_ROUTERS,
+                                       torch.bfloat16, "moe")
     tsmt_sweep(dev, uniform, gpu)
     skinny_sweep(dev, uniform, gpu)
     tsmt_q8_sweep(dev, uniform, gpu)
@@ -5399,7 +6004,7 @@ def main() -> int:
 
     # Step by step through the serve functions, for times and logits.
     step_logits, prefill_ms, decode_ms = serve_step_by_step(
-        params, cfg, prompts, out, dev, per_prefill)
+        params, cfg, prompts, out, dev, per_prefill, counts)
     # The main path ends here; what follows only checks it.
     serve_launches = counts()
     SERVE_REF.update(prompts=prompts.cpu(), out=out.cpu(),
@@ -5512,13 +6117,48 @@ def main() -> int:
     # width and depth (rwkv-serve, rwkv-train, zamba-serve, zamba-train) --
     model_launches = {}
     for mp in (RWKV_PATH, ZAMBA_PATH):
-        for kind, phase in (("serve", model_serve_phase),
-                            ("train", model_train_phase)):
-            PATH["name"] = f"{mp.tag}_{kind}"
-            model_launches[PATH["name"]] = phase(mp, dev, gpu, counts,
-                                                 zero_counts, expect)
+        PATH["name"] = f"{mp.tag}_serve"
+        model_launches[PATH["name"]], params, _ = model_serve_phase(
+            mp, dev, gpu, counts, zero_counts, expect)
+        del params
+        torch.cuda.empty_cache()
+        PATH["name"] = f"{mp.tag}_train"
+        model_launches[PATH["name"]] = model_train_phase(
+            mp, dev, gpu, counts, zero_counts, expect)
     check(model_launches["zamba_train"]["tsm2r_split"] > 0,
           "tsm2r_split not on zamba-train")
+
+    # -- 10h. mixtral-8x7b and deepseek-v3-671b at published width
+    # (mixtral-serve, mixtral-long, mixtral-train, deepseek-serve) --------
+    register_moe_cuts()
+    moe_wall = {}
+    t0 = time.perf_counter()
+    PATH["name"] = "mixtral_serve"
+    model_launches["mixtral_serve"], mixtral, mixtral_cfg = (
+        model_serve_phase(MIXTRAL_PATH, dev, gpu, counts, zero_counts,
+                          expect))
+    moe_wall["mixtral_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    PATH["name"] = "mixtral_long"
+    model_launches["mixtral_long"] = mixtral_long_phase(
+        mixtral, mixtral_cfg, dev, gpu, counts, zero_counts, expect)
+    del mixtral
+    torch.cuda.empty_cache()
+    moe_wall["mixtral_long"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    PATH["name"] = "mixtral_train"
+    model_launches["mixtral_train"] = model_train_phase(
+        MIXTRAL_TRAIN_PATH, dev, gpu, counts, zero_counts, expect)
+    moe_wall["mixtral_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    PATH["name"] = "deepseek_serve"
+    model_launches["deepseek_serve"], deepseek, _ = model_serve_phase(
+        DEEPSEEK_PATH, dev, gpu, counts, zero_counts, expect)
+    del deepseek
+    torch.cuda.empty_cache()
+    moe_wall["deepseek_serve"] = time.perf_counter() - t0
+    emit({"phase": "moe", "line": "summary", "wall_s": moe_wall,
+          "total_s": sum(moe_wall.values()), "gpu": gpu})
 
     # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
     PATH["name"] = "dist"
@@ -5631,13 +6271,24 @@ def main() -> int:
                 "shape": r["shape"], "dtype": r["dtype"],
                 **({"body": r["body"]} if "body" in r else {}),
                 **({k: r[k] for k in ("plan_splits", "splits", "op_ms",
-                                      "seq_ms") if k in r}),
+                                      "seq_ms", "seq_device_ms") if k in r}),
                 "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_zamba[name]]} if name in at_zamba else {})})
+                for r in at_zamba[name]]} if name in at_zamba else {}),
+            **({"at_moe_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                **({"body": r["body"]} if "body" in r else {}),
+                **({k: r[k] for k in ("splits", "op_ms", "seq_ms",
+                                      "seq_device_ms") if k in r}),
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_moe[name]]} if name in at_moe else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Model and run configuration dataclasses.
 
-The port's own copy of ``src/repro/configs/base.py`` (``ModelConfig``
-:28, ``param_count`` :85, ``active_param_count`` :122, ``ShapeConfig``
-and ``SHAPES`` :133-146), with the fields of the families this package
-serves: dense ``attn_mlp``, RWKV6 (``family="ssm"``) and the zamba2
-hybrid (Mamba2 with a weight-shared attention block). The sub-configs of
-the other families (MoE, MLA, vision, audio) arrive with the slices that
-port those modules, and ``remat_group`` (remat of several layers as one)
-with the first config that sets it past 1.
+The port's own copy of ``src/repro/configs/base.py`` (``MLAConfig`` :20,
+``ModelConfig`` :28, ``param_count`` :85, ``active_param_count`` :122,
+``ShapeConfig`` and ``SHAPES`` :133-146), with the fields of the families
+this package serves: dense ``attn_mlp``, the MoE family (mixtral's routed
+experts beside sliding-window attention, deepseek-v3's MLA with dense
+first layers), RWKV6 (``family="ssm"``) and the zamba2 hybrid (Mamba2
+with a weight-shared attention block). The sub-configs of the vision and
+audio families arrive with the slices that port those modules, and
+``remat_group`` (remat of several layers as one) with the first config
+that sets it past 1.
 """
 
 from __future__ import annotations
@@ -16,14 +18,24 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.models.mamba2 import Mamba2Config
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.rwkv6 import RWKV6Config
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    nope_dim: int = 128
+    rope_dim: int = 64
+    v_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm (rwkv6) | hybrid (zamba2):
-                                   # the ported ones
+    family: str                    # dense | moe | ssm (rwkv6) | hybrid
+                                   # (zamba2): the ported ones
     n_layers: int
     d_model: int
     n_heads: int
@@ -35,11 +47,15 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0     # chatglm3: 0.5 (partial/'2d' RoPE)
     qkv_bias: bool = False         # qwen2: True
-    attn_window: Optional[int] = None
+    attn_window: Optional[int] = None  # mixtral SWA: 4096
     causal: bool = True
     norm: str = "rms"              # rms|ln
+    mla: Optional[MLAConfig] = None
+    mla_absorb: bool = True        # absorbed latent decode (W_uk/W_uv folded)
     # ffn
     mlp_type: str = "swiglu"
+    moe: Optional[MoEConfig] = None
+    first_k_dense: int = 0         # deepseek-v3: 3
     # ssm / hybrid
     ssm: Optional[Mamba2Config] = None
     rwkv: Optional[RWKV6Config] = None
@@ -60,7 +76,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (for 6ND roofline math), the
-        reference's formulas for the dense, RWKV6 and Mamba2 branches."""
+        reference's formulas."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         hd = self.resolved_head_dim
         total = v * d * (1 if self.tie_embeddings else 2)
@@ -76,18 +92,39 @@ class ModelConfig:
             attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
             shared = attn + 3 * d * f if n_shared else 0
             return total + L * per_m + shared
-        if self.family != "dense":
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{self.name}: param_count of family {self.family!r} arrives "
-                "with its modules (ported: dense, ssm, hybrid)")
-        per_attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+                "with its modules (ported: dense, moe, ssm, hybrid)")
+        if self.mla is not None:
+            m = self.mla
+            per_attn = d * m.q_lora + m.q_lora * self.n_heads * (m.nope_dim + m.rope_dim) \
+                + d * m.kv_lora + m.kv_lora * self.n_heads * (m.nope_dim + m.v_dim) \
+                + d * m.rope_dim + self.n_heads * m.v_dim * d
+        else:
+            per_attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.moe is not None:
+            e = self.moe
+            per_moe = 3 * d * e.d_ff_expert * e.n_experts + d * e.n_experts
+            if e.n_shared:
+                per_moe += 3 * d * (e.d_ff_shared or e.d_ff_expert * e.n_shared)
+            n_moe = L - self.first_k_dense
+            n_dense = self.first_k_dense
+            ff = 3 * d * f
+            return total + L * per_attn + n_moe * per_moe + n_dense * ff
         ff_mult = 3 if self.mlp_type == "swiglu" else 2
         return total + L * (per_attn + ff_mult * d * f)
 
     def active_param_count(self) -> int:
-        """Params touched per token: all of them for the ported families
-        (the reference subtracts the unrouted experts of an MoE)."""
-        return self.param_count()
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        d, L = self.d_model, self.n_layers
+        full_experts = 3 * d * e.d_ff_expert * e.n_experts
+        active = 3 * d * e.d_ff_expert * e.top_k
+        n_moe = L - self.first_k_dense
+        return self.param_count() - n_moe * (full_experts - active)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,8 +8,9 @@ cell of a ported arch is skipped for the same reason in both packages.
 
 from __future__ import annotations
 
-from repro_torch.configs import (chatglm3_6b, llama3p2_3b, mistral_nemo_12b,
-                                 qwen2_72b, rwkv6_1p6b, zamba2_1p2b)
+from repro_torch.configs import (chatglm3_6b, deepseek_v3_671b, llama3p2_3b,
+                                 mistral_nemo_12b, mixtral_8x7b, qwen2_72b,
+                                 rwkv6_1p6b, zamba2_1p2b)
 from repro_torch.configs.base import SHAPES, ModelConfig
 
 _MODULES = {
@@ -18,6 +19,8 @@ _MODULES = {
     "llama3.2-3b": llama3p2_3b,
     "mistral-nemo-12b": mistral_nemo_12b,
     "qwen2-72b": qwen2_72b,
+    "deepseek-v3-671b": deepseek_v3_671b,
+    "mixtral-8x7b": mixtral_8x7b,
     "rwkv6-1.6b": rwkv6_1p6b,
 }
 

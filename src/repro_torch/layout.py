@@ -6,10 +6,15 @@ as its own tensor (``layers.3.attn.bq``). A zamba2 group stacks twice: its
 Mamba2 layers on (group, layer) axes (``segments.0.mamba.mixer.in_proj``
 is ``(G, period, d, ...)``), its LoRAs on the group axis; the Mamba2
 layers past the last group are ``segments.1`` and the shared block is not
-stacked. Decisions the JAX package makes per leaf (which gradients
-PowerSGD compresses, which weights ``quantize_weights`` turns into int8
-records) are made here on the JAX layout, so both packages pick the same
-leaves. A stacked group's names come in index order, so stacking their
+stacked. The port's ``tail`` is always the second segment: zamba2's last
+Mamba2 layers, deepseek-v3's MoE layers (its dense MLA layers are
+``layers``). An MoE layer's expert stack keeps its expert axis: JAX's
+``segments.0.ffn.experts.w_gate`` is ``(L, E, d, f)``, the port's
+``layers.3.ffn.experts.w_gate`` ``(E, d, f)``. Decisions the JAX package
+makes per leaf (which gradients PowerSGD compresses, which weights
+``quantize_weights`` turns into int8 records) are made here on the JAX
+layout, so both packages pick the same leaves: an expert stack is 4-D
+there, so it stays dense and uncompressed in both. A stacked group's names come in index order, so stacking their
 tensors and reshaping to ``jax_shape`` gives the JAX leaf.
 """
 

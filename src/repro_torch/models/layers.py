@@ -53,7 +53,8 @@ def param(t: torch.Tensor) -> nn.Parameter:
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter of ``module`` as the JAX package's initialisers
     do: norm ``scale`` ones, biases zeros, embedding ``table`` rows
-    N(0, 1) * d_model^-0.5, ``w[in, out]`` weights N(0, 1) * in^-0.5.
+    N(0, 1) * d_model^-0.5, ``w[in, out]`` weights N(0, 1) * in^-0.5 (a
+    stack ``w[E, in, out]`` too, drawn weight by weight).
     A module overrides those rules for its own leaves with an ``INIT``
     dict of leaf name to "zeros", "uniform" (U[0, 1)) or a constant (the
     RWKV6 mixers' ``mu``, ``w0`` and ``u``, the LoRA's ``b`` and the
@@ -76,10 +77,14 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             elif p.dim() == 1:
                 p.data.zero_()
             else:
-                fan = p.shape[1] if leaf == "table" else p.shape[0]
-                w = torch.randn(p.shape, generator=generator,
-                                device=p.device, dtype=torch.float32)
-                p.data.copy_(w.mul_(fan ** -0.5))
+                fan = p.shape[1] if leaf == "table" else p.shape[-2]
+                # A stack of weights (an MoE layer's experts) is drawn one
+                # weight at a time: the f32 draw of a whole deepseek-v3
+                # stack would be 15 GB.
+                for slab in (p.data.unbind(0) if p.dim() > 2 else [p.data]):
+                    w = torch.randn(slab.shape, generator=generator,
+                                    device=p.device, dtype=torch.float32)
+                    slab.copy_(w.mul_(fan ** -0.5))
     return module
 
 

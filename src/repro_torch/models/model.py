@@ -1,4 +1,4 @@
-"""LM assembly for the dense, RWKV6 and zamba2 hybrid families.
+"""LM assembly for the dense, MoE, RWKV6 and zamba2 hybrid families.
 
 Counterpart of ``src/repro/models/model.py`` (``segments`` :40, ``init``
 :73, ``_shared_block_fwd`` :141, ``_scan_layers_remat`` :183,
@@ -7,19 +7,27 @@ Counterpart of ``src/repro/models/model.py`` (``segments`` :40, ``init``
 stacks a segment's layers on a leading axis and ``lax.scan``s over them,
 the port keeps them in an ``nn.ModuleList`` and walks it with a Python
 loop. The cache is a flat list of per-layer dicts in execution order:
-attention's ``{"k", "v"}``, updated in place, or Mamba2's ``{"ssm",
-"conv"}`` and RWKV6's ``{"wkv", "tm_prev", "cm_prev"}``, replaced by
-each step.
+attention's ``{"k", "v"}`` (a ring of ``window`` slots under a sliding
+window) and MLA's latent ``{"c", "kpe"}``, updated in place, or Mamba2's
+``{"ssm", "conv"}`` and RWKV6's ``{"wkv", "tm_prev", "cm_prev"}``,
+replaced by each step.
 
 Segments (the reference's ``segments``):
 
 * dense:  [attn_mlp x L]                      -> ``layers``
+* mixtral: [attn_moe x L]                     -> ``layers``
+* deepseek-v3: [mla_mlp x first_k_dense] + [mla_moe x rest]
+                                              -> ``layers``, ``tail``
 * rwkv6:  [rwkv x L]                          -> ``layers``
 * zamba2: [zamba_group x G] + [mamba x rem]   -> ``groups`` (each
           ``period`` Mamba2 layers in ``mamba`` and the per-application
           LoRAs ``lora_attn`` / ``lora_ffn``), ``tail``, and the
           weight-shared attention block ``shared_block``, applied after
           every group.
+
+An MoE layer's metrics (``moe_balance_loss``, ``moe_dropped_frac``,
+``moe_max_load``) are summed over the layers of each segment and over
+the segments, as the reference's ``forward_hidden`` sums them.
 
 ``forward_hidden`` and ``forward`` are differentiable (the training path
 runs them under autograd; parameters that require grad get gradients),
@@ -57,6 +65,11 @@ class Segment:
 def segments(cfg) -> list[Segment]:
     if cfg.family == "dense":
         return [Segment("attn_mlp", cfg.n_layers)]
+    if cfg.family == "moe":
+        if cfg.mla is not None:
+            return [Segment("mla_mlp", cfg.first_k_dense),
+                    Segment("mla_moe", cfg.n_layers - cfg.first_k_dense)]
+        return [Segment("attn_moe", cfg.n_layers)]
     if cfg.family == "ssm":
         return [Segment("rwkv", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -67,7 +80,7 @@ def segments(cfg) -> list[Segment]:
             segs.append(Segment("mamba", rem))
         return segs
     raise ValueError(f"model family {cfg.family!r} is not ported yet "
-                     "(ported: dense, ssm, hybrid)")
+                     "(ported: dense, moe, ssm, hybrid)")
 
 
 class ZambaGroup(nn.Module):
@@ -86,10 +99,12 @@ class ZambaGroup(nn.Module):
 
 class LM(nn.Module):
     """Parameters of an LM; attribute names follow the JAX pytree
-    (``embed``, ``final_norm``, ``lm_head``). A dense or RWKV6 model holds
-    its one segment in ``layers``; a hybrid holds ``groups``, ``tail`` (the
-    Mamba2 layers past the last whole group) and ``shared_block``
-    (``repro_torch.layout`` maps each to the JAX leaves)."""
+    (``embed``, ``final_norm``, ``lm_head``). A dense, mixtral or RWKV6
+    model holds its one segment in ``layers``; deepseek-v3 its dense MLA
+    layers in ``layers`` and its MoE layers in ``tail``; a hybrid holds
+    ``groups``, ``tail`` (the Mamba2 layers past the last whole group) and
+    ``shared_block`` (``repro_torch.layout`` maps each to the JAX leaves:
+    ``layers`` to the first segment, ``tail`` to the second)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -106,9 +121,14 @@ class LM(nn.Module):
                 for seg in segs[1:] for _ in range(seg.n))
             self.shared_block = blocks.Block(cfg, "attn_mlp", device)
         else:
-            (seg,) = segs
             self.layers = nn.ModuleList(
-                blocks.Block(cfg, seg.kind, device) for _ in range(seg.n))
+                blocks.Block(cfg, segs[0].kind, device)
+                for _ in range(segs[0].n))
+            if len(segs) > 1:
+                (seg,) = segs[1:]
+                self.tail = nn.ModuleList(
+                    blocks.Block(cfg, seg.kind, device)
+                    for _ in range(seg.n))
         self.final_norm = blocks.norm_init(cfg, device)
         if not cfg.tie_embeddings:
             self.lm_head = layers.Embedding(cfg.vocab_size, cfg.d_model, dt,
@@ -159,11 +179,17 @@ def _shared_block_fwd(shared: blocks.Block, group: ZambaGroup, x, cfg,
 
 def _layer_fwd(lp, x, cfg, kind: str, remat: bool):
     """One layer; checkpointed under ``remat`` (the reference's per-layer
-    remat)."""
+    remat). Returns (x, metrics)."""
     args = (lp, x, cfg, kind)
-    x, _ = (layers.remat(blocks.block_fwd, *args) if remat
+    return (layers.remat(blocks.block_fwd, *args) if remat
             else blocks.block_fwd(*args))
-    return x
+
+
+def _plain_segments(params: LM, cfg):
+    """(kind, layers) of each segment of a model without groups."""
+    lists = [params.layers] + ([params.tail] if hasattr(params, "tail")
+                               else [])
+    return [(seg.kind, lps) for seg, lps in zip(segments(cfg), lists)]
 
 
 def forward_hidden(params: LM, cfg, batch):
@@ -185,14 +211,22 @@ def _forward_hidden(params: LM, cfg, batch):
     if cfg.family == "hybrid":
         for group in params.groups:
             for lp in group.mamba:
-                x = _layer_fwd(lp, x, cfg, "mamba", remat)
+                x, _ = _layer_fwd(lp, x, cfg, "mamba", remat)
             x, _ = _shared_block_fwd(params.shared_block, group, x, cfg)
-        kind, lps = "mamba", params.tail
+        segs = [("mamba", params.tail)]
     else:
-        kind, lps = segments(cfg)[0].kind, params.layers
-    for lp in lps:
-        x = _layer_fwd(lp, x, cfg, kind, remat)
-    return x, {}
+        segs = _plain_segments(params, cfg)
+    metrics = {}
+    for kind, lps in segs:
+        mets = []
+        for lp in lps:
+            x, met = _layer_fwd(lp, x, cfg, kind, remat)
+            mets.append(met)
+        if mets and mets[0]:
+            for k in mets[0]:
+                metrics[k] = metrics.get(k, 0.0) + torch.stack(
+                    [m[k] for m in mets]).sum()
+    return x, metrics
 
 
 def forward(params: LM, cfg, batch):
@@ -212,8 +246,8 @@ def _schedule(params: LM, cfg):
     group), where kind "shared" is the shared block applied with
     ``group``'s LoRAs. One cache entry goes with each."""
     if cfg.family != "hybrid":
-        (seg,) = segments(cfg)
-        return [(seg.kind, lp, None) for lp in params.layers]
+        return [(kind, lp, None) for kind, lps in _plain_segments(params, cfg)
+                for lp in lps]
     order = []
     for group in params.groups:
         order += [("mamba", lp, None) for lp in group.mamba]

@@ -4,7 +4,10 @@ Counterpart of ``src/repro/serve/engine.py`` (``make_serve_fns`` :29,
 ``sample_token`` :79, ``generate`` :85). PyTorch runs eagerly, so the two
 step functions are plain callables (the JAX package jits them) and the
 policy scope is entered on every call. Caches are allocated once at
-``max_len = prompt + max_new`` and updated in place.
+``max_len = prompt + max_new`` (a sliding window's K/V at
+``min(max_len, window)`` slots, a ring once the prompt reaches the
+window) and updated in place. An MoE layer's metrics are dropped on this
+path, as the reference drops them.
 
 ``params`` is a model (``models.model.LM``) or a model whose large leaves
 are held as int8 records (``kernels.quant.quantize_weights``, or

@@ -12,6 +12,8 @@ and gradient accumulators are updated in place. The state is
 Every step's metrics carry ``step_ok`` (loss and grad norm both finite),
 the device-side half of ``launch/train.py``'s fault-or-retry decision;
 ``host_snapshot`` / ``restore_snapshot`` are its first line of recovery.
+An MoE model's loss carries the reference's balance term,
+``1e-2 * moe_balance_loss / n_layers``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ def make_loss_fn(cfg, z_loss: float = 1e-4, loss_chunk: int = 512,
         loss, lm = losses.chunked_lm_loss(model.unembed_fn(params, cfg),
                                           hidden, batch, chunk=loss_chunk,
                                           z_loss=z_loss)
+        if "moe_balance_loss" in metrics:
+            # balance term is diagnostic-weighted; DeepSeek-style bias
+            # balancing happens outside the gradient (router_bias update).
+            loss = loss + 1e-2 * metrics["moe_balance_loss"] / cfg.n_layers
         return loss, {**lm, **metrics}
     return loss_fn
 
@@ -60,15 +66,18 @@ def _whole(t):
 
 
 def _grads(loss_fn, params, batch, shardings=None):
-    """(loss, {name: gradient}, aux). ``shardings`` (``{name:
-    placements}``) pins each DTensor gradient to its placements: a pending
-    sum over the batch's dp ranks (``Partial``) is all-reduced there, the
-    reference's gradient reduction."""
+    """(loss, {name: gradient}, aux). A parameter the loss does not reach
+    (an MoE layer's ``router_bias``, read only by the top-k selection)
+    gets a zero gradient, as ``jax.grad`` gives it. ``shardings``
+    (``{name: placements}``) pins each DTensor gradient to its
+    placements: a pending sum over the batch's dp ranks (``Partial``) is
+    all-reduced there, the reference's gradient reduction."""
     named = dict(params.named_parameters())
     # The backward recomputes checkpointed segments: it needs the scope too.
     with sharding.replicate_constants(params):
         loss, aux = loss_fn(params, batch)
-        gs = torch.autograd.grad(loss, list(named.values()))
+        gs = torch.autograd.grad(loss, list(named.values()),
+                                 allow_unused=True, materialize_grads=True)
     if shardings is not None:
         gs = [g.redistribute(g.device_mesh, shardings[n])
               for n, g in zip(named, gs)]

@@ -37,7 +37,7 @@ from repro_torch.optim import powersgd
 from repro_torch.serve import engine
 
 PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
-          "qwen2-72b", "rwkv6-1.6b"]
+          "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b"]
 DENSE_NEW = ["llama3.2-3b", "mistral-nemo-12b", "qwen2-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -55,7 +55,7 @@ def test_registry_lists_the_ported_archs_in_reference_order():
     assert registry.ARCH_NAMES == PORTED
     assert [a for a in jregistry.ARCH_NAMES if a in PORTED] == PORTED
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("mixtral-8x7b")
+        registry.get_config("hubert-xlarge")
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -124,7 +124,9 @@ def test_new_modules_are_scanned():
                 "repro_torch.distributed",
                 "repro_torch.distributed.sharding",
                 "repro_torch.distributed.pipeline",
-                "repro_torch.launch.mesh"):
+                "repro_torch.launch.mesh", "repro_torch.models.moe",
+                "repro_torch.configs.mixtral_8x7b",
+                "repro_torch.configs.deepseek_v3_671b"):
         assert mod in MODULES
 
 

@@ -9,13 +9,14 @@ must be replicated).
 
 * parameters: for each ported config at full size (the port's ``LM`` on
   the meta device against ``jax.eval_shape``), ``make_param_specs`` under
-  "tp" (qwen2-72b past ``FSDP_THRESHOLD``: FSDP over "data") and "dp";
+  "tp" (qwen2-72b, mixtral-8x7b and deepseek-v3-671b past
+  ``FSDP_THRESHOLD``: FSDP over "data") and "dp";
 * optimizer state: ``make_opt_specs`` with and without ``zero1``;
 * ``batch_specs`` and ``cache_specs`` (the caches on the meta device);
 * the reference's six ``tests/test_sharding_rules.py`` cases, as cases of
-  one parametrised test, on the JAX configs' shapes (hubert, deepseek and
-  mixtral are not ported: their leaves are named as the port names a
-  layer, ``layers.0.<leaf>`` and ``tail.0.<leaf>``);
+  one parametrised test, on the JAX configs' shapes (their leaves named
+  as the port names a layer, ``layers.0.<leaf>`` and ``tail.0.<leaf>``;
+  hubert is not ported);
 * DTensor placements of specs, and the identities off a mesh.
 """
 
@@ -33,7 +34,7 @@ from repro_torch.distributed import sharding
 from repro_torch.models import model
 
 PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
-          "qwen2-72b", "rwkv6-1.6b"]
+          "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b"]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -99,7 +100,8 @@ def test_param_specs_equal_jax(arch, strategy, mesh_name):
     used = {a for s in specs.values() for a in s if a is not None}
     if strategy == "dp":
         assert not used
-    elif arch == "qwen2-72b":          # 72B > FSDP_THRESHOLD: FSDP
+    elif cfg.param_count() > sharding.FSDP_THRESHOLD:   # qwen2-72b,
+        # mixtral's 46.7B and deepseek's 671B: FSDP over "data"
         assert used == {"data", "model"}
     else:
         assert used == {"model"}
@@ -147,7 +149,8 @@ def test_cache_specs_equal_jax(arch, mesh_name):
     want = {}
     for path, leaf in _jax_flat(jshape).items():
         name = path.rsplit("/", 1)[-1]
-        per_layer = 3 if name in ("conv", "tm_prev", "cm_prev") else 4
+        per_layer = 3 if name in ("conv", "tm_prev", "cm_prev", "c",
+                                  "kpe") else 4
         shape = tuple(leaf.shape[len(leaf.shape) - per_layer:])
         want[(name, shape)] = _strip(jspecs[path], leaf.shape, shape)
     got = {(name, tuple(t.shape)): spec[name]
