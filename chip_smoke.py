@@ -490,7 +490,24 @@ printing no result, when no CUDA card is present or any phase fails.
    ``generate`` and ``make_serve_fns(sharded_projections=True)``: the
    serve phase's prompts, its greedy tokens and every step's logits bit
    for bit, 56 tsm2r a prefill, and prefill and decode ms beside the
-   plain path's. The process group is destroyed after.
+   plain path's. Then, in the same world, mesh-ssm (``mesh_ssm_phase``,
+   a path each model, ``mesh_rwkv`` and ``mesh_zamba``): rwkv6-1.6b (24
+   layers) and zamba2-1.2b (38) on DTensor parameters, the weights that
+   rwkv-serve and zamba-serve served (kept on the host since), on the
+   (1, 1) mesh, caches from ``cache_specs``: the serve phases' tokens,
+   every step's logits and their one request sampled at temperature 1 bit
+   for bit, 24 and 12 tsm2r a prefill as the plain prefill launches, the
+   SSM caches in their specs' placements after the prefill and a decode
+   step; each trained at full width and cut depth (rwkv6 4 layers, zamba2
+   6: one group with its shared block and LoRAs) with PowerSGD rank 4 in
+   the config's microbatches for 2 steps on DTensors, its losses and
+   parameters bit-equal to a plain arm from the same state and batches
+   (run twice: within the two plain runs' distance if they differ), the
+   launches ``train_prediction`` gives; and rwkv6's ABFT tree check on
+   its DTensor parameters, checksums bit-equal to the plain leaves',
+   passing, and failing after ``poison_tree``. Prefill and decode ms
+   beside the plain path's; the phase must take under
+   ``MESH_SSM_MAX_S``. The process group is destroyed after.
 10g. mesh (the same path, run right after the launch phase;
    ``mesh_launch``): the launcher's ``--distributed`` in a world of one, in this process under torchrun's
    environment (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free
@@ -507,10 +524,11 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the twenty paths (dispatch, serve, train, serve-int8,
+   on each of the twenty-two paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
    rwkv-serve, rwkv-train, zamba-serve, zamba-train, mixtral-serve,
-   mixtral-long, mixtral-train, deepseek-serve, dist, mesh) and their
+   mixtral-long, mixtral-train, deepseek-serve, dist, mesh, mesh-rwkv,
+   mesh-zamba) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -2600,6 +2618,10 @@ ABFT_SHAPES = [
     ("tsmt", (65024, 4, 2), "c_out of P"),
     ("tsmt", (65024, 2, 4), "c_ref of Q"),
     ("tsm2r", (65024, 4096, 2), "v of Q"),
+    # mesh-rwkv's offline tree check of rwkv6-1.6b (encode_leaf; every
+    # other leaf's checksum is dense)
+    ("tsmt", (65536, 2048, 2), "tree check of embed / lm_head"),
+    ("tsmt", (2048, 64, 2), "tree check of time_mix.w_lora.a"),
 ]
 
 
@@ -3166,6 +3188,17 @@ def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill, counts):
     torch.cuda.synchronize()
     return step_logits, prefill_ms, (time.perf_counter() - t0) * 1e3 / (
         NEW - 1)
+
+
+def serve_ref(prompts, out, sampled, step_logits, prefill_ms,
+              decode_ms) -> dict:
+    """Host copies of a plain serve run (``SERVE_REF``'s entry): the
+    prompts, the greedy and sampled tokens, every step's logits, and the
+    prefill ms and decode ms a step of ``serve_step_by_step``."""
+    return {"prompts": prompts.cpu(), "out": out.cpu(),
+            "sampled": sampled.cpu(),
+            "step_logits": [t.cpu() for t in step_logits],
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
@@ -4180,7 +4213,8 @@ ZAMBA_PATH = ModelPath(
     train_launches=ZAMBA_TRAIN_LAUNCHES)
 
 
-def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> tuple:
+def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
+                      keep: bool = False) -> tuple:
     """A model's serve path (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
     ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``) at published width and its
     registered depth, bf16, seeded weights perturbed by ``mp.perturb``;
@@ -4194,8 +4228,10 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> tuple:
     and ``LORA_X`` times as far as the dense arm sits, and cached decode
     against a teacher-forced forward (``mp.decode_check``); an MoE
     model's drops and largest loads at the config's capacity in the
-    prefill; a profiled prefill. Returns (the path's launch counts, the
-    parameters, the config)."""
+    prefill; a profiled prefill. ``keep`` puts the run's ``serve_ref``
+    into ``SERVE_REF`` under ``mp.tag``, for mesh-ssm to hold its runs
+    against. Returns (the path's launch counts, the parameters, the
+    config)."""
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
     from repro_torch.models import model
@@ -4244,6 +4280,9 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> tuple:
     launches = counts()
     check(launches == expect(**{k: 3 * v for k, v in per_prefill.items()}),
           f"{name} path launches {launches}")
+    if keep:
+        SERVE_REF[mp.tag] = serve_ref(prompts, out, sampled, step_logits,
+                                      prefill_ms, decode_ms)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     def tapped_prefill(policy=None):
@@ -4308,6 +4347,72 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> tuple:
     return launches, params, cfg
 
 
+def train_prediction(mp, cfg, shapes, ps, tokens, dev) -> tuple:
+    """What a train step of ``mp`` at ``cfg`` launches, as the classifier
+    and the chooser on this card predict it: tsm2r (or tsm2r_split at the
+    chooser's S) ``mp.micro_downs`` times a microbatch at the down
+    projection, and P and Q of every compressed leaf (``shapes``: path ->
+    (d1, d2)) that does not classify dense, at the chooser's S. Returns
+    (launches, the factors, the down projection's shape, its S, its
+    launches a step)."""
+    from repro_torch.core import perf_model, tsmm
+    from repro_torch.kernels import ops
+
+    n_micro = cfg.microbatch
+    down, = set(mp.prefill_shapes(cfg, tokens // n_micro))
+    pol = tsmm.GemmPolicy()
+    per_step_down = mp.micro_downs(cfg) * n_micro
+    s_down = ops.resolve_params("tsm2r", *down, getattr(torch, cfg.dtype),
+                                pol, device=dev)["splits"]
+    want = {"tsm2r" if s_down == 1 else "tsm2r_split": per_step_down}
+    if s_down > 1 and perf_model.reduce_kernel_runs(s_down, down[0],
+                                                    down[2]):
+        want["sum_partials"] = per_step_down
+    factors = []
+    for path, (d1, d2) in shapes.items():
+        for entry, kind, classify in (("mm", "tsm2r", tsmm.classify_gemm),
+                                      ("mmt", "tsmt", tsmm.classify_gemm_t)):
+            if classify(d1, d2, ps.rank, pol) == "dense":
+                continue
+            s = ops.resolve_params(kind, d1, d2, ps.rank, torch.float32, pol,
+                                   device=dev)["splits"]
+            kern = kind if s == 1 else f"{kind}_split"
+            want[kern] = want.get(kern, 0) + 1
+            rows = d1 if kind == "tsm2r" else d2
+            if s > 1 and perf_model.reduce_kernel_runs(s, rows, ps.rank):
+                want["sum_partials"] = want.get("sum_partials", 0) + 1
+            factors.append({"leaf": path, "entry": entry, "kind": kern,
+                            "shape": (d1, d2, ps.rank), "splits": s})
+    return want, factors, down, s_down, per_step_down
+
+
+def train_step_routes(what, log, mp, down, s_down, per_step_down,
+                      factors) -> list:
+    """A train step's routed events against :func:`train_prediction`: the
+    down projections on the card on ``mp.body`` at S = ``s_down``, and P
+    and Q of every factor at its S, P on the skinny body. Returns P's
+    bodies."""
+    kern = [e for e in log if e.kind != "dense"]
+    downs = [e for e in kern if e.shape == down]
+    factor_ev = [(e.entry, e.shape, lm) for e in kern if e.shape != down
+                 for lm in e.launches if lm.kind != "reduce"]
+    p_bodies = sorted({lm.params["body"] for entry, _, lm in factor_ev
+                       if entry == "mm"})
+    check(len(downs) == per_step_down and all(
+        e.kind == "tsm2r" and e.executor == "cuda"
+        and lm.params["body"] == mp.body
+        for e in downs for lm in e.launches if lm.kind != "reduce")
+        and all(lm.splits == s_down for e in downs
+                for lm in e.launches if lm.kind != "reduce"),
+        f"{what} down-projection routes: {downs[:2]}")
+    check(sorted((entry, shape, lm.splits) for entry, shape, lm
+                 in factor_ev) == sorted(
+                     (f["entry"], f["shape"], f["splits"])
+                     for f in factors) and p_bodies == ["skinny"],
+          f"{what} P/Q routes: {factor_ev[:4]} {p_bodies}")
+    return p_bodies
+
+
 def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     """A model's train path (``mp``) at full width (and the depth its
     registered config has), bf16 parameters from seed 0 perturbed by
@@ -4325,9 +4430,8 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     must match the first step's loss and grad norm within 5e-2. Returns
     the path's launch counts."""
     from repro_torch.configs import registry
-    from repro_torch.core import perf_model, tsmm
+    from repro_torch.core import tsmm
     from repro_torch.data import pipeline
-    from repro_torch.kernels import ops
     from repro_torch.optim import adamw, powersgd, schedule
     from repro_torch.train import train_step
 
@@ -4378,32 +4482,8 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     shapes = {path: st["err"].shape for path, st in state["extra"].items()}
     check(sorted(shapes) == sorted(mp.leaves),
           f"{name} compressed leaves {sorted(shapes)}")
-    down, = set(mp.prefill_shapes(cfg, tokens // n_micro))
-    # P and Q of every compressed leaf as the dispatcher will route them:
-    # the classifier, then the chooser's S on this card.
-    pol = tsmm.GemmPolicy()
-    per_step_down = mp.micro_downs(cfg) * n_micro
-    s_down = ops.resolve_params("tsm2r", *down, getattr(torch, cfg.dtype),
-                                pol, device=dev)["splits"]
-    want = {"tsm2r" if s_down == 1 else "tsm2r_split": per_step_down}
-    if s_down > 1 and perf_model.reduce_kernel_runs(s_down, down[0],
-                                                    down[2]):
-        want["sum_partials"] = per_step_down
-    factors = []
-    for path, (d1, d2) in shapes.items():
-        for entry, kind, classify in (("mm", "tsm2r", tsmm.classify_gemm),
-                                      ("mmt", "tsmt", tsmm.classify_gemm_t)):
-            if classify(d1, d2, ps.rank, pol) == "dense":
-                continue
-            s = ops.resolve_params(kind, d1, d2, ps.rank, torch.float32, pol,
-                                   device=dev)["splits"]
-            kern = kind if s == 1 else f"{kind}_split"
-            want[kern] = want.get(kern, 0) + 1
-            rows = d1 if kind == "tsm2r" else d2
-            if s > 1 and perf_model.reduce_kernel_runs(s, rows, ps.rank):
-                want["sum_partials"] = want.get("sum_partials", 0) + 1
-            factors.append({"leaf": path, "entry": entry, "kind": kern,
-                            "shape": (d1, d2, ps.rank), "splits": s})
+    want, factors, down, s_down, per_step_down = train_prediction(
+        mp, cfg, shapes, ps, tokens, dev)
     check(want == mp.train_launches, f"{name} predicted launches {want}, "
           f"not {mp.train_launches}: {factors}")
     want_step = expect(**want)
@@ -4419,10 +4499,6 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         grown = {n: v - before[n] for n, v in counts().items()}
-        kern = [e for e in log if e.kind != "dense"]
-        downs = [e for e in kern if e.shape == down]
-        factor_ev = [(e.entry, e.shape, lm) for e in kern if e.shape != down
-                     for lm in e.launches if lm.kind != "reduce"]
         rec = {k: float(m[k]) for k in ("loss", "grad_norm", "lr",
                                         "accuracy", "powersgd_compression")
                + tuple(k for k in MOE_METRICS if k in m)}
@@ -4430,26 +4506,15 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
             n: v for n, v in grown.items() if v}, ms=step_ms[-1],
             alloc_retries=torch.cuda.memory_stats().get(
                 "num_alloc_retries", 0) - retries,
-            reserved_gb=torch.cuda.memory_reserved() / 2**30,
-            p_bodies=sorted({lm.params["body"] for entry, _, lm in factor_ev
-                             if entry == "mm"}))
+            reserved_gb=torch.cuda.memory_reserved() / 2**30)
         records.append(rec)
         check(rec["step_ok"] and math.isfinite(rec["loss"])
               and math.isfinite(rec["grad_norm"]),
               f"{name} step {i + 1} not ok: {rec}")
         check(grown == want_step, f"{name} launches in step {i + 1}: {grown}")
-        check(len(downs) == per_step_down and all(
-            e.kind == "tsm2r" and e.executor == "cuda"
-            and lm.params["body"] == mp.body
-            for e in downs for lm in e.launches if lm.kind != "reduce")
-            and all(lm.splits == s_down for e in downs
-                    for lm in e.launches if lm.kind != "reduce"),
-            f"{name} down-projection routes in step {i + 1}: {downs[:2]}")
-        check(sorted((entry, shape, lm.splits) for entry, shape, lm
-                     in factor_ev) == sorted(
-                         (f["entry"], f["shape"], f["splits"])
-                         for f in factors) and rec["p_bodies"] == ["skinny"],
-              f"{name} P/Q in step {i + 1}: {rec}")
+        rec["p_bodies"] = train_step_routes(
+            f"{name} step {i + 1}", log, mp, down, s_down, per_step_down,
+            factors)
         del log, m
     launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -4977,7 +5042,8 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
     None where no profiler session sees device work; the line reports
     whether one did before and after NCCL started). Then, in the same
     world, the mesh path's serve and pipeline runs (``mesh_serve``).
-    Returns the dist path's launch counts and the mesh path's."""
+    Then the mesh-ssm phase (``mesh_ssm_phase``). Returns the dist
+    path's launch counts, the mesh path's and the mesh-ssm paths'."""
     import shutil
     import tempfile
 
@@ -5000,7 +5066,10 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
         mesh_launches = mesh_serve(dev, gpu, make_host_mesh(), counts,
                                    zero_counts, expect)
         MESH_WALL["serve"] = time.perf_counter() - t0
-        return launches, mesh_launches
+        # rwkv6 and zamba2 on DTensor parameters, in the same world.
+        ssm_launches = mesh_ssm_phase(dev, gpu, make_host_mesh(), counts,
+                                      zero_counts, expect)
+        return launches, mesh_launches, ssm_launches
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5212,9 +5281,9 @@ def _dist_path(dev, gpu, mesh, counts, zero_counts, expect,
 # The mesh path: chatglm3-6b on DTensor parameters, GPipe, --distributed
 # ---------------------------------------------------------------------------
 
-# What the serve and launch phases leave for the mesh phase to hold its
-# runs against: the serve phase's prompts, greedy tokens, every step's
-# logits and times (host copies); each launch run's final loss.
+# What the plain serve phases leave for the mesh paths to hold their runs
+# against, by path tag ("glm", "rwkv", "zamba"; ``serve_ref``), and what
+# the launch phase leaves: each launch run's final loss.
 SERVE_REF: dict = {}
 LAUNCH_LOSS: dict = {}
 MESH_WALL: dict = {}
@@ -5222,24 +5291,148 @@ PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 2
 MESH_MAX_S = 120.0
 
 
+def placed_as(mesh, tree, specs) -> list:
+    """The entries of ``tree`` (name -> tensor) that are not DTensors in
+    the placements ``specs`` (name -> spec) give them."""
+    from repro_torch.distributed import sharding
+    return [n for n, t in tree.items() if type(t).__name__ != "DTensor"
+            or list(t.placements) != sharding.placements(mesh, specs[n])]
+
+
+def cache_misplaced(cfg, mesh, cache) -> list:
+    """The entries of ``cache`` (``model.init_cache``'s list) that do not
+    lie where ``sharding.cache_specs`` puts them."""
+    from repro_torch.distributed import sharding
+    specs = sharding.cache_specs(cfg, mesh, cache)
+    return [f"{i}.{k}" for i, (entry, spec) in enumerate(zip(cache, specs))
+            for k in placed_as(mesh, entry, spec)]
+
+
+def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
+                     zero_counts, expect, shapes, body,
+                     decode_gemms) -> tuple:
+    """A model's serve on DTensor parameters, held against its plain serve
+    run ``ref`` (a ``SERVE_REF`` entry). ``params`` are placed in place by
+    ``sharding.make_param_specs`` on ``mesh``; then, from zeroed counts,
+    ``generate(sharded_projections=True)`` serves the plain run's prompts
+    for NEW greedy tokens and one request sampled at temperature 1 from
+    its seed, and ``make_serve_fns(sharded_projections=True)`` with a
+    cache from ``init_cache(mesh=)`` runs a prefill and NEW - 1 decode
+    steps of the greedy tokens, timed as ``serve_step_by_step`` times the
+    plain run (host clock, a synchronize after the prefill and after the
+    last step). Checks: tokens, sampled tokens and every step's logits
+    bit-equal to the plain run's; each prefill launching what the chooser
+    resolves at ``shapes`` (tsm2r on ``body`` at its S), each decode step
+    ``decode_gemms`` dense projections; every cache entry where
+    ``cache_specs`` puts it after the prefill and after the last decode
+    step, and the parameters still in their placements. Then two decode
+    steps under ``torch.profiler`` (None where the trace came back
+    empty). Returns (the launches, the specs, the line's fields)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    specs = sharding.make_param_specs(cfg, params, mesh)
+    sharding.named(mesh, specs, params)
+    prompts, out_ref = ref["prompts"].to(dev), ref["out"].to(dev)
+    per_prefill, splits = router_launches(shapes, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    with recorded() as log:
+        t0 = time.perf_counter()
+        out = engine.generate(params, cfg, prompts, NEW, device=dev,
+                              sharded_projections=True)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    greedy_launches = counts()
+    sampled = engine.generate(
+        params, cfg, prompts, NEW, device=dev, sharded_projections=True,
+        generator=torch.Generator(device=dev).manual_seed(2),
+        temperature=1.0)
+    with recorded():
+        prefill_step, decode_step = engine.make_serve_fns(
+            cfg, sharded_projections=True)
+        cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev,
+                                 mesh=mesh)
+        batch = sharding.named(mesh, sharding.batch_specs(
+            cfg, mesh, {"tokens": prompts}), {"tokens": prompts})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, batch, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        misplaced = {"prefill": cache_misplaced(cfg, mesh, cache)}
+        step_logits = [logits]
+        t0 = time.perf_counter()
+        for i in range(1, NEW):
+            logits, cache = decode_step(params, out[:, i - 1:i],
+                                        PROMPT + i - 1, cache)
+            step_logits.append(logits)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
+        misplaced["decode"] = cache_misplaced(cfg, mesh, cache)
+    launches = counts()
+    # Two decode steps again under the profiler, as ``profile_serve``
+    # takes the plain path's: what the card does of a mesh decode step.
+    rec = device_profile(lambda: [
+        decode_step(params, out[:, i - 1:i], PROMPT + i - 1, cache)
+        for i in (1, 2)])
+    profile = {"decode": {k: rec[k] for k in ("device_busy_ms",
+                                              "device_kernels", "runs")}
+               if rec["device_kernels"] else None}
+    if profile["decode"]:
+        profile["decode"]["busy_share"] = rec["device_busy_ms"] / (
+            2 * decode_ms)
+    del cache
+
+    bodies = prefill_route_check(name, log, shapes, splits, body,
+                                 BATCH * PROMPT)
+    decode_events = [e for e in log if e.shape[0] == BATCH]
+    check(len(decode_events) == (NEW - 1) * decode_gemms and all(
+        e.executor == "torch-dense" for e in decode_events),
+        f"every {name} decode projection goes to torch-dense: "
+        f"{len(decode_events)}")
+    check(greedy_launches == expect(**per_prefill), f"{name} greedy "
+          f"request launches {greedy_launches}, want {per_prefill}")
+    check(launches == expect(**{k: 3 * v for k, v in per_prefill.items()}),
+          f"{name} serve launches {launches}, want 3 x {per_prefill}")
+    check(torch.equal(out, out_ref), f"{name} tokens differ from the plain "
+          f"serve phase's")
+    check(torch.equal(sampled.cpu(), ref["sampled"]), f"{name} sampled "
+          f"tokens differ from the plain serve phase's")
+    bad = [i for i, (a, b) in enumerate(zip(step_logits,
+                                            ref["step_logits"]))
+           if not same_bits(a.full_tensor(), b.to(dev))]
+    check(len(step_logits) == len(ref["step_logits"]) == NEW and not bad,
+          f"{name} logits differ from the plain serve phase's at steps "
+          f"{bad}")
+    check(not misplaced["prefill"] and not misplaced["decode"],
+          f"{name} caches out of their specs' placements: {misplaced}")
+    check(not placed_as(mesh, dict(params.named_parameters()), specs),
+          f"{name} parameters left their placements")
+    return launches, specs, {
+        "prefill_ms": prefill_ms, "plain_prefill_ms": ref["prefill_ms"],
+        "decode_ms_per_step": decode_ms,
+        "plain_decode_ms_per_step": ref["decode_ms"],
+        "greedy_request_s": greedy_s, "launches_per_prefill": per_prefill,
+        "tsm2r_body": bodies, "profile": profile,
+        "bit_equal": {"tokens": True, "logits": True, "sampled": True}}
+
+
 def mesh_serve(dev, gpu, mesh, counts, zero_counts, expect) -> dict:
     """mesh-serve: chatglm3-6b at published width and depth (bf16, seed 0)
-    on DTensor parameters that ``sharding.make_param_specs`` places on
-    the ``(1, 1)`` ``("data", "model")`` mesh, caches from
-    ``cache_specs``, through ``make_serve_fns(sharded_projections=True)``
-    and ``generate(sharded_projections=True)``: the serve phase's 4 x 2048
-    prompt tokens and 16 greedy ones. The tokens and every step's logits
-    must equal the plain serve phase's bit for bit and each prefill must
-    launch tsm2r 2 x n_layers times. Prints prefill ms and decode ms a
-    step beside the plain path's (host clock; DTensor's dispatch is host
-    work). First, on the same weights as plain tensors, the pipeline
-    run: the 28 layers as PIPE_STAGES GPipe stages over PIPE_MICRO
-    microbatches, bit-equal to the sequential forward, with the tsm2r
-    launches the schedule predicts. Returns both runs' launch counts."""
+    on DTensor parameters on the ``(1, 1)`` ``("data", "model")`` mesh,
+    held against the serve phase (``mesh_serve_check``): tokens, sampled
+    tokens and every step's logits bit for bit, each prefill launching
+    tsm2r 2 x n_layers times (wk, wv) on the wgmma body, prefill ms and
+    decode ms a step beside the plain path's. First, on the same weights
+    as plain tensors, the pipeline run: the 28 layers as PIPE_STAGES GPipe
+    stages over PIPE_MICRO microbatches, bit-equal to the sequential
+    forward, with the tsm2r launches the schedule predicts. Returns both
+    runs' launch counts."""
     from repro_torch.configs import registry
     from repro_torch.distributed import pipeline, sharding
     from repro_torch.models import blocks, model
-    from repro_torch.serve import engine
 
     t_phase = time.perf_counter()
     cfg = registry.get_config("chatglm3-6b")
@@ -5287,65 +5480,19 @@ def mesh_serve(dev, gpu, mesh, counts, zero_counts, expect) -> dict:
     del micro, stages, piped, seq, tokens
 
     # -- mesh-serve --------------------------------------------------------
-    specs = sharding.make_param_specs(cfg, params, mesh)
-    sharding.named(mesh, specs, params)
-    prompts = SERVE_REF["prompts"].to(dev)
-    out_ref = SERVE_REF["out"].to(dev)
-    torch.cuda.synchronize()
-    zero_counts()
-    with recorded():
-        t0 = time.perf_counter()
-        out = engine.generate(params, cfg, prompts, NEW, device=dev,
-                              sharded_projections=True)
-        torch.cuda.synchronize()
-        greedy_s = time.perf_counter() - t0
-        prefill_step, decode_step = engine.make_serve_fns(
-            cfg, sharded_projections=True)
-        cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev,
-                                 mesh=mesh)
-        batch = sharding.named(mesh, sharding.batch_specs(
-            cfg, mesh, {"tokens": prompts}), {"tokens": prompts})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill_step(params, batch, cache)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        step_logits = [logits.full_tensor()]
-        t0 = time.perf_counter()
-        for i in range(1, NEW):
-            logits, cache = decode_step(params, out[:, i - 1:i],
-                                        PROMPT + i - 1, cache)
-            step_logits.append(logits.full_tensor())
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
-    launches = counts()
-    check(launches == expect(tsm2r=2 * per_prefill),
-          f"mesh-serve launches {launches}, want {2 * per_prefill} tsm2r")
-    check(sharding.on_mesh(params)
-          and type(cache[0]["k"]).__name__ == "DTensor",
-          "mesh-serve parameters and caches are not DTensors")
-    check(torch.equal(out, out_ref), "mesh-serve tokens differ from the "
-          "plain serve phase's")
-    bad = [i for i, (a, b) in enumerate(zip(step_logits,
-                                            SERVE_REF["step_logits"]))
-           if not same_bits(a, b.to(dev))]
-    check(not bad, f"mesh-serve logits differ from the plain serve phase's"
-          f" at steps {bad}")
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    launches, specs, served = mesh_serve_check(
+        "mesh-serve", cfg, params, SERVE_REF.pop("glm"), mesh, dev, counts,
+        zero_counts, expect, [(BATCH * PROMPT, cfg.d_model, kv)] * per_prefill,
+        "wgmma", 7 * cfg.n_layers)
     emit({"phase": "mesh", "line": "mesh-serve", "model": cfg.name,
           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
           "placements": {n: [repr(p) for p in sharding.placements(mesh, sp)]
                          for n, sp in specs.items() if n.startswith(
                              ("embed", "lm_head", "layers.0."))},
-          "prefill_ms": prefill_ms, "plain_prefill_ms":
-              SERVE_REF["prefill_ms"],
-          "decode_ms_per_step": decode_ms,
-          "plain_decode_ms_per_step": SERVE_REF["decode_ms"],
-          "greedy_request_s": greedy_s,
-          "tsm2r_launches_per_prefill": per_prefill,
-          "bit_equal": {"tokens": True, "logits": True},
-          "launches": {n: v for n, v in launches.items() if v},
+          **served, "launches": {n: v for n, v in launches.items() if v},
           "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
-    del params, cache, logits, step_logits, out
+    del params
     torch.cuda.empty_cache()
     return add_launches(dict(launches), pipe_launches)
 
@@ -5442,6 +5589,305 @@ def mesh_launch(gpu, counts, zero_counts) -> dict:
         registry._MODULES.pop(LAUNCH_ARCH, None)
         torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# The mesh-ssm path: rwkv6-1.6b and zamba2-1.2b on DTensor parameters
+# ---------------------------------------------------------------------------
+
+# The train arms: full width, cut in depth (rwkv6 4 layers; zamba2 6, one
+# group with its shared block and both LoRAs), MESH_SSM_STEPS steps.
+MESH_SSM_LAYERS = {"rwkv": 4, "zamba": 6}
+MESH_SSM_STEPS = 2
+MESH_SSM_WALL: dict = {}
+# About 1.5x the phase's first run in the whole script with its serve
+# check as it stands: 56.3 s on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6).
+MESH_SSM_MAX_S = 85.0
+
+
+def mesh_ssm_train_arms(mp, dev, mesh):
+    """The train arms of mesh-ssm: ``mp``'s model at full width and
+    ``MESH_SSM_LAYERS`` depth, bf16, from seed 0 perturbed by
+    ``mp.perturb``, PowerSGD rank 4, TRAIN_BATCH x TRAIN_SEQ tokens in the
+    config's microbatches, remat on, MESH_SSM_STEPS steps. Runs the plain
+    arm twice here (is it bit-reproducible on this card?) and returns the
+    mesh arm as a callable, for the path's counted window: the same state
+    and batches on DTensors placed by ``make_param_specs`` (the moments
+    by ``make_opt_specs``, PowerSGD's state as the launcher places it),
+    through ``make_train_step(acc_shardings=, mesh=)``."""
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import adamw, powersgd, schedule
+    from repro_torch.train import train_step
+
+    cfg = dataclasses.replace(registry.get_config(mp.arch),
+                              n_layers=MESH_SSM_LAYERS[mp.tag])
+    n_micro = cfg.microbatch
+    dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH,
+                               vocab_size=cfg.vocab_size)
+    opt = adamw.AdamWConfig(
+        lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
+        weight_decay=0.1)
+    ps = powersgd.PowerSGDConfig(rank=4)
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long)
+                for k, v in pipeline.batch_for_step(dcfg, i).items()}
+               for i in range(MESH_SSM_STEPS)]
+
+    def fresh_state():
+        state = train_step.init_train_state(0, cfg, opt, device=dev)
+        mp.perturb(state["params"], cfg,
+                   torch.Generator(device=dev).manual_seed(0))
+        state["extra"] = powersgd.init(ps, state["params"])
+        return state
+
+    def run(state, step, place=lambda b: b):
+        losses, logs, ms = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded() as log:
+                state, m = step(state, place(dict(b)))
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(m["step_ok"]), f"mesh-{mp.tag} train step not ok")
+            logs.append(log)
+        return state, losses, logs, ms
+
+    def compress(g, st):
+        return powersgd.compress_tree(ps, g, st)
+
+    plain = []
+    for _ in range(2):
+        state, losses, _, ms = run(fresh_state(), train_step.make_train_step(
+            cfg, opt, n_micro=n_micro, grad_transform=compress))
+        plain.append({"losses": losses, "ms": ms, "params": {
+            n: p.detach().clone()
+            for n, p in state["params"].named_parameters()}})
+        shapes = {path: st["err"].shape
+                  for path, st in state["extra"].items()}
+        del state
+        torch.cuda.empty_cache()
+
+    def mesh_arm():
+        state = fresh_state()
+        specs = sharding.make_param_specs(cfg, state["params"], mesh)
+        sharding.named(mesh, {"params": specs,
+                              "opt": sharding.make_opt_specs(specs)}, state)
+        sharding.named(mesh, launcher._powersgd_specs(state["extra"], specs),
+                       state["extra"])
+        step = train_step.make_train_step(
+            cfg, opt, n_micro=n_micro, grad_transform=compress,
+            acc_shardings=sharding.named(mesh, specs), mesh=mesh)
+        state, losses, logs, ms = run(state, step, lambda b: sharding.named(
+            mesh, sharding.batch_specs(cfg, mesh, b), b))
+        params = dict(state["params"].named_parameters())
+        return {"losses": losses, "ms": ms, "logs": logs,
+                "misplaced": placed_as(mesh, params, specs),
+                "params": {n: p.to_local().detach()
+                           for n, p in params.items()}}
+
+    return cfg, ps, shapes, plain, mesh_arm
+
+
+def params_distance(a: dict, b: dict) -> float:
+    """The largest absolute difference over every leaf of two parameter
+    trees (name -> tensor)."""
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def tree_check_prediction(params, dev) -> tuple:
+    """What one ``abft.encode_tree`` over ``params`` launches, as the
+    classifier and the chooser on this card predict it: the checksum of
+    every leaf of at least ``abft.MIN_LEAF`` elements, ``[m, cols]^T .
+    [m, 2]`` in f32 (``encode_leaf``), on tsmt, or on tsmt_split at the
+    chooser's S (and sum_partials where the split's epilogue runs it),
+    unless it classifies dense. Returns (launches, {shape: S} of the
+    routed products, their shapes, one a leaf)."""
+    from repro_torch.core import perf_model, tsmm
+    from repro_torch.ft import abft, named_leaves
+    from repro_torch.kernels import ops
+
+    pol = tsmm.GemmPolicy()
+    want, splits, shapes = {}, {}, []
+    for _, x in named_leaves(params):
+        if x.dim() < 1 or x.numel() < abft.MIN_LEAF:
+            continue
+        shape = (x.shape[0], x.numel() // x.shape[0], 2)
+        if tsmm.classify_gemm_t(*shape, pol) == "dense":
+            continue
+        s = ops.resolve_params("tsmt", *shape, torch.float32, pol,
+                               device=dev)["splits"]
+        kern = "tsmt" if s == 1 else "tsmt_split"
+        want[kern] = want.get(kern, 0) + 1
+        if s > 1 and perf_model.reduce_kernel_runs(s, shape[1], 2):
+            want["sum_partials"] = want.get("sum_partials", 0) + 1
+        splits[shape] = s
+        shapes.append(shape)
+    return want, splits, shapes
+
+
+def mesh_ssm_path(mp, dev, gpu, mesh, counts, zero_counts, expect) -> dict:
+    """One model of mesh-ssm (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``), in the
+    world of one. Serve: the parameters ``model_serve_phase`` served
+    (kept in ``SERVE_REF``) on DTensors on the ``(1, 1)`` ``("data",
+    "model")`` mesh, held against that serve run by ``mesh_serve_check``
+    (each prefill launching ``mp.prefill_shapes`` at the chooser's S on
+    ``mp.body``). Train: ``mesh_ssm_train_arms``'s mesh arm, each step's
+    losses and every parameter bit-equal to the plain arm's (or, where
+    the plain arm does not repeat itself bit for bit, within its two
+    runs' distance), launching what ``train_prediction`` predicts, the
+    parameters in their placements after the steps. rwkv6 also takes the
+    ABFT tree check on its DTensor parameters (one ``encode_tree``, then
+    ``verify_tree`` clean and after ``poison_tree``): checksums bit-equal
+    to the plain leaves', ``verify_tree`` passing, then failing, each of
+    the three encodes launching what ``tree_check_prediction`` predicts
+    with the routes it predicts. The plain references run before the
+    path's counts are zeroed. Returns the path's launch counts."""
+    from repro_torch.distributed import sharding
+    from repro_torch.ft import abft, inject
+
+    name = f"mesh-{mp.tag}"
+    t_phase = time.perf_counter()
+    ref = SERVE_REF.pop(mp.tag)
+    params = ref.pop("params").to(dev)
+    cfg = params.cfg
+    train_cfg, ps, shapes, plain, mesh_arm = mesh_ssm_train_arms(mp, dev,
+                                                                 mesh)
+    train_want, factors, down, s_down, per_step_down = train_prediction(
+        mp, train_cfg, shapes, ps, TRAIN_BATCH * TRAIN_SEQ, dev)
+    tree_check = mp.tag == "rwkv"
+    if tree_check:
+        plain_checksums = abft.encode_tree(params)
+        abft_want, abft_splits, abft_shapes = tree_check_prediction(params,
+                                                                    dev)
+
+    # -- the path ----------------------------------------------------------
+    serve_launches, specs, served = mesh_serve_check(
+        name, cfg, params, ref, mesh, dev, counts, zero_counts, expect,
+        mp.prefill_shapes(cfg, BATCH * PROMPT), mp.body,
+        mp.decode_gemms(cfg))
+    train = mesh_arm()
+    train_launches = {n: v - serve_launches[n] for n, v in counts().items()}
+    if tree_check:
+        with recorded() as abft_log:
+            checksums = abft.encode_tree(params)
+            clean, _ = abft.verify_tree(params, checksums)
+            inject.poison_tree(params)
+            poisoned, _ = abft.verify_tree(params, checksums)
+    launches = counts()
+    # The path ends here; what follows only checks it.
+
+    # The train arm against the plain arm and the chooser's prediction.
+    plain_gap = params_distance(plain[0]["params"], plain[1]["params"])
+    plain_repeat = (plain[0]["losses"] == plain[1]["losses"]
+                    and plain_gap == 0.0)
+    train_gap = params_distance(train["params"], plain[0]["params"])
+    if plain_repeat:
+        check(train["losses"] == plain[0]["losses"] and train_gap == 0.0,
+              f"{name} train arm differs from the plain arm: losses "
+              f"{train['losses']} vs {plain[0]['losses']}, parameters "
+              f"{train_gap} apart")
+    else:
+        loss_gap = max(abs(a - b) for a, b in zip(plain[0]["losses"],
+                                                  plain[1]["losses"]))
+        check(max(abs(a - b) for a, b in zip(train["losses"],
+                                             plain[0]["losses"]))
+              <= loss_gap and train_gap <= plain_gap,
+              f"{name} train arm beyond the plain arm's own spread: "
+              f"{train['losses']} vs {plain}")
+    check(not train["misplaced"], f"{name} train left parameters out of "
+          f"their placements: {train['misplaced'][:4]}")
+    want_step = expect(**train_want)
+    check(train_launches == {n: v * MESH_SSM_STEPS
+                             for n, v in want_step.items()},
+          f"{name} train launches {train_launches}, predicted "
+          f"{train_want} a step")
+    p_bodies = [train_step_routes(f"{name} train step {i + 1}", log, mp,
+                                  down, s_down, per_step_down, factors)
+                for i, log in enumerate(train["logs"])]
+    abft_line = {}
+    if tree_check:
+        bad = [n for n, c in checksums.items()
+               if (c is None) != (plain_checksums[n] is None)
+               or (c is not None
+                   and not same_bits(c.full_tensor(), plain_checksums[n]))]
+        check(not bad, f"{name} DTensor checksums differ from the plain "
+              f"leaves' at {bad[:4]}")
+        check(bool(clean) and not bool(poisoned), f"{name} verify_tree: "
+              f"clean {bool(clean)}, after poison_tree {bool(poisoned)}")
+        abft_launches = {n: v - serve_launches[n] - train_launches[n]
+                         for n, v in launches.items()}
+        check(abft_launches == expect(**{k: 3 * v
+                                         for k, v in abft_want.items()}),
+              f"{name} tree check launches {abft_launches}, predicted "
+              f"{abft_want} an encode")
+        routed = [e for e in abft_log if e.kind != "dense"]
+        check(sorted(e.shape for e in routed) == sorted(abft_shapes * 3)
+              and all(e.kind == "tsmt" and e.executor == "cuda"
+                      and all(lm.splits == abft_splits[e.shape]
+                              for lm in e.launches if lm.kind != "reduce")
+                      for e in routed),
+              f"{name} tree check routes {routed[:2]}")
+        abft_line = {"abft": {
+            "leaves": sum(c is not None for c in checksums.values()),
+            "bit_equal": True, "clean_ok": True, "poisoned_ok": False,
+            "launches_per_encode": abft_want,
+            "splits": {str(list(k)): v for k, v in abft_splits.items()},
+            "launches": {n: v for n, v in abft_launches.items() if v}}}
+    emit({"phase": "mesh-ssm", "line": name, "model": cfg.name,
+          "layers": cfg.n_layers,
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "placements": {n: [repr(p) for p in sharding.placements(mesh, sp)]
+                         for n, sp in specs.items()
+                         if n.startswith(("embed", "lm_head", "layers.0.",
+                                          "groups.0.mamba.0.",
+                                          "groups.0.lora"))},
+          **served,
+          "train": {"layers": train_cfg.n_layers,
+                    "n_micro": train_cfg.microbatch,
+                    "steps": MESH_SSM_STEPS, "losses": train["losses"],
+                    "plain_losses": [a["losses"] for a in plain],
+                    "step_ms": train["ms"],
+                    "plain_step_ms": [a["ms"] for a in plain],
+                    "plain_repeats_bit_for_bit": plain_repeat,
+                    "plain_runs_apart": plain_gap,
+                    "mesh_vs_plain": train_gap,
+                    "launches_per_step": {n: v for n, v in want_step.items()
+                                          if v},
+                    "factors": factors, "p_bodies": p_bodies},
+          **abft_line,
+          "launches": {n: v for n, v in launches.items() if v},
+          "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
+    del params, train, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_ssm_phase(dev, gpu, mesh, counts, zero_counts, expect) -> dict:
+    """mesh-ssm: rwkv6-1.6b and zamba2-1.2b on DTensor parameters
+    (``mesh_ssm_path`` each), in the dist path's world of one; each
+    model's run its own path (``mesh_rwkv``, ``mesh_zamba``: counts
+    zeroed before, read after). The phase must finish within
+    ``MESH_SSM_MAX_S``. Returns the paths' launch counts."""
+    out = {}
+    for mp in (RWKV_PATH, ZAMBA_PATH):
+        PATH["name"] = f"mesh_{mp.tag}"
+        t0 = time.perf_counter()
+        out[PATH["name"]] = mesh_ssm_path(mp, dev, gpu, mesh, counts,
+                                          zero_counts, expect)
+        MESH_SSM_WALL[mp.tag] = time.perf_counter() - t0
+    total = sum(MESH_SSM_WALL.values())
+    emit({"phase": "mesh-ssm", "line": "summary", "wall_s": MESH_SSM_WALL,
+          "total_s": total, "limit_s": MESH_SSM_MAX_S,
+          "launches": {p: {n: v for n, v in c.items() if v}
+                       for p, c in out.items()}, "gpu": gpu})
+    check(total < MESH_SSM_MAX_S, f"the mesh-ssm phase took {total} s, over "
+          f"{MESH_SSM_MAX_S}")
+    return out
 
 
 def main() -> int:
@@ -6007,9 +6453,8 @@ def main() -> int:
         params, cfg, prompts, out, dev, per_prefill, counts)
     # The main path ends here; what follows only checks it.
     serve_launches = counts()
-    SERVE_REF.update(prompts=prompts.cpu(), out=out.cpu(),
-                     step_logits=[t.cpu() for t in step_logits],
-                     prefill_ms=prefill_ms, decode_ms=decode_ms)
+    SERVE_REF["glm"] = serve_ref(prompts, out, sampled, step_logits,
+                                 prefill_ms, decode_ms)
     check(serve_launches == expect(tsm2r=3 * per_prefill),
           f"serving main path launches {serve_launches}")
 
@@ -6119,7 +6564,9 @@ def main() -> int:
     for mp in (RWKV_PATH, ZAMBA_PATH):
         PATH["name"] = f"{mp.tag}_serve"
         model_launches[PATH["name"]], params, _ = model_serve_phase(
-            mp, dev, gpu, counts, zero_counts, expect)
+            mp, dev, gpu, counts, zero_counts, expect, keep=True)
+        # mesh-ssm serves the same weights on DTensors: kept on the host
+        SERVE_REF[mp.tag]["params"] = params.to("cpu")
         del params
         torch.cuda.empty_cache()
         PATH["name"] = f"{mp.tag}_train"
@@ -6162,8 +6609,8 @@ def main() -> int:
 
     # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
     PATH["name"] = "dist"
-    dist_launches_, mesh_launches = dist_phase(dev, gpu, counts,
-                                               zero_counts, expect)
+    dist_launches_, mesh_launches, ssm_launches = dist_phase(
+        dev, gpu, counts, zero_counts, expect)
 
     add_launches(mesh_launches, mesh_launch_launches)
     emit({"phase": "mesh", "line": "summary", "wall_s": MESH_WALL,
@@ -6195,7 +6642,7 @@ def main() -> int:
              "abft_serve": abft_serve_launches,
              "abft_train": abft_train_launches, "launch": launch_launches,
              **model_launches, "dist": dist_launches_,
-             "mesh": mesh_launches}
+             "mesh": mesh_launches, **ssm_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.analysis import contracts as _contracts
 from repro_torch.core import tsmm
-from repro_torch.ft import named_leaves
+from repro_torch.ft import is_dtensor, named_leaves
 
 __all__ = [
     "checksum_weights",
@@ -133,10 +133,43 @@ def detect(c_out, c_ref, *, rows: int, reduction: int, eps: float, amax):
 def encode_leaf(x: torch.Tensor, s: int = 2, *, policy=None) -> torch.Tensor:
     """Checksum of one tensor viewed as ``(shape[0], -1)``: ``(cols, s)``
     f32 through ``tsmm_t`` (the TSMT shape), under ``policy`` or the active
-    ``tsmm.policy(...)`` scope."""
+    ``tsmm.policy(...)`` scope. A DTensor leaf is encoded block by block
+    (:func:`_encode_dtensor`)."""
+    if is_dtensor(x):
+        return _encode_dtensor(x.detach(), s, policy)
     m = x.detach().reshape(x.shape[0], -1)
     e = checksum_weights(m.shape[0], s, device=m.device)
     return tsmm.tsmm_t(m.float(), e, policy=policy)
+
+
+def _encode_dtensor(x, s: int, policy):
+    """The full leaf's checksum of a DTensor leaf, a DTensor: each rank
+    encodes its local block against its rows of the weights. A block of
+    columns (``Shard(1)``) is its columns' checksum, which stays sharded
+    (no reduction over m); a block of rows (``Shard(0)``) is a partial
+    sum, all-reduced over that mesh dim (``Partial``, the psum a sharded
+    reduction over m needs). A leaf of more than two dims sharded past
+    dim 0 is gathered on those dims first: its flattened columns would
+    not be a block."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed import sharding
+    mesh = x.device_mesh
+    if x.dim() > 2:
+        x = x.redistribute(mesh, [p if not isinstance(p, Shard) or p.dim == 0
+                                  else Replicate() for p in x.placements])
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+    e = sharding.local_part(checksum_weights(x.shape[0], s,
+                                             device=x.device),
+                            mesh, rows)
+    blk = x.to_local()
+    c = tsmm.tsmm_t(blk.reshape(blk.shape[0], -1).float(), e, policy=policy)
+    places = [Partial() if isinstance(p, Shard) and p.dim == 0
+              else Shard(0) if isinstance(p, Shard) else Replicate()
+              for p in x.placements]
+    return DTensor.from_local(c, mesh, places, run_check=False).redistribute(
+        mesh, [Replicate() if isinstance(p, Partial) else p for p in places])
 
 
 def encode_tree(tree, s: int = 2, *, policy=None) -> dict:
@@ -157,7 +190,9 @@ def verify_tree(tree, checksums: dict, *, rtol: float = 1e-3, policy=None):
         if c is None:
             continue
         c2 = encode_leaf(x, c.shape[1], policy=policy)
-        devs[n] = ((c2 - c).abs() / c.abs().clamp_min(1e-6)).max()
+        dev = ((c2 - c).abs() / c.abs().clamp_min(1e-6)).max()
+        # a DTensor leaf's deviation, whole on every rank
+        devs[n] = dev.full_tensor() if is_dtensor(dev) else dev
     if not devs:
         return torch.tensor(True), devs
     return torch.stack(list(devs.values())).max() <= rtol, devs

@@ -14,7 +14,7 @@ core runs on local tensors, PyTorch's tensor-parallel idiom: q, k, v (and
 a decode step's caches) are redistributed to one placement -- the batch
 as the activations carry it over the dp dims, the heads over "model"
 where the kv heads divide it, else whole -- and every rank attends over
-its own heads (``_local_heads``). Cache writes go into the local shard
+its own heads (``heads.local_heads``). Cache writes go into the local shard
 likewise (``write_cache``), a sequence-parallel cache's too.
 """
 
@@ -24,40 +24,9 @@ import torch
 from torch import nn
 
 from repro_torch.ft import is_dtensor
-from repro_torch.models import layers
+from repro_torch.models import heads, layers
 
 _NEG = -1e30
-
-
-def _head_placements(q, n_kv: int) -> list:
-    """Where attention runs on ``q``'s mesh: the batch dim as ``q`` shards
-    it, the heads (dim 2) over "model" when the ``n_kv`` kv heads divide
-    it, everything else whole."""
-    from torch.distributed.tensor import Replicate, Shard
-    mesh = q.device_mesh
-    out = []
-    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, q.placements)):
-        if isinstance(p, Shard) and p.dim == 0:
-            out.append(Shard(0))
-        elif name == "model" and n_kv % mesh.size(i) == 0:
-            out.append(Shard(2))
-        else:
-            out.append(Replicate())
-    return out
-
-
-def _local_heads(fn, q, *kv, n_kv: int, **kw):
-    """``fn(q, *kv, **kw)`` per rank over its heads: DTensor operands are
-    redistributed to ``_head_placements`` and taken local, the output
-    (heads on dim 2) comes back a DTensor there. Plain tensors pass
-    straight through."""
-    if not is_dtensor(q):
-        return fn(q, *kv, **kw)
-    from torch.distributed.tensor import DTensor
-    mesh, places = q.device_mesh, _head_placements(q, n_kv)
-    local = [t.redistribute(mesh, places).to_local() for t in (q, *kv)]
-    return DTensor.from_local(fn(*local, **kw), mesh, places,
-                              run_check=False)
 
 
 def write_cache(cache, t, start: int) -> None:
@@ -261,8 +230,9 @@ def gqa_fwd(p: GQA, x, *, n_heads, n_kv, head_dim, causal=True,
     q, k, v = gqa_project_qkv(p, x, positions, n_heads=n_heads, n_kv=n_kv,
                               head_dim=head_dim, rope_theta=rope_theta,
                               rope_fraction=rope_fraction)
-    ctx = _local_heads(chunked_attention, q, k, v, n_kv=n_kv, causal=causal,
-                       window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    ctx = heads.local_heads(chunked_attention, q, k, v, n_kv=n_kv,
+                            causal=causal, window=window, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
     out = layers.dense(p.wo, ctx.reshape(b, s, n_heads * head_dim))
     return out, (k, v)
 
@@ -287,14 +257,15 @@ def gqa_decode(p: GQA, x, cache_k, cache_v, pos: int, *, n_heads, n_kv,
     write_cache(cache_k, k, slot)
     write_cache(cache_v, v, slot)
     if ring_window is None:
-        ctx = _local_heads(decode_attention, q, cache_k, cache_v, n_kv=n_kv,
-                           cur_len=pos + 1, window=window)
+        ctx = heads.local_heads(decode_attention, q, cache_k, cache_v,
+                                n_kv=n_kv, cur_len=pos + 1, window=window)
     else:
         # Ring cache: the first min(pos + 1, ring) slots are valid; the
         # positions wrap, and softmax is permutation-invariant, so the
         # slot order does not matter.
-        ctx = _local_heads(decode_attention, q, cache_k, cache_v, n_kv=n_kv,
-                           cur_len=min(pos + 1, ring_window))
+        ctx = heads.local_heads(decode_attention, q, cache_k, cache_v,
+                                n_kv=n_kv,
+                                cur_len=min(pos + 1, ring_window))
     out = layers.dense(p.wo, ctx.reshape(b, 1, n_heads * head_dim))
     return out, cache_k, cache_v
 
@@ -371,9 +342,9 @@ def mla_fwd(p: MLA, x, *, n_heads, nope_dim, rope_dim, v_dim,
     k = torch.cat([k_nope, k_pe.expand(b, s, n_heads, rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     scale = (nope_dim + rope_dim) ** -0.5
-    ctx = _local_heads(chunked_attention, q, k, v, n_kv=n_heads,
-                       causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                       softmax_scale=scale)
+    ctx = heads.local_heads(chunked_attention, q, k, v, n_kv=n_heads,
+                            causal=causal, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk, softmax_scale=scale)
     out = layers.dense(p.wo, ctx.reshape(b, s, n_heads * v_dim))
     return out, (c, k_pe[:, :, 0, :])
 

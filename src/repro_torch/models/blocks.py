@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.ft import is_dtensor
 from repro_torch.models import attention, layers, mamba2, moe, rwkv6
 
 KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe", "mamba", "rwkv")
@@ -214,6 +215,15 @@ def _write_ring(cache, t, w: int) -> None:
     attention.write_cache(cache, last[:, w - shift:], 0)
 
 
+def _placed(new: dict, old: dict) -> dict:
+    """A Mamba2 or RWKV6 cache entry that replaces ``old``, each state in
+    ``old``'s placements (a DTensor cache keeps ``sharding.cache_specs``'s
+    layout step after step)."""
+    return {k: v.redistribute(old[k].device_mesh, old[k].placements)
+            if is_dtensor(v) and list(v.placements) != list(old[k].placements)
+            else v for k, v in new.items()}
+
+
 def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
     """Full-sequence forward that also fills the cache. Attention writes
     its K/V (MLA its latent) in place: the first S slots, or under a ring
@@ -222,7 +232,7 @@ def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
     if kind == "mamba":
         h, (ssm, conv) = mamba2.mamba2_fwd(
             p.mixer, norm_apply(cfg, p.norm1, x), cfg.ssm, return_state=True)
-        return x + h, {"ssm": ssm, "conv": conv}
+        return x + h, _placed({"ssm": ssm, "conv": conv}, cache)
     if kind == "rwkv":
         n1 = norm_apply(cfg, p.norm1, x)
         h, (wkv, tm_prev) = rwkv6.rwkv6_time_mix(p.time_mix, n1, cfg.rwkv,
@@ -233,7 +243,8 @@ def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
                                               return_state=True)
         # Cache the *normed* last inputs: decode re-normalizes the new
         # token, so store what the mixers actually consumed.
-        return x + h2, {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": cm_prev}
+        return x + h2, _placed({"wkv": wkv, "tm_prev": tm_prev,
+                                "cm_prev": cm_prev}, cache)
     x, (a, b), _ = _layer(p, x, cfg, kind)
     names = ("c", "kpe") if kind.startswith("mla") else ("k", "v")
     ring = None if kind.startswith("mla") else _ring(cfg, cache)
@@ -251,7 +262,7 @@ def block_decode(p: Block, x, cfg, kind: str, cache: dict, pos: int):
         h, ssm, conv = mamba2.mamba2_decode(
             p.mixer, norm_apply(cfg, p.norm1, x), cache["ssm"],
             cache["conv"], cfg.ssm)
-        return x + h, {"ssm": ssm, "conv": conv}
+        return x + h, _placed({"ssm": ssm, "conv": conv}, cache)
     if kind == "rwkv":
         n1 = norm_apply(cfg, p.norm1, x)
         h, wkv, tm_prev = rwkv6.rwkv6_time_mix_decode(
@@ -260,7 +271,8 @@ def block_decode(p: Block, x, cfg, kind: str, cache: dict, pos: int):
         n2 = norm_apply(cfg, p.norm2, x)
         h2 = rwkv6.rwkv6_channel_mix(p.channel_mix, n2,
                                      x_prev=cache["cm_prev"])
-        return x + h2, {"wkv": wkv, "tm_prev": tm_prev, "cm_prev": n2}
+        return x + h2, _placed({"wkv": wkv, "tm_prev": tm_prev,
+                                "cm_prev": n2}, cache)
     n1 = norm_apply(cfg, p.norm1, x)
     if kind.startswith("mla"):
         h, cc, ckpe = attention.mla_decode(

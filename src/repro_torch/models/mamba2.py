@@ -17,6 +17,16 @@ reference keeps them in ``jnp.einsum`` and ``lax.scan``, with its chunk
 rule. The reference's ``jnp.repeat`` of C·B, B and C over the heads of a
 group is a broadcast here (the same values).
 
+On DTensor parameters the layer between its projections
+(``_ssd_chunked``, ``_ssd_step``) runs on each rank's heads
+(``models.heads``): ``in_proj``'s output and ``conv_w``'s channels shard
+over "model" at boundaries that do not fall on the ``[x, z, B, C, dt]``
+split points, so each rank takes the projection and the conv's weights
+whole and keeps its heads' columns (``_cut``); B and C (one group) are
+shared by every head; ``dt_bias``, ``A_log``, ``D`` and the SSM state are
+cut to the rank's heads; the gated RMSNorm runs on the head-sharded
+output over the whole ``d_inner``.
+
 One deliberate difference: the intra-chunk decay masks before the
 exponential (``_segsum_decay``). The reference evaluates ``exp(seg)`` on
 the masked upper triangle too (``src/repro/models/mamba2.py:114``), where
@@ -36,12 +46,14 @@ included) the model dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.ft import is_dtensor
+from repro_torch.models import heads, layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +93,43 @@ def mamba2_init(generator, d_model: int, cfg: Mamba2Config, dtype,
                                generator)
 
 
-def _split_proj(proj, cfg: Mamba2Config):
+@functools.lru_cache(maxsize=None)
+def _cut(cfg: Mamba2Config, heads_: tuple[int, int]) -> dict:
+    """Column ranges of heads ``[h0, h1)`` and their groups: of the
+    projection's x, z, B, C and dt (its output concatenates ``[x, z, B,
+    C, dt]``) and of the conv's channels (``[x, B, C]``). The whole
+    ranges at ``(0, n_heads)`` (``"whole"``: every column in order). One
+    dict a config and range, shared: not to be changed."""
     di, g, n, h = cfg.d_inner, cfg.n_groups, cfg.state_dim, cfg.n_heads
-    return torch.split(proj, [di, di, g * n, g * n, h], dim=-1)
+    pd, hg = di // h, h // g
+    h0, h1 = heads_
+    g0, g1 = h0 // hg, -(-h1 // hg)
+    xs, gs = slice(h0 * pd, h1 * pd), slice(g0 * n, g1 * n)
+    return {"x": xs, "z": slice(di + xs.start, di + xs.stop),
+            "B": slice(2 * di + gs.start, 2 * di + gs.stop),
+            "C": slice(2 * di + g * n + gs.start, 2 * di + g * n + gs.stop),
+            "dt": slice(2 * di + 2 * g * n + h0, 2 * di + 2 * g * n + h1),
+            "conv": (xs, slice(di + gs.start, di + gs.stop),
+                     slice(di + g * n + gs.start, di + g * n + gs.stop)),
+            "heads": h1 - h0, "groups": g1 - g0,
+            "whole": (h0, h1) == (0, h)}
+
+
+def _split_proj(proj, cut: dict):
+    """x, z, B, C, dt of the projection: ``cut``'s columns (views; one
+    ``torch.split`` for the whole cut)."""
+    cols = [cut[k] for k in ("x", "z", "B", "C", "dt")]
+    if cut["whole"]:
+        return torch.split(proj, [c.stop - c.start for c in cols], dim=-1)
+    return tuple(proj[..., c] for c in cols)
+
+
+def _conv_channels(t, cut: dict):
+    """``t``'s conv channels (last dim) of ``cut``: ``t`` itself for the
+    whole cut."""
+    if cut["whole"]:
+        return t
+    return torch.cat([t[..., c] for c in cut["conv"]], dim=-1)
 
 
 def _causal_conv(seq, w, b, prev=None):
@@ -112,27 +158,61 @@ def _segsum_decay(cum, lc: int):
                                       float("-inf")))
 
 
-def mamba2_fwd(p: Mamba2, x_in, cfg: Mamba2Config, *, initial_state=None,
-               conv_state=None, return_state: bool = False):
-    """x_in: (B, S, d_model). Chunked SSD scan.
+def _on_heads(core, p: Mamba2, proj, cfg: Mamba2Config, state,
+              conv_state):
+    """``core(proj, conv_w, conv_b, dt_bias, A_log, D, cfg, cut, state,
+    conv_state)`` over the heads: for plain tensors straight (``cut`` of
+    every head), for DTensors on each rank's heads (``heads``). The
+    projection's shard boundaries do not fall on its split points (nor the
+    conv's on its channel groups), so the rank takes the projection, the
+    conv's weights and the conv state whole and keeps its heads' columns
+    of x, z, dt and its groups' B and C; ``dt_bias``, ``A_log``, ``D``
+    and the SSM state (B, H, N, P) are cut to its heads. Returns (y, z
+    (B, S, H*P) in the projection's dtype, SSM state, conv state: the
+    whole (B, W-1, C), its x channels gathered from the ranks)."""
+    if not is_dtensor(proj):
+        return core(proj, p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D, cfg,
+                    _cut(cfg, (0, cfg.n_heads)), state, conv_state)
+    hd = heads.layout(proj, cfg.n_heads, cfg.n_groups)
+    cut = _cut(cfg, (hd.lo, hd.lo + hd.n))
+    whole = [heads.local(hd, t, None) for t in (p.conv_w, p.conv_b)]
+    per_head = [heads.local(hd, t, None, 0)
+                for t in (p.dt_bias, p.A_log, p.D)]
+    y, z, st, cs = core(
+        heads.local(hd, proj, 0), *whole, *per_head, cfg, cut,
+        None if state is None else heads.local(hd, state, 0, 1),
+        None if conv_state is None else heads.local(hd, conv_state, 0))
+    # The rank's conv channels to the whole state: its x channels (and its
+    # B and C, where the groups split too) gathered in rank order.
+    parts = torch.split(cs, [c.stop - c.start for c in cut["conv"]], dim=-1)
+    split = cut["groups"] < cfg.n_groups
+    parts = [heads.local(hd, heads.wrap(hd, t, 0, 2), 0) if i == 0 or split
+             else t for i, t in enumerate(parts)]
+    cs = heads.wrap(hd, torch.cat(parts, dim=-1), 0)
+    return (heads.wrap(hd, y, 0, 2), heads.wrap(hd, z, 0, 2),
+            heads.wrap(hd, st, 0, 1), cs)
 
-    Returns out, or (out, (ssm_state, conv_state)) when ``return_state``
-    (prefill needs the states to seed decode).
-    """
-    b, s, _ = x_in.shape
-    di, h, n, g = cfg.d_inner, cfg.n_heads, cfg.state_dim, cfg.n_groups
-    pd = di // h
+
+def _ssd_chunked(proj, conv_w, conv_b, dt_bias, A_log, D, cfg: Mamba2Config,
+                 cut, initial_state, conv_state):
+    """The layer between its projections, on plain tensors, over ``cut``'s
+    heads: split, causal conv, the chunked SSD scan, the skip term.
+    Returns (y, z, SSM state, conv state)."""
+    b, s, _ = proj.shape
+    h, g = cut["heads"], cut["groups"]
+    n, pd = cfg.state_dim, cfg.d_inner // cfg.n_heads
     hg = h // g
+    di = h * pd
 
-    proj = layers.dense(p.in_proj, x_in)
-    x, z, bb, cc, dt = _split_proj(proj, cfg)
+    x, z, bb, cc, dt = _split_proj(proj, cut)
     conv_in = torch.cat([x, bb, cc], dim=-1)
-    conv_out, conv_state_new = _causal_conv(conv_in, p.conv_w, p.conv_b,
-                                            conv_state)
+    conv_out, conv_state_new = _causal_conv(
+        conv_in, _conv_channels(conv_w, cut), _conv_channels(conv_b, cut),
+        _conv_channels(conv_state, cut) if conv_state is not None else None)
     x, bb, cc = torch.split(conv_out, [di, g * n, g * n], dim=-1)
 
-    dt = F.softplus(dt.float() + p.dt_bias)                     # (B,S,H)
-    a_neg = -torch.exp(p.A_log)                                 # (H,)
+    dt = F.softplus(dt.float() + dt_bias)                       # (B,S,H)
+    a_neg = -torch.exp(A_log)                                   # (H,)
     loga = dt * a_neg                                           # log decay
 
     lc = min(cfg.chunk, s)
@@ -169,7 +249,7 @@ def mamba2_fwd(p: Mamba2, x_in, cfg: Mamba2Config, *, initial_state=None,
 
     # Inter-chunk scan: carry the state, keep the state at each chunk start.
     chunk_decay = torch.exp(cum[:, :, -1, :])                   # (B,nc,H)
-    st = (x_in.new_zeros((b, h, n, pd), dtype=torch.float32)
+    st = (proj.new_zeros((b, h, n, pd), dtype=torch.float32)
           if initial_state is None else initial_state.float())
     s_starts = []
     for c in range(nc):
@@ -184,32 +264,51 @@ def mamba2_fwd(p: Mamba2, x_in, cfg: Mamba2Config, *, initial_state=None,
 
     y = (y_intra + y_inter).reshape(b, s, di)
     y = y + (x.float().reshape(b, s, h, pd)
-             * p.D[None, None, :, None]).reshape(b, s, di)
-    y = y.to(x_in.dtype)
-    y = layers.rmsnorm(p.norm.scale, y) * F.silu(z.float()).to(x_in.dtype)
-    out = layers.dense(p.out_proj, y)
+             * D[None, None, :, None]).reshape(b, s, di)
+    return y.to(proj.dtype), z, st, conv_state_new
+
+
+def _gate_out(p: Mamba2, y, z):
+    """The gated RMSNorm over the whole ``d_inner`` and ``out_proj``."""
+    y = layers.rmsnorm(p.norm.scale, y) * F.silu(z.float()).to(y.dtype)
+    return layers.dense(p.out_proj, y)
+
+
+def mamba2_fwd(p: Mamba2, x_in, cfg: Mamba2Config, *, initial_state=None,
+               conv_state=None, return_state: bool = False):
+    """x_in: (B, S, d_model). Chunked SSD scan.
+
+    Returns out, or (out, (ssm_state, conv_state)) when ``return_state``
+    (prefill needs the states to seed decode).
+    """
+    proj = layers.dense(p.in_proj, x_in)
+    y, z, st, conv_state_new = _on_heads(_ssd_chunked, p, proj, cfg,
+                                         initial_state, conv_state)
+    out = _gate_out(p, y, z)
     if return_state:
         return out, (st, conv_state_new)
     return out
 
 
-def mamba2_decode(p: Mamba2, x_in, state, conv_state, cfg: Mamba2Config):
-    """One token. x_in: (B, 1, d_model); state: (B, H, N, P) f32.
-    Returns (out, state, conv_state)."""
-    b = x_in.shape[0]
-    di, h, n, g = cfg.d_inner, cfg.n_heads, cfg.state_dim, cfg.n_groups
-    pd = di // h
+def _ssd_step(proj, conv_w, conv_b, dt_bias, A_log, D, cfg: Mamba2Config,
+              cut, state, conv_state):
+    """One token of the layer between its projections, on plain tensors,
+    over ``cut``'s heads. Returns (y, z, SSM state, conv state)."""
+    b = proj.shape[0]
+    h, g = cut["heads"], cut["groups"]
+    n, pd = cfg.state_dim, cfg.d_inner // cfg.n_heads
     hg = h // g
+    di = h * pd
 
-    proj = layers.dense(p.in_proj, x_in)
-    x, z, bb, cc, dt = _split_proj(proj, cfg)
+    x, z, bb, cc, dt = _split_proj(proj, cut)
     conv_in = torch.cat([x, bb, cc], dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, p.conv_w, p.conv_b,
-                                        conv_state)
+    conv_out, conv_state = _causal_conv(
+        conv_in, _conv_channels(conv_w, cut), _conv_channels(conv_b, cut),
+        _conv_channels(conv_state, cut))
     x, bb, cc = torch.split(conv_out, [di, g * n, g * n], dim=-1)
 
-    dt = F.softplus(dt.float() + p.dt_bias)[:, 0]              # (B,H)
-    a = torch.exp(dt * -torch.exp(p.A_log))                     # (B,H)
+    dt = F.softplus(dt.float() + dt_bias)[:, 0]                # (B,H)
+    a = torch.exp(dt * -torch.exp(A_log))                       # (B,H)
     xh = x.reshape(b, h, pd).float()
     b_rep = bb.reshape(b, g, n).float().repeat_interleave(hg, dim=1)
     c_rep = cc.reshape(b, g, n).float().repeat_interleave(hg, dim=1)
@@ -217,10 +316,17 @@ def mamba2_decode(p: Mamba2, x_in, state, conv_state, cfg: Mamba2Config):
     state = state * a[..., None, None] + torch.einsum(
         "bhn,bhp->bhnp", b_rep, xh * dt[..., None])
     y = torch.einsum("bhn,bhnp->bhp", c_rep, state)
-    y = y + xh * p.D[None, :, None]
-    y = y.reshape(b, 1, di).to(x_in.dtype)
-    y = layers.rmsnorm(p.norm.scale, y) * F.silu(z.float()).to(x_in.dtype)
-    return layers.dense(p.out_proj, y), state, conv_state
+    y = y + xh * D[None, :, None]
+    return y.reshape(b, 1, di).to(proj.dtype), z, state, conv_state
+
+
+def mamba2_decode(p: Mamba2, x_in, state, conv_state, cfg: Mamba2Config):
+    """One token. x_in: (B, 1, d_model); state: (B, H, N, P) f32.
+    Returns (out, state, conv_state)."""
+    proj = layers.dense(p.in_proj, x_in)
+    y, z, state, conv_state = _on_heads(_ssd_step, p, proj, cfg, state,
+                                        conv_state)
+    return _gate_out(p, y, z), state, conv_state
 
 
 def mamba2_ref_recurrent(p: Mamba2, x_in, cfg: Mamba2Config):

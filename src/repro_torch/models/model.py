@@ -38,8 +38,11 @@ Parameters may be DTensors on a ``DeviceMesh``, placed by
 every entry point then runs under ``sharding.replicate_constants``, so
 the plain tensors made beside the activations (positions, RoPE tables,
 masks) count as replicated, the caches come from ``init_cache(...,
-mesh=)``, and serving runs under ``torch.no_grad`` (DTensor's dispatch
-sets version counters, which inference tensors lack).
+mesh=)`` (a Mamba2 or RWKV6 entry that a step replaces comes back in the
+placements of the one it replaces: ``blocks._placed``), and serving runs
+under ``torch.no_grad`` (DTensor's dispatch sets version counters, which
+inference tensors lack). The scans and the attention core run on each
+rank's heads (``models.heads``).
 """
 
 from __future__ import annotations

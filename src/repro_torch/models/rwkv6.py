@@ -16,10 +16,15 @@ pair: its down projection ``[B*S, d]·[d, 64]`` classifies TSM2R.
 Every projection goes through ``layers.dense`` (so ``tsmm``); the WKV
 contractions and the chunk scan stay plain torch, as the reference keeps
 them in ``jnp.einsum`` and ``lax.scan``, with its chunk rule and its
-``where``-masked pairwise-difference decay. That decay evaluates
-``exp(diff)`` on the masked upper triangle too: past ``chunk * |logw|`` of
-~88 it overflows, and the backward of the mask gives ``inf * 0 = NaN``,
-in both packages alike.
+``where``-masked pairwise-difference decay. On DTensor parameters the
+scan (``_wkv_chunked``, ``_wkv_step``) runs on each rank's heads
+(``models.heads``): r, k, v and g come out of ``wr``/``wk``/``wv``/``wg``
+split by heads, the decay (from the replicated LoRA) and the bonus ``u``
+are cut to the rank's heads, the head reshapes run on local tensors, and
+``ln_x`` normalises the head-sharded output over the whole ``H * D``.
+The masked decay evaluates ``exp(diff)`` on the masked upper triangle
+too: past ``chunk * |logw|`` of ~88 it overflows, and the backward of
+the mask gives ``inf * 0 = NaN``, in both packages alike.
 
 Parameters live in ``TimeMix`` and ``ChannelMix``, whose attribute names
 are the JAX keys; their ``INIT`` gives the reference's initial values
@@ -36,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.ft import is_dtensor
+from repro_torch.models import heads, layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,28 +113,42 @@ def _headed(x, h, dh):
     return x.reshape(*x.shape[:-1], h, dh)
 
 
-def _out_stage(p: TimeMix, y, g, h, dh):
-    b, s = y.shape[0], y.shape[1]
-    y = y.reshape(b, s, h * dh).to(g.dtype)
-    y = layers.layernorm(p.ln_x, y)
+def _out_stage(p: TimeMix, y, g):
+    """y: (B, S, H*D) -> ln_x, the SiLU gate and ``wo``."""
+    y = layers.layernorm(p.ln_x, y.to(g.dtype))
     return layers.dense(p.wo, y * F.silu(g.float()).to(g.dtype))
 
 
-def rwkv6_time_mix(p: TimeMix, x, cfg: RWKV6Config, *, state=None,
-                   x_prev=None, return_state: bool = False):
-    """Chunked evaluation. x: (B,S,d). state: (B,H,D,D) f32.
-    ``return_state``: also (final state, x's last token (B,1,d))."""
-    b, s, d = x.shape
+def _on_heads(core, p: TimeMix, r, k, v, logw, state, cfg: RWKV6Config):
+    """``core(r, k, v, logw, u, state, h, dh, chunk)`` over the heads:
+    for plain tensors straight, for DTensors on each rank's heads
+    (``heads``: r, k, v and logw (B, S, H*D) split on dim 2, ``u`` (H, D)
+    on dim 0, the state (B, H, D, D) on dim 1; the head reshapes run on
+    the local tensors). Returns (y (B, S, H*D) f32, state)."""
     h, dh = cfg.n_heads, cfg.head_dim
-    if x_prev is None:
-        x_prev = x.new_zeros((b, 1, d))
-    r, k, v, g, logw = _projections(p, x, x_prev)
+    if not is_dtensor(r):
+        y, st = core(r, k, v, logw, p.u, state, h, dh, cfg.chunk)
+        return y.reshape(*y.shape[:2], h * dh), st
+    hd = heads.layout(r, h)
+    ops = [heads.local(hd, t, 0, 2) for t in (r, k, v, logw)]
+    st = None if state is None else heads.local(hd, state, 0, 1)
+    y, st = core(*ops, heads.local(hd, p.u, None, 0), st, hd.n, dh,
+                 cfg.chunk)
+    return (heads.wrap(hd, y.reshape(*y.shape[:2], hd.n * dh), 0, 2),
+            heads.wrap(hd, st, 0, 1))
+
+
+def _wkv_chunked(r, k, v, logw, u, state, h: int, dh: int, chunk: int):
+    """The chunked WKV scan over ``h`` heads, on plain tensors: r, k, v,
+    logw (B, S, h*dh); u (h, dh); state (B, h, dh, dh) f32 or None.
+    Returns (y (B, S, h, dh) f32, final state)."""
+    b, s = r.shape[0], r.shape[1]
     rh = _headed(r, h, dh).float()
     kh = _headed(k, h, dh).float()
     vh = _headed(v, h, dh).float()
     lw = _headed(logw, h, dh)                              # (B,S,H,D)
 
-    lc = min(cfg.chunk, s)
+    lc = min(chunk, s)
     while s % lc:
         lc -= 1
     nc = s // lc
@@ -144,7 +164,7 @@ def rwkv6_time_mix(p: TimeMix, x, cfg: RWKV6Config, *, state=None,
     cum_tm1 = cum - lwc                                    # cum_{t-1}
     diff = cum_tm1[:, :, :, None] - cum[:, :, None]        # (B,nc,L,L,H,D)
     strict = torch.tril(torch.ones((lc, lc), dtype=torch.bool,
-                                   device=x.device), diagonal=-1)
+                                   device=r.device), diagonal=-1)
     dec = torch.where(strict[None, None, :, :, None, None], torch.exp(diff),
                       0.0)
     # Each (B,nc,L,L,H,D) tensor is 2.1 GB at rwkv6-1.6b's 4 x 2048-token
@@ -154,7 +174,7 @@ def rwkv6_time_mix(p: TimeMix, x, cfg: RWKV6Config, *, state=None,
     del dec
     y_intra = torch.einsum("bctsh,bcshd->bcthd", scores, vc)
     # Diagonal (current token) via bonus u:
-    y_diag = (rc * kc * p.u).sum(-1, keepdim=True) * vc
+    y_diag = (rc * kc * u).sum(-1, keepdim=True) * vc
     y_intra = y_intra + y_diag
 
     # Chunk-end state contributions: sum_t exp(cum_L - cum_t) k_t v_t^T
@@ -162,7 +182,7 @@ def rwkv6_time_mix(p: TimeMix, x, cfg: RWKV6Config, *, state=None,
     s_chunk = torch.einsum("bcthd,bcthe->bchde", kc * dec_end, vc)
     chunk_decay = torch.exp(cum[:, :, -1])                 # (B,nc,H,D)
 
-    st = (x.new_zeros((b, h, dh, dh), dtype=torch.float32) if state is None
+    st = (r.new_zeros((b, h, dh, dh), dtype=torch.float32) if state is None
           else state)
     s_starts = []
     for c in range(nc):
@@ -173,9 +193,19 @@ def rwkv6_time_mix(p: TimeMix, x, cfg: RWKV6Config, *, state=None,
     # Inter-chunk: y_t += r_t (exp(cum_{t-1}) .) S_in
     r_dec = rc * torch.exp(cum_tm1)
     y_inter = torch.einsum("bcthd,bchde->bcthe", r_dec, s_starts)
+    return (y_intra + y_inter).reshape(b, s, h, dh), st
 
-    y = (y_intra + y_inter).reshape(b, s, h, dh)
-    out = _out_stage(p, y, g, h, dh)
+
+def rwkv6_time_mix(p: TimeMix, x, cfg: RWKV6Config, *, state=None,
+                   x_prev=None, return_state: bool = False):
+    """Chunked evaluation. x: (B,S,d). state: (B,H,D,D) f32.
+    ``return_state``: also (final state, x's last token (B,1,d))."""
+    b, s, d = x.shape
+    if x_prev is None:
+        x_prev = x.new_zeros((b, 1, d))
+    r, k, v, g, logw = _projections(p, x, x_prev)
+    y, st = _on_heads(_wkv_chunked, p, r, k, v, logw, state, cfg)
+    out = _out_stage(p, y, g)
     if return_state:
         return out, (st, x[:, -1:])
     return out
@@ -198,24 +228,30 @@ def rwkv6_time_mix_ref(p: TimeMix, x, cfg: RWKV6Config):
         ys.append(torch.einsum("bhd,bhde->bhe", rh[:, t], wkv))
         st = st * wh[:, t, ..., None] + kv
     y = torch.stack(ys, dim=1)                              # (B,S,H,D)
-    return _out_stage(p, y, g, h, dh)
+    return _out_stage(p, y.reshape(b, s, h * dh), g)
 
 
-def rwkv6_time_mix_decode(p: TimeMix, x, state, x_prev, cfg: RWKV6Config):
-    """One token. x: (B,1,d); state: (B,H,D,D); x_prev: (B,1,d).
-    Returns (out, new state, x)."""
-    h, dh = cfg.n_heads, cfg.head_dim
-    r, k, v, g, logw = _projections(p, x, x_prev)
+def _wkv_step(r, k, v, logw, u, state, h: int, dh: int, chunk: int):
+    """One token of the WKV recurrence over ``h`` heads, on plain
+    tensors: r, k, v, logw (B, 1, h*dh); state (B, h, dh, dh). Returns
+    (y (B, 1, h, dh) f32, new state)."""
+    del chunk
     rt = _headed(r, h, dh)[:, 0].float()
     kt = _headed(k, h, dh)[:, 0].float()
     vt = _headed(v, h, dh)[:, 0].float()
     wt = torch.exp(_headed(logw, h, dh)[:, 0])
     kv = torch.einsum("bhd,bhe->bhde", kt, vt)
-    wkv = state + p.u[None, :, :, None] * kv
+    wkv = state + u[None, :, :, None] * kv
     yt = torch.einsum("bhd,bhde->bhe", rt, wkv)[:, None]   # (B,1,H,D)
-    new_state = state * wt[..., None] + kv
-    out = _out_stage(p, yt, g, h, dh)
-    return out, new_state, x
+    return yt, state * wt[..., None] + kv
+
+
+def rwkv6_time_mix_decode(p: TimeMix, x, state, x_prev, cfg: RWKV6Config):
+    """One token. x: (B,1,d); state: (B,H,D,D); x_prev: (B,1,d).
+    Returns (out, new state, x)."""
+    r, k, v, g, logw = _projections(p, x, x_prev)
+    yt, new_state = _on_heads(_wkv_step, p, r, k, v, logw, state, cfg)
+    return _out_stage(p, yt, g), new_state, x
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import tsmm
 from repro_torch.distributed import sharding
+from repro_torch.ft import is_dtensor
 from repro_torch.kernels import quant
 from repro_torch.models import model
 
@@ -65,9 +66,24 @@ def make_serve_fns(cfg, policy: "tsmm.GemmPolicy | None" = None, *,
 
 def sample_token(generator, logits, temperature: float = 0.0):
     """Greedy at ``temperature <= 0``, else a draw from softmax(logits / T)
-    with ``generator`` (on the logits' device). Returns (B,) int64."""
+    with ``generator`` (on the logits' device). Returns (B,) int64.
+
+    DTensor logits (vocab-sharded, the batch over the dp dims) are drawn
+    from whole: ``torch.multinomial`` has no DTensor rule, and every rank
+    must draw the same tokens from its copy of the seeded generator, as
+    the one process draws them, so each gathers every row and the whole
+    vocabulary, draws them all, and keeps the tokens in the batch's
+    placements."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1)
+    if is_dtensor(logits):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        mesh = logits.device_mesh
+        tok = sample_token(generator, logits.full_tensor(), temperature)
+        places = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+                  else Replicate() for p in logits.placements]
+        return DTensor.from_local(tok, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False).redistribute(mesh, places)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 

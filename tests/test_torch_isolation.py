@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no silent CPU.
 
-Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports neither
-``jax`` nor ``repro`` (an AST scan, plus a subprocess that imports each
-module with both blocked). Entry points called without ``device=`` on a
+Every module of ``src/repro_torch``, ``chip_smoke.py`` and the port's
+scripts (``scripts/torch_*.py``) imports neither ``jax`` nor ``repro``
+(an AST scan, plus a subprocess that imports each module of the package
+with both blocked). Entry points called without ``device=`` on a
 machine with no card raise instead of running on the CPU, and
 ``chip_smoke.py`` exits non-zero with no result line there, and also when
 it stands alone in a directory without the rest of the repository.
@@ -20,7 +21,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py")))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
         ".__init__") for p in PKG.rglob("*.py"))
@@ -126,7 +128,8 @@ def test_new_modules_are_scanned():
                 "repro_torch.distributed.pipeline",
                 "repro_torch.launch.mesh", "repro_torch.models.moe",
                 "repro_torch.configs.mixtral_8x7b",
-                "repro_torch.configs.deepseek_v3_671b"):
+                "repro_torch.configs.deepseek_v3_671b",
+                "repro_torch.models.heads"):
         assert mod in MODULES
 
 

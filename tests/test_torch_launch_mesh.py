@@ -20,7 +20,12 @@ smoke size with that file's batch:
   ends on the uninterrupted run's final loss (the reference's rescale
   invariant, up to the reduction order: rtol 1e-4);
 * both ranks report the same results, and no group is left up;
-* ``rescale_plan`` refuses an empty device set (``[rescale-mesh]``).
+* ``rescale_plan`` refuses an empty device set (``[rescale-mesh]``);
+* ``--abft-every 1`` on the rwkv6 smoke config (the port's own initial
+  state; ``abft.MIN_LEAF`` lowered so its leaves get checksums): the
+  offline check before each save runs on the DTensor parameters and
+  passes, and a parameter poisoned between the encode and the verify
+  (``ft.inject.poison_tree``) makes the launcher refuse to save.
 
 The ranks import this module, so it imports no JAX.
 """
@@ -46,6 +51,10 @@ RUNS = {"m1": ["--model-axis", "1", "--steps", "6", "--chaos-step", "3"],
         "resume21": ["--model-axis", "1", "--steps", "6", "--ckpt-every",
                      "100"]}
 TOL = dict(rtol=1e-4)
+ABFT_BASE = ["--arch", "rwkv6-1.6b", "--smoke", "--global-batch", "4",
+             "--seq-len", "32", "--log-every", "100", "--model-axis", "2",
+             "--steps", "2", "--abft-every", "1", "--ckpt-every", "1"]
+ABFT_RUNS = ("abft_clean", "abft_poisoned")
 
 
 def _lines(text):
@@ -67,13 +76,12 @@ def launcher_rank(rank, work):
         assert seed == 0 and extra is None
         return convert.state_from_jax(cfg, jstate, device=device)
 
+    own_init = train_step.init_train_state
     train_step.init_train_state = from_jax    # this rank's process only
     ports = np.load(work / "inputs.npz")["ports"]
     out = {}
     for port, (tag, extra) in zip(ports, RUNS.items()):
-        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                          RANK=str(rank), WORLD_SIZE=str(harness.WORLD),
-                          LOCAL_RANK=str(rank))
+        _environ(rank, port)
         if tag in ("save12", "resume21"):
             extra = extra + ["--ckpt-dir", str(work / "ckpt")]
         buf = io.StringIO()
@@ -82,7 +90,61 @@ def launcher_rank(rank, work):
                              + extra)
         out[tag] = {"result": res, "lines": _lines(buf.getvalue()),
                     "group_left_up": dist.is_initialized()}
+    train_step.init_train_state = own_init
+    for port, tag in zip(ports[len(RUNS):], ABFT_RUNS):
+        _environ(rank, port)
+        out[tag] = _abft_run(tag, work)
     return out
+
+
+def _environ(rank, port):
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(harness.WORLD),
+                      LOCAL_RANK=str(rank))
+
+
+def _abft_run(tag, work):
+    """The launcher under ``--abft-every 1``: each check's verdict and
+    whether its leaves were DTensors; in the poisoned run the parameters
+    are poisoned right after the encode, so the verify must catch it."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.ft import abft, inject, is_dtensor
+    from repro_torch.launch import train
+
+    checks = []
+    encode, verify = abft.encode_tree, abft.verify_tree
+
+    def encode_tree(tree, *a, **kw):
+        sums = encode(tree, *a, **kw)
+        if tag == "abft_poisoned":
+            inject.poison_tree(tree)
+        return sums
+
+    def verify_tree(tree, sums, *a, **kw):
+        ok, devs = verify(tree, sums, *a, **kw)
+        checks.append((bool(ok), len(devs), all(
+            is_dtensor(c) for c in sums.values() if c is not None)))
+        return ok, devs
+
+    ckpt_dir = work / f"ckpt_{tag}"
+    argv = ABFT_BASE + ["--device", "cpu", "--distributed", "--ckpt-dir",
+                        str(ckpt_dir)]
+    err = res = None
+    with mock.patch.object(abft, "MIN_LEAF", 1024), \
+            mock.patch.object(abft, "encode_tree", encode_tree), \
+            mock.patch.object(abft, "verify_tree", verify_tree), \
+            contextlib.redirect_stdout(io.StringIO()):
+        try:
+            res = train.main(argv)
+        except RuntimeError as e:
+            err = str(e)
+    return {"result": res, "error": err, "checks": checks,
+            "saved": Checkpointer(str(ckpt_dir)).all_steps(),
+            "group_left_up": dist.is_initialized()}
 
 
 JAX_SCRIPT = harness.JAX_PRELUDE + r"""
@@ -129,7 +191,8 @@ def runs(tmp_path_factory):
         pickle.dump(jax.tree.map(np.asarray, jstate), f)
     ranks, _, record = harness.run_both(
         launcher_rank, JAX_SCRIPT,
-        {"ports": np.array(_free_ports(len(RUNS)))}, work, timeout=400,
+        {"ports": np.array(_free_ports(len(RUNS) + len(ABFT_RUNS)))}, work,
+        timeout=400,
         init=False)
     return types.SimpleNamespace(ranks=ranks, rec=record)
 
@@ -178,3 +241,23 @@ def test_rescale_plan_refuses_an_empty_device_set():
         elastic.rescale_plan(devices=[])
     plan = elastic.rescale_plan(devices=["cpu"])
     assert plan.mesh is None and plan.shape == (1, 1)
+
+
+def test_abft_check_before_each_save_under_distributed(runs):
+    for r in runs.ranks:
+        clean = r["abft_clean"]
+        assert clean["error"] is None and not clean["group_left_up"]
+        assert clean["result"]["final_step"] == 1
+        # one check a save, each on DTensor leaves with checksums, all clean
+        assert [c[0] for c in clean["checks"]] == [True, True]
+        assert all(n > 0 and on_mesh for _, n, on_mesh in clean["checks"])
+        assert clean["saved"] == [0, 1]
+
+
+def test_abft_poisoned_parameters_are_not_saved(runs):
+    for r in runs.ranks:
+        bad = r["abft_poisoned"]
+        assert bad["result"] is None and not bad["group_left_up"]
+        assert "[abft] silent data corruption detected" in bad["error"]
+        assert [c[0] for c in bad["checks"]] == [False]
+        assert bad["saved"] == []
