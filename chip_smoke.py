@@ -452,7 +452,8 @@ printing no result, when no CUDA card is present or any phase fails.
    forward as above (the MoE layer's routes pinned) and against each
    other within ``LOGIT_TOL``, and both against the forward in f32 on
    the 3 dense MLA layers. A
-   ``moe`` line reports the four phases' wall times.
+   ``moe`` line reports the four phases' wall times. mixtral-serve and
+   deepseek-serve keep their runs in ``SERVE_REF`` for mesh-moe.
 10f. dist (a path of its own; counts zeroed before, read after): the
    multi-process executors in a world of one under NCCL
    (``init_method="file://"`` on a temporary file; one card, and NCCL
@@ -490,24 +491,31 @@ printing no result, when no CUDA card is present or any phase fails.
    ``generate`` and ``make_serve_fns(sharded_projections=True)``: the
    serve phase's prompts, its greedy tokens and every step's logits bit
    for bit, 56 tsm2r a prefill, and prefill and decode ms beside the
-   plain path's. Then, in the same world, mesh-ssm (``mesh_ssm_phase``,
-   a path each model, ``mesh_rwkv`` and ``mesh_zamba``): rwkv6-1.6b (24
-   layers) and zamba2-1.2b (38) on DTensor parameters, the weights that
-   rwkv-serve and zamba-serve served (kept on the host since), on the
-   (1, 1) mesh, caches from ``cache_specs``: the serve phases' tokens,
-   every step's logits and their one request sampled at temperature 1 bit
-   for bit, 24 and 12 tsm2r a prefill as the plain prefill launches, the
-   SSM caches in their specs' placements after the prefill and a decode
-   step; each trained at full width and cut depth (rwkv6 4 layers, zamba2
-   6: one group with its shared block and LoRAs) with PowerSGD rank 4 in
-   the config's microbatches for 2 steps on DTensors, its losses and
+   plain path's. Then, in the same world, mesh-ssm and mesh-moe
+   (``mesh_models_phase``, a path each model: ``mesh_rwkv``,
+   ``mesh_zamba``; ``mesh_mixtral``, ``mesh_deepseek``): rwkv6-1.6b (24
+   layers), zamba2-1.2b (38), mixtral-8x7b-8l and deepseek-v3-671b-4l on
+   DTensor parameters, the weights that their serve phases served (built
+   again on the card from the same seed and perturbation,
+   ``serve_weights``: none is kept on the host), on the (1, 1) mesh,
+   caches from ``cache_specs``: the serve phases' tokens, every step's
+   logits and their one request sampled at temperature 1 bit for bit,
+   24, 12, 8 (tsm2r_split at S = 4 on the skinny body) and 5 tsm2r a
+   prefill as the plain prefill launches, every cache entry (the SSM
+   states, mixtral's ring K/V, deepseek's latent caches) in its spec's
+   placements after the prefill and after the last decode step; rwkv6,
+   zamba2 and mixtral each trained at full width and cut depth (rwkv6 4
+   layers, zamba2 6: one group with its shared block and LoRAs; mixtral
+   2, launching ``MIXTRAL_TRAIN_LAUNCHES`` a step) with PowerSGD rank 4
+   in the config's microbatches for 2 steps on DTensors, its losses and
    parameters bit-equal to a plain arm from the same state and batches
-   (run twice: within the two plain runs' distance if they differ), the
-   launches ``train_prediction`` gives; and rwkv6's ABFT tree check on
-   its DTensor parameters, checksums bit-equal to the plain leaves',
-   passing, and failing after ``poison_tree``. Prefill and decode ms
-   beside the plain path's; the phase must take under
-   ``MESH_SSM_MAX_S``. The process group is destroyed after.
+   (run twice, before the serve weights are built: within the two plain
+   runs' distance if they differ), the launches ``train_prediction``
+   gives; and rwkv6's ABFT tree check on its DTensor parameters,
+   checksums bit-equal to the plain leaves', passing, and failing after
+   ``poison_tree``. Prefill and decode ms beside the plain path's; the
+   phases must take under ``MESH_SSM_MAX_S`` and ``MESH_MOE_MAX_S``. The
+   process group is destroyed after.
 10g. mesh (the same path, run right after the launch phase;
    ``mesh_launch``): the launcher's ``--distributed`` in a world of one, in this process under torchrun's
    environment (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free
@@ -524,11 +532,11 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the twenty-two paths (dispatch, serve, train, serve-int8,
+   on each of the twenty-four paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
    rwkv-serve, rwkv-train, zamba-serve, zamba-train, mixtral-serve,
    mixtral-long, mixtral-train, deepseek-serve, dist, mesh, mesh-rwkv,
-   mesh-zamba) and their
+   mesh-zamba, mesh-mixtral, mesh-deepseek) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -4229,23 +4237,19 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
     against a teacher-forced forward (``mp.decode_check``); an MoE
     model's drops and largest loads at the config's capacity in the
     prefill; a profiled prefill. ``keep`` puts the run's ``serve_ref``
-    into ``SERVE_REF`` under ``mp.tag``, for mesh-ssm to hold its runs
-    against. Returns (the path's launch counts, the parameters, the
+    into ``SERVE_REF`` under ``mp.tag``, for the mesh phases to hold their
+    runs against. Returns (the path's launch counts, the parameters, the
     config)."""
-    from repro_torch.configs import registry
     from repro_torch.core import tsmm
     from repro_torch.models import model
     from repro_torch.serve import engine
 
     name = f"{mp.tag}-serve"
     t_phase = time.perf_counter()
-    cfg = registry.get_config(mp.arch)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    params = model.init(cfg, seed=0, device=dev)
-    mp.perturb(params, cfg, gen)
+    params, cfg, gen = serve_weights(mp, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
@@ -5042,8 +5046,9 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
     None where no profiler session sees device work; the line reports
     whether one did before and after NCCL started). Then, in the same
     world, the mesh path's serve and pipeline runs (``mesh_serve``).
-    Then the mesh-ssm phase (``mesh_ssm_phase``). Returns the dist
-    path's launch counts, the mesh path's and the mesh-ssm paths'."""
+    Then the mesh-ssm and mesh-moe phases (``mesh_models_phase``).
+    Returns the dist path's launch counts, the mesh path's and the
+    mesh-ssm and mesh-moe paths'."""
     import shutil
     import tempfile
 
@@ -5066,10 +5071,15 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
         mesh_launches = mesh_serve(dev, gpu, make_host_mesh(), counts,
                                    zero_counts, expect)
         MESH_WALL["serve"] = time.perf_counter() - t0
-        # rwkv6 and zamba2 on DTensor parameters, in the same world.
-        ssm_launches = mesh_ssm_phase(dev, gpu, make_host_mesh(), counts,
-                                      zero_counts, expect)
-        return launches, mesh_launches, ssm_launches
+        # rwkv6 and zamba2, then mixtral and deepseek, on DTensor
+        # parameters, in the same world.
+        model_launches = mesh_models_phase(
+            "mesh-ssm", (RWKV_PATH, ZAMBA_PATH), MESH_SSM_MAX_S, dev, gpu,
+            make_host_mesh(), counts, zero_counts, expect)
+        model_launches.update(mesh_models_phase(
+            "mesh-moe", (MIXTRAL_PATH, DEEPSEEK_PATH), MESH_MOE_MAX_S, dev,
+            gpu, make_host_mesh(), counts, zero_counts, expect))
+        return launches, mesh_launches, model_launches
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5592,30 +5602,55 @@ def mesh_launch(gpu, counts, zero_counts) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The mesh-ssm path: rwkv6-1.6b and zamba2-1.2b on DTensor parameters
+# The mesh-ssm and mesh-moe phases: rwkv6-1.6b, zamba2-1.2b, mixtral-8x7b
+# and deepseek-v3-671b on DTensor parameters
 # ---------------------------------------------------------------------------
 
 # The train arms: full width, cut in depth (rwkv6 4 layers; zamba2 6, one
-# group with its shared block and both LoRAs), MESH_SSM_STEPS steps.
-MESH_SSM_LAYERS = {"rwkv": 4, "zamba": 6}
-MESH_SSM_STEPS = 2
-MESH_SSM_WALL: dict = {}
+# group with its shared block and both LoRAs; mixtral 2, the mixtral-train
+# cut), MESH_STEPS steps; and the launches a step they must predict where
+# the cut is a train phase's (mixtral's). deepseek has none (one MoE
+# layer's AdamW state is ~140 GB).
+MESH_TRAIN = {"rwkv": (4, None), "zamba": (6, None),
+              "mixtral": (2, MIXTRAL_TRAIN_LAUNCHES)}
+MESH_STEPS = 2
+MESH_WALLS: dict = {}
 # About 1.5x the phase's first run in the whole script with its serve
 # check as it stands: 56.3 s on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md section 6).
 MESH_SSM_MAX_S = 85.0
+# About 1.5x the phase's first run in the whole script with every check:
+# 28.0 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+MESH_MOE_MAX_S = 42.0
 
 
-def mesh_ssm_train_arms(mp, dev, mesh):
-    """The train arms of mesh-ssm: ``mp``'s model at full width and
-    ``MESH_SSM_LAYERS`` depth, bf16, from seed 0 perturbed by
+def serve_weights(mp, dev):
+    """The weights ``model_serve_phase`` serves for ``mp`` (and the mesh
+    phases build again on the card): its config's parameters from seed 0,
+    perturbed by ``mp.perturb`` from a generator seeded 0. Returns (the
+    parameters, the config, the generator, which draws the prompts
+    next)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+
+    cfg = registry.get_config(mp.arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(cfg, seed=0, device=dev)
+    mp.perturb(params, cfg, gen)
+    return params, cfg, gen
+
+
+def mesh_train_arms(mp, dev, mesh):
+    """The train arms of a mesh path: ``mp``'s model at full width and
+    ``MESH_TRAIN`` depth, bf16, from seed 0 perturbed by
     ``mp.perturb``, PowerSGD rank 4, TRAIN_BATCH x TRAIN_SEQ tokens in the
-    config's microbatches, remat on, MESH_SSM_STEPS steps. Runs the plain
-    arm twice here (is it bit-reproducible on this card?) and returns the
-    mesh arm as a callable, for the path's counted window: the same state
-    and batches on DTensors placed by ``make_param_specs`` (the moments
-    by ``make_opt_specs``, PowerSGD's state as the launcher places it),
-    through ``make_train_step(acc_shardings=, mesh=)``."""
+    config's microbatches, remat on, MESH_STEPS steps. Runs the plain
+    arm twice here (is it bit-reproducible on this card?), keeping the
+    first run's parameters and the second's distance from them, and
+    returns the mesh arm as a callable, for the path's counted window:
+    the same state and batches on DTensors placed by ``make_param_specs``
+    (the moments by ``make_opt_specs``, PowerSGD's state as the launcher
+    places it), through ``make_train_step(acc_shardings=, mesh=)``."""
     from repro_torch.configs import registry
     from repro_torch.data import pipeline
     from repro_torch.distributed import sharding
@@ -5624,7 +5659,7 @@ def mesh_ssm_train_arms(mp, dev, mesh):
     from repro_torch.train import train_step
 
     cfg = dataclasses.replace(registry.get_config(mp.arch),
-                              n_layers=MESH_SSM_LAYERS[mp.tag])
+                              n_layers=MESH_TRAIN[mp.tag][0])
     n_micro = cfg.microbatch
     dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH,
@@ -5635,7 +5670,7 @@ def mesh_ssm_train_arms(mp, dev, mesh):
     ps = powersgd.PowerSGDConfig(rank=4)
     batches = [{k: torch.from_numpy(v).to(dev, torch.long)
                 for k, v in pipeline.batch_for_step(dcfg, i).items()}
-               for i in range(MESH_SSM_STEPS)]
+               for i in range(MESH_STEPS)]
 
     def fresh_state():
         state = train_step.init_train_state(0, cfg, opt, device=dev)
@@ -5664,9 +5699,13 @@ def mesh_ssm_train_arms(mp, dev, mesh):
     for _ in range(2):
         state, losses, _, ms = run(fresh_state(), train_step.make_train_step(
             cfg, opt, n_micro=n_micro, grad_transform=compress))
-        plain.append({"losses": losses, "ms": ms, "params": {
-            n: p.detach().clone()
-            for n, p in state["params"].named_parameters()}})
+        params = {n: p.detach() for n, p in
+                  state["params"].named_parameters()}
+        if plain:       # the second run: only its distance from the first
+            params = params_distance(params, plain[0]["params"])
+        else:
+            params = {n: p.clone() for n, p in params.items()}
+        plain.append({"losses": losses, "ms": ms, "params": params})
         shapes = {path: st["err"].shape
                   for path, st in state["extra"].items()}
         del state
@@ -5687,8 +5726,9 @@ def mesh_ssm_train_arms(mp, dev, mesh):
         params = dict(state["params"].named_parameters())
         return {"losses": losses, "ms": ms, "logs": logs,
                 "misplaced": placed_as(mesh, params, specs),
-                "params": {n: p.to_local().detach()
-                           for n, p in params.items()}}
+                "gap": params_distance({n: p.to_local().detach()
+                                        for n, p in params.items()},
+                                       plain[0]["params"])}
 
     return cfg, ps, shapes, plain, mesh_arm
 
@@ -5730,35 +5770,85 @@ def tree_check_prediction(params, dev) -> tuple:
     return want, splits, shapes
 
 
-def mesh_ssm_path(mp, dev, gpu, mesh, counts, zero_counts, expect) -> dict:
-    """One model of mesh-ssm (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``), in the
-    world of one. Serve: the parameters ``model_serve_phase`` served
-    (kept in ``SERVE_REF``) on DTensors on the ``(1, 1)`` ``("data",
-    "model")`` mesh, held against that serve run by ``mesh_serve_check``
-    (each prefill launching ``mp.prefill_shapes`` at the chooser's S on
-    ``mp.body``). Train: ``mesh_ssm_train_arms``'s mesh arm, each step's
-    losses and every parameter bit-equal to the plain arm's (or, where
-    the plain arm does not repeat itself bit for bit, within its two
-    runs' distance), launching what ``train_prediction`` predicts, the
-    parameters in their placements after the steps. rwkv6 also takes the
-    ABFT tree check on its DTensor parameters (one ``encode_tree``, then
-    ``verify_tree`` clean and after ``poison_tree``): checksums bit-equal
-    to the plain leaves', ``verify_tree`` passing, then failing, each of
-    the three encodes launching what ``tree_check_prediction`` predicts
-    with the routes it predicts. The plain references run before the
-    path's counts are zeroed. Returns the path's launch counts."""
-    from repro_torch.distributed import sharding
+def mesh_tree_check(name, params, plain_checksums, want, splits, shapes,
+                    counts, expect) -> dict:
+    """rwkv6's ABFT tree check on its DTensor parameters (counted in the
+    path's window): one ``encode_tree``, ``verify_tree`` clean and after
+    ``poison_tree``. The checksums must be bit-equal to the plain
+    leaves' (``plain_checksums``), ``verify_tree`` must pass, then fail,
+    and each of the three encodes must launch what
+    ``tree_check_prediction`` predicts (``want``, ``splits``, ``shapes``)
+    with the routes it predicts. Returns the line's ``abft`` field."""
     from repro_torch.ft import abft, inject
+
+    before = counts()
+    with recorded() as log:
+        checksums = abft.encode_tree(params)
+        clean, _ = abft.verify_tree(params, checksums)
+        inject.poison_tree(params)
+        poisoned, _ = abft.verify_tree(params, checksums)
+    launches = {n: v - before[n] for n, v in counts().items()}
+    bad = [n for n, c in checksums.items()
+           if (c is None) != (plain_checksums[n] is None)
+           or (c is not None
+               and not same_bits(c.full_tensor(), plain_checksums[n]))]
+    check(not bad, f"{name} DTensor checksums differ from the plain "
+          f"leaves' at {bad[:4]}")
+    check(bool(clean) and not bool(poisoned), f"{name} verify_tree: "
+          f"clean {bool(clean)}, after poison_tree {bool(poisoned)}")
+    check(launches == expect(**{k: 3 * v for k, v in want.items()}),
+          f"{name} tree check launches {launches}, predicted {want} an "
+          f"encode")
+    routed = [e for e in log if e.kind != "dense"]
+    check(sorted(e.shape for e in routed) == sorted(shapes * 3)
+          and all(e.kind == "tsmt" and e.executor == "cuda"
+                  and all(lm.splits == splits[e.shape]
+                          for lm in e.launches if lm.kind != "reduce")
+                  for e in routed),
+          f"{name} tree check routes {routed[:2]}")
+    return {"leaves": sum(c is not None for c in checksums.values()),
+            "bit_equal": True, "clean_ok": True, "poisoned_ok": False,
+            "launches_per_encode": want,
+            "splits": {str(list(k)): v for k, v in splits.items()},
+            "launches": {n: v for n, v in launches.items() if v}}
+
+
+def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
+                    expect) -> dict:
+    """One model of a mesh phase (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
+    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``), in the world of one. First, not
+    counted: the plain train arms (``mesh_train_arms``, where
+    ``MESH_TRAIN`` names the model). Then the path, from zeroed
+    counts to the read after its last step. Serve: the weights
+    ``model_serve_phase`` served, built again on the card
+    (``serve_weights``), on DTensors on the ``(1, 1)`` ``("data",
+    "model")`` mesh, held against that serve run's ``SERVE_REF`` entry by
+    ``mesh_serve_check`` (each prefill launching ``mp.prefill_shapes`` at
+    the chooser's S on ``mp.body``); rwkv6 also takes the ABFT tree check
+    on its DTensor parameters (``mesh_tree_check``); then the serve
+    weights are freed. Train: the mesh arm, each step's losses and every
+    parameter bit-equal to the plain arm's (or, where the plain arm does
+    not repeat itself bit for bit, within its two runs' distance),
+    launching what ``train_prediction`` predicts (for mixtral
+    ``MIXTRAL_TRAIN_LAUNCHES`` a step), the parameters in their
+    placements after the steps. Returns the path's launch counts."""
+    from repro_torch.distributed import sharding
+    from repro_torch.ft import abft
 
     name = f"mesh-{mp.tag}"
     t_phase = time.perf_counter()
     ref = SERVE_REF.pop(mp.tag)
-    params = ref.pop("params").to(dev)
-    cfg = params.cfg
-    train_cfg, ps, shapes, plain, mesh_arm = mesh_ssm_train_arms(mp, dev,
+    train_line, train = {}, None
+    if mp.tag in MESH_TRAIN:
+        train_cfg, ps, shapes, plain, mesh_arm = mesh_train_arms(mp, dev,
                                                                  mesh)
-    train_want, factors, down, s_down, per_step_down = train_prediction(
-        mp, train_cfg, shapes, ps, TRAIN_BATCH * TRAIN_SEQ, dev)
+        train_want, factors, down, s_down, per_step_down = train_prediction(
+            mp, train_cfg, shapes, ps, TRAIN_BATCH * TRAIN_SEQ, dev)
+        fixed = MESH_TRAIN[mp.tag][1]
+        check(fixed is None or train_want == fixed, f"{name} predicted "
+              f"launches {train_want}, not {fixed}")
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, _ = serve_weights(mp, dev)
     tree_check = mp.tag == "rwkv"
     if tree_check:
         plain_checksums = abft.encode_tree(params)
@@ -5770,123 +5860,94 @@ def mesh_ssm_path(mp, dev, gpu, mesh, counts, zero_counts, expect) -> dict:
         name, cfg, params, ref, mesh, dev, counts, zero_counts, expect,
         mp.prefill_shapes(cfg, BATCH * PROMPT), mp.body,
         mp.decode_gemms(cfg))
-    train = mesh_arm()
-    train_launches = {n: v - serve_launches[n] for n, v in counts().items()}
-    if tree_check:
-        with recorded() as abft_log:
-            checksums = abft.encode_tree(params)
-            clean, _ = abft.verify_tree(params, checksums)
-            inject.poison_tree(params)
-            poisoned, _ = abft.verify_tree(params, checksums)
+    placements = {n: [repr(p) for p in sharding.placements(mesh, sp)]
+                  for n, sp in specs.items()
+                  if n.startswith(("embed", "lm_head", "layers.0.", "tail.0.",
+                                   "groups.0.mamba.0.", "groups.0.lora"))}
+    abft_line = ({"abft": mesh_tree_check(
+        name, params, plain_checksums, abft_want, abft_splits, abft_shapes,
+        counts, expect)} if tree_check else {})
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    if mp.tag in MESH_TRAIN:
+        before = counts()
+        train = mesh_arm()
+        train_launches = {n: v - before[n] for n, v in counts().items()}
     launches = counts()
     # The path ends here; what follows only checks it.
 
-    # The train arm against the plain arm and the chooser's prediction.
-    plain_gap = params_distance(plain[0]["params"], plain[1]["params"])
-    plain_repeat = (plain[0]["losses"] == plain[1]["losses"]
-                    and plain_gap == 0.0)
-    train_gap = params_distance(train["params"], plain[0]["params"])
-    if plain_repeat:
-        check(train["losses"] == plain[0]["losses"] and train_gap == 0.0,
-              f"{name} train arm differs from the plain arm: losses "
-              f"{train['losses']} vs {plain[0]['losses']}, parameters "
-              f"{train_gap} apart")
-    else:
-        loss_gap = max(abs(a - b) for a, b in zip(plain[0]["losses"],
-                                                  plain[1]["losses"]))
-        check(max(abs(a - b) for a, b in zip(train["losses"],
-                                             plain[0]["losses"]))
-              <= loss_gap and train_gap <= plain_gap,
-              f"{name} train arm beyond the plain arm's own spread: "
-              f"{train['losses']} vs {plain}")
-    check(not train["misplaced"], f"{name} train left parameters out of "
-          f"their placements: {train['misplaced'][:4]}")
-    want_step = expect(**train_want)
-    check(train_launches == {n: v * MESH_SSM_STEPS
-                             for n, v in want_step.items()},
-          f"{name} train launches {train_launches}, predicted "
-          f"{train_want} a step")
-    p_bodies = [train_step_routes(f"{name} train step {i + 1}", log, mp,
-                                  down, s_down, per_step_down, factors)
-                for i, log in enumerate(train["logs"])]
-    abft_line = {}
-    if tree_check:
-        bad = [n for n, c in checksums.items()
-               if (c is None) != (plain_checksums[n] is None)
-               or (c is not None
-                   and not same_bits(c.full_tensor(), plain_checksums[n]))]
-        check(not bad, f"{name} DTensor checksums differ from the plain "
-              f"leaves' at {bad[:4]}")
-        check(bool(clean) and not bool(poisoned), f"{name} verify_tree: "
-              f"clean {bool(clean)}, after poison_tree {bool(poisoned)}")
-        abft_launches = {n: v - serve_launches[n] - train_launches[n]
-                         for n, v in launches.items()}
-        check(abft_launches == expect(**{k: 3 * v
-                                         for k, v in abft_want.items()}),
-              f"{name} tree check launches {abft_launches}, predicted "
-              f"{abft_want} an encode")
-        routed = [e for e in abft_log if e.kind != "dense"]
-        check(sorted(e.shape for e in routed) == sorted(abft_shapes * 3)
-              and all(e.kind == "tsmt" and e.executor == "cuda"
-                      and all(lm.splits == abft_splits[e.shape]
-                              for lm in e.launches if lm.kind != "reduce")
-                      for e in routed),
-              f"{name} tree check routes {routed[:2]}")
-        abft_line = {"abft": {
-            "leaves": sum(c is not None for c in checksums.values()),
-            "bit_equal": True, "clean_ok": True, "poisoned_ok": False,
-            "launches_per_encode": abft_want,
-            "splits": {str(list(k)): v for k, v in abft_splits.items()},
-            "launches": {n: v for n, v in abft_launches.items() if v}}}
-    emit({"phase": "mesh-ssm", "line": name, "model": cfg.name,
+    if train is not None:
+        plain_gap = plain[1]["params"]
+        plain_repeat = (plain[0]["losses"] == plain[1]["losses"]
+                        and plain_gap == 0.0)
+        if plain_repeat:
+            check(train["losses"] == plain[0]["losses"]
+                  and train["gap"] == 0.0,
+                  f"{name} train arm differs from the plain arm: losses "
+                  f"{train['losses']} vs {plain[0]['losses']}, parameters "
+                  f"{train['gap']} apart")
+        else:
+            loss_gap = max(abs(a - b) for a, b in zip(plain[0]["losses"],
+                                                      plain[1]["losses"]))
+            check(max(abs(a - b) for a, b in zip(train["losses"],
+                                                 plain[0]["losses"]))
+                  <= loss_gap and train["gap"] <= plain_gap,
+                  f"{name} train arm beyond the plain arm's own spread: "
+                  f"{train['losses']} vs {plain[0]['losses']} and "
+                  f"{plain[1]['losses']}, {train['gap']} vs {plain_gap}")
+        check(not train["misplaced"], f"{name} train left parameters out "
+              f"of their placements: {train['misplaced'][:4]}")
+        want_step = expect(**train_want)
+        check(train_launches == {n: v * MESH_STEPS
+                                 for n, v in want_step.items()},
+              f"{name} train launches {train_launches}, predicted "
+              f"{train_want} a step")
+        p_bodies = [train_step_routes(f"{name} train step {i + 1}", log, mp,
+                                      down, s_down, per_step_down, factors)
+                    for i, log in enumerate(train["logs"])]
+        train_line = {"train": {
+            "layers": train_cfg.n_layers, "n_micro": train_cfg.microbatch,
+            "steps": MESH_STEPS, "losses": train["losses"],
+            "plain_losses": [a["losses"] for a in plain],
+            "step_ms": train["ms"],
+            "plain_step_ms": [a["ms"] for a in plain],
+            "plain_repeats_bit_for_bit": plain_repeat,
+            "plain_runs_apart": plain_gap, "mesh_vs_plain": train["gap"],
+            "launches_per_step": {n: v for n, v in want_step.items() if v},
+            "factors": factors, "p_bodies": p_bodies}}
+    emit({"phase": phase, "line": name, "model": cfg.name,
           "layers": cfg.n_layers,
           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-          "placements": {n: [repr(p) for p in sharding.placements(mesh, sp)]
-                         for n, sp in specs.items()
-                         if n.startswith(("embed", "lm_head", "layers.0.",
-                                          "groups.0.mamba.0.",
-                                          "groups.0.lora"))},
-          **served,
-          "train": {"layers": train_cfg.n_layers,
-                    "n_micro": train_cfg.microbatch,
-                    "steps": MESH_SSM_STEPS, "losses": train["losses"],
-                    "plain_losses": [a["losses"] for a in plain],
-                    "step_ms": train["ms"],
-                    "plain_step_ms": [a["ms"] for a in plain],
-                    "plain_repeats_bit_for_bit": plain_repeat,
-                    "plain_runs_apart": plain_gap,
-                    "mesh_vs_plain": train_gap,
-                    "launches_per_step": {n: v for n, v in want_step.items()
-                                          if v},
-                    "factors": factors, "p_bodies": p_bodies},
-          **abft_line,
+          "placements": placements, **served,
+          "serve_peak_mem_gb": serve_peak_gb, **train_line, **abft_line,
           "launches": {n: v for n, v in launches.items() if v},
           "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
-    del params, train, plain
+    del train, ref
     torch.cuda.empty_cache()
     return launches
 
 
-def mesh_ssm_phase(dev, gpu, mesh, counts, zero_counts, expect) -> dict:
-    """mesh-ssm: rwkv6-1.6b and zamba2-1.2b on DTensor parameters
-    (``mesh_ssm_path`` each), in the dist path's world of one; each
-    model's run its own path (``mesh_rwkv``, ``mesh_zamba``: counts
-    zeroed before, read after). The phase must finish within
-    ``MESH_SSM_MAX_S``. Returns the paths' launch counts."""
-    out = {}
-    for mp in (RWKV_PATH, ZAMBA_PATH):
+def mesh_models_phase(phase, paths, limit, dev, gpu, mesh, counts,
+                      zero_counts, expect) -> dict:
+    """A mesh phase (``phase``: mesh-ssm, mesh-moe) over ``paths``
+    (``mesh_model_path`` each), in the dist path's world of one; each
+    model's run its own path (``mesh_<tag>``: counts zeroed before, read
+    after). The phase must finish within ``limit`` seconds. Returns the
+    paths' launch counts."""
+    out, wall = {}, MESH_WALLS.setdefault(phase, {})
+    for mp in paths:
         PATH["name"] = f"mesh_{mp.tag}"
         t0 = time.perf_counter()
-        out[PATH["name"]] = mesh_ssm_path(mp, dev, gpu, mesh, counts,
-                                          zero_counts, expect)
-        MESH_SSM_WALL[mp.tag] = time.perf_counter() - t0
-    total = sum(MESH_SSM_WALL.values())
-    emit({"phase": "mesh-ssm", "line": "summary", "wall_s": MESH_SSM_WALL,
-          "total_s": total, "limit_s": MESH_SSM_MAX_S,
+        out[PATH["name"]] = mesh_model_path(phase, mp, dev, gpu, mesh,
+                                            counts, zero_counts, expect)
+        wall[mp.tag] = time.perf_counter() - t0
+    total = sum(wall.values())
+    emit({"phase": phase, "line": "summary", "wall_s": wall,
+          "total_s": total, "limit_s": limit,
           "launches": {p: {n: v for n, v in c.items() if v}
                        for p, c in out.items()}, "gpu": gpu})
-    check(total < MESH_SSM_MAX_S, f"the mesh-ssm phase took {total} s, over "
-          f"{MESH_SSM_MAX_S}")
+    check(total < limit, f"the {phase} phase took {total} s, over {limit}")
     return out
 
 
@@ -6565,8 +6626,6 @@ def main() -> int:
         PATH["name"] = f"{mp.tag}_serve"
         model_launches[PATH["name"]], params, _ = model_serve_phase(
             mp, dev, gpu, counts, zero_counts, expect, keep=True)
-        # mesh-ssm serves the same weights on DTensors: kept on the host
-        SERVE_REF[mp.tag]["params"] = params.to("cpu")
         del params
         torch.cuda.empty_cache()
         PATH["name"] = f"{mp.tag}_train"
@@ -6583,7 +6642,7 @@ def main() -> int:
     PATH["name"] = "mixtral_serve"
     model_launches["mixtral_serve"], mixtral, mixtral_cfg = (
         model_serve_phase(MIXTRAL_PATH, dev, gpu, counts, zero_counts,
-                          expect))
+                          expect, keep=True))
     moe_wall["mixtral_serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     PATH["name"] = "mixtral_long"
@@ -6600,7 +6659,7 @@ def main() -> int:
     t0 = time.perf_counter()
     PATH["name"] = "deepseek_serve"
     model_launches["deepseek_serve"], deepseek, _ = model_serve_phase(
-        DEEPSEEK_PATH, dev, gpu, counts, zero_counts, expect)
+        DEEPSEEK_PATH, dev, gpu, counts, zero_counts, expect, keep=True)
     del deepseek
     torch.cuda.empty_cache()
     moe_wall["deepseek_serve"] = time.perf_counter() - t0
@@ -6609,7 +6668,7 @@ def main() -> int:
 
     # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
     PATH["name"] = "dist"
-    dist_launches_, mesh_launches, ssm_launches = dist_phase(
+    dist_launches_, mesh_launches, mesh_model_launches = dist_phase(
         dev, gpu, counts, zero_counts, expect)
 
     add_launches(mesh_launches, mesh_launch_launches)
@@ -6642,7 +6701,7 @@ def main() -> int:
              "abft_serve": abft_serve_launches,
              "abft_train": abft_train_launches, "launch": launch_launches,
              **model_launches, "dist": dist_launches_,
-             "mesh": mesh_launches, **ssm_launches}
+             "mesh": mesh_launches, **mesh_model_launches}
     # The quantize pass is not a TPU kernel: it replaces the jnp helpers
     # quantize_blocks (:56) and quantize_tensor (:83), no pallas_call.
     replaces["quantize"] = "src/repro/kernels/quant.py:56"

@@ -349,6 +349,40 @@ def mla_fwd(p: MLA, x, *, n_heads, nope_dim, rope_dim, v_dim,
     return out, (c, k_pe[:, :, 0, :])
 
 
+def _mla_decode_ctx(q_nope, q_pe, cache_c, cache_kpe, wukv, pos: int, *,
+                    nope_dim, rope_dim, v_dim, absorb: bool):
+    """The one-token query's context (B, H, v_dim) over the latent cache
+    (plain tensors: every head, or a rank's heads with the whole cache
+    and those heads' columns of ``wukv``)."""
+    b, _, n_heads, _ = q_nope.shape
+    kv_lora = cache_c.shape[-1]
+    scale = (nope_dim + rope_dim) ** -0.5
+    s_len = cache_c.shape[1]
+    wukv = wukv.reshape(kv_lora, n_heads, nope_dim + v_dim)
+    wuk, wuv = wukv[..., :nope_dim], wukv[..., nope_dim:]
+
+    if absorb:
+        # q_c[b,h,l] = sum_d q_nope[b,h,d] * wuk[l,h,d]
+        q_c = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wuk.float())
+        cc = cache_c.float()
+        s_nope = torch.einsum("bhl,bsl->bhs", q_c, cc)
+        s_pe = torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(),
+                            cache_kpe.float())
+        scores = (s_nope + s_pe) * scale
+        mask = torch.arange(s_len, device=q_nope.device)[None, None, :] <= pos
+        scores = torch.where(mask, scores, _NEG)
+        prob = torch.softmax(scores, dim=-1)
+        ctx_c = torch.einsum("bhs,bsl->bhl", prob, cc)
+        return torch.einsum("bhl,lhd->bhd", ctx_c, wuv.float())
+    kv = torch.einsum("bsl,lhd->bshd", cache_c.float(), wukv.float())
+    k_nope, v = kv[..., :nope_dim], kv[..., nope_dim:]
+    kpe = cache_kpe[:, :, None, :].float()
+    k = torch.cat([k_nope, kpe.expand(b, s_len, n_heads, rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    return decode_attention(q, k.to(q.dtype), v.to(q.dtype), pos + 1,
+                            softmax_scale=scale)[:, 0]
+
+
 def mla_decode(p: MLA, x, cache_c, cache_kpe, pos: int, *, n_heads,
                nope_dim, rope_dim, v_dim, rope_theta=10000.0,
                absorb: bool = True):
@@ -360,9 +394,14 @@ def mla_decode(p: MLA, x, cache_c, cache_kpe, pos: int, *, n_heads,
     step instead of re-expanding the whole cache to per-head k/v
     (O(S * H * (nope + v))). The folds are f32 einsums outside ``tsmm``,
     as in the reference (a 3-D per-head weight has no 2-D form).
+
+    On DTensors each rank attends over its heads (``heads.layout``), with
+    the latent cache gathered whole along its sequence (which the
+    sequence-parallel layout splits over "model") and its heads' columns
+    of ``wukv``: torch 2.11 refuses the non-absorbed arm's ``einsum``
+    over a sequence-sharded cache.
     """
     b = x.shape[0]
-    kv_lora = cache_c.shape[-1]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_pe = _mla_q(p, x, positions, n_heads=n_heads,
                           nope_dim=nope_dim, rope_dim=rope_dim,
@@ -370,32 +409,17 @@ def mla_decode(p: MLA, x, cache_c, cache_kpe, pos: int, *, n_heads,
     c_new, kpe_new = _mla_latent(p, x, positions, rope_theta=rope_theta)
     write_cache(cache_c, c_new, pos)
     write_cache(cache_kpe, kpe_new[:, :, 0, :], pos)
-    scale = (nope_dim + rope_dim) ** -0.5
-    s_len = cache_c.shape[1]
-    wukv = p.wukv.reshape(kv_lora, n_heads, nope_dim + v_dim)
-    wuk, wuv = wukv[..., :nope_dim], wukv[..., nope_dim:]
-
-    if absorb:
-        # q_c[b,h,l] = sum_d q_nope[b,h,d] * wuk[l,h,d]
-        q_c = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wuk.float())
-        cc = cache_c.float()
-        s_nope = torch.einsum("bhl,bsl->bhs", q_c, cc)
-        s_pe = torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(),
-                            cache_kpe.float())
-        scores = (s_nope + s_pe) * scale
-        mask = torch.arange(s_len, device=x.device)[None, None, :] <= pos
-        scores = torch.where(mask, scores, _NEG)
-        prob = torch.softmax(scores, dim=-1)
-        ctx_c = torch.einsum("bhs,bsl->bhl", prob, cc)
-        ctx = torch.einsum("bhl,lhd->bhd", ctx_c, wuv.float())
+    kw = dict(nope_dim=nope_dim, rope_dim=rope_dim, v_dim=v_dim,
+              absorb=absorb)
+    if is_dtensor(q_nope):
+        hd = heads.layout(q_nope, n_heads)
+        ctx = heads.wrap(hd, _mla_decode_ctx(
+            heads.local(hd, q_nope, 0, 2), heads.local(hd, q_pe, 0, 2),
+            heads.local(hd, cache_c, 0, None),
+            heads.local(hd, cache_kpe, 0, None),
+            heads.local(hd, p.wukv, None, 1), pos, **kw), 0, 1)
     else:
-        kv = torch.einsum("bsl,lhd->bshd", cache_c.float(), wukv.float())
-        k_nope, v = kv[..., :nope_dim], kv[..., nope_dim:]
-        kpe = cache_kpe[:, :, None, :].float()
-        k = torch.cat([k_nope, kpe.expand(b, s_len, n_heads, rope_dim)],
-                      dim=-1)
-        q = torch.cat([q_nope, q_pe], dim=-1)
-        ctx = decode_attention(q, k.to(x.dtype), v.to(x.dtype), pos + 1,
-                               softmax_scale=scale)[:, 0]
+        ctx = _mla_decode_ctx(q_nope, q_pe, cache_c, cache_kpe, p.wukv, pos,
+                              **kw)
     out = layers.dense(p.wo, ctx.reshape(b, 1, n_heads * v_dim).to(x.dtype))
     return out, cache_c, cache_kpe

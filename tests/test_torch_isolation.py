@@ -3,7 +3,9 @@
 Every module of ``src/repro_torch``, ``chip_smoke.py`` and the port's
 scripts (``scripts/torch_*.py``) imports neither ``jax`` nor ``repro``
 (an AST scan, plus a subprocess that imports each module of the package
-with both blocked). Entry points called without ``device=`` on a
+with both blocked); the test modules that the two-rank worlds' ranks
+import (the harness, the mesh runner and the files that name its arch)
+import neither at their top level. Entry points called without ``device=`` on a
 machine with no card raise instead of running on the CPU, and
 ``chip_smoke.py`` exits non-zero with no result line there, and also when
 it stands alone in a directory without the rest of the repository.
@@ -41,6 +43,24 @@ def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path} imports {bad}"
+
+
+RANK_MODULES = [ROOT / "tests" / f for f in (
+    "torch_dist_harness.py", "torch_mesh_models.py",
+    "test_torch_mesh_rwkv.py", "test_torch_mesh_zamba.py",
+    "test_torch_mesh_mixtral.py", "test_torch_mesh_deepseek.py")]
+
+
+@pytest.mark.parametrize("path", RANK_MODULES, ids=lambda p: p.name)
+def test_rank_modules_import_no_jax_at_top_level(path):
+    top = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            top += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            top.append(node.module)
+    bad = [m for m in top if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert top and not bad, f"{path} imports {bad} at its top level"
 
 
 def test_modules_import_with_jax_and_repro_blocked():
