@@ -88,7 +88,9 @@ printing no result, when no CUDA card is present or any phase fails.
    deepseek's router [8192,7168]·[7168,256] and MLA's rope key
    [8192,7168]·[7168,64] on the wgmma body, and tsm2r_split at the
    routers of mixtral's prefill, train microbatch and long request at
-   the chooser's S (the sequential kernel beside it); each with its
+   the chooser's S (the sequential kernel beside it); and tsmt at
+   hubert-train's tree check (``HUBERT_CHECK``, ``at_hubert_shapes``):
+   a w_down leaf's checksum [5120,1280]^T [5120,2] f32; each with its
    device time beside ``torch.matmul``'s, ungated. Every tsm2r line
    carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
    tensor-core body) for bf16 at [8192,4096]·[4096,256],
@@ -454,6 +456,27 @@ printing no result, when no CUDA card is present or any phase fails.
    the 3 dense MLA layers. A
    ``moe`` line reports the four phases' wall times. mixtral-serve and
    deepseek-serve keep their runs in ``SERVE_REF`` for mesh-moe.
+10i. The hubert paths (each a path of its own), after the MoE paths:
+   hubert-serve, hubert-xlarge at published width and depth (48 layers,
+   d 1280, 16 heads of 80, d_ff 5120, 504 classes, frame_dim 512), bf16,
+   seed 0 with every GELU MLP bias and LayerNorm scale and bias drawn
+   from the seed (``hubert_perturb_``), 4 x 2048 seeded bf16 frames:
+   ``model.forward`` (the encode step) timed as a median of 3 after a
+   warm-up and profiled once (device ms by kernel, busy share), and a
+   prefill; its 289 projections a forward (frame_proj + 48 x 6) all
+   dense, no launch; the prefill's logits the forward's last frame's;
+   drawing the last frame again moves the first frame's logits (the
+   encoder is bidirectional); the logits within ``HUBERT_F32_TOL`` of
+   an f32 copy's. hubert-train, ``launch.train.main`` as the launch
+   phase calls it at the same size (``HUBERT_TRAIN_ARGV``: 8 x 2048 f32
+   frames in 4 microbatches, PowerSGD rank 4, 2 steps, a save after
+   each behind the offline ABFT tree check): every loss finite, no
+   fault event or retry, PowerSGD's four leaves' factors dense, and the
+   run's launches the tree checks' alone: tsmt at every ``ffn.w_down``
+   leaf ([5120,1280]^T [5120,2] f32, S = 1), 48 an encode, 192 in all,
+   as ``tree_check_prediction`` predicts; step ms, the saves' seconds,
+   the state's size and the peak memory. Each phase must finish within
+   its limit (``HUBERT_SERVE_MAX_S``, ``HUBERT_TRAIN_MAX_S``).
 10f. dist (a path of its own; counts zeroed before, read after): the
    multi-process executors in a world of one under NCCL
    (``init_method="file://"`` on a temporary file; one card, and NCCL
@@ -514,8 +537,16 @@ printing no result, when no CUDA card is present or any phase fails.
    gives; and rwkv6's ABFT tree check on its DTensor parameters,
    checksums bit-equal to the plain leaves', passing, and failing after
    ``poison_tree``. Prefill and decode ms beside the plain path's; the
-   phases must take under ``MESH_SSM_MAX_S`` and ``MESH_MOE_MAX_S``. The
-   process group is destroyed after.
+   phases must take under ``MESH_SSM_MAX_S`` and ``MESH_MOE_MAX_S``.
+   Then mesh-hubert (path ``mesh_hubert``): hubert-xlarge at full width
+   and depth on DTensor parameters on the (1, 1) mesh, the weights
+   hubert-serve served, through ``mesh_encode_check`` (no decode): the
+   forward's and the prefill's logits bit-equal to hubert-serve's, every
+   projection dense, the K/V caches in their specs' placements; the ABFT
+   tree check on its DTensor parameters as rwkv6's (48 tsmt an encode);
+   trained at 2 layers (``MESH_TRAIN``) for 2 steps on DTensors,
+   bit-equal to the plain arm, no launch; under ``MESH_HUBERT_MAX_S``.
+   The process group is destroyed after.
 10g. mesh (the same path, run right after the launch phase;
    ``mesh_launch``): the launcher's ``--distributed`` in a world of one, in this process under torchrun's
    environment (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free
@@ -532,11 +563,12 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the twenty-four paths (dispatch, serve, train, serve-int8,
+   on each of the twenty-seven paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
    rwkv-serve, rwkv-train, zamba-serve, zamba-train, mixtral-serve,
-   mixtral-long, mixtral-train, deepseek-serve, dist, mesh, mesh-rwkv,
-   mesh-zamba, mesh-mixtral, mesh-deepseek) and their
+   mixtral-long, mixtral-train, deepseek-serve, hubert-serve,
+   hubert-train, dist, mesh, mesh-rwkv, mesh-zamba, mesh-mixtral,
+   mesh-deepseek, mesh-hubert) and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -545,8 +577,9 @@ printing no result, when no CUDA card is present or any phase fails.
    tsm2r and tsm2r_q8 add their numbers at the training shapes, tsm2r
    and tsmt at rwkv6's (``at_rwkv_shapes``), tsm2r, tsm2r_split and
    tsmt at zamba2's (``at_zamba_shapes``), tsm2r and tsm2r_split at the
-   MoE paths' (``at_moe_shapes``: ``MOE_TSM2R``, ``MOE_ROUTERS``), tsm2l and
-   tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
+   MoE paths' (``at_moe_shapes``: ``MOE_TSM2R``, ``MOE_ROUTERS``), tsmt
+   at hubert-train's tree check (``at_hubert_shapes``: ``HUBERT_CHECK``),
+   tsm2l and tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
    twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
 13. Last line: ``{"ok": true, "device": {...}}``.
@@ -4181,6 +4214,7 @@ class ModelPath(typing.NamedTuple):
     micro_downs: object = None   # cfg -> tsm2r a train microbatch
     leaves: tuple = ()       # the leaves PowerSGD compresses
     train_launches: dict = None  # a step's launches
+    encoder: bool = False    # served by forward and prefill of frames
 
 
 RWKV_PATH = ModelPath(
@@ -4363,15 +4397,19 @@ def train_prediction(mp, cfg, shapes, ps, tokens, dev) -> tuple:
     from repro_torch.kernels import ops
 
     n_micro = cfg.microbatch
-    down, = set(mp.prefill_shapes(cfg, tokens // n_micro))
+    downs = set(mp.prefill_shapes(cfg, tokens // n_micro))
     pol = tsmm.GemmPolicy()
     per_step_down = mp.micro_downs(cfg) * n_micro
-    s_down = ops.resolve_params("tsm2r", *down, getattr(torch, cfg.dtype),
-                                pol, device=dev)["splits"]
-    want = {"tsm2r" if s_down == 1 else "tsm2r_split": per_step_down}
-    if s_down > 1 and perf_model.reduce_kernel_runs(s_down, down[0],
-                                                    down[2]):
-        want["sum_partials"] = per_step_down
+    want, down, s_down = {}, None, 1     # hubert: no down projection
+    if downs:
+        down, = downs
+        s_down = ops.resolve_params("tsm2r", *down,
+                                    getattr(torch, cfg.dtype), pol,
+                                    device=dev)["splits"]
+        want = {"tsm2r" if s_down == 1 else "tsm2r_split": per_step_down}
+        if s_down > 1 and perf_model.reduce_kernel_runs(s_down, down[0],
+                                                        down[2]):
+            want["sum_partials"] = per_step_down
     factors = []
     for path, (d1, d2) in shapes.items():
         for entry, kind, classify in (("mm", "tsm2r", tsmm.classify_gemm),
@@ -4409,10 +4447,12 @@ def train_step_routes(what, log, mp, down, s_down, per_step_down,
         and all(lm.splits == s_down for e in downs
                 for lm in e.launches if lm.kind != "reduce"),
         f"{what} down-projection routes: {downs[:2]}")
+    p_routed = any(f["entry"] == "mm" for f in factors)
     check(sorted((entry, shape, lm.splits) for entry, shape, lm
                  in factor_ev) == sorted(
                      (f["entry"], f["shape"], f["splits"])
-                     for f in factors) and p_bodies == ["skinny"],
+                     for f in factors)
+          and p_bodies == (["skinny"] if p_routed else []),
           f"{what} P/Q routes: {factor_ev[:4]} {p_bodies}")
     return p_bodies
 
@@ -4951,6 +4991,355 @@ def mixtral_long_phase(params, cfg, dev, gpu, counts, zero_counts,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# hubert-xlarge (the audio family) served and trained at its published
+# width and depth
+# ---------------------------------------------------------------------------
+
+HUBERT_ARCH = "hubert-xlarge"
+# The offline ABFT tree check's product at a w_down leaf, [5120,1280]^T .
+# [5120,2] f32: the one-launch tsmt at S = 1 (the tree check's kernel).
+HUBERT_CHECK = (5120, 1280, 2)
+# PowerSGD's leaves, in the JAX layout: every factor of them routes dense.
+HUBERT_LEAVES = ("embed.table", "frame_proj.w", "lm_head.table",
+                 "segments.0.ffn.b_up")
+# The bf16 encode's logits against an f32 copy of the same weights
+# (normalised error), and the least normalised change of the first
+# frame's logits when the last frame is drawn again.
+HUBERT_F32_TOL = LOGIT_TOL
+HUBERT_REACH = 1e-3
+# hubert-train's launcher arguments: global batch 8 x 2048 frames in the
+# config's 4 microbatches, PowerSGD rank 4, a save after the offline ABFT
+# check at each step. Two steps, not three: the script's command time
+# passed 950 s with three (PERF.md section 6).
+HUBERT_STEPS = 2
+HUBERT_TRAIN_ARGV = ["--arch", HUBERT_ARCH, "--global-batch",
+                     str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                     "--powersgd-rank", "4", "--steps", str(HUBERT_STEPS),
+                     "--ckpt-every", "1", "--abft-every", "1",
+                     "--log-every", "1"]
+# About 1.5x each phase's first run as it stands on an NVIDIA H100 80GB
+# HBM3 at 700 W: 13.1 s, 78.3 s and 20.5 s (PERF.md section 6, run 4).
+HUBERT_SERVE_MAX_S = 20.0
+HUBERT_TRAIN_MAX_S = 120.0
+MESH_HUBERT_MAX_S = 31.0
+
+
+@torch.no_grad()
+def hubert_perturb_(params, cfg, gen) -> None:
+    """Give the hubert leaves that start constant values drawn from
+    ``gen``, in place: every GELU MLP's ``b_up`` and ``b_down`` and every
+    LayerNorm's scale and bias (the final norm's too)."""
+    del cfg
+    norms = [n for lp in params.layers for n in (lp.norm1, lp.norm2)]
+    for norm in [*norms, params.final_norm]:
+        for t, base in ((norm.scale, 1.0), (norm.bias, 0.0)):
+            t.copy_(base + 0.1 * torch.randn(t.shape, generator=gen,
+                                             device=t.device))
+    for lp in params.layers:
+        for t in (lp.ffn.b_up, lp.ffn.b_down):
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen,
+                                      device=t.device))
+
+
+def hubert_frames(cfg, gen, dev):
+    """BATCH x PROMPT seeded bf16 frames (about 41 s of audio each at
+    HuBERT's 50 frames a second)."""
+    return torch.randn((BATCH, PROMPT, cfg.frame_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def hubert_projections(cfg) -> list:
+    """The (m, k, n) of every projection of a BATCH x PROMPT forward:
+    frame_proj, then wq, wk, wv, wo, w_up and w_down of each layer."""
+    rows, d = BATCH * PROMPT, cfg.d_model
+    qkv = cfg.n_heads * cfg.resolved_head_dim
+    return [(rows, cfg.frame_dim, d)] + cfg.n_layers * [
+        (rows, d, qkv), (rows, d, qkv), (rows, d, qkv), (rows, qkv, d),
+        (rows, d, cfg.d_ff), (rows, cfg.d_ff, d)]
+
+
+def hubert_serve_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
+    """hubert-serve: hubert-xlarge at published width and depth, bf16,
+    the weights ``serve_weights`` builds (seed 0, ``hubert_perturb_``),
+    BATCH x PROMPT seeded bf16 frames. The path, from zeroed counts:
+    ``model.forward`` (the encode step: every frame's logits) timed as a
+    median of 3 after a warm-up, and a prefill that fills the K/V caches
+    and returns the last frame's logits. Checks: every one of the
+    forward's 289 projections routes dense (no kernel launches on the
+    path); the prefill's logits are the forward's last frame's; drawing
+    the last frame again changes the first frame's logits (a causal mask
+    would leave them bit for bit); the bf16 logits within
+    ``HUBERT_F32_TOL`` of an f32 copy of the same weights. Then a
+    profiled forward. Keeps the frames and logits in ``SERVE_REF`` for
+    mesh-hubert. Returns the path's launch counts."""
+    from repro_torch.models import model
+
+    name = f"{mp.tag}-serve"
+    t_phase = time.perf_counter()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg, gen = serve_weights(mp, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    frames = hubert_frames(cfg, gen, dev)
+    batch = {"frames": frames}
+
+    def encode(b=batch):
+        with torch.no_grad():
+            return model.forward(params, cfg, b)[0]
+
+    with recorded() as log:
+        logits = encode()
+        forward_ms = time_ms(encode)
+        cache = model.init_cache(cfg, BATCH, PROMPT, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = model.prefill(params, cfg, batch, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    # The main path ends here; what follows only checks it.
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    shapes = hubert_projections(cfg)
+    first = log[:len(shapes)]
+    check(len(shapes) == 1 + 6 * cfg.n_layers
+          and [e.shape for e in first] == shapes
+          and all(e.kind == "dense" and e.executor == "torch-dense"
+                  for e in log),
+          f"{name}: {len(first)} projections a forward, routes "
+          f"{sorted({(e.kind, e.executor) for e in log})}")
+    check(launches == expect(), f"{name} path launches {launches}")
+    check(logits.shape == (BATCH, PROMPT, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{name} logits {tuple(logits.shape)}")
+    prefill_err = normalised_err(last, logits[:, -1])
+    prefill_bits = same_bits(last, logits[:, -1].contiguous())
+    check(prefill_err <= 1e-5, f"{name}: prefill's logits {prefill_err} "
+          f"from the forward's last frame")
+    check(len(cache) == cfg.n_layers and all(
+        bool(torch.isfinite(e["k"]).all()) and bool(e["k"].abs().sum() > 0)
+        for e in cache), f"{name} caches")
+    del cache
+    moved = frames.clone()
+    moved[:, -1] = hubert_frames(cfg, gen, dev)[:, -1]
+    reach_err = normalised_err(encode({"frames": moved})[:, 0],
+                               logits[:, 0])
+    check(reach_err > HUBERT_REACH, f"{name}: drawing the last frame again "
+          f"moves the first frame's logits by {reach_err}: the encoder is "
+          "not bidirectional")
+    p32, cfg32 = f32_copy(params, cfg, dev)
+    with torch.no_grad():
+        logits32, _ = model.forward(p32, cfg32, {"frames": frames.float()})
+    f32_err = normalised_err(logits, logits32)
+    del p32, logits32
+    torch.cuda.empty_cache()
+    check(f32_err <= HUBERT_F32_TOL, f"{name}: bf16 logits {f32_err} from "
+          f"the f32 copy's (tolerance {HUBERT_F32_TOL})")
+    prof = device_profile(encode)
+    SERVE_REF[mp.tag] = {"frames": frames.cpu(), "logits": logits.cpu(),
+                         "last": last.cpu(), "forward_ms": forward_ms,
+                         "prefill_ms": prefill_ms}
+    wall = time.perf_counter() - t_phase
+    emit({"phase": name, "model": cfg.name, "params": n_params,
+          "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": BATCH,
+          "frames": PROMPT, "init_s": init_s, "forward_ms": forward_ms,
+          "frames_per_s": BATCH * PROMPT / forward_ms * 1e3,
+          "prefill_ms": prefill_ms, "projections_per_forward": len(shapes),
+          "routes": sorted({(e.kind, e.executor) for e in log}),
+          "prefill_vs_forward_err": prefill_err,
+          "prefill_bit_equal": prefill_bits,
+          "last_frame_moves_first_err": reach_err,
+          "f32_copy_err": f32_err, "f32_tol": HUBERT_F32_TOL,
+          "peak_mem_gb": peak_gb, "launches": launches, "wall_s": wall,
+          "limit_s": HUBERT_SERVE_MAX_S, "gpu": gpu})
+    emit({"phase": "profile", "window": f"{name} forward", "model": cfg.name,
+          **prof, "unprofiled_ms": forward_ms,
+          "busy_share": prof["device_busy_ms"] / forward_ms, "gpu": gpu})
+    check(wall < HUBERT_SERVE_MAX_S, f"{name} took {wall} s, over "
+          f"{HUBERT_SERVE_MAX_S}")
+    del params, logits, last, frames, moved
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hubert_train_phase(dev, gpu, counts, zero_counts, expect) -> dict:
+    """hubert-train: ``repro_torch.launch.train.main`` as the launch phase
+    calls it (on the card, counts zeroed before and read after, its calls
+    timed by ``launch_timers``) with ``HUBERT_TRAIN_ARGV`` at full width
+    and depth: the pipeline's f32 frames over bf16 weights, as the
+    reference's train step runs, PowerSGD on ``HUBERT_LEAVES``, remat, a
+    checkpoint (to a temporary directory, removed after) after each of
+    the ``HUBERT_STEPS`` steps, each after the offline ABFT tree check
+    (``encode_tree``, then ``verify_tree``'s second encode). Checks:
+    every step's loss finite, no fault events or retries; every PowerSGD
+    factor routes dense; the run's launches are the tree checks' alone,
+    two encodes a save of what
+    ``tree_check_prediction`` predicts (tsmt at every ``ffn.w_down``
+    leaf, ``HUBERT_CHECK``, at the chooser's S), each routed event at
+    its shape and S. Returns the path's launch counts."""
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model
+
+    name = "hubert-train"
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(HUBERT_ARCH)
+    want, splits, shapes = tree_check_prediction(
+        model.LM(cfg, device="meta"), dev)
+    check(want == {"tsmt": cfg.n_layers}
+          and set(shapes) == {HUBERT_CHECK} and splits[HUBERT_CHECK] == 1,
+          f"{name}: the tree check's prediction {want} {splits}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_hubert_")
+    argv = HUBERT_TRAIN_ARGV + ["--ckpt-dir", ckpt_dir]
+    out = io.StringIO()
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with launch_timers() as timed, recorded() as log, \
+                contextlib.redirect_stdout(out):
+            res = launcher.main(argv)
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # The path ends here; what follows only checks it.
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    printed = out.getvalue()
+    losses = [float(v) for v in re.findall(r"\[train\] step \d+ loss (\S+)",
+                                           printed)]
+    steps = [r["s"] * 1e3 for r in timed if r["what"] == "step"]
+    encodes = 2 * HUBERT_STEPS
+    check(len(losses) == len(steps) == HUBERT_STEPS
+          and all(map(math.isfinite, losses))
+          and math.isfinite(res["final_loss"]) and res["fault_events"] == 0
+          and res["fault_retries"] == 0,
+          f"{name}: losses {losses}, result {res}:\n{printed}")
+    factors = [e for e in log if e.shape[2] == 4]
+    check(len(factors) == 2 * len(HUBERT_LEAVES) * len(steps) and all(
+        e.kind == "dense" for e in factors) and {e.shape for e in factors}
+        == {(512, 1280, 4), (504, 1280, 4), (48, 5120, 4)},
+        f"{name} PowerSGD factor routes "
+        f"{sorted({(e.entry, e.kind, e.shape) for e in factors})}")
+    routed = [e for e in log if e.kind != "dense"]
+    check(launches == expect(**{k: encodes * v for k, v in want.items()}),
+          f"{name} launches {launches}, predicted {want} an encode")
+    check(len(routed) == encodes * len(shapes) and all(
+        e.kind == "tsmt" and e.executor == "cuda" and e.shape == HUBERT_CHECK
+        and all(lm.splits == splits[e.shape] for lm in e.launches)
+        for e in routed), f"{name} tree check routes {routed[:2]}")
+    checks = [r for r in timed if r["what"].startswith("abft")]
+    check(len(checks) == encodes and all(
+        r["launches"]["tsmt"] == len(shapes) for r in checks),
+        f"{name} offline checks {checks}")
+
+    def calls(*whats):
+        return [{k: v for k, v in c.items() if k != "launches"}
+                for c in timed if c["what"] in whats]
+
+    state_gb = [r["gb"] for r in timed if r["what"] == "snapshot"]
+    emit({"phase": name, "model": cfg.name, "layers": cfg.n_layers,
+          "argv": HUBERT_TRAIN_ARGV, "result": res, "losses": losses,
+          "step_ms": steps, "median_step_ms_after_first":
+              statistics.median(steps[1:]),
+          "frames_per_s_after_first": TRAIN_BATCH * TRAIN_SEQ
+          / statistics.median(steps[1:]) * 1e3,
+          "state_gb": state_gb[0] if state_gb else None,
+          "snapshot": calls("snapshot"),
+          "save": calls("save enqueue", "checkpoint write", "save durable"),
+          "offline_check": [{"what": c["what"], "ms": c["s"] * 1e3,
+                             "launches": c["launches"]} for c in checks],
+          "tree_check_per_encode": want,
+          "tree_check_splits": {str(list(k)): v for k, v in splits.items()},
+          "powersgd_factors": sorted({(e.entry, e.kind, e.shape)
+                                      for e in factors}),
+          "peak_mem_gb": peak_gb, "launches": {n: v for n, v in
+                                               launches.items() if v},
+          "wall_s": wall, "limit_s": HUBERT_TRAIN_MAX_S, "gpu": gpu})
+    check(wall < HUBERT_TRAIN_MAX_S, f"{name} took {wall} s, over "
+          f"{HUBERT_TRAIN_MAX_S}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+HUBERT_PATH = ModelPath(
+    tag="hubert", arch=HUBERT_ARCH, perturb=hubert_perturb_,
+    # no projection of the encode routes to a kernel, nor of a train step
+    prefill_shapes=lambda cfg, rows: [], decode_gemms=lambda cfg: 0,
+    reach=None, reach_what="", decode_check=None, n_micro=4,
+    micro_downs=lambda cfg: 0, leaves=HUBERT_LEAVES, train_launches={},
+    encoder=True)
+
+
+def mesh_encode_check(name, cfg, params, ref, mesh, dev, counts,
+                      zero_counts, expect) -> tuple:
+    """An encoder's serve on DTensor parameters (the decode-free arm of
+    ``mesh_model_path``), held against its plain serve run ``ref``
+    (``hubert_serve_phase``'s ``SERVE_REF`` entry). ``params`` are placed
+    in place by ``sharding.make_param_specs`` on ``mesh``; then, from
+    zeroed counts, ``model.forward`` of the plain run's frames (placed by
+    ``batch_specs``) and a ``make_serve_fns(sharded_projections=True)``
+    prefill into caches from ``init_cache(mesh=)``, each timed on the
+    host clock. Checks: the forward's logits and the prefill's bit-equal
+    to the plain run's, every projection dense (no launch), every cache
+    entry where ``cache_specs`` puts it, the parameters still in their
+    placements. Returns (the launches, the specs, the line's fields)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    specs = sharding.make_param_specs(cfg, params, mesh)
+    sharding.named(mesh, specs, params)
+    frames = ref["frames"].to(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    with recorded() as log:
+        batch = sharding.named(mesh, sharding.batch_specs(
+            cfg, mesh, {"frames": frames}), {"frames": frames})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = model.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        prefill_step, _ = engine.make_serve_fns(cfg,
+                                                sharded_projections=True)
+        cache = model.init_cache(cfg, BATCH, PROMPT, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_step(params, batch, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    misplaced = cache_misplaced(cfg, mesh, cache)
+    del cache
+    check(launches == expect() and log and all(
+        e.kind == "dense" for e in log), f"{name} serve launches "
+        f"{launches}, routes {sorted({(e.kind, e.executor) for e in log})}")
+    check(same_bits(logits.full_tensor(), ref["logits"].to(dev)),
+          f"{name} forward logits differ from the plain serve phase's")
+    check(same_bits(last.full_tensor(), ref["last"].to(dev)),
+          f"{name} prefill logits differ from the plain serve phase's")
+    check(not misplaced, f"{name} caches out of their specs' placements: "
+          f"{misplaced}")
+    check(not placed_as(mesh, dict(params.named_parameters()), specs),
+          f"{name} parameters left their placements")
+    return launches, specs, {
+        "forward_ms": forward_ms, "plain_forward_ms": ref["forward_ms"],
+        "prefill_ms": prefill_ms, "plain_prefill_ms": ref["prefill_ms"],
+        "projections": len(log) // 2, "caches_in_spec": True,
+        "bit_equal": {"forward_logits": True, "prefill_logits": True}}
+
+
 
 # ---------------------------------------------------------------------------
 # The dist phase: the shard_map executors, tree TSQR and sharded PowerSGD
@@ -5046,9 +5435,9 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
     None where no profiler session sees device work; the line reports
     whether one did before and after NCCL started). Then, in the same
     world, the mesh path's serve and pipeline runs (``mesh_serve``).
-    Then the mesh-ssm and mesh-moe phases (``mesh_models_phase``).
-    Returns the dist path's launch counts, the mesh path's and the
-    mesh-ssm and mesh-moe paths'."""
+    Then the mesh-ssm, mesh-moe and mesh-hubert phases
+    (``mesh_models_phase``). Returns the dist path's launch counts, the
+    mesh path's and the mesh-ssm, mesh-moe and mesh-hubert paths'."""
     import shutil
     import tempfile
 
@@ -5079,6 +5468,9 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
         model_launches.update(mesh_models_phase(
             "mesh-moe", (MIXTRAL_PATH, DEEPSEEK_PATH), MESH_MOE_MAX_S, dev,
             gpu, make_host_mesh(), counts, zero_counts, expect))
+        model_launches.update(mesh_models_phase(
+            "mesh-hubert", (HUBERT_PATH,), MESH_HUBERT_MAX_S, dev, gpu,
+            make_host_mesh(), counts, zero_counts, expect))
         return launches, mesh_launches, model_launches
     finally:
         dist.destroy_process_group()
@@ -5612,7 +6004,7 @@ def mesh_launch(gpu, counts, zero_counts) -> dict:
 # the cut is a train phase's (mixtral's). deepseek has none (one MoE
 # layer's AdamW state is ~140 GB).
 MESH_TRAIN = {"rwkv": (4, None), "zamba": (6, None),
-              "mixtral": (2, MIXTRAL_TRAIN_LAUNCHES)}
+              "mixtral": (2, MIXTRAL_TRAIN_LAUNCHES), "hubert": (2, None)}
 MESH_STEPS = 2
 MESH_WALLS: dict = {}
 # About 1.5x the phase's first run in the whole script with its serve
@@ -5661,15 +6053,16 @@ def mesh_train_arms(mp, dev, mesh):
     cfg = dataclasses.replace(registry.get_config(mp.arch),
                               n_layers=MESH_TRAIN[mp.tag][0])
     n_micro = cfg.microbatch
-    dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
-                               global_batch=TRAIN_BATCH,
-                               vocab_size=cfg.vocab_size)
+    dcfg = pipeline.DataConfig(
+        seed=0, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        vocab_size=cfg.vocab_size,
+        mode="frames" if cfg.input_mode == "frames" else "tokens",
+        frame_dim=cfg.frame_dim)
     opt = adamw.AdamWConfig(
         lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
         weight_decay=0.1)
     ps = powersgd.PowerSGDConfig(rank=4)
-    batches = [{k: torch.from_numpy(v).to(dev, torch.long)
-                for k, v in pipeline.batch_for_step(dcfg, i).items()}
+    batches = [launcher.to_tensors(pipeline.batch_for_step(dcfg, i), dev)
                for i in range(MESH_STEPS)]
 
     def fresh_state():
@@ -5772,8 +6165,8 @@ def tree_check_prediction(params, dev) -> tuple:
 
 def mesh_tree_check(name, params, plain_checksums, want, splits, shapes,
                     counts, expect) -> dict:
-    """rwkv6's ABFT tree check on its DTensor parameters (counted in the
-    path's window): one ``encode_tree``, ``verify_tree`` clean and after
+    """rwkv6's or hubert's ABFT tree check on its DTensor parameters
+    (counted in the path's window): one ``encode_tree``, ``verify_tree`` clean and after
     ``poison_tree``. The checksums must be bit-equal to the plain
     leaves' (``plain_checksums``), ``verify_tree`` must pass, then fail,
     and each of the three encodes must launch what
@@ -5816,17 +6209,19 @@ def mesh_tree_check(name, params, plain_checksums, want, splits, shapes,
 def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
                     expect) -> dict:
     """One model of a mesh phase (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
-    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``), in the world of one. First, not
-    counted: the plain train arms (``mesh_train_arms``, where
-    ``MESH_TRAIN`` names the model). Then the path, from zeroed
+    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``, ``HUBERT_PATH``), in the world of
+    one. First, not counted: the plain train arms (``mesh_train_arms``,
+    where ``MESH_TRAIN`` names the model). Then the path, from zeroed
     counts to the read after its last step. Serve: the weights
-    ``model_serve_phase`` served, built again on the card
-    (``serve_weights``), on DTensors on the ``(1, 1)`` ``("data",
-    "model")`` mesh, held against that serve run's ``SERVE_REF`` entry by
-    ``mesh_serve_check`` (each prefill launching ``mp.prefill_shapes`` at
-    the chooser's S on ``mp.body``); rwkv6 also takes the ABFT tree check
-    on its DTensor parameters (``mesh_tree_check``); then the serve
-    weights are freed. Train: the mesh arm, each step's losses and every
+    ``model_serve_phase`` (hubert: ``hubert_serve_phase``) served, built
+    again on the card (``serve_weights``), on DTensors on the ``(1, 1)``
+    ``("data", "model")`` mesh, held against that serve run's
+    ``SERVE_REF`` entry by ``mesh_serve_check`` (each prefill launching
+    ``mp.prefill_shapes`` at the chooser's S on ``mp.body``), or for an
+    encoder by ``mesh_encode_check`` (forward and prefill, no decode);
+    rwkv6 and hubert also take the ABFT tree check on their DTensor
+    parameters (``mesh_tree_check``); then the serve weights are
+    freed. Train: the mesh arm, each step's losses and every
     parameter bit-equal to the plain arm's (or, where the plain arm does
     not repeat itself bit for bit, within its two runs' distance),
     launching what ``train_prediction`` predicts (for mixtral
@@ -5849,20 +6244,25 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
               f"launches {train_want}, not {fixed}")
     torch.cuda.reset_peak_memory_stats()
     params, cfg, _ = serve_weights(mp, dev)
-    tree_check = mp.tag == "rwkv"
+    tree_check = mp.tag in ("rwkv", "hubert")
     if tree_check:
         plain_checksums = abft.encode_tree(params)
         abft_want, abft_splits, abft_shapes = tree_check_prediction(params,
                                                                     dev)
 
     # -- the path ----------------------------------------------------------
-    serve_launches, specs, served = mesh_serve_check(
-        name, cfg, params, ref, mesh, dev, counts, zero_counts, expect,
-        mp.prefill_shapes(cfg, BATCH * PROMPT), mp.body,
-        mp.decode_gemms(cfg))
+    if mp.encoder:
+        serve_launches, specs, served = mesh_encode_check(
+            name, cfg, params, ref, mesh, dev, counts, zero_counts, expect)
+    else:
+        serve_launches, specs, served = mesh_serve_check(
+            name, cfg, params, ref, mesh, dev, counts, zero_counts, expect,
+            mp.prefill_shapes(cfg, BATCH * PROMPT), mp.body,
+            mp.decode_gemms(cfg))
     placements = {n: [repr(p) for p in sharding.placements(mesh, sp)]
                   for n, sp in specs.items()
-                  if n.startswith(("embed", "lm_head", "layers.0.", "tail.0.",
+                  if n.startswith(("embed", "lm_head", "frame_proj",
+                                   "layers.0.", "tail.0.",
                                    "groups.0.mamba.0.", "groups.0.lora"))}
     abft_line = ({"abft": mesh_tree_check(
         name, params, plain_checksums, abft_want, abft_splits, abft_shapes,
@@ -5930,7 +6330,8 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
 
 def mesh_models_phase(phase, paths, limit, dev, gpu, mesh, counts,
                       zero_counts, expect) -> dict:
-    """A mesh phase (``phase``: mesh-ssm, mesh-moe) over ``paths``
+    """A mesh phase (``phase``: mesh-ssm, mesh-moe, mesh-hubert) over
+    ``paths``
     (``mesh_model_path`` each), in the dist path's world of one; each
     model's run its own path (``mesh_<tag>``: counts zeroed before, read
     after). The phase must finish within ``limit`` seconds. Returns the
@@ -6040,7 +6441,7 @@ def main() -> int:
                  (10000, 300, 20), (4099, 100, 1),
                  (1000, 100, 3),        # short m: plans S = 1
                  (65024, 4096, 4), (65024, 4, 4), (1 << 20, 16, 16),
-                 RWKV_Q, ZAMBA_Q, ZAMBA_HEADS],
+                 RWKV_Q, ZAMBA_Q, ZAMBA_HEADS, HUBERT_CHECK],
     }
     # The shape and dtype each kernel meets on the main path.
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
@@ -6074,6 +6475,8 @@ def main() -> int:
                             (ZAMBA_HEADS, torch.float32)]}
     # The MoE paths' router and rope-key shapes (MOE_TSM2R), bf16.
     moe_cases = {"tsm2r": [(c, torch.bfloat16) for c in MOE_TSM2R]}
+    # hubert-train's offline ABFT tree check: a w_down leaf's checksum.
+    hubert_cases = {"tsmt": [(HUBERT_CHECK, torch.float32)]}
     # tsm2l at the paper's shapes (its stream body), timed on the device.
     paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
                              ((1 << 20, 16, 16), torch.bfloat16),
@@ -6081,6 +6484,7 @@ def main() -> int:
                              ((10 ** 7, 16, 16), torch.bfloat16)]}
     measured, at_train, at_paper, at_rwkv, at_zamba, at_moe, bad = (
         {}, {}, {}, {}, {}, {}, [])
+    at_hubert = {}
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -6129,8 +6533,10 @@ def main() -> int:
                 is_rwkv = ((m, d1, d2), dtype) in rwkv_cases.get(name, ())
                 is_zamba = ((m, d1, d2), dtype) in zamba_cases.get(name, ())
                 is_moe = ((m, d1, d2), dtype) in moe_cases.get(name, ())
+                is_hubert = ((m, d1, d2), dtype) in hubert_cases.get(name,
+                                                                     ())
                 if (is_main or is_train or is_paper or is_rwkv or is_zamba
-                        or is_moe):
+                        or is_moe or is_hubert):
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                     rec["call_device_ms"] = call_device_ms(
                         lambda: kern(x, y))
@@ -6151,6 +6557,8 @@ def main() -> int:
                     at_zamba.setdefault(name, []).append(rec)
                 if is_moe:
                     at_moe.setdefault(name, []).append(rec)
+                if is_hubert:
+                    at_hubert.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
@@ -6666,6 +7074,17 @@ def main() -> int:
     emit({"phase": "moe", "line": "summary", "wall_s": moe_wall,
           "total_s": sum(moe_wall.values()), "gpu": gpu})
 
+    # -- 10i. hubert-xlarge at published width and depth (hubert-serve,
+    # hubert-train: the tree check's tsmt) ---------------------------------
+    PATH["name"] = "hubert_serve"
+    model_launches["hubert_serve"] = hubert_serve_phase(
+        HUBERT_PATH, dev, gpu, counts, zero_counts, expect)
+    PATH["name"] = "hubert_train"
+    model_launches["hubert_train"] = hubert_train_phase(
+        dev, gpu, counts, zero_counts, expect)
+    check(model_launches["hubert_train"]["tsmt"] > 0,
+          "tsmt not on hubert-train")
+
     # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
     PATH["name"] = "dist"
     dist_launches_, mesh_launches, mesh_model_launches = dist_phase(
@@ -6794,7 +7213,17 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_moe[name]]} if name in at_moe else {})})
+                for r in at_moe[name]]} if name in at_moe else {}),
+            **({"at_hubert_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                **({"splits": r["plan_splits"]} if "plan_splits" in r
+                   else {}),
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_hubert[name]]} if name in at_hubert else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

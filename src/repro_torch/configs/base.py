@@ -5,11 +5,13 @@ The port's own copy of ``src/repro/configs/base.py`` (``MLAConfig`` :20,
 ``ShapeConfig`` and ``SHAPES`` :133-146), with the fields of the families
 this package serves: dense ``attn_mlp``, the MoE family (mixtral's routed
 experts beside sliding-window attention, deepseek-v3's MLA with dense
-first layers), RWKV6 (``family="ssm"``) and the zamba2 hybrid (Mamba2
-with a weight-shared attention block). The sub-configs of the vision and
-audio families arrive with the slices that port those modules, and
-``remat_group`` (remat of several layers as one) with the first config
-that sets it past 1.
+first layers), RWKV6 (``family="ssm"``), the zamba2 hybrid (Mamba2 with a
+weight-shared attention block) and the audio encoder (hubert: frame
+input, bidirectional attention, a GELU MLP). Of the vision family only
+``vision_seq`` / ``vision_dim`` are here, which the launcher's data
+config reads (0 for every ported config); its cross-attention period
+arrives with its modules, and ``remat_group`` (remat of several layers
+as one) with the first config that sets it past 1.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ class MLAConfig:
 class ModelConfig:
     name: str
     family: str                    # dense | moe | ssm (rwkv6) | hybrid
-                                   # (zamba2): the ported ones
+                                   # (zamba2) | audio: the ported ones
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,12 +50,12 @@ class ModelConfig:
     rope_fraction: float = 1.0     # chatglm3: 0.5 (partial/'2d' RoPE)
     qkv_bias: bool = False         # qwen2: True
     attn_window: Optional[int] = None  # mixtral SWA: 4096
-    causal: bool = True
+    causal: bool = True            # hubert: False (encoder-only)
     norm: str = "rms"              # rms|ln
     mla: Optional[MLAConfig] = None
     mla_absorb: bool = True        # absorbed latent decode (W_uk/W_uv folded)
     # ffn
-    mlp_type: str = "swiglu"
+    mlp_type: str = "swiglu"       # swiglu|gelu
     moe: Optional[MoEConfig] = None
     first_k_dense: int = 0         # deepseek-v3: 3
     # ssm / hybrid
@@ -61,6 +63,12 @@ class ModelConfig:
     rwkv: Optional[RWKV6Config] = None
     hybrid_period: int = 0         # zamba2: shared attn block every N mamba layers
     shared_lora_rank: int = 0      # zamba2: per-application LoRA rank
+    # vlm
+    vision_seq: int = 0
+    vision_dim: int = 0
+    # audio (stub frontend: precomputed frame embeddings)
+    input_mode: str = "tokens"     # tokens|frames
+    frame_dim: int = 0
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -92,10 +100,10 @@ class ModelConfig:
             attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
             shared = attn + 3 * d * f if n_shared else 0
             return total + L * per_m + shared
-        if self.family not in ("dense", "moe"):
+        if self.family not in ("dense", "moe", "audio"):
             raise NotImplementedError(
                 f"{self.name}: param_count of family {self.family!r} arrives "
-                "with its modules (ported: dense, moe, ssm, hybrid)")
+                "with its modules (ported: dense, moe, ssm, hybrid, audio)")
         if self.mla is not None:
             m = self.mla
             per_attn = d * m.q_lora + m.q_lora * self.n_heads * (m.nope_dim + m.rope_dim) \

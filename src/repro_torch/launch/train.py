@@ -148,7 +148,10 @@ def _run(args, dev):
         mesh = None
     dcfg = elastic.rescale_data_config(pipeline.DataConfig(
         seed=0, seq_len=args.seq_len, global_batch=args.global_batch,
-        vocab_size=cfg.vocab_size), plan)
+        vocab_size=cfg.vocab_size,
+        mode="frames" if cfg.input_mode == "frames" else "tokens",
+        frame_dim=cfg.frame_dim, vision_seq=cfg.vision_seq,
+        vision_dim=cfg.vision_dim), plan)
 
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.linear_warmup_cosine(args.lr, args.warmup, args.steps),
@@ -185,8 +188,7 @@ def _run(args, dev):
         mesh, (sharding.dp_axes(mesh), None)))
 
     def to_device(host_batch):
-        batch = {k: torch.from_numpy(v).to(dev, torch.long)
-                 for k, v in host_batch.items()}
+        batch = to_tensors(host_batch, dev)
         if batch_places is None:
             return batch
         from torch.distributed.tensor import DTensor
@@ -316,6 +318,15 @@ def _run(args, dev):
             "final_step": args.steps - 1,
             "fault_retries": total_retries,
             "fault_events": wd.fault_events}
+
+
+def to_tensors(host_batch: dict, device) -> dict:
+    """A pipeline batch as tensors on ``device``: token ids and targets as
+    int64, frames (and image embeddings) as the pipeline's f32, uncast,
+    as the reference feeds them."""
+    return {k: torch.from_numpy(v).to(
+        device, torch.long if v.dtype.kind in "iu" else None)
+        for k, v in host_batch.items()}
 
 
 def _powersgd_specs(extra: dict, p_specs: dict) -> dict:

@@ -2,9 +2,10 @@
 
 Counterpart of ``src/repro/models/blocks.py`` for six kinds:
 
-  attn_mlp   dense transformer layer (GQA + SwiGLU)   [llama/qwen/chatglm/
-                                                       mistral; zamba2's
-                                                       shared block]
+  attn_mlp   dense transformer layer (GQA + MLP)      [llama/qwen/chatglm/
+                                                       mistral/hubert;
+                                                       zamba2's shared
+                                                       block]
   attn_moe   GQA + routed MoE                         [mixtral]
   mla_mlp    DeepSeek MLA + dense MLP                 [deepseek first-3]
   mla_moe    DeepSeek MLA + MoE (shared+routed)       [deepseek]
@@ -12,9 +13,11 @@ Counterpart of ``src/repro/models/blocks.py`` for six kinds:
   rwkv       RWKV6 time-mix + channel-mix             [rwkv6]
 
 Residual/pre-norm convention: x = x + f(norm(x)) everywhere; the norm is
-LayerNorm where ``cfg.norm == "ln"`` (rwkv6), RMSNorm otherwise, f32
-parameters either way (the reference's ``_norm_init``, :27-37). The
-cross-attention kind arrives with its model.
+LayerNorm where ``cfg.norm == "ln"`` (rwkv6, hubert), RMSNorm otherwise,
+f32 parameters either way (the reference's ``_norm_init``, :27-37). The
+MLP is SwiGLU, or the GELU MLP where ``cfg.mlp_type == "gelu"``
+(hubert's ``attn_mlp``; the reference's ``_mlp_init`` / ``_mlp_fwd``,
+:44-52). The cross-attention kind arrives with its model.
 
 Sliding-window attention (``cfg.attn_window``, mixtral) attends within
 the window in every path. Its cache holds ``min(max_len, window)``
@@ -42,10 +45,12 @@ def _check(cfg, kind: str) -> None:
                          f"(ported: {', '.join(KINDS)})")
     if cfg.norm not in ("rms", "ln"):
         raise ValueError(f"{cfg.name}: unknown norm {cfg.norm!r}")
-    if kind in ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe") \
+    if cfg.mlp_type not in ("swiglu", "gelu"):
+        raise ValueError(f"{cfg.name}: unknown MLP {cfg.mlp_type!r}")
+    if kind in ("attn_moe", "mla_mlp", "mla_moe") \
             and cfg.mlp_type != "swiglu":
-        raise ValueError(f"{cfg.name}: only the SwiGLU MLP is ported so "
-                         "far")
+        raise ValueError(f"{cfg.name}: the GELU MLP is ported for the "
+                         "attn_mlp kind only")
     if kind.endswith("_moe") and cfg.moe is None:
         raise ValueError(f"{cfg.name}: the {kind} kind needs cfg.moe")
     if kind.startswith("mla") and cfg.mla is None:
@@ -66,8 +71,9 @@ def norm_apply(cfg, p, x):
             else layers.rmsnorm(p.scale, x, cfg.norm_eps))
 
 
-def _mlp_fwd(cfg, p: layers.SwiGLU, x):
-    return layers.swiglu(p, x)
+def _mlp_fwd(cfg, p, x):
+    return (layers.gelu_mlp(p, x) if cfg.mlp_type == "gelu"
+            else layers.swiglu(p, x))
 
 
 def _attn_kwargs(cfg):
@@ -111,9 +117,12 @@ class Block(nn.Module):
                                       qkv_bias=cfg.qkv_bias, dtype=dt,
                                       device=device)
         self.norm2 = norm_init(cfg, device)
-        self.ffn = (moe.MoE(cfg.d_model, cfg.moe, dt, device)
-                    if kind.endswith("_moe")
-                    else layers.SwiGLU(cfg.d_model, cfg.d_ff, dt, device))
+        if kind.endswith("_moe"):
+            self.ffn = moe.MoE(cfg.d_model, cfg.moe, dt, device)
+        elif cfg.mlp_type == "gelu":
+            self.ffn = layers.GeluMLP(cfg.d_model, cfg.d_ff, dt, device)
+        else:
+            self.ffn = layers.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
 
 
 def block_init(generator, cfg, kind: str = "attn_mlp", device=None) -> Block:

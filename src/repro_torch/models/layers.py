@@ -1,5 +1,5 @@
 """Shared model layers: dense projection, RMSNorm, LayerNorm, RoPE, SwiGLU,
-embeddings, LoRA.
+the GELU MLP, embeddings, LoRA.
 
 Counterpart of ``src/repro/models/layers.py``. Parameters live in small
 ``nn.Module``s whose attribute names are the JAX pytree's keys; the
@@ -230,6 +230,31 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     g = dense(p.w_gate, x)
     u = dense(p.w_up, x)
     return dense(p.w_down, F.silu(g) * u)
+
+
+class GeluMLP(nn.Module):
+    """hubert's MLP: ``w_up`` / ``w_down`` drawn as weights, the biases
+    ``b_up`` / ``b_down`` zero (the reference's ``gelu_mlp_init``,
+    ``src/repro/models/layers.py:167``), all in the model's dtype."""
+
+    INIT = {"b_up": "zeros", "b_down": "zeros"}
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.w_up = param(torch.empty((d_model, d_ff), **kw))
+        self.b_up = param(torch.empty((d_ff,), **kw))
+        self.w_down = param(torch.empty((d_ff, d_model), **kw))
+        self.b_down = param(torch.empty((d_model,), **kw))
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    """``dense(w_down, gelu(dense(w_up, x) + b_up)) + b_down``. The GELU is
+    ``jax.nn.gelu``'s default, the tanh form (torch's default is the erf
+    form), computed in f32 and cast to ``x``'s dtype."""
+    h = dense(p.w_up, x) + p.b_up
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return dense(p.w_down, h) + p.b_down
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""LM assembly for the dense, MoE, RWKV6 and zamba2 hybrid families.
+"""LM assembly for the dense, MoE, RWKV6, zamba2 hybrid and audio families.
 
 Counterpart of ``src/repro/models/model.py`` (``segments`` :40, ``init``
-:73, ``_shared_block_fwd`` :141, ``_scan_layers_remat`` :183,
-``forward`` :219, ``unembed_fn`` :225, ``forward_hidden`` :230,
-``init_cache`` :282, ``prefill`` :308, ``decode_step`` :361). Where JAX
+:73, ``_embed_input`` :130, ``_shared_block_fwd`` :141,
+``_scan_layers_remat`` :183, ``forward`` :219, ``unembed_fn`` :225,
+``forward_hidden`` :230, ``init_cache`` :282, ``prefill`` :308,
+``decode_step`` :361). Where JAX
 stacks a segment's layers on a leading axis and ``lax.scan``s over them,
 the port keeps them in an ``nn.ModuleList`` and walks it with a Python
 loop. The cache is a flat list of per-layer dicts in execution order:
@@ -14,7 +15,7 @@ replaced by each step.
 
 Segments (the reference's ``segments``):
 
-* dense:  [attn_mlp x L]                      -> ``layers``
+* dense, audio: [attn_mlp x L]               -> ``layers``
 * mixtral: [attn_moe x L]                     -> ``layers``
 * deepseek-v3: [mla_mlp x first_k_dense] + [mla_moe x rest]
                                               -> ``layers``, ``tail``
@@ -24,6 +25,15 @@ Segments (the reference's ``segments``):
           LoRAs ``lora_attn`` / ``lora_ffn``), ``tail``, and the
           weight-shared attention block ``shared_block``, applied after
           every group.
+
+A model with ``cfg.input_mode == "frames"`` (hubert, an encoder) reads
+the batch's ``"frames"`` (B, S, frame_dim) through ``frame_proj`` where
+the others look up ``"tokens"`` (``_embed_input``); it keeps an
+``embed`` table that nothing reads, as the reference does. The frames
+are not cast: a bf16 model fed f32 frames runs f32 activations, as the
+reference's does. ``forward`` returns every frame's logits (the
+reference's encode step), ``prefill`` the last frame's and the filled
+K/V caches; ``decode_step`` reads tokens only, as the reference's does.
 
 An MoE layer's metrics (``moe_balance_loss``, ``moe_dropped_frac``,
 ``moe_max_load``) are summed over the layers of each segment and over
@@ -66,7 +76,7 @@ class Segment:
 
 
 def segments(cfg) -> list[Segment]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio"):
         return [Segment("attn_mlp", cfg.n_layers)]
     if cfg.family == "moe":
         if cfg.mla is not None:
@@ -83,7 +93,7 @@ def segments(cfg) -> list[Segment]:
             segs.append(Segment("mamba", rem))
         return segs
     raise ValueError(f"model family {cfg.family!r} is not ported yet "
-                     "(ported: dense, moe, ssm, hybrid)")
+                     "(ported: dense, moe, ssm, hybrid, audio)")
 
 
 class ZambaGroup(nn.Module):
@@ -100,9 +110,19 @@ class ZambaGroup(nn.Module):
         self.lora_ffn = layers.LoRA(d, d, r, dt, device)
 
 
+class FrameProj(nn.Module):
+    """The frame embedding stub's projection ``w[frame_dim, d_model]``."""
+
+    def __init__(self, frame_dim: int, d_model: int, dtype, device=None):
+        super().__init__()
+        self.w = layers.param(torch.empty((frame_dim, d_model), dtype=dtype,
+                                          device=device))
+
+
 class LM(nn.Module):
     """Parameters of an LM; attribute names follow the JAX pytree
-    (``embed``, ``final_norm``, ``lm_head``). A dense, mixtral or RWKV6
+    (``frame_proj`` of a frame model, ``embed``, ``final_norm``,
+    ``lm_head``). A dense, hubert, mixtral or RWKV6
     model holds its one segment in ``layers``; deepseek-v3 its dense MLA
     layers in ``layers`` and its MoE layers in ``tail``; a hybrid holds
     ``groups``, ``tail`` (the Mamba2 layers past the last whole group) and
@@ -114,6 +134,12 @@ class LM(nn.Module):
         segs = segments(cfg)
         dt = getattr(torch, cfg.dtype)
         self.cfg = cfg
+        if cfg.input_mode == "frames":
+            self.frame_proj = FrameProj(cfg.frame_dim, cfg.d_model, dt,
+                                        device)
+        elif cfg.input_mode != "tokens":
+            raise ValueError(f"{cfg.name}: unknown input_mode "
+                             f"{cfg.input_mode!r}")
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dt, device)
         if cfg.family == "hybrid":
             self.groups = nn.ModuleList(
@@ -144,6 +170,19 @@ def init(cfg, seed: int = 0, *, device=None) -> LM:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return layers.init_random_(LM(cfg, dev), gen)
+
+
+def _embed_input(params: LM, cfg, batch):
+    """The residual stream's input: the frames through ``frame_proj`` (a
+    frame model) or the tokens' embedding rows. On a mesh the projection
+    comes out sharded on d_model over "model" (``frame_proj.w`` is
+    ``(None, "model")``); it is gathered there, so the stream leaves in
+    the embedding lookup's layout (the batch over the dp dims, whole over
+    "model")."""
+    if cfg.input_mode == "frames":
+        return sharding.replicate_dim(
+            layers.dense(params.frame_proj.w, batch["frames"]), -1)
+    return layers.embed(params.embed.table, batch["tokens"])
 
 
 def _logits(params: LM, cfg, x):
@@ -209,7 +248,7 @@ def forward_hidden(params: LM, cfg, batch):
 
 
 def _forward_hidden(params: LM, cfg, batch):
-    x = layers.embed(params.embed.table, batch["tokens"])
+    x = _embed_input(params, cfg, batch)
     remat = cfg.remat and torch.is_grad_enabled()
     if cfg.family == "hybrid":
         for group in params.groups:
@@ -293,13 +332,14 @@ def _serving(params: LM):
 
 
 def prefill(params: LM, cfg, batch, cache):
-    """Returns (last-token logits (B,V), cache)."""
+    """Returns (last-token logits (B,V), cache); a frame model's last
+    frame's."""
     with _serving(params):
         return _prefill(params, cfg, batch, cache)
 
 
 def _prefill(params: LM, cfg, batch, cache):
-    x = layers.embed(params.embed.table, batch["tokens"])
+    x = _embed_input(params, cfg, batch)
     new_cache = []
     for (kind, lp, group), lc in zip(_schedule(params, cfg), cache):
         if kind == "shared":

@@ -9,7 +9,9 @@
   cell skip matrix must equal the reference's, and PowerSGD's default
   ``min_size`` must pick the reference's leaves (for rwkv6 ``embed`` and
   ``lm_head`` only; for zamba2 those and the shared block's seven
-  matrices). zamba2's leaves stacked twice (``(6, 6, ...)``) are held
+  matrices; for hubert those, ``frame_proj`` and the stacked ``b_up``).
+  hubert's full-size layout holds ``frame_proj`` and the GELU MLP's
+  biases; ``llama-3.2-vision-11b`` is the one arch not ported yet. zamba2's leaves stacked twice (``(6, 6, ...)``) are held
   with the rest, and its dtypes leaf by leaf (bf16 mixer norm, f32
   ``A_log`` / ``D`` / ``dt_bias`` and block norms).
 * Smoke size: llama3.2-3b (tied embeddings), mistral-nemo-12b (head_dim
@@ -37,7 +39,8 @@ from repro_torch.optim import powersgd
 from repro_torch.serve import engine
 
 PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
-          "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b"]
+          "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b",
+          "hubert-xlarge"]
 DENSE_NEW = ["llama3.2-3b", "mistral-nemo-12b", "qwen2-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -55,7 +58,7 @@ def test_registry_lists_the_ported_archs_in_reference_order():
     assert registry.ARCH_NAMES == PORTED
     assert [a for a in jregistry.ARCH_NAMES if a in PORTED] == PORTED
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("hubert-xlarge")
+        registry.get_config("llama-3.2-vision-11b")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -162,6 +165,10 @@ def test_powersgd_default_compresses_the_references_leaves(arch):
     assert sorted(got) == want
     if arch == "rwkv6-1.6b":
         assert want == ["embed.table", "lm_head.table"]
+    if arch == "hubert-xlarge":
+        # the frame projection, both heads and the stacked (48, 5120) b_up
+        assert want == ["embed.table", "frame_proj.w", "lm_head.table",
+                        "segments.0.ffn.b_up"]
     if arch == "zamba2-1.2b":
         assert want == ["embed.table", "lm_head.table", *(
             f"shared_block.{k}" for k in ("attn.wk", "attn.wo", "attn.wq",

@@ -15,7 +15,9 @@ port's ``init_train_state`` returns the JAX one carried over by
 ``convert.state_from_jax``) and agree on the final loss within rtol 1e-4
 (``tests/test_torch_train.py``'s tolerance), on the fault counters and on
 every ``[chaos]`` / ``[ft]`` line. PowerSGD stays off there: the two
-packages draw a degenerate column's fresh direction differently.
+packages draw a degenerate column's fresh direction differently. The
+same for hubert-xlarge's smoke config, whose batches are the pipeline's
+f32 frames: the final losses agree within rtol 1e-4.
 """
 
 import signal
@@ -172,5 +174,31 @@ def test_launcher_matches_jax_from_the_same_state(monkeypatch, capsys):
     assert (got["fault_retries"], got["fault_events"]) == \
         (want["fault_retries"], want["fault_events"]) == (1, 1)
     assert got["final_step"] == want["final_step"]
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"],
+                               rtol=1e-4)
+
+
+def test_hubert_launcher_matches_jax_on_frames(monkeypatch, capsys):
+    """``--arch hubert-xlarge --smoke`` through both launchers from the same
+    state: the port's data config takes the reference's ``mode``,
+    ``frame_dim``, ``vision_seq`` and ``vision_dim``, so both models read
+    the same f32 frames and end on the same loss."""
+    argv = ["--arch", "hubert-xlarge", "--smoke", "--global-batch", "4",
+            "--seq-len", "32", "--log-every", "100", "--steps", "4"]
+    want = jtrain.main(argv)
+    jcfg = jregistry.get_config("hubert-xlarge", smoke=True)
+
+    def from_jax(seed, cfg, opt_cfg, extra=None, *, device=None):
+        assert seed == 0 and extra is None
+        jstate = jts.init_train_state(jax.random.PRNGKey(0), jcfg,
+                                      jadamw.AdamWConfig())
+        return convert.state_from_jax(cfg, jax.tree.map(np.asarray, jstate),
+                                      device=device)
+
+    monkeypatch.setattr(train_step, "init_train_state", from_jax)
+    got = train.main(argv + ["--device", "cpu"])
+    capsys.readouterr()
+    assert got["final_step"] == want["final_step"] == 3
+    assert got["fault_retries"] == want["fault_retries"] == 0
     np.testing.assert_allclose(got["final_loss"], want["final_loss"],
                                rtol=1e-4)

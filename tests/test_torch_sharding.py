@@ -15,8 +15,9 @@ must be replicated).
 * ``batch_specs`` and ``cache_specs`` (the caches on the meta device);
 * the reference's six ``tests/test_sharding_rules.py`` cases, as cases of
   one parametrised test, on the JAX configs' shapes (their leaves named
-  as the port names a layer, ``layers.0.<leaf>`` and ``tail.0.<leaf>``;
-  hubert is not ported);
+  as the port names a layer, ``layers.0.<leaf>`` and ``tail.0.<leaf>``),
+  the divisibility guard (hubert's vocab of 504 on a 16-wide "model") on
+  the port's own hubert ``LM``;
 * DTensor placements of specs, and the identities off a mesh.
 """
 
@@ -34,7 +35,8 @@ from repro_torch.distributed import sharding
 from repro_torch.models import model
 
 PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
-          "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b"]
+          "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b",
+          "hubert-xlarge"]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -173,6 +175,23 @@ def test_batch_specs_equal_jax(batch, mesh_name, strategy):
     assert got == {k: _full(v, 2) for k, v in want.items()}
 
 
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("batch", [256, 32, 1])
+def test_frame_batch_specs_equal_jax(batch, mesh_name):
+    """hubert's batch: (B, S, frame_dim) f32 frames beside int targets."""
+    mesh, jmesh = _meshes(mesh_name)
+    cfg = registry.get_config("hubert-xlarge")
+    jcfg = jregistry.get_config("hubert-xlarge")
+    shapes = {"frames": torch.empty((batch, 128, 512), device="meta"),
+              "targets": torch.empty((batch, 128), device="meta")}
+    jb = {"frames": jax.ShapeDtypeStruct((batch, 128, 512), jnp.float32),
+          "targets": jax.ShapeDtypeStruct((batch, 128), jnp.int32)}
+    got = sharding.batch_specs(cfg, mesh, shapes)
+    want = jsharding.batch_specs(jcfg, jmesh, jb)
+    assert got == {k: _full(v, len(shapes[k].shape))
+                   for k, v in want.items()}
+
+
 # ---------------------------------------------------------------------------
 # The reference's six rule cases, on the JAX configs' shapes
 # ---------------------------------------------------------------------------
@@ -215,9 +234,21 @@ def _case_dense_tp():
 
 
 def _case_divisibility_guard():
-    flat, _ = _rule_specs("hubert-xlarge")    # vocab 504 % 16 != 0
-    assert flat["embed/table"][0] is None
+    mesh, jmesh = _meshes("16x16")
+    cfg = registry.get_config("hubert-xlarge")
+    lm = model.LM(cfg, device="meta")
+    jcfg, jshapes = _jax_shapes("hubert-xlarge")
+    specs = sharding.make_param_specs(cfg, lm, mesh)
+    _compare(specs, {n: tuple(p.shape) for n, p in lm.named_parameters()},
+             _jax_flat(jsharding.make_param_specs(jcfg, jshapes, jmesh)),
+             _jax_flat(jshapes))
+    flat = {sharding.path_str(n): s for n, s in specs.items()}
+    assert flat["embed/table"][0] is None      # vocab 504 % 16 != 0
+    assert flat["lm_head/table"][0] is None
     assert flat["segments/0/ffn/w_up"][-1] == "model"
+    assert flat["frame_proj/w"] == (None, "model")
+    assert flat["segments/0/ffn/b_up"] == ("model",)
+    assert flat["segments/0/ffn/b_down"] == (None,)
 
 
 def _case_moe_ep_vs_tp_fallback():

@@ -1,8 +1,8 @@
-"""The rwkv6, zamba2, mixtral and deepseek-v3 smoke models on DTensor
-parameters: the port's serve and train step on two-rank meshes against
-the JAX package's two-device run. The tests live in
-``tests/test_torch_mesh_{rwkv,zamba,mixtral,deepseek}.py``, which name
-the arch (``ARCH``) and import them from here (with
+"""The rwkv6, zamba2, mixtral, deepseek-v3 and hubert smoke models on
+DTensor parameters: the port's serve and train step on two-rank meshes
+against the JAX package's two-device run. The tests live in
+``tests/test_torch_mesh_{rwkv,zamba,mixtral,deepseek,hubert}.py``, which
+name the arch (``ARCH``) and import them from here (with
 ``pytest_generate_tests``, which gives each test the arch's cases); each
 file runs one world.
 
@@ -18,7 +18,11 @@ parallelism on (1, 2), one dispatch group spanning both dp ranks on
 their d_ff over "model"), and FSDP with two groups on (2, 1); deepseek
 also its
 non-absorbed MLA decode on (1, 2), where the latent cache's sequence is
-split over "model". Both packages start from the JAX package's
+split over "model". hubert, an encoder (``ENCODERS``), takes the two
+meshes at 4 layers (its stacked ``ffn.b_up`` then has PowerSGD's rank of
+rows) and an encoder arm in place of ``generate``: ``forward`` and
+``prefill`` of seeded f32 frames, and the pipeline's frame batches in
+training. Both packages start from the JAX package's
 train state for the case's config (the leaves that start constant
 perturbed as ``tests/test_torch_serve_rwkv.py`` /
 ``test_torch_serve_zamba.py`` / ``test_torch_serve_moe.py`` do;
@@ -32,6 +36,10 @@ mesh). f32. The tests read the two records:
 * serving (``generate(sharded_projections=True)``, caches from
   ``cache_specs``): the greedy tokens equal; the prefill logits and every
   decode step's at rtol = atol = 1e-4, as the plain serve tests hold them;
+  an encoder's ``forward`` logits (every frame's), and its
+  ``make_serve_fns(sharded_projections=True)`` prefill's last-frame
+  logits and K/V caches, at the same tolerance, and both equal to the
+  one-process port's within it;
 * training (``make_train_step(acc_shardings=, mesh=)``, PowerSGD rank 4
   on ``embed`` / ``lm_head`` (and zamba2's shared block), 2 microbatches,
   2 steps, AdamW's eps 1e-6 as ``tests/test_torch_mesh.py``): each step's
@@ -53,6 +61,7 @@ mesh). f32. The tests read the two records:
   leaves (f32, within 1e-5 of each leaf's largest checksum; ``MIN_LEAF``
   lowered so the smoke leaves get checksums), and ``verify_tree``
   passes clean parameters and fails after ``ft.inject.poison_tree``.
+  (An encoder has no sampling.)
 
 The ranks import this module, so it imports no JAX.
 """
@@ -69,9 +78,12 @@ import torch
 
 import torch_dist_harness as harness
 from test_torch_mesh import (B, DATA, N_MICRO, NEW, STEPS, THRESH, TOL, S,
-                             _batches, _full, _places)
+                             _full, _places)
 
-MIXTRAL, DEEPSEEK = "mixtral-8x7b", "deepseek-v3-671b"
+MIXTRAL, DEEPSEEK, HUBERT = "mixtral-8x7b", "deepseek-v3-671b", "hubert-xlarge"
+# Encoders: served by forward and prefill of frames, trained on frames.
+ENCODERS = (HUBERT,)
+FRAME_DATA = {**DATA, "vocab_size": 64, "mode": "frames", "frame_dim": 32}
 # Each arch's cases: tag -> (mesh shape, changes to the smoke config,
 # changes to its MoEConfig, make_param_specs's fsdp).
 MESHES = {"1x2": ((1, 2), {}, {}, None), "2x1": ((2, 1), {}, {}, None)}
@@ -81,12 +93,15 @@ MOE_CASES = {**MESHES,
              "2x1-fsdp": ((2, 1), {}, {"dispatch_groups": 2}, True)}
 CASES = {"rwkv6-1.6b": MESHES, "zamba2-1.2b": MESHES, MIXTRAL: MOE_CASES,
          DEEPSEEK: {**MOE_CASES, "1x2-plain": ((1, 2), {"mla_absorb": False},
-                                               {}, None)}}
+                                               {}, None)},
+         HUBERT: {tag: (shape, {"n_layers": 4}, {}, None)
+                  for tag, (shape, *_) in MESHES.items()}}
 # PowerSGD's leaves at the smoke width: embed and lm_head (rwkv6 and the
 # MoE models, whose expert stacks are 3-D), and the shared block's seven
-# matrices too (zamba2), as at full width.
+# matrices too (zamba2), and frame_proj and the stacked b_up (hubert), as
+# at full width.
 MIN_SIZE = {"rwkv6-1.6b": 1024, "zamba2-1.2b": 4096, MIXTRAL: 4096,
-            DEEPSEEK: 4096}
+            DEEPSEEK: 4096, HUBERT: 512}
 # The parameters whose placements the tests read, and the cache entries.
 WATCHED = {"rwkv6-1.6b": ("layers.0.time_mix.wr",),
            "zamba2-1.2b": ("groups.0.mamba.0.mixer.in_proj",
@@ -94,10 +109,11 @@ WATCHED = {"rwkv6-1.6b": ("layers.0.time_mix.wr",),
            MIXTRAL: ("layers.0.ffn.experts.w_gate",
                      "layers.0.ffn.experts.w_down"),
            DEEPSEEK: ("tail.0.ffn.experts.w_gate",
-                      "tail.0.ffn.experts.w_down", "layers.0.attn.wukv")}
+                      "tail.0.ffn.experts.w_down", "layers.0.attn.wukv"),
+           HUBERT: ("frame_proj.w", "layers.0.ffn.w_up", "layers.0.ffn.b_up")}
 STATES = ("wkv", "ssm", "conv")
 CACHES = {"rwkv6-1.6b": STATES, "zamba2-1.2b": STATES, MIXTRAL: ("k", "v"),
-          DEEPSEEK: ("c", "kpe")}
+          DEEPSEEK: ("c", "kpe"), HUBERT: ("k", "v")}
 MOE_METRICS = ("moe_balance_loss", "moe_dropped_frac", "moe_max_load")
 ABFT_MIN_LEAF = 1024
 NOISE = 1e-6
@@ -121,6 +137,18 @@ def case_config(cfg, case):
     return dataclasses.replace(cfg, **change)
 
 
+def data(arch) -> dict:
+    """The arch's ``DataConfig`` fields: frames for an encoder."""
+    return FRAME_DATA if arch in ENCODERS else DATA
+
+
+def batches(arch) -> list:
+    """Each train step's pipeline batch."""
+    from repro_torch.data import pipeline
+    cfg = pipeline.DataConfig(**data(arch))
+    return [pipeline.batch_for_step(cfg, i) for i in range(STEPS)]
+
+
 def _cache_places(arch, cfg, mesh, cache):
     """(placements, the spec's placements) of every ``CACHES[arch]``
     entry of ``cache``, by ``layer.name``."""
@@ -131,20 +159,83 @@ def _cache_places(arch, cfg, mesh, cache):
         for k, t in entry.items() if k in CACHES[arch]}
 
 
-def _serve(arch, cfg, jstate, prompts, mesh, pol, fsdp):
-    from repro_torch.convert import params_from_jax
+def _encode(arch, cfg, params, plain, frames, mesh, pol):
+    """An encoder's serve: ``forward`` (every frame's logits) and a
+    ``make_serve_fns`` prefill (the last frame's, and the K/V caches) of
+    ``frames`` placed by ``batch_specs``; the one-process port's forward
+    beside them."""
     from repro_torch.core import tsmm
     from repro_torch.distributed import sharding
-    from repro_torch.ft import abft, inject
     from repro_torch.models import model
     from repro_torch.serve import engine
 
     out, meta = {}, {}
+    fr = torch.from_numpy(frames)
+    batch = sharding.named(mesh, sharding.batch_specs(
+        cfg, mesh, {"frames": fr}), {"frames": fr})
+    with tsmm.policy(pol):
+        logits, _ = model.forward(params, cfg, batch)
+        out["forward_logits"] = _full(logits)
+        out["forward_plain"], _ = model.forward(plain, cfg, {"frames": fr})
+    prefill, _ = engine.make_serve_fns(cfg, policy=pol,
+                                       sharded_projections=True)
+    cache = model.init_cache(cfg, B, S, device="cpu", mesh=mesh)
+    with tsmm.record_dispatches() as log:
+        logits, cache = prefill(params, batch, cache)
+    meta["prefill_events"] = sorted(set(harness.port_events(log)))
+    meta["cache_prefill"] = _cache_places(arch, cfg, mesh, cache)
+    out["prefill_logits"] = _full(logits)
+    out["caches"] = {f"{i}.{k}": _full(t) for i, entry in enumerate(cache)
+                     for k, t in entry.items()}
+    return out, meta
+
+
+def _serve(arch, cfg, jstate, inputs, mesh, pol, fsdp):
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding
+    from repro_torch.ft import abft, inject
+
     params = params_from_jax(cfg, jstate["params"], device="cpu")
     plain = params_from_jax(cfg, jstate["params"], device="cpu")
     specs = sharding.make_param_specs(cfg, params, mesh, fsdp)
     sharding.named(mesh, specs, params)
+    if arch in ENCODERS:
+        out, meta = _encode(arch, cfg, params, plain, inputs["frames"],
+                            mesh, pol)
+    else:
+        out, meta = _generate(arch, cfg, params, plain, specs,
+                              inputs["prompts"], mesh, pol)
+    named = dict(params.named_parameters())
+    meta["watched"] = {n: (_places(named[n]), [repr(p) for p in
+                                               sharding.placements(
+                                                   mesh, specs[n])])
+                       for n in WATCHED[arch]}
 
+    # -- the port alone: the ABFT tree check --------------------------------
+    with mock.patch.object(abft, "MIN_LEAF", ABFT_MIN_LEAF):
+        sums = abft.encode_tree(params)
+        want = abft.encode_tree(plain)
+        meta["checksum_kinds"] = sorted({type(c).__name__
+                                         for c in sums.values()
+                                         if c is not None})
+        out["checksums"] = {n: _full(c) for n, c in sums.items()
+                            if c is not None}
+        out["checksums_plain"] = {n: c for n, c in want.items()
+                                  if c is not None}
+        clean, _ = abft.verify_tree(params, sums)
+        inject.poison_tree(params)
+        poisoned, _ = abft.verify_tree(params, sums)
+    meta["verify"] = (bool(clean), bool(poisoned))
+    return out, meta
+
+
+def _generate(arch, cfg, params, plain, specs, prompts, mesh, pol):
+    from repro_torch.core import tsmm
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+
+    out, meta = {}, {}
     toks = torch.from_numpy(prompts).long()
     out["tokens"] = engine.generate(params, cfg, toks, NEW, policy=pol,
                                     device="cpu", sharded_projections=True)
@@ -165,13 +256,8 @@ def _serve(arch, cfg, jstate, prompts, mesh, pol, fsdp):
         if i == 1:
             meta["cache_decode"] = _cache_places(arch, cfg, mesh, cache)
     out["step_logits"] = torch.stack(steps)
-    named = dict(params.named_parameters())
-    meta["watched"] = {n: (_places(named[n]), [repr(p) for p in
-                                               sharding.placements(
-                                                   mesh, specs[n])])
-                       for n in WATCHED[arch]}
 
-    # -- the port alone: sampling, the bias update, the ABFT tree check -----
+    # -- the port alone: sampling, the bias update --------------------------
     out["sampled"] = engine.generate(
         params, cfg, toks, NEW, policy=pol, device="cpu",
         sharded_projections=True, temperature=1.0,
@@ -196,20 +282,6 @@ def _serve(arch, cfg, jstate, prompts, mesh, pol, fsdp):
         meta["bias_places"] = (_places(layer.router_bias), [
             repr(p) for p in sharding.placements(
                 mesh, specs[f"{name}.router_bias"])])
-    with mock.patch.object(abft, "MIN_LEAF", ABFT_MIN_LEAF):
-        sums = abft.encode_tree(params)
-        want = abft.encode_tree(plain)
-        meta["checksum_kinds"] = sorted({type(c).__name__
-                                         for c in sums.values()
-                                         if c is not None})
-        out["checksums"] = {n: _full(c) for n, c in sums.items()
-                            if c is not None}
-        out["checksums_plain"] = {n: c for n, c in want.items()
-                                  if c is not None}
-        clean, _ = abft.verify_tree(params, sums)
-        inject.poison_tree(params)
-        poisoned, _ = abft.verify_tree(params, sums)
-    meta["verify"] = (bool(clean), bool(poisoned))
     return out, meta
 
 
@@ -238,8 +310,8 @@ def _train(arch, cfg, jstate, mesh, pol, fsdp):
         grad_transform=lambda g, st: powersgd.compress_tree(ps, g, st),
         acc_shardings=acc, mesh=mesh)
     losses, moments, lrs, moe_metrics = [], [], [], []
-    for i, b in enumerate(_batches()):
-        tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
+    for i, b in enumerate(batches(arch)):
+        tb = launcher.to_tensors(b, "cpu")
         tb = sharding.named(mesh, sharding.batch_specs(cfg, mesh, tb), tb)
         if i == 0 and cfg.moe is not None:
             # router_bias reaches the loss only through the selection
@@ -284,14 +356,14 @@ def port_rank(arch, rank, work):
     smoke = registry.get_config(arch, smoke=True)
     with open(work / "state.pkl", "rb") as f:
         jstates = pickle.load(f)
-    prompts = np.load(work / "inputs.npz")["prompts"]
+    inputs = dict(np.load(work / "inputs.npz"))
     pol = tsmm.GemmPolicy(**THRESH)
     res = {}
     for tag, case in CASES[arch].items():
         cfg = case_config(smoke, case)
         mesh = init_device_mesh("cpu", case[0], mesh_dim_names=("data",
                                                                 "model"))
-        serve, serve_meta = _serve(arch, cfg, jstates[tag], prompts, mesh,
+        serve, serve_meta = _serve(arch, cfg, jstates[tag], inputs, mesh,
                                    pol, case[3])
         train, train_meta = _train(arch, cfg, jstates[tag], mesh, pol,
                                    case[3])
@@ -321,11 +393,48 @@ THRESH = %r
 DATA = %r
 CASES = %r
 METRICS = %r
+ENCODER = %r
 smoke = registry.get_config(ARCH, smoke=True)
 with open(WORK + "/state.pkl", "rb") as f:
     jstates = pickle.load(f)
 pol = tsmm.GemmPolicy(**THRESH)
-prompts = INP["prompts"]
+
+
+def encode(tag, cfg, params):
+    batch = {"frames": INP["frames"]}
+    with tsmm.policy(pol):
+        OUT[tag + "/forward_logits"] = jax.jit(
+            lambda p, b: model.forward(p, cfg, b)[0])(params, batch)
+    prefill, _ = engine.make_serve_fns(cfg, policy=pol,
+                                       sharded_projections=True)
+    with tsmm.record_dispatches() as log:
+        logits, cache = jax.jit(prefill)(params, batch,
+                                         model.init_cache(cfg, B, S))
+    REC[tag] = events(log)
+    OUT[tag + "/prefill_logits"] = logits
+    for k in ("k", "v"):
+        OUT[f"{tag}/cache/{k}"] = cache[0][k]
+
+
+def generate(tag, cfg, params):
+    prompts = INP["prompts"]
+    toks = engine.generate(params, cfg, prompts, NEW, policy=pol,
+                           sharded_projections=True)
+    OUT[tag + "/tokens"] = toks
+    prefill, decode = engine.make_serve_fns(cfg, policy=pol,
+                                            sharded_projections=True)
+    with tsmm.record_dispatches() as log:
+        logits, cache = jax.jit(prefill)(
+            params, {"tokens": prompts},
+            model.init_cache(cfg, B, S + NEW))
+    REC[tag] = events(log)
+    steps = [logits]
+    jdecode = jax.jit(decode, static_argnums=(2,))
+    for i in range(1, NEW):
+        logits, cache = jdecode(params, toks[:, i - 1:i], S + i - 1, cache)
+        steps.append(logits)
+    OUT[tag + "/step_logits"] = jnp.stack(steps)
+
 
 
 def key_of(path):
@@ -343,23 +452,7 @@ for tag, (shape, change, moe, fsdp) in CASES.items():
     params = jax.device_put(jax.tree.map(jnp.asarray, jstate["params"]),
                             p_named)
     with m:
-        toks = engine.generate(params, cfg, prompts, NEW, policy=pol,
-                               sharded_projections=True)
-        OUT[tag + "/tokens"] = toks
-        prefill, decode = engine.make_serve_fns(cfg, policy=pol,
-                                                sharded_projections=True)
-        with tsmm.record_dispatches() as log:
-            logits, cache = jax.jit(prefill)(
-                params, {"tokens": prompts},
-                model.init_cache(cfg, B, S + NEW))
-        REC[tag] = events(log)
-        steps = [logits]
-        jdecode = jax.jit(decode, static_argnums=(2,))
-        for i in range(1, NEW):
-            logits, cache = jdecode(params, toks[:, i - 1:i], S + i - 1,
-                                    cache)
-            steps.append(logits)
-        OUT[tag + "/step_logits"] = jnp.stack(steps)
+        (encode if ENCODER else generate)(tag, cfg, params)
     opt = adamw.AdamWConfig(lr=schedule.linear_warmup_cosine(1e-3, 2, 3),
                             eps=1e-6)
     ps = powersgd.PowerSGDConfig(rank=4, min_size=MIN_SIZE)
@@ -393,7 +486,8 @@ save()
 
 def jax_script(arch):
     return JAX_SCRIPT % (arch, B, S, NEW, STEPS, N_MICRO, MIN_SIZE[arch],
-                         THRESH, DATA, CASES[arch], MOE_METRICS)
+                         THRESH, data(arch), CASES[arch], MOE_METRICS,
+                         arch in ENCODERS)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +503,7 @@ def _path_hash(s: str) -> int:
 def runs(request, tmp_path_factory):
     import jax
 
+    import test_torch_hubert
     import test_torch_serve_moe
     import test_torch_serve_rwkv
     import test_torch_serve_zamba
@@ -422,7 +517,8 @@ def runs(request, tmp_path_factory):
     perturb = {"rwkv6-1.6b": test_torch_serve_rwkv.perturb,
                "zamba2-1.2b": test_torch_serve_zamba.perturb,
                MIXTRAL: test_torch_serve_moe.perturb,
-               DEEPSEEK: test_torch_serve_moe.perturb}[arch]
+               DEEPSEEK: test_torch_serve_moe.perturb,
+               HUBERT: test_torch_hubert.perturb}[arch]
     work = tmp_path_factory.mktemp("mesh_models")
     smoke = jregistry.get_config(arch, smoke=True)
     jopt = jadamw.AdamWConfig(
@@ -442,10 +538,14 @@ def runs(request, tmp_path_factory):
         jstates[tag] = jstate
     with open(work / "state.pkl", "wb") as f:
         pickle.dump(jstates, f)
-    prompts = rng.integers(0, smoke.vocab_size, (B, S)).astype(np.int32)
+    if arch in ENCODERS:
+        inputs = {"frames": test_torch_hubert.frames(smoke, rng, B, S)}
+    else:
+        inputs = {"prompts": rng.integers(0, smoke.vocab_size, (B, S)
+                                          ).astype(np.int32)}
     ranks, arrays, record = harness.run_both(
-        functools.partial(port_rank, arch), jax_script(arch),
-        {"prompts": prompts}, work, timeout=500)
+        functools.partial(port_rank, arch), jax_script(arch), inputs, work,
+        timeout=500)
     return types.SimpleNamespace(arch=arch, ranks=ranks, jax=arrays,
                                  rec=record)
 
@@ -468,8 +568,10 @@ def test_prefill_routes_as_jax(runs, tag):
 
 
 def test_caches_and_parameters_where_the_specs_put_them(runs, tag):
+    whens = (("cache_prefill",) if runs.arch in ENCODERS
+             else ("cache_prefill", "cache_decode"))
     for _, meta in (r[tag] for r in runs.ranks):
-        for when in ("cache_prefill", "cache_decode"):
+        for when in whens:
             places = meta["serve"][when]
             assert places and all(got == want
                                   for got, want in places.values()), when
@@ -478,6 +580,37 @@ def test_caches_and_parameters_where_the_specs_put_them(runs, tag):
                 assert got == want, (part, name)
                 assert any(f"Shard(dim={d})" in got for d in range(3))
         assert meta["train"]["all_placed"]
+
+
+def test_encoder_logits_and_caches_as_jax(runs, tag):
+    """(An encoder.) ``forward``'s every frame and the prefill's last
+    frame as the JAX run's and as the one-process port's, and the
+    prefill's K/V caches as JAX's."""
+    for out, _ in (r[tag] for r in runs.ranks):
+        want = runs.jax[tag + "/forward_logits"]
+        np.testing.assert_allclose(out["forward_logits"].numpy(), want,
+                                   **TOL)
+        np.testing.assert_allclose(out["forward_plain"].numpy(), want,
+                                   **TOL)
+        np.testing.assert_allclose(out["prefill_logits"].numpy(),
+                                   runs.jax[tag + "/prefill_logits"], **TOL)
+        np.testing.assert_allclose(out["prefill_logits"].numpy(),
+                                   want[:, -1], **TOL)
+        n = len(out["caches"]) // 2
+        for k in ("k", "v"):
+            got = np.stack([out["caches"][f"{i}.{k}"].numpy()
+                            for i in range(n)])
+            np.testing.assert_allclose(got, runs.jax[f"{tag}/cache/{k}"],
+                                       **TOL, err_msg=k)
+
+
+def test_encoder_prefill_routes_as_jax(runs, tag):
+    """(An encoder.) The prefill's dispatch events as the JAX run's: at
+    the smoke width every projection is dense in both packages."""
+    want = sorted(set(harness.jax_events(runs.rec[tag])))
+    for _, meta in (r[tag] for r in runs.ranks):
+        assert meta["serve"]["prefill_events"] == want
+    assert want and {e[1] for e in want} == {"dense"}
 
 
 def test_sampling_draws_as_one_process(runs, tag):
