@@ -90,9 +90,12 @@ printing no result, when no CUDA card is present or any phase fails.
    routers of mixtral's prefill, train microbatch and long request at
    the chooser's S (the sequential kernel beside it); and tsmt at
    hubert-train's tree check (``HUBERT_CHECK``, ``at_hubert_shapes``):
-   a w_down leaf's checksum [5120,1280]^T [5120,2] f32; each with its
-   device time beside ``torch.matmul``'s, ungated. Every tsm2r line
-   carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
+   a w_down leaf's checksum [5120,1280]^T [5120,2] f32; and tsm2r and
+   tsmt at vision-train's P and Q of embed and lm_head
+   (``VISION_HEADS``, ``at_vision_shapes``): [128256,4096]·[4096,4] on
+   the skinny body and [128256,4096]^T [128256,4] on the one-launch tsmt,
+   f32; each with its device time beside ``torch.matmul``'s, ungated.
+   Every tsm2r line carries ``body``, from the library's ``tsm2r_plan`` query: "wgmma" (the
    tensor-core body) for bf16 at [8192,4096]·[4096,256],
    [4096,4096]·[4096,256], the ragged (1000, 776, 200) and the narrowest
    wide output (4096, 4096, 24); "skinny" (the streaming body) for f32
@@ -477,6 +480,31 @@ printing no result, when no CUDA card is present or any phase fails.
    as ``tree_check_prediction`` predicts; step ms, the saves' seconds,
    the state's size and the peak memory. Each phase must finish within
    its limit (``HUBERT_SERVE_MAX_S``, ``HUBERT_TRAIN_MAX_S``).
+10j. The vision paths (each a path of its own), after the hubert paths,
+   through ``model_serve_phase`` / ``model_train_phase`` with
+   ``VISION_PATH``: vision-serve, llama-3.2-vision-11b at published width
+   and depth (40 layers: 8 groups of 4 self-attention layers and a gated
+   cross-attention layer), bf16, seed 0 with both gates of every cross
+   layer drawn from the seed (``vision_perturb_``; at zero they multiply
+   the image path away), 4 x 2048 prompt tokens and each request's own
+   seeded f32 image embeddings (1601 x 4096), 16 new tokens: no launch,
+   264 dense projections a decode step (``vision_decode_gemms``),
+   zeroing the gates moves the logits, cached decode within
+   ``LOGIT_TOL`` of the teacher-forced forward; ``vision_decode_check``:
+   the cross caches f32 (replaced by the prefill, not rounded into the
+   bf16 zeros) and untouched by decode, another request's image moves
+   the logits and at zero gates leaves them bit for bit, the first group
+   copied in f32 within ``VISION_F32_TOL`` (its decode against its
+   forward) and the bf16 cut within ``LOGIT_TOL`` of it; a profiled
+   prefill and two decode steps. vision-train, the one-group cut
+   (``VISION_CUT``, 5 layers, registered as ``LAUNCH_ARCH`` is): 8 x
+   2048 tokens and 8 x 1601 of the pipeline's f32 image rows in 4
+   microbatches, PowerSGD rank 4 on ``embed`` and ``lm_head`` alone,
+   remat, 3 steps, each ``step_ok``, launching
+   ``VISION_TRAIN_LAUNCHES`` (P on tsm2r's skinny body, Q on the
+   one-launch tsmt at [128256,4096]) as ``train_prediction`` predicts,
+   against a dense arm. Each phase under its limit
+   (``VISION_SERVE_MAX_S``, ``VISION_TRAIN_MAX_S``).
 10f. dist (a path of its own; counts zeroed before, read after): the
    multi-process executors in a world of one under NCCL
    (``init_method="file://"`` on a temporary file; one card, and NCCL
@@ -546,6 +574,14 @@ printing no result, when no CUDA card is present or any phase fails.
    tree check on its DTensor parameters as rwkv6's (48 tsmt an encode);
    trained at 2 layers (``MESH_TRAIN``) for 2 steps on DTensors,
    bit-equal to the plain arm, no launch; under ``MESH_HUBERT_MAX_S``.
+   Then mesh-vision (path ``mesh_vision``): the vision cut (5 layers) on
+   DTensor parameters on the (1, 1) mesh, held against its plain serve
+   run made here (``plain_serve_ref``: no serve phase serves the cut)
+   by ``mesh_serve_check`` with the image embeddings placed by
+   ``batch_specs`` (tokens, sampled tokens and every step's logits bit
+   for bit, no launch, the cross caches in their specs' placements),
+   then trained 2 steps on DTensors bit-equal to the plain arm with
+   ``VISION_TRAIN_LAUNCHES`` a step; under ``MESH_VISION_MAX_S``.
    The process group is destroyed after.
 10g. mesh (the same path, run right after the launch phase;
    ``mesh_launch``): the launcher's ``--distributed`` in a world of one, in this process under torchrun's
@@ -563,12 +599,13 @@ printing no result, when no CUDA card is present or any phase fails.
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
-   on each of the twenty-seven paths (dispatch, serve, train, serve-int8,
+   on each of the thirty paths (dispatch, serve, train, serve-int8,
    train-int8, tsqr, train-tsqr, abft-serve, abft-train, launch,
    rwkv-serve, rwkv-train, zamba-serve, zamba-train, mixtral-serve,
    mixtral-long, mixtral-train, deepseek-serve, hubert-serve,
-   hubert-train, dist, mesh, mesh-rwkv, mesh-zamba, mesh-mixtral,
-   mesh-deepseek, mesh-hubert) and their
+   hubert-train, vision-serve, vision-train, dist, mesh, mesh-rwkv,
+   mesh-zamba, mesh-mixtral, mesh-deepseek, mesh-hubert, mesh-vision)
+   and their
    numbers at their main-path shape and dtype (tsm2r and tsmt also
    ``at_abft_shapes``)
    (``library_device_ms`` beside ``device_ms``; ``splits`` is the plan's
@@ -579,8 +616,9 @@ printing no result, when no CUDA card is present or any phase fails.
    tsmt at zamba2's (``at_zamba_shapes``), tsm2r and tsm2r_split at the
    MoE paths' (``at_moe_shapes``: ``MOE_TSM2R``, ``MOE_ROUTERS``), tsmt
    at hubert-train's tree check (``at_hubert_shapes``: ``HUBERT_CHECK``),
-   tsm2l and tsm2l_q8 at the paper's shapes (``at_paper_shapes``). A
-   twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
+   tsm2r and tsmt at vision-train's P and Q (``at_vision_shapes``:
+   ``VISION_HEADS``), tsm2l and tsm2l_q8 at the paper's shapes
+   (``at_paper_shapes``). A twelfth entry, ``"tpu_kernel": false``, is the quantize pass at the
    serving shape.
 13. Last line: ``{"ok": true, "device": {...}}``.
 """
@@ -632,7 +670,8 @@ TSM2R_WGMMA = {(8192, 4096, 256), (4096, 4096, 256), (1000, 776, 200),
 # the simt body, as do f32 outputs wider than 16.
 TSM2R_SKINNY = {(65024, 4096, 4), (16384, 16384, 16), (4096, 4096, 8),
                 (4096, 4096, 3), (512, 512, 1), (100, 8, 3), (64, 24, 16),
-                (65536, 2048, 4), (32000, 2048, 4), (8192, 4096, 8)}
+                (65536, 2048, 4), (32000, 2048, 4), (8192, 4096, 8),
+                (128256, 4096, 4)}
 # Device time the skinny body must stay within, f32: tsm2r_split at
 # [16384,16384]·[16384,16], S = 2 (0.675 ms on the simt body), and tsm2r's
 # P at [65024,4096]·[4096,4] (0.662), on an H100 80GB HBM3 at 700 W.
@@ -730,6 +769,11 @@ ZAMBA_TSM2R = (2048, 2048, 128)
 ZAMBA_P = [(2048, 2048, 4), (2048, 8192, 4), (8192, 2048, 4)]
 ZAMBA_Q = (8192, 2048, 4)
 ZAMBA_HEADS = (32000, 2048, 4)
+# llama-3.2-vision's: PowerSGD's P and Q of embed and lm_head, f32,
+# [128256,4096]·[4096,4] on tsm2r's skinny body and
+# [128256,4096]^T·[128256,4] on the one-launch tsmt, the most rows either
+# kernel meets on a main path.
+VISION_HEADS = (128256, 4096, 4)
 # The chooser's S at the three P shapes on 132 SMs (the launch counts
 # below follow from it): each split's epilogue is a plain sum
 # (S * rows * cols <= 2^18, perf_model.reduce_kernel_runs).
@@ -3197,12 +3241,13 @@ def serve_int8_phase(dev, gpu, counts, zero_counts, expect) -> dict:
     return main
 
 
-def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill, counts):
-    """A prefill of ``prompts`` (B x S0) and cached decode steps of
-    ``out``'s first NEW - 1 tokens through ``engine.make_serve_fns``, timed
-    on the host clock; the prefill must launch ``per_prefill`` kernels (the
-    sum of ``counts()``). Returns (the logits of every step, prefill ms,
-    decode ms a step)."""
+def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill, counts,
+                       extras=None):
+    """A prefill of ``prompts`` (B x S0, with ``extras`` in its batch) and
+    cached decode steps of ``out``'s first NEW - 1 tokens through
+    ``engine.make_serve_fns``, timed on the host clock; the prefill must
+    launch ``per_prefill`` kernels (the sum of ``counts()``). Returns (the
+    logits of every step, prefill ms, decode ms a step)."""
     from repro_torch.models import model
     from repro_torch.serve import engine
 
@@ -3215,7 +3260,8 @@ def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill, counts):
     before = count()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": prompts}, cache)
+    logits, cache = prefill_step(params, {"tokens": prompts,
+                                          **(extras or {})}, cache)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     check(count() - before == per_prefill,
@@ -3232,31 +3278,34 @@ def serve_step_by_step(params, cfg, prompts, out, dev, per_prefill, counts):
 
 
 def serve_ref(prompts, out, sampled, step_logits, prefill_ms,
-              decode_ms) -> dict:
+              decode_ms, extras=None) -> dict:
     """Host copies of a plain serve run (``SERVE_REF``'s entry): the
-    prompts, the greedy and sampled tokens, every step's logits, and the
-    prefill ms and decode ms a step of ``serve_step_by_step``."""
+    prompts and the batch's extras, the greedy and sampled tokens, every
+    step's logits, and the prefill ms and decode ms a step of
+    ``serve_step_by_step``."""
     return {"prompts": prompts.cpu(), "out": out.cpu(),
+            "extras": {k: v.cpu() for k, v in (extras or {}).items()},
             "sampled": sampled.cpu(),
             "step_logits": [t.cpu() for t in step_logits],
             "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
-                  gpu) -> None:
-    """Trace one prefill and two decode steps with ``torch.profiler`` and
-    print, per window, the device time by kernel and by category and the
-    device's busy share of the same work's unprofiled time (each line
-    names the model)."""
+                  gpu, extras=None) -> None:
+    """Trace one prefill (of ``prompts`` and ``extras``) and two decode
+    steps with ``torch.profiler`` and print, per window, the device time by
+    kernel and by category and the device's busy share of the same work's
+    unprofiled time (each line names the model)."""
     prefill_step, decode_step = engine.make_serve_fns(cfg)
+    batch = {"tokens": prompts, **(extras or {})}
     for window in ("prefill", "decode"):
         cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
         if window == "decode":
-            _, cache = prefill_step(params, {"tokens": prompts}, cache)
+            _, cache = prefill_step(params, batch, cache)
         torch.cuda.synchronize()
         if window == "prefill":
             rec = device_profile(
-                lambda: prefill_step(params, {"tokens": prompts}, cache))
+                lambda: prefill_step(params, batch, cache))
         else:
             rec = device_profile(lambda: [
                 decode_step(params, out[:, i - 1:i], PROMPT + i - 1, cache)
@@ -3962,15 +4011,17 @@ def zamba_decode_gemms(cfg) -> int:
 
 
 @torch.no_grad()
-def decode_and_forward(params, cfg, prompts, out, tail, dev):
-    """A prefill of ``prompts``, cached decode of ``out``'s first NEW - 1
-    tokens, and the teacher-forced forward of the prompt, ``out`` and
-    ``tail``. Returns (the logits of every step, the forward's logits at
-    the NEW positions)."""
+def decode_and_forward(params, cfg, prompts, out, tail, dev, extras=None):
+    """A prefill of ``prompts`` (and ``extras``), cached decode of
+    ``out``'s first NEW - 1 tokens, and the teacher-forced forward of the
+    prompt, ``out`` and ``tail``. Returns (the logits of every step, the
+    forward's logits at the NEW positions)."""
     from repro_torch.models import model
 
+    extras = extras or {}
     cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
-    logits, cache = model.prefill(params, cfg, {"tokens": prompts}, cache)
+    logits, cache = model.prefill(params, cfg,
+                                  {"tokens": prompts, **extras}, cache)
     steps = [logits]
     for i in range(1, NEW):
         logits, cache = model.decode_step(params, cfg, out[:, i - 1:i],
@@ -3978,7 +4029,8 @@ def decode_and_forward(params, cfg, prompts, out, tail, dev):
         steps.append(logits)
     del cache
     forced, _ = model.forward(
-        params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1)})
+        params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1),
+                      **extras})
     rows = forced[:, PROMPT - 1:PROMPT - 1 + NEW].clone()
     del forced
     torch.cuda.empty_cache()
@@ -4036,11 +4088,12 @@ def zamba_depth_rung(params, cfg, prompts, out, tail, dev, bf16=None):
             "f32_decode_vs_forward_err": max_step_err(steps32, exact)}
 
 
-def teacher_forced(mp, params, cfg, prompts, out, gen, dev):
+def teacher_forced(mp, params, cfg, prompts, out, gen, dev, extras=None):
     """The teacher-forced forward of the prompt, ``out`` and a tail drawn
-    from ``gen``, ``mp.forced`` tokens a request; it launches tsm2r once
-    at each of the prefill's shapes. Returns (its logits at the NEW
-    positions the cached steps predict, the tail)."""
+    from ``gen``, ``mp.forced`` tokens a request (with ``extras`` in its
+    batch); it launches tsm2r once at each of the prefill's shapes.
+    Returns (its logits at the NEW positions the cached steps predict, the
+    tail)."""
     from repro_torch.kernels import tsm2r as k_tsm2r
     from repro_torch.models import model
 
@@ -4050,7 +4103,8 @@ def teacher_forced(mp, params, cfg, prompts, out, gen, dev):
     before = k_tsm2r.launches
     with torch.no_grad():
         forced, _ = model.forward(
-            params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1)})
+            params, cfg, {"tokens": torch.cat([prompts, out, tail], dim=1),
+                          **(extras or {})})
     check(k_tsm2r.launches - before == len(mp.prefill_shapes(
         cfg, BATCH * mp.forced)), f"{mp.tag} forward launches")
     rows = forced[:, PROMPT - 1:PROMPT - 1 + NEW].clone()
@@ -4060,7 +4114,7 @@ def teacher_forced(mp, params, cfg, prompts, out, gen, dev):
 
 
 def zamba_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
-                       dev) -> dict:
+                       dev, extras=None) -> dict:
     """zamba-serve's cached decode against the teacher-forced forward
     (``teacher_forced``), on a ladder of depths (``ZAMBA_LADDER``: the
     model cut to its first groups and its tail, then whole). At every
@@ -4093,7 +4147,7 @@ def zamba_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
 
 
 def rwkv_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
-                      dev) -> dict:
+                      dev, extras=None) -> dict:
     """rwkv-serve's cached decode within ``LOGIT_TOL`` of the
     teacher-forced forward (``teacher_forced``)."""
     rows, _ = teacher_forced(mp, params, cfg, prompts, out, gen, dev)
@@ -4185,13 +4239,14 @@ def router_launches(shapes, dtype, dev) -> dict:
 
 def prefill_route_check(name, log, shapes, splits, body, rows) -> list:
     """A prefill's routed events: tsm2r on the card at ``shapes``, each at
-    the chooser's S on ``body``. Returns the bodies seen."""
+    the chooser's S on ``body`` (none where ``shapes`` is empty). Returns
+    the bodies seen."""
     routed = [e for e in log if e.kind != "dense" and e.shape[0] == rows]
     metas = [(e, lm) for e in routed for lm in e.launches
              if lm.kind != "reduce"]
     bodies = sorted({lm.params["body"] for _, lm in metas})
     check(sorted(e.shape for e in routed) == sorted(shapes)
-          and bodies == [body] and all(
+          and bodies == ([body] if shapes else []) and all(
               e.kind == "tsm2r" and e.executor == "cuda"
               and lm.splits == splits[e.shape] for e, lm in metas),
           f"{name} prefill routes {routed[:2]} {bodies}")
@@ -4208,6 +4263,7 @@ class ModelPath(typing.NamedTuple):
     reach: object            # (params, cfg) -> undo: a change that the
     reach_what: str          # logits must feel, and what it is
     decode_check: object     # holds cached decode against the forward
+                             # (given the batch's extras too)
     forced: int = 0          # tokens of ``teacher_forced``'s forward
     body: str = "wgmma"      # tsm2r's body at the prefill's shapes
     n_micro: int = 0         # the config's microbatches
@@ -4215,6 +4271,9 @@ class ModelPath(typing.NamedTuple):
     leaves: tuple = ()       # the leaves PowerSGD compresses
     train_launches: dict = None  # a step's launches
     encoder: bool = False    # served by forward and prefill of frames
+    images: object = None    # (cfg, gen, dev) -> the batch's image
+                             # embeddings beside its tokens
+    limit_s: float = 0.0     # a limit on each phase's seconds (0: none)
 
 
 RWKV_PATH = ModelPath(
@@ -4258,10 +4317,12 @@ ZAMBA_PATH = ModelPath(
 def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
                       keep: bool = False) -> tuple:
     """A model's serve path (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
-    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``) at published width and its
-    registered depth, bf16, seeded weights perturbed by ``mp.perturb``;
-    4 x 2048 prompt tokens and 16 greedy tokens, a sampled run, then step
-    by step for times (the counts are read there). Each prefill launches,
+    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``, ``VISION_PATH``) at published
+    width and its registered depth, bf16, seeded weights perturbed by
+    ``mp.perturb``; 4 x 2048 prompt tokens (each request with its own
+    image embeddings from ``mp.images`` where the model reads them) and 16
+    greedy tokens, a sampled run, then step by step for times (the counts
+    are read there). Each prefill launches,
     at ``mp.prefill_shapes``, what the chooser on this card resolves
     (tsm2r, or tsm2r_split at S > 1) on ``mp.body``; every decode GEMM is
     dense. Then the checks: the prefill against a ``mode="dense"`` arm
@@ -4272,7 +4333,8 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
     model's drops and largest loads at the config's capacity in the
     prefill; a profiled prefill. ``keep`` puts the run's ``serve_ref``
     into ``SERVE_REF`` under ``mp.tag``, for the mesh phases to hold their
-    runs against. Returns (the path's launch counts, the parameters, the
+    runs against. The phase must end within ``mp.limit_s`` where it is
+    set. Returns (the path's launch counts, the parameters, the
     config)."""
     from repro_torch.core import tsmm
     from repro_torch.models import model
@@ -4289,12 +4351,14 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
     n_params = sum(p.numel() for p in params.parameters())
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
+    extras = mp.images(cfg, gen, dev) if mp.images else {}
     shapes = mp.prefill_shapes(cfg, BATCH * PROMPT)
     per_prefill, splits = router_launches(shapes, torch.bfloat16, dev)
 
     with recorded() as log:
         t0 = time.perf_counter()
-        out = engine.generate(params, cfg, prompts, NEW, device=dev)
+        out = engine.generate(params, cfg, prompts, NEW, extras=extras,
+                              device=dev)
         torch.cuda.synchronize()
         greedy_s = time.perf_counter() - t0
     bodies = prefill_route_check(name, log, shapes, splits, mp.body,
@@ -4307,27 +4371,29 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
     check(out.shape == (BATCH, NEW), f"greedy output shape {out.shape}")
     sampler = torch.Generator(device=dev).manual_seed(2)
     sampled = engine.generate(params, cfg, prompts, NEW, generator=sampler,
-                              temperature=1.0, device=dev)
+                              temperature=1.0, extras=extras, device=dev)
     check(sampled.shape == (BATCH, NEW) and bool(
         ((sampled >= 0) & (sampled < cfg.vocab_size)).all()),
         f"{name} sampled tokens in vocabulary")
 
     step_logits, prefill_ms, decode_ms = serve_step_by_step(
-        params, cfg, prompts, out, dev, sum(per_prefill.values()), counts)
+        params, cfg, prompts, out, dev, sum(per_prefill.values()), counts,
+        extras)
     # The main path ends here; what follows only checks it.
     launches = counts()
     check(launches == expect(**{k: 3 * v for k, v in per_prefill.items()}),
           f"{name} path launches {launches}")
     if keep:
         SERVE_REF[mp.tag] = serve_ref(prompts, out, sampled, step_logits,
-                                      prefill_ms, decode_ms)
+                                      prefill_ms, decode_ms, extras)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     def tapped_prefill(policy=None):
         prefill = engine.make_serve_fns(cfg, policy=policy)[0]
         with moe_taps() as (routes, mets), recorded() as plog:
-            logits, _ = prefill(params, {"tokens": prompts}, model.init_cache(
-                cfg, BATCH, PROMPT, device=dev))
+            logits, _ = prefill(params, {"tokens": prompts, **extras},
+                                model.init_cache(cfg, BATCH, PROMPT,
+                                                 device=dev))
         return logits, routes, mets, plog
 
     k_logits, k_routes, k_mets, _ = tapped_prefill()
@@ -4343,7 +4409,7 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
     del k_logits, d_logits, k_routes, d_routes
     undo = mp.reach(params, cfg)
     moved, _ = engine.make_serve_fns(cfg)[0](
-        params, {"tokens": prompts},
+        params, {"tokens": prompts, **extras},
         model.init_cache(cfg, BATCH, PROMPT, device=dev))
     undo()
     reach_err = normalised_err(moved, step_logits[0])
@@ -4354,10 +4420,11 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
     greedy_agree = sum(int((torch.argmax(step_logits[i], -1) == out[:, i])
                            .sum()) for i in range(NEW))
     decode = mp.decode_check(mp, params, cfg, prompts, out, step_logits,
-                             gen, dev)
+                             gen, dev, extras)
     torch.cuda.empty_cache()
     profile_serve(engine, model, params, cfg, prompts, out, dev,
-                  {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu)
+                  {"prefill": prefill_ms, "decode": 2 * decode_ms}, gpu,
+                  extras)
     moe = {"moe_layers": len(k_mets),
            "capacity_factor": cfg.moe.capacity_factor,
            "prefill_slots": capacity(cfg, BATCH * PROMPT),
@@ -4378,10 +4445,15 @@ def model_serve_phase(mp, dev, gpu, counts, zero_counts, expect,
           "tapped_vs_served_err": tapped_err,
           "reach": mp.reach_what, "reach_err": reach_err, **decode,
           "greedy_argmax_agree": f"{greedy_agree}/{BATCH * NEW}",
+          "images": {k: list(v.shape) for k, v in extras.items()},
           "peak_mem_gb": peak_gb, "launches": launches,
-          "wall_s": time.perf_counter() - t_phase, "gpu": gpu})
-    del prompts, out, step_logits
+          "wall_s": time.perf_counter() - t_phase,
+          "limit_s": mp.limit_s or None, "gpu": gpu})
+    del prompts, out, step_logits, extras
     torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    check(not mp.limit_s or wall < mp.limit_s,
+          f"{name} took {wall} s, over {mp.limit_s}")
     return launches, params, cfg
 
 
@@ -4471,11 +4543,14 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     ``mp.body``, and P and Q of every
     compressed leaf that does not classify dense at the chooser's S (P on
     the skinny body). A ``mode="dense"`` arm from the same state and batch
-    must match the first step's loss and grad norm within 5e-2. Returns
-    the path's launch counts."""
+    must match the first step's loss and grad norm within 5e-2. A vision
+    model's batches carry the pipeline's f32 image embeddings. The phase
+    must end within ``mp.limit_s`` where it is set. Returns the path's
+    launch counts."""
     from repro_torch.configs import registry
     from repro_torch.core import tsmm
     from repro_torch.data import pipeline
+    from repro_torch.launch import train as launcher
     from repro_torch.optim import adamw, powersgd, schedule
     from repro_torch.train import train_step
 
@@ -4486,13 +4561,14 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
     check(cfg.remat and n_micro == mp.n_micro, f"{name} config {cfg}")
     dcfg = pipeline.DataConfig(seed=0, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH,
-                               vocab_size=cfg.vocab_size)
+                               vocab_size=cfg.vocab_size,
+                               vision_seq=cfg.vision_seq,
+                               vision_dim=cfg.vision_dim)
     opt = adamw.AdamWConfig(
         lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
         weight_decay=0.1)
     ps = powersgd.PowerSGDConfig(rank=4)
-    batches = [{k: torch.from_numpy(v).to(dev, torch.long)
-                for k, v in pipeline.batch_for_step(dcfg, i).items()}
+    batches = [launcher.to_tensors(pipeline.batch_for_step(dcfg, i), dev)
                for i in range(TRAIN_STEPS + 1)]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step = train_step.make_train_step(
@@ -4581,13 +4657,17 @@ def model_train_phase(mp, dev, gpu, counts, zero_counts, expect) -> dict:
           "dense_arm_grad_norm_err": gnorm_err, "factors": factors,
           "remat": cfg.remat,
           "launches_per_step": {n: v for n, v in want_step.items() if v},
-          "launches": launches, "wall_s": time.perf_counter() - t_phase,
-          "gpu": gpu})
+          "batch_keys": sorted(batches[0]), "launches": launches,
+          "wall_s": time.perf_counter() - t_phase,
+          "limit_s": mp.limit_s or None, "gpu": gpu})
     emit({"phase": "profile", "window": f"{name} step", "model": cfg.name,
           **prof, "unprofiled_ms": mid_ms,
           "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
     del state, batches
     torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    check(not mp.limit_s or wall < mp.limit_s,
+          f"{name} took {wall} s, over {mp.limit_s}")
     return launches
 
 
@@ -4648,11 +4728,12 @@ MOE_F32_TOL = 1e-3
 MOE_FLIP_SHARE = 0.25
 
 
-def register_moe_cuts() -> None:
-    """Register ``MOE_CUTS`` in the port's registry."""
+def register_cuts(cuts) -> None:
+    """Register ``cuts`` (name -> (arch, layers): ``MOE_CUTS``,
+    ``VISION_CUTS``) in the port's registry."""
     from repro_torch.configs import registry
 
-    for name, (arch, layers) in MOE_CUTS.items():
+    for name, (arch, layers) in cuts.items():
         cfg = dataclasses.replace(registry.get_config(arch), name=name,
                                   n_layers=layers)
         registry._MODULES[name] = type(
@@ -4789,7 +4870,7 @@ def f32_cut(params, cfg, layers: int, dev):
 
 
 def moe_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
-                     dev) -> dict:
+                     dev, extras=None) -> dict:
     """Cached decode against the teacher-forced forward, both on the
     drop-free copy of ``cfg`` (``drop_free``). The forward must drop
     nothing, and no expert of it may have been offered more tokens than
@@ -4806,8 +4887,8 @@ def moe_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
     an f32 copy of the first ``MOE_F32_LAYERS`` layers at full width,
     within ``MOE_F32_TOL``. Under MLA the non-absorbed decode
     (``mla_absorb=False``) is held likewise, and against the absorbed
-    one within ``LOGIT_TOL``. (``step_logits`` and ``gen``, which
-    ``ModelPath.decode_check`` passes, go unused.)"""
+    one within ``LOGIT_TOL``. (``step_logits``, ``gen`` and ``extras``,
+    which ``ModelPath.decode_check`` passes, go unused.)"""
     free = drop_free(cfg, mp.tag)
     b, s0 = prompts.shape
     rows, forced_routes, mets = forced_rows(params, free, prompts, out)
@@ -5342,6 +5423,235 @@ def mesh_encode_check(name, cfg, params, ref, mesh, dev, counts,
 
 
 # ---------------------------------------------------------------------------
+# The vision paths: llama-3.2-vision-11b at published width
+# ---------------------------------------------------------------------------
+
+VISION_ARCH = "llama-3.2-vision-11b"
+# The train and mesh cut: one whole group (4 self-attention layers and
+# the gated cross-attention layer; ``segments`` floors n_layers by the
+# period, so a 4-layer cut would hold none), registered as LAUNCH_ARCH is.
+VISION_CUT = "llama-3.2-vision-11b-5l"
+VISION_CUTS = {VISION_CUT: (VISION_ARCH, 5)}
+# A train step's launches, which train_prediction must predict: P and Q
+# of the two leaves, nothing else (every projection's n is 1,024 or more,
+# past MAX_SKINNY).
+VISION_TRAIN_LAUNCHES = {"tsm2r": 2, "tsmt": 2}
+# The f32 copy of the first group: its cached decode against its
+# teacher-forced forward (the caches' logic without bf16 rounding).
+VISION_F32_TOL = 1e-3
+# Each vision phase's limit in seconds: about 1.5x its first run on an
+# NVIDIA H100 80GB HBM3 at 700 W, 1.8-2.0x its run in the whole script
+# there (17.1 s, 19.9 s and 22.8 s), room for a slow host (PERF.md
+# section 6).
+VISION_SERVE_MAX_S = 32.0
+VISION_TRAIN_MAX_S = 40.0
+MESH_VISION_MAX_S = 40.0
+
+
+def vision_gates(params, cfg=None) -> list:
+    """Both gates of every cross layer: 0-d f32 parameters."""
+    del cfg
+    return [t for g in params.groups
+            for t in (g.cross.gate_attn, g.cross.gate_ffn)]
+
+
+@torch.no_grad()
+def vision_perturb_(params, cfg, gen) -> None:
+    """Draw both gates of every cross layer from ``gen`` (N(0, 1)), in
+    place: at their initial zero, tanh(0) multiplies the image path
+    away."""
+    for t in vision_gates(params, cfg):
+        t.copy_(torch.randn((), generator=gen, device=t.device))
+
+
+def vision_images(cfg, gen, dev) -> dict:
+    """Each request's own seeded f32 image embeddings, (BATCH,
+    vision_seq, vision_dim): the dtype the reference's pipeline and serve
+    example give."""
+    return {"image_embeds": torch.randn(
+        (BATCH, cfg.vision_seq, cfg.vision_dim), generator=gen, device=dev)}
+
+
+def vision_decode_gemms(cfg) -> int:
+    """The projections of one decode step, every one dense at 4 rows: wq,
+    wk, wv, wo and the MLP's three of each self-attention layer; wq, wo
+    and the MLP's three of each cross layer (its K/V are the cache)."""
+    period = cfg.cross_attn_period
+    return cfg.n_layers // period * (7 * (period - 1) + 5)
+
+
+@torch.no_grad()
+def vision_cache_check(params, cfg, prompts, out, dev, extras) -> dict:
+    """A prefill and NEW - 1 cached decode steps of ``out``: the cross
+    caches hold the image embeddings' dtype (f32: prefill replaces the
+    entry, no rounding into the bf16 zeros), at ``vision_seq`` positions,
+    and the decode steps leave them bit for bit; the self-attention
+    caches stay in the model's dtype."""
+    from repro_torch.models import model
+
+    cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    _, cache = model.prefill(params, cfg, {"tokens": prompts, **extras},
+                             cache)
+    period = cfg.cross_attn_period     # each group's last entry
+    cross = [i for i in range(len(cache)) if i % period == period - 1]
+    kept = {i: {k: t.clone() for k, t in cache[i].items()} for i in cross}
+    for i in range(1, NEW):
+        _, cache = model.decode_step(params, cfg, out[:, i - 1:i],
+                                     PROMPT + i - 1, cache)
+    rec = {"cross_caches": len(cross),
+           "cross_cache_dtypes": sorted({str(t.dtype)[6:] for i in cross
+                                         for t in cache[i].values()}),
+           "self_cache_dtypes": sorted({
+               str(t.dtype)[6:] for i, e in enumerate(cache)
+               if i not in cross for t in e.values()}),
+           "cross_cache_shape": list(cache[cross[0]]["k"].shape),
+           "cross_cache_untouched_by_decode": all(
+               torch.equal(cache[i][k], kept[i][k]) for i in cross
+               for k in kept[i])}
+    want = str(extras["image_embeds"].dtype)[6:]
+    check(len(cross) == cfg.n_layers // cfg.cross_attn_period
+          and rec["cross_cache_dtypes"] == [want]
+          and rec["self_cache_dtypes"] == [cfg.dtype]
+          and rec["cross_cache_shape"] == [BATCH, cfg.vision_seq,
+                                           cfg.n_kv_heads,
+                                           cfg.resolved_head_dim]
+          and rec["cross_cache_untouched_by_decode"],
+          f"vision cross caches: {rec}")
+    return rec
+
+
+@torch.no_grad()
+def vision_reach_check(params, cfg, prompts, served, dev, extras) -> dict:
+    """The image reaches the logits, both ways: with the gates drawn, each
+    request given the next request's image moves the last logits past
+    LOGIT_TOL from ``served`` (the served prefill's); with both gates of
+    every cross layer at zero, the swap leaves them bit for bit."""
+    from repro_torch.models import model
+
+    rolled = {k: v.roll(1, dims=0) for k, v in extras.items()}
+
+    def last(ex):
+        return model.prefill(params, cfg, {"tokens": prompts, **ex},
+                             model.init_cache(cfg, BATCH, PROMPT,
+                                              device=dev))[0]
+
+    swap_err = normalised_err(last(rolled), served)
+    undo = zeroed(vision_gates)(params, cfg)
+    try:
+        zero_equal = same_bits(last(extras), last(rolled))
+    finally:
+        undo()
+    check(swap_err > LOGIT_TOL and zero_equal,
+          f"vision image reach: another request's image moves the logits "
+          f"by {swap_err} (past {LOGIT_TOL}?); at zero gates bit-equal: "
+          f"{zero_equal}")
+    return {"swapped_image_err": swap_err,
+            "zero_gates_swap_bit_equal": zero_equal}
+
+
+def vision_f32_check(params, cfg, prompts, out, dev, extras) -> dict:
+    """The first group (``cross_attn_period`` layers, the cross layer
+    last), the embedding, final norm and head copied in f32
+    (``f32_cut``): its cached decode within ``VISION_F32_TOL`` of its
+    teacher-forced forward, and the bf16 model cut to the same group (the
+    served tensors, no copy) within ``LOGIT_TOL`` of it at the prefill."""
+    from repro_torch.models import model
+
+    period = cfg.cross_attn_period
+    p32, cfg32 = f32_cut(params, cfg, period, dev)
+    steps32, rows32 = decode_and_forward(p32, cfg32, prompts, out,
+                                         prompts[:, :0], dev, extras)
+    f32_err = max_step_err(steps32, rows32)
+    del p32, rows32
+    torch.cuda.empty_cache()
+    cut_cfg = dataclasses.replace(cfg, n_layers=period)
+    cut = model.LM(cut_cfg, device="meta")
+    cut.load_state_dict({k: v for k, v in params.state_dict().items()
+                         if not k.startswith("groups.")
+                         or k.startswith("groups.0.")}, assign=True)
+    with torch.no_grad():
+        cut_logits, _ = model.prefill(
+            cut, cut_cfg, {"tokens": prompts, **extras},
+            model.init_cache(cut_cfg, BATCH, PROMPT, device=dev))
+    bf16_err = normalised_err(cut_logits, steps32[0])
+    del cut, steps32
+    check(f32_err <= VISION_F32_TOL and bf16_err <= LOGIT_TOL,
+          f"vision f32 cut: decode vs forward {f32_err} (tolerance "
+          f"{VISION_F32_TOL}), bf16 cut vs f32 {bf16_err} (tolerance "
+          f"{LOGIT_TOL})")
+    return {"f32_layers": period, "f32_decode_vs_forward_err": f32_err,
+            "bf16_cut_vs_f32_err": bf16_err}
+
+
+def vision_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
+                        dev, extras=None) -> dict:
+    """vision-serve's checks past the dense arm and the gates' reach:
+    cached decode within LOGIT_TOL of the teacher-forced forward
+    (``teacher_forced``, the same image embeddings), the cross caches
+    (``vision_cache_check``), the image's reach both ways
+    (``vision_reach_check``) and the f32 copy of the first group
+    (``vision_f32_check``)."""
+    rows, _ = teacher_forced(mp, params, cfg, prompts, out, gen, dev,
+                             extras)
+    err = max_step_err(step_logits, rows)
+    del rows
+    torch.cuda.empty_cache()
+    check(err <= LOGIT_TOL, f"vision decode vs forward error {err}")
+    rec = {"forced_tokens": mp.forced, "decode_vs_forward_err": err,
+           **vision_cache_check(params, cfg, prompts, out, dev, extras),
+           **vision_reach_check(params, cfg, prompts, step_logits[0], dev,
+                                extras),
+           **vision_f32_check(params, cfg, prompts, out, dev, extras)}
+    emit({"phase": "vision-decode", **rec})
+    return rec
+
+
+def plain_serve_ref(mp, dev) -> dict:
+    """The plain serve run that ``model_serve_phase`` makes of ``mp``
+    (the same weights, prompts and image embeddings from the same seeds,
+    a greedy and a sampled request, then step by step), as its
+    ``serve_ref`` entry: for a mesh path whose cut no serve phase serves.
+    Only for a path whose prefill launches no kernel (the vision cut)."""
+    from repro_torch.serve import engine
+
+    params, cfg, gen = serve_weights(mp, dev)
+    check(not mp.prefill_shapes(cfg, BATCH * PROMPT),
+          f"{mp.tag}: plain_serve_ref counts no launches")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    extras = mp.images(cfg, gen, dev) if mp.images else {}
+    out = engine.generate(params, cfg, prompts, NEW, extras=extras,
+                          device=dev)
+    sampled = engine.generate(
+        params, cfg, prompts, NEW, extras=extras, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2),
+        temperature=1.0)
+    step_logits, prefill_ms, decode_ms = serve_step_by_step(
+        params, cfg, prompts, out, dev, 0, lambda: {}, extras)
+    ref = serve_ref(prompts, out, sampled, step_logits, prefill_ms,
+                    decode_ms, extras)
+    del params, step_logits
+    torch.cuda.empty_cache()
+    return ref
+
+
+VISION_PATH = ModelPath(
+    tag="vision", arch=VISION_ARCH, perturb=vision_perturb_,
+    # no projection of a prefill routes to a kernel: wk/wv and the image
+    # K/V have n = 1,024, past MAX_SKINNY
+    prefill_shapes=lambda cfg, rows: [], decode_gemms=vision_decode_gemms,
+    reach=zeroed(vision_gates),
+    reach_what="both gates of every cross layer zeroed",
+    decode_check=vision_decode_check, forced=PROMPT + NEW, n_micro=4,
+    micro_downs=lambda cfg: 0, leaves=("embed.table", "lm_head.table"),
+    train_launches=VISION_TRAIN_LAUNCHES, images=vision_images,
+    limit_s=VISION_SERVE_MAX_S)
+# vision-train and mesh-vision: the one-group cut.
+VISION_CUT_PATH = VISION_PATH._replace(arch=VISION_CUT,
+                                       limit_s=VISION_TRAIN_MAX_S)
+
+
+# ---------------------------------------------------------------------------
 # The dist phase: the shard_map executors, tree TSQR and sharded PowerSGD
 # in a world of one under NCCL
 # ---------------------------------------------------------------------------
@@ -5435,9 +5745,10 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
     None where no profiler session sees device work; the line reports
     whether one did before and after NCCL started). Then, in the same
     world, the mesh path's serve and pipeline runs (``mesh_serve``).
-    Then the mesh-ssm, mesh-moe and mesh-hubert phases
+    Then the mesh-ssm, mesh-moe, mesh-hubert and mesh-vision phases
     (``mesh_models_phase``). Returns the dist path's launch counts, the
-    mesh path's and the mesh-ssm, mesh-moe and mesh-hubert paths'."""
+    mesh path's and the mesh-ssm, mesh-moe, mesh-hubert and mesh-vision
+    paths'."""
     import shutil
     import tempfile
 
@@ -5470,6 +5781,9 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
             gpu, make_host_mesh(), counts, zero_counts, expect))
         model_launches.update(mesh_models_phase(
             "mesh-hubert", (HUBERT_PATH,), MESH_HUBERT_MAX_S, dev, gpu,
+            make_host_mesh(), counts, zero_counts, expect))
+        model_launches.update(mesh_models_phase(
+            "mesh-vision", (VISION_CUT_PATH,), MESH_VISION_MAX_S, dev, gpu,
             make_host_mesh(), counts, zero_counts, expect))
         return launches, mesh_launches, model_launches
     finally:
@@ -5717,7 +6031,8 @@ def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
     run ``ref`` (a ``SERVE_REF`` entry). ``params`` are placed in place by
     ``sharding.make_param_specs`` on ``mesh``; then, from zeroed counts,
     ``generate(sharded_projections=True)`` serves the plain run's prompts
-    for NEW greedy tokens and one request sampled at temperature 1 from
+    (and its image embeddings, placed by ``batch_specs``) for NEW greedy
+    tokens and one request sampled at temperature 1 from
     its seed, and ``make_serve_fns(sharded_projections=True)`` with a
     cache from ``init_cache(mesh=)`` runs a prefill and NEW - 1 decode
     steps of the greedy tokens, timed as ``serve_step_by_step`` times the
@@ -5737,18 +6052,20 @@ def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
     specs = sharding.make_param_specs(cfg, params, mesh)
     sharding.named(mesh, specs, params)
     prompts, out_ref = ref["prompts"].to(dev), ref["out"].to(dev)
+    extras = {k: v.to(dev) for k, v in ref["extras"].items()}
     per_prefill, splits = router_launches(shapes, torch.bfloat16, dev)
     torch.cuda.synchronize()
     zero_counts()
     with recorded() as log:
         t0 = time.perf_counter()
-        out = engine.generate(params, cfg, prompts, NEW, device=dev,
-                              sharded_projections=True)
+        out = engine.generate(params, cfg, prompts, NEW, extras=extras,
+                              device=dev, sharded_projections=True)
         torch.cuda.synchronize()
         greedy_s = time.perf_counter() - t0
     greedy_launches = counts()
     sampled = engine.generate(
-        params, cfg, prompts, NEW, device=dev, sharded_projections=True,
+        params, cfg, prompts, NEW, extras=extras, device=dev,
+        sharded_projections=True,
         generator=torch.Generator(device=dev).manual_seed(2),
         temperature=1.0)
     with recorded():
@@ -5756,8 +6073,9 @@ def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
             cfg, sharded_projections=True)
         cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev,
                                  mesh=mesh)
-        batch = sharding.named(mesh, sharding.batch_specs(
-            cfg, mesh, {"tokens": prompts}), {"tokens": prompts})
+        host = {"tokens": prompts, **extras}
+        batch = sharding.named(mesh, sharding.batch_specs(cfg, mesh, host),
+                               dict(host))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill_step(params, batch, cache)
@@ -6004,7 +6322,8 @@ def mesh_launch(gpu, counts, zero_counts) -> dict:
 # the cut is a train phase's (mixtral's). deepseek has none (one MoE
 # layer's AdamW state is ~140 GB).
 MESH_TRAIN = {"rwkv": (4, None), "zamba": (6, None),
-              "mixtral": (2, MIXTRAL_TRAIN_LAUNCHES), "hubert": (2, None)}
+              "mixtral": (2, MIXTRAL_TRAIN_LAUNCHES), "hubert": (2, None),
+              "vision": (5, VISION_TRAIN_LAUNCHES)}
 MESH_STEPS = 2
 MESH_WALLS: dict = {}
 # About 1.5x the phase's first run in the whole script with its serve
@@ -6057,7 +6376,8 @@ def mesh_train_arms(mp, dev, mesh):
         seed=0, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
         vocab_size=cfg.vocab_size,
         mode="frames" if cfg.input_mode == "frames" else "tokens",
-        frame_dim=cfg.frame_dim)
+        frame_dim=cfg.frame_dim, vision_seq=cfg.vision_seq,
+        vision_dim=cfg.vision_dim)
     opt = adamw.AdamWConfig(
         lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
         weight_decay=0.1)
@@ -6209,10 +6529,12 @@ def mesh_tree_check(name, params, plain_checksums, want, splits, shapes,
 def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
                     expect) -> dict:
     """One model of a mesh phase (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
-    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``, ``HUBERT_PATH``), in the world of
-    one. First, not counted: the plain train arms (``mesh_train_arms``,
-    where ``MESH_TRAIN`` names the model). Then the path, from zeroed
-    counts to the read after its last step. Serve: the weights
+    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``, ``HUBERT_PATH``,
+    ``VISION_CUT_PATH``), in the world of one. First, not counted: the
+    plain train arms (``mesh_train_arms``, where ``MESH_TRAIN`` names the
+    model), and where no serve phase left a ``SERVE_REF`` entry (the
+    vision cut) the plain serve run (``plain_serve_ref``). Then the path,
+    from zeroed counts to the read after its last step. Serve: the weights
     ``model_serve_phase`` (hubert: ``hubert_serve_phase``) served, built
     again on the card (``serve_weights``), on DTensors on the ``(1, 1)``
     ``("data", "model")`` mesh, held against that serve run's
@@ -6232,7 +6554,7 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
 
     name = f"mesh-{mp.tag}"
     t_phase = time.perf_counter()
-    ref = SERVE_REF.pop(mp.tag)
+    ref = SERVE_REF.pop(mp.tag, None)
     train_line, train = {}, None
     if mp.tag in MESH_TRAIN:
         train_cfg, ps, shapes, plain, mesh_arm = mesh_train_arms(mp, dev,
@@ -6243,6 +6565,9 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
         check(fixed is None or train_want == fixed, f"{name} predicted "
               f"launches {train_want}, not {fixed}")
     torch.cuda.reset_peak_memory_stats()
+    if ref is None:
+        # no serve phase served this cut: its plain run, here, uncounted
+        ref = plain_serve_ref(mp, dev)
     params, cfg, _ = serve_weights(mp, dev)
     tree_check = mp.tag in ("rwkv", "hubert")
     if tree_check:
@@ -6263,7 +6588,8 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
                   for n, sp in specs.items()
                   if n.startswith(("embed", "lm_head", "frame_proj",
                                    "layers.0.", "tail.0.",
-                                   "groups.0.mamba.0.", "groups.0.lora"))}
+                                   "groups.0.mamba.0.", "groups.0.lora",
+                                   "groups.0.self.0.", "groups.0.cross."))}
     abft_line = ({"abft": mesh_tree_check(
         name, params, plain_checksums, abft_want, abft_splits, abft_shapes,
         counts, expect)} if tree_check else {})
@@ -6330,7 +6656,8 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
 
 def mesh_models_phase(phase, paths, limit, dev, gpu, mesh, counts,
                       zero_counts, expect) -> dict:
-    """A mesh phase (``phase``: mesh-ssm, mesh-moe, mesh-hubert) over
+    """A mesh phase (``phase``: mesh-ssm, mesh-moe, mesh-hubert,
+    mesh-vision) over
     ``paths``
     (``mesh_model_path`` each), in the dist path's world of one; each
     model's run its own path (``mesh_<tag>``: counts zeroed before, read
@@ -6432,7 +6759,8 @@ def main() -> int:
                   (4096, 4096, 3), (512, 512, 1), (1000, 776, 200),
                   (1000, 777, 200), (4096, 4096, 24), (100, 8, 3),
                   (64, 24, 16), *RWKV_TSM2R, ZAMBA_TSM2R, ZAMBA_HEADS,
-                  *[c for c in MOE_TSM2R if c != (4096, 4096, 8)]],
+                  *[c for c in MOE_TSM2R if c != (4096, 4096, 8)],
+                  VISION_HEADS],
         "tsm2l": [(1 << 20, 16, 16), (10 ** 7, 16, 16), (102400, 4, 4),
                   (10000, 300, 20), (5000, 77, 1), (4097, 3, 5),
                   (1003, 129, 16), (333, 1, 16), (4096, 64, 12),
@@ -6441,7 +6769,7 @@ def main() -> int:
                  (10000, 300, 20), (4099, 100, 1),
                  (1000, 100, 3),        # short m: plans S = 1
                  (65024, 4096, 4), (65024, 4, 4), (1 << 20, 16, 16),
-                 RWKV_Q, ZAMBA_Q, ZAMBA_HEADS, HUBERT_CHECK],
+                 RWKV_Q, ZAMBA_Q, ZAMBA_HEADS, HUBERT_CHECK, VISION_HEADS],
     }
     # The shape and dtype each kernel meets on the main path.
     main_case = {"tsm2r": ((8192, 4096, 256), torch.bfloat16),
@@ -6477,6 +6805,9 @@ def main() -> int:
     moe_cases = {"tsm2r": [(c, torch.bfloat16) for c in MOE_TSM2R]}
     # hubert-train's offline ABFT tree check: a w_down leaf's checksum.
     hubert_cases = {"tsmt": [(HUBERT_CHECK, torch.float32)]}
+    # vision-train's P and Q of embed and lm_head.
+    vision_cases = {"tsm2r": [(VISION_HEADS, torch.float32)],
+                    "tsmt": [(VISION_HEADS, torch.float32)]}
     # tsm2l at the paper's shapes (its stream body), timed on the device.
     paper_cases = {"tsm2l": [((1 << 20, 16, 16), torch.float32),
                              ((1 << 20, 16, 16), torch.bfloat16),
@@ -6484,7 +6815,7 @@ def main() -> int:
                              ((10 ** 7, 16, 16), torch.bfloat16)]}
     measured, at_train, at_paper, at_rwkv, at_zamba, at_moe, bad = (
         {}, {}, {}, {}, {}, {}, [])
-    at_hubert = {}
+    at_hubert, at_vision = {}, {}
     for name, (kern, plain, library, entry) in kernels.items():
         for m, d1, d2 in cases[name]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -6535,8 +6866,10 @@ def main() -> int:
                 is_moe = ((m, d1, d2), dtype) in moe_cases.get(name, ())
                 is_hubert = ((m, d1, d2), dtype) in hubert_cases.get(name,
                                                                      ())
+                is_vision = ((m, d1, d2), dtype) in vision_cases.get(name,
+                                                                     ())
                 if (is_main or is_train or is_paper or is_rwkv or is_zamba
-                        or is_moe or is_hubert):
+                        or is_moe or is_hubert or is_vision):
                     rec["device_ms"] = device_ms(lambda: kern(x, y), name)
                     rec["call_device_ms"] = call_device_ms(
                         lambda: kern(x, y))
@@ -6559,6 +6892,8 @@ def main() -> int:
                     at_moe.setdefault(name, []).append(rec)
                 if is_hubert:
                     at_hubert.setdefault(name, []).append(rec)
+                if is_vision:
+                    at_vision.setdefault(name, []).append(rec)
                 del x, y, got, again, want, err
     torch.cuda.empty_cache()
     check(not bad, f"kernel phase mismatch in {bad}")
@@ -7044,7 +7379,7 @@ def main() -> int:
 
     # -- 10h. mixtral-8x7b and deepseek-v3-671b at published width
     # (mixtral-serve, mixtral-long, mixtral-train, deepseek-serve) --------
-    register_moe_cuts()
+    register_cuts(MOE_CUTS)
     moe_wall = {}
     t0 = time.perf_counter()
     PATH["name"] = "mixtral_serve"
@@ -7084,6 +7419,19 @@ def main() -> int:
         dev, gpu, counts, zero_counts, expect)
     check(model_launches["hubert_train"]["tsmt"] > 0,
           "tsmt not on hubert-train")
+
+    # -- 10j. llama-3.2-vision-11b at published width: vision-serve (40
+    # layers, no kernel), vision-train (one group: P on tsm2r, Q on tsmt
+    # at [128256,4096]) ----------------------------------------------------
+    register_cuts(VISION_CUTS)
+    PATH["name"] = "vision_serve"
+    model_launches["vision_serve"], params, _ = model_serve_phase(
+        VISION_PATH, dev, gpu, counts, zero_counts, expect)
+    del params
+    torch.cuda.empty_cache()
+    PATH["name"] = "vision_train"
+    model_launches["vision_train"] = model_train_phase(
+        VISION_CUT_PATH, dev, gpu, counts, zero_counts, expect)
 
     # -- 10f. the shard_map executors and sharded PowerSGD (the dist path)
     PATH["name"] = "dist"
@@ -7223,7 +7571,20 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 "library_device_ms": r["library_device_ms"]}
-                for r in at_hubert[name]]} if name in at_hubert else {})})
+                for r in at_hubert[name]]} if name in at_hubert else {}),
+            **({"at_vision_shapes": [{
+                "shape": r["shape"], "dtype": r["dtype"],
+                **({"body": r["body"]} if "body" in r else {}),
+                **({"splits": r["plan_splits"]} if "plan_splits" in r
+                   else {}),
+                "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
+                "device_ms": r["device_ms"],
+                "call_device_ms": r["call_device_ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_device_ms": r["library_device_ms"]}
+                for r in at_vision[name]]} if name in at_vision else {})})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

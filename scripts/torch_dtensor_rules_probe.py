@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Which DTensor rules does this torch take for the ops of the RWKV6 and
-Mamba2 chunk scans, the MoE dispatch and MLA's absorbed decode?
+Mamba2 chunk scans, the MoE dispatch, MLA's absorbed decode and
+llama-3.2-vision's gated cross attention?
 
     python3 scripts/torch_dtensor_rules_probe.py            # one card, NCCL
     python3 scripts/torch_dtensor_rules_probe.py --device cpu --world 2
@@ -61,6 +62,9 @@ HEADS, HEAD_DIM, SEQ = 4, 8, 6
 # MLA's: latent 16, nope 8, rope 4, v 8.
 GROUPS, ENTRIES, EXPERTS, CAP, WIDTH = 4, 12, 4, 3, 8
 LATENT, NOPE, ROPE, V = 16, 8, 4, 8
+# The vision tries: 7 image tokens (prime, as llama-3.2-vision's 1601),
+# 2 query heads a kv head.
+IMG, GROUP = 7, 2
 
 
 def _tries(dev, mesh, dp_mesh):
@@ -130,6 +134,7 @@ def _tries(dev, mesh, dp_mesh):
         lambda: torch.multinomial(
             probs, 1, generator=torch.Generator(device=dev).manual_seed(1)))
     yield from _moe_mla_tries(dev, mesh, dp_mesh, gen)
+    yield from _vision_tries(dev, mesh, gen)
 
 
 def _moe_mla_tries(dev, mesh, dp_mesh, gen):
@@ -237,6 +242,64 @@ def _moe_mla_tries(dev, mesh, dp_mesh, gen):
     yield "absorbed decode: einsum bhl,lhd->bhd over sharded heads", (
         lambda: torch.einsum("bhl,lhd->bhd", qc_d, wuv_d),
         lambda: torch.einsum("bhl,lhd->bhd", qc, wuv))
+
+
+def _vision_tries(dev, mesh, gen):
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+
+    world = mesh.size(1)
+    gate = torch.randn((), generator=gen, device=dev)
+    gate_d = DTensor.from_local(gate, mesh, [Replicate(), Replicate()],
+                                run_check=False)
+    h = torch.randn((2, SEQ, HEADS * HEAD_DIM), generator=gen,
+                    device=dev).bfloat16()
+    h_d = DTensor.from_local(h.chunk(world, dim=2)[mesh.get_coordinate()[1]],
+                             mesh, [Replicate(), Shard(2)], run_check=False)
+    yield "0-d Replicate gate (tanh, to bf16) times a Shard(-1) " \
+          "activation", (
+              lambda: torch.tanh(gate_d).to(torch.bfloat16) * h_d,
+              lambda: torch.tanh(gate).to(torch.bfloat16) * h)
+    # a pending sum whose full value is h: each rank holds h / world (a
+    # power of two: exact)
+    hp_d = DTensor.from_local(h / world, mesh, [Replicate(), Partial()],
+                              run_check=False)
+    yield "0-d Replicate gate times a Partial activation (wo's sum)", (
+        lambda: torch.tanh(gate_d).to(torch.bfloat16) * hp_d,
+        lambda: torch.tanh(gate).to(torch.bfloat16) * h)
+    x = torch.randn((2, SEQ, HEADS * HEAD_DIM), generator=gen,
+                    device=dev).bfloat16()
+    x_d = DTensor.from_local(x, mesh, [Replicate(), Replicate()],
+                             run_check=False)
+    yield "gated residual x + tanh(g) h, x replicated, h Partial", (
+        lambda: x_d + torch.tanh(gate_d).to(torch.bfloat16) * hp_d,
+        lambda: x + torch.tanh(gate).to(torch.bfloat16) * h)
+    kv, kv_d = _dt(gen, dev, mesh, (2, IMG, HEADS * HEAD_DIM),
+                   [Replicate(), Shard(2)])
+    yield "cross K/V head reshape of a Shard(-1) projection, prime " \
+          "image tokens", (
+              lambda: kv_d.reshape(2, IMG, HEADS, HEAD_DIM),
+              lambda: kv.reshape(2, IMG, HEADS, HEAD_DIM))
+    q, q_d = _dt(gen, dev, mesh, (2, SEQ, HEADS, GROUP, HEAD_DIM),
+                 [Replicate(), Shard(2)])
+    k, k_d = _dt(gen, dev, mesh, (2, IMG, HEADS, HEAD_DIM),
+                 [Replicate(), Shard(2)])
+    v, v_d = _dt(gen, dev, mesh, (2, IMG, HEADS, HEAD_DIM),
+                 [Replicate(), Shard(2)])
+    yield "non-causal scores einsum bqhgd,bkhd->bhgqk, heads over " \
+          "model", (
+              lambda: torch.einsum("bqhgd,bkhd->bhgqk", q_d, k_d),
+              lambda: torch.einsum("bqhgd,bkhd->bhgqk", q, k))
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q, k)
+    s_d = distribute_tensor(s, mesh, [Replicate(), Shard(1)])
+    yield "softmax over the image keys of head-sharded scores", (
+        lambda: torch.softmax(s_d, dim=-1),
+        lambda: torch.softmax(s, dim=-1))
+    p = torch.softmax(s, dim=-1)
+    p_d = distribute_tensor(p, mesh, [Replicate(), Shard(1)])
+    yield "value einsum bhgqk,bkhd->bhgqd, heads over model", (
+        lambda: torch.einsum("bhgqk,bkhd->bhgqd", p_d, v_d),
+        lambda: torch.einsum("bhgqk,bkhd->bhgqd", p, v))
 
 
 def _dt(gen, dev, mesh, shape, places):

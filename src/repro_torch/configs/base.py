@@ -6,12 +6,12 @@ The port's own copy of ``src/repro/configs/base.py`` (``MLAConfig`` :20,
 this package serves: dense ``attn_mlp``, the MoE family (mixtral's routed
 experts beside sliding-window attention, deepseek-v3's MLA with dense
 first layers), RWKV6 (``family="ssm"``), the zamba2 hybrid (Mamba2 with a
-weight-shared attention block) and the audio encoder (hubert: frame
-input, bidirectional attention, a GELU MLP). Of the vision family only
-``vision_seq`` / ``vision_dim`` are here, which the launcher's data
-config reads (0 for every ported config); its cross-attention period
-arrives with its modules, and ``remat_group`` (remat of several layers
-as one) with the first config that sets it past 1.
+weight-shared attention block), the vision family (llama-3.2-vision:
+a gated cross-attention layer to image embeddings every
+``cross_attn_period`` layers) and the audio encoder (hubert: frame
+input, bidirectional attention, a GELU MLP). ``remat_group`` (remat of
+several layers as one) arrives with the first config that sets it past
+1.
 """
 
 from __future__ import annotations
@@ -36,8 +36,7 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm (rwkv6) | hybrid
-                                   # (zamba2) | audio: the ported ones
+    family: str                    # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +63,7 @@ class ModelConfig:
     hybrid_period: int = 0         # zamba2: shared attn block every N mamba layers
     shared_lora_rank: int = 0      # zamba2: per-application LoRA rank
     # vlm
+    cross_attn_period: int = 0     # llama3.2-vision: every 5th layer
     vision_seq: int = 0
     vision_dim: int = 0
     # audio (stub frontend: precomputed frame embeddings)
@@ -100,10 +100,6 @@ class ModelConfig:
             attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
             shared = attn + 3 * d * f if n_shared else 0
             return total + L * per_m + shared
-        if self.family not in ("dense", "moe", "audio"):
-            raise NotImplementedError(
-                f"{self.name}: param_count of family {self.family!r} arrives "
-                "with its modules (ported: dense, moe, ssm, hybrid, audio)")
         if self.mla is not None:
             m = self.mla
             per_attn = d * m.q_lora + m.q_lora * self.n_heads * (m.nope_dim + m.rope_dim) \

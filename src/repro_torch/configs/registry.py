@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution + shape skip matrix.
 
-Knows the architectures ported so far; the JAX package's other archs
-(``src/repro/configs/registry.py``) join as their modules are ported.
+Knows every architecture of the JAX package's registry
+(``src/repro/configs/registry.py``), in its order.
 ``cell_supported`` and the two sets it reads are the reference's, so a
 cell of a ported arch is skipped for the same reason in both packages.
 """
@@ -10,8 +10,9 @@ from __future__ import annotations
 
 from repro_torch.configs import (chatglm3_6b, deepseek_v3_671b,
                                  hubert_xlarge, llama3p2_3b,
-                                 mistral_nemo_12b, mixtral_8x7b, qwen2_72b,
-                                 rwkv6_1p6b, zamba2_1p2b)
+                                 llama3p2_vision_11b, mistral_nemo_12b,
+                                 mixtral_8x7b, qwen2_72b, rwkv6_1p6b,
+                                 zamba2_1p2b)
 from repro_torch.configs.base import SHAPES, ModelConfig
 
 _MODULES = {
@@ -23,6 +24,7 @@ _MODULES = {
     "deepseek-v3-671b": deepseek_v3_671b,
     "mixtral-8x7b": mixtral_8x7b,
     "rwkv6-1.6b": rwkv6_1p6b,
+    "llama-3.2-vision-11b": llama3p2_vision_11b,
     "hubert-xlarge": hubert_xlarge,
 }
 
@@ -36,7 +38,7 @@ _ENCODER_ONLY = {"hubert-xlarge"}
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported yet: known archs are "
+        raise KeyError(f"unknown arch {name!r}: known archs are "
                        f"{', '.join(ARCH_NAMES)}")
     mod = _MODULES[name]
     return mod.smoke() if smoke else mod.CONFIG

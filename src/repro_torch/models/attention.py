@@ -5,7 +5,8 @@ Counterpart of ``src/repro/models/attention.py`` (``chunked_attention``
 :28, ``decode_attention`` :113, GQA :142-222, MLA :229-337). The JAX
 package has no Pallas attention, so neither has this one: plain torch, f32
 scores and softmax statistics, no ``scaled_dot_product_attention``.
-Cross-attention arrives with the model that needs it.
+Cross-attention (llama-3.2-vision) is ``gqa_fwd(kv_override=)``: the
+queries attend over pre-projected image keys and values.
 
 Layouts are the JAX package's: q (B, S, H, D), k/v (B, S, Hk, D).
 
@@ -221,15 +222,32 @@ def gqa_project_qkv(p: GQA, x, positions, *, n_heads, n_kv, head_dim,
 
 def gqa_fwd(p: GQA, x, *, n_heads, n_kv, head_dim, causal=True,
             window=None, rope_theta=10000.0, rope_fraction=1.0,
-            q_chunk=1024, kv_chunk=1024):
+            q_chunk=1024, kv_chunk=1024, kv_override=None):
     """Full-sequence attention (prefill / teacher-forced forward) over
     positions 0..S-1, within ``window`` positions back when given.
-    Returns (out, (k, v))."""
+    Returns (out, (k, v)).
+
+    ``kv_override``: (k, v) to attend over instead of self-projections
+    (cross-attention passes pre-projected image keys and values). Only q
+    is projected then: the reference projects ``wk`` / ``wv`` too and
+    discards them (XLA drops that code), so those weights get a zero
+    gradient in both packages."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = gqa_project_qkv(p, x, positions, n_heads=n_heads, n_kv=n_kv,
-                              head_dim=head_dim, rope_theta=rope_theta,
-                              rope_fraction=rope_fraction)
+    if kv_override is None:
+        q, k, v = gqa_project_qkv(p, x, positions, n_heads=n_heads,
+                                  n_kv=n_kv, head_dim=head_dim,
+                                  rope_theta=rope_theta,
+                                  rope_fraction=rope_fraction)
+    else:
+        k, v = kv_override
+        q = layers.dense(p.wq, x)
+        if hasattr(p, "bq"):
+            q = q + p.bq
+        q = q.reshape(b, s, n_heads, head_dim)
+        if rope_fraction > 0:
+            q = layers.apply_rope(q, positions, theta=rope_theta,
+                                  fraction=rope_fraction)
     ctx = heads.local_heads(chunked_attention, q, k, v, n_kv=n_kv,
                             causal=causal, window=window, q_chunk=q_chunk,
                             kv_chunk=kv_chunk)

@@ -1,6 +1,6 @@
 """Per-layer blocks: init / forward / prefill / decode.
 
-Counterpart of ``src/repro/models/blocks.py`` for six kinds:
+Counterpart of ``src/repro/models/blocks.py`` for its seven kinds:
 
   attn_mlp   dense transformer layer (GQA + MLP)      [llama/qwen/chatglm/
                                                        mistral/hubert;
@@ -11,13 +11,26 @@ Counterpart of ``src/repro/models/blocks.py`` for six kinds:
   mla_moe    DeepSeek MLA + MoE (shared+routed)       [deepseek]
   mamba      Mamba2 layer                             [zamba2 backbone]
   rwkv       RWKV6 time-mix + channel-mix             [rwkv6]
+  cross_mlp  gated cross-attention to image tokens    [llama3.2-vision]
+             + MLP
 
 Residual/pre-norm convention: x = x + f(norm(x)) everywhere; the norm is
 LayerNorm where ``cfg.norm == "ln"`` (rwkv6, hubert), RMSNorm otherwise,
 f32 parameters either way (the reference's ``_norm_init``, :27-37). The
 MLP is SwiGLU, or the GELU MLP where ``cfg.mlp_type == "gelu"``
 (hubert's ``attn_mlp``; the reference's ``_mlp_init`` / ``_mlp_fwd``,
-:44-52). The cross-attention kind arrives with its model.
+:44-52).
+
+The cross-attention kind (``cross_mlp``, the reference's :109-124,
+:127-133, :176-184, :216-218, :275-284, :328-337, :341-344) attends
+from the text to K/V that ``kv_proj_k`` / ``kv_proj_v`` project from the
+batch's ``image_embeds`` (``extras``), without RoPE or a causal mask,
+and adds the attention and the MLP through ``tanh`` of the 0-d f32
+gates ``gate_attn`` / ``gate_ffn``, which start at zero. Its own
+``attn.wk`` / ``attn.wv`` exist as in the reference but are never read
+(zero gradients). Its cache entry is those K/V at ``vision_seq``
+positions: prefill replaces it (in the embeddings' dtype, f32 from the
+pipeline, as the reference's scan returns it), decode only reads it.
 
 Sliding-window attention (``cfg.attn_window``, mixtral) attends within
 the window in every path. Its cache holds ``min(max_len, window)``
@@ -34,9 +47,10 @@ import torch
 from torch import nn
 
 from repro_torch.ft import is_dtensor
-from repro_torch.models import attention, layers, mamba2, moe, rwkv6
+from repro_torch.models import attention, heads, layers, mamba2, moe, rwkv6
 
-KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe", "mamba", "rwkv")
+KINDS = ("attn_mlp", "attn_moe", "mla_mlp", "mla_moe", "mamba", "rwkv",
+         "cross_mlp")
 
 
 def _check(cfg, kind: str) -> None:
@@ -59,6 +73,9 @@ def _check(cfg, kind: str) -> None:
         raise ValueError(f"{cfg.name}: the rwkv kind needs cfg.rwkv")
     if kind == "mamba" and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: the mamba kind needs cfg.ssm")
+    if kind == "cross_mlp" and not (cfg.vision_seq and cfg.vision_dim):
+        raise ValueError(f"{cfg.name}: the cross_mlp kind needs "
+                         "cfg.vision_seq and cfg.vision_dim")
 
 
 def norm_init(cfg, device=None) -> nn.Module:
@@ -114,8 +131,19 @@ class Block(nn.Module):
         else:
             self.attn = attention.GQA(cfg.d_model, cfg.n_heads,
                                       cfg.n_kv_heads, cfg.resolved_head_dim,
-                                      qkv_bias=cfg.qkv_bias, dtype=dt,
-                                      device=device)
+                                      qkv_bias=(cfg.qkv_bias
+                                                and kind != "cross_mlp"),
+                                      dtype=dt, device=device)
+        if kind == "cross_mlp":
+            kv = (cfg.vision_dim, cfg.n_kv_heads * cfg.resolved_head_dim)
+            self.kv_proj_k = layers.param(torch.empty(kv, dtype=dt,
+                                                      device=device))
+            self.kv_proj_v = layers.param(torch.empty(kv, dtype=dt,
+                                                      device=device))
+            for gate in ("gate_attn", "gate_ffn"):
+                setattr(self, gate, layers.param(torch.zeros(
+                    (), dtype=torch.float32, device=device)))
+            self.INIT = {"gate_attn": "zeros", "gate_ffn": "zeros"}
         self.norm2 = norm_init(cfg, device)
         if kind.endswith("_moe"):
             self.ffn = moe.MoE(cfg.d_model, cfg.moe, dt, device)
@@ -156,8 +184,46 @@ def _layer(p: Block, x, cfg, kind: str = "attn_mlp"):
     return x, kv, metrics
 
 
-def block_fwd(p: Block, x, cfg, kind: str = "attn_mlp"):
-    """Full-sequence forward without a cache. Returns (x, metrics)."""
+def cross_kv(p: Block, cfg, image_embeds):
+    """Project image-patch embeddings (B, S_img, vision_dim) to the
+    cross-attention K/V, (B, S_img, n_kv, head_dim) each, in the
+    embeddings' dtype (``layers.dense`` keeps x's)."""
+    b, s_img, _ = image_embeds.shape
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = layers.dense(p.kv_proj_k, image_embeds).reshape(b, s_img, hk, hd)
+    v = layers.dense(p.kv_proj_v, image_embeds).reshape(b, s_img, hk, hd)
+    return k, v
+
+
+def _gated(gate, x, h):
+    """``x + tanh(gate) h``, the gate cast to the stream's dtype."""
+    return x + torch.tanh(gate).to(x.dtype) * h
+
+
+def _cross_mlp(p: Block, x, cfg, h):
+    """The gated residual of the cross layer's attention output ``h``,
+    then its gated MLP."""
+    x = _gated(p.gate_attn, x, h)
+    return _gated(p.gate_ffn, x, _mlp_fwd(cfg, p.ffn,
+                                          norm_apply(cfg, p.norm2, x)))
+
+
+def _cross_layer(p: Block, x, cfg, kv):
+    """The full-sequence cross layer over the image K/V ``kv``:
+    bidirectional, no RoPE on the queries."""
+    h, _ = attention.gqa_fwd(p.attn, norm_apply(cfg, p.norm1, x),
+                             causal=False, kv_override=kv,
+                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                             **{**_attn_kwargs(cfg), "rope_fraction": 0.0})
+    return _cross_mlp(p, x, cfg, h)
+
+
+def block_fwd(p: Block, x, cfg, kind: str = "attn_mlp", extras=None):
+    """Full-sequence forward without a cache. ``extras``: the batch's
+    ``image_embeds`` for the cross kind. Returns (x, metrics)."""
+    if kind == "cross_mlp":
+        return _cross_layer(p, x, cfg, cross_kv(p, cfg,
+                                                extras["image_embeds"])), {}
     if kind == "mamba":
         return x + mamba2.mamba2_fwd(p.mixer, norm_apply(cfg, p.norm1, x),
                                      cfg.ssm), {}
@@ -182,9 +248,15 @@ def cache_init(cfg, kind: str, batch: int, max_len: int, device) -> dict:
     ``max_len`` positions (``min(max_len, window)`` under a sliding
     window), MLA's latent ``c`` and rope key ``kpe``, Mamba2's f32 SSM
     state and the conv's last W - 1 inputs, RWKV6's f32 WKV state and the
-    last normed inputs of its two mixers."""
+    last normed inputs of its two mixers, the cross layer's image K/V at
+    ``vision_seq`` positions."""
     _check(cfg, kind)
     dt = getattr(torch, cfg.dtype)
+    if kind == "cross_mlp":
+        shape = (batch, cfg.vision_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
     if kind == "mamba":
         s = cfg.ssm
         return {"ssm": torch.zeros((batch, s.n_heads, s.state_dim,
@@ -225,19 +297,25 @@ def _write_ring(cache, t, w: int) -> None:
 
 
 def _placed(new: dict, old: dict) -> dict:
-    """A Mamba2 or RWKV6 cache entry that replaces ``old``, each state in
-    ``old``'s placements (a DTensor cache keeps ``sharding.cache_specs``'s
-    layout step after step)."""
+    """A Mamba2, RWKV6 or cross-attention cache entry that replaces
+    ``old``, each state in ``old``'s placements (a DTensor cache keeps
+    ``sharding.cache_specs``'s layout step after step)."""
     return {k: v.redistribute(old[k].device_mesh, old[k].placements)
             if is_dtensor(v) and list(v.placements) != list(old[k].placements)
             else v for k, v in new.items()}
 
 
-def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
+def block_prefill(p: Block, x, cfg, kind: str, cache: dict, extras=None):
     """Full-sequence forward that also fills the cache. Attention writes
     its K/V (MLA its latent) in place: the first S slots, or under a ring
-    the last ``window`` positions; Mamba2 and RWKV6 return a new entry.
+    the last ``window`` positions; Mamba2, RWKV6 and the cross layer
+    return a new entry (the cross layer's in the image embeddings' dtype,
+    uncast: an f32 K/V written into the bf16 zeros would round).
     Returns (x, cache)."""
+    if kind == "cross_mlp":
+        k, v = cross_kv(p, cfg, extras["image_embeds"])
+        return _cross_layer(p, x, cfg, (k, v)), _placed({"k": k, "v": v},
+                                                         cache)
     if kind == "mamba":
         h, (ssm, conv) = mamba2.mamba2_fwd(
             p.mixer, norm_apply(cfg, p.norm1, x), cfg.ssm, return_state=True)
@@ -267,6 +345,16 @@ def block_prefill(p: Block, x, cfg, kind: str, cache: dict):
 
 def block_decode(p: Block, x, cfg, kind: str, cache: dict, pos: int):
     """One-token step. x: (B, 1, d). Returns (x, cache)."""
+    if kind == "cross_mlp":
+        b = x.shape[0]
+        n_q = cfg.n_heads * cfg.resolved_head_dim
+        q = layers.dense(p.attn.wq, norm_apply(cfg, p.norm1, x)).reshape(
+            b, 1, cfg.n_heads, cfg.resolved_head_dim)
+        ctx = heads.local_heads(attention.decode_attention, q, cache["k"],
+                                cache["v"], n_kv=cfg.n_kv_heads,
+                                cur_len=cache["k"].shape[1])
+        h = layers.dense(p.attn.wo, ctx.reshape(b, 1, n_q))
+        return _cross_mlp(p, x, cfg, h), cache
     if kind == "mamba":
         h, ssm, conv = mamba2.mamba2_decode(
             p.mixer, norm_apply(cfg, p.norm1, x), cache["ssm"],

@@ -1,4 +1,5 @@
-"""LM assembly for the dense, MoE, RWKV6, zamba2 hybrid and audio families.
+"""LM assembly for the dense, MoE, RWKV6, zamba2 hybrid, vision and audio
+families: every family of the JAX package.
 
 Counterpart of ``src/repro/models/model.py`` (``segments`` :40, ``init``
 :73, ``_embed_input`` :130, ``_shared_block_fwd`` :141,
@@ -11,7 +12,8 @@ loop. The cache is a flat list of per-layer dicts in execution order:
 attention's ``{"k", "v"}`` (a ring of ``window`` slots under a sliding
 window) and MLA's latent ``{"c", "kpe"}``, updated in place, or Mamba2's
 ``{"ssm", "conv"}`` and RWKV6's ``{"wkv", "tm_prev", "cm_prev"}``,
-replaced by each step.
+replaced by each step, or a cross layer's image ``{"k", "v"}``, replaced
+by the prefill and only read by decode.
 
 Segments (the reference's ``segments``):
 
@@ -25,6 +27,16 @@ Segments (the reference's ``segments``):
           LoRAs ``lora_attn`` / ``lora_ffn``), ``tail``, and the
           weight-shared attention block ``shared_block``, applied after
           every group.
+* llama3.2-vision: [vlm_group x G]             -> ``groups`` (each
+          ``period - 1`` self-attention layers in ``self`` and one gated
+          cross-attention layer ``cross``); ``n_layers // period`` whole
+          groups, as the reference floors it.
+
+A vision model reads the batch's ``"image_embeds"`` (B, vision_seq,
+vision_dim) in every cross layer (``forward_hidden`` and ``prefill``;
+``decode_step`` reads the cross caches the prefill filled). The
+embeddings are not cast: the pipeline's f32 give f32 cross K/V and
+caches over bf16 weights, as in the reference.
 
 A model with ``cfg.input_mode == "frames"`` (hubert, an encoder) reads
 the batch's ``"frames"`` (B, S, frame_dim) through ``frame_proj`` where
@@ -70,9 +82,9 @@ from repro_torch.models import attention, blocks, layers
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str          # block kind | zamba_group
+    kind: str          # block kind | zamba_group | vlm_group
     n: int             # layers (groups) in the segment
-    inner: int = 0     # Mamba2 layers a group
+    inner: int = 0     # Mamba2 (self-attention) layers a group
 
 
 def segments(cfg) -> list[Segment]:
@@ -92,8 +104,12 @@ def segments(cfg) -> list[Segment]:
         if rem:
             segs.append(Segment("mamba", rem))
         return segs
-    raise ValueError(f"model family {cfg.family!r} is not ported yet "
-                     "(ported: dense, moe, ssm, hybrid, audio)")
+    if cfg.family == "vlm":
+        period = cfg.cross_attn_period
+        return [Segment("vlm_group", cfg.n_layers // period,
+                        inner=period - 1)]
+    raise ValueError(f"unknown model family {cfg.family!r} (known: dense, "
+                     "moe, ssm, hybrid, vlm, audio)")
 
 
 class ZambaGroup(nn.Module):
@@ -108,6 +124,18 @@ class ZambaGroup(nn.Module):
             blocks.Block(cfg, "mamba", device) for _ in range(inner))
         self.lora_attn = layers.LoRA(d, d, r, dt, device)
         self.lora_ffn = layers.LoRA(d, d, r, dt, device)
+
+
+class VisionGroup(nn.Module):
+    """One group of llama3.2-vision's schedule: ``self`` (its
+    self-attention layers) and ``cross`` (the gated cross-attention layer
+    after them)."""
+
+    def __init__(self, cfg, inner: int, device=None):
+        super().__init__()
+        self.self = nn.ModuleList(
+            blocks.Block(cfg, "attn_mlp", device) for _ in range(inner))
+        self.cross = blocks.Block(cfg, "cross_mlp", device)
 
 
 class FrameProj(nn.Module):
@@ -126,8 +154,9 @@ class LM(nn.Module):
     model holds its one segment in ``layers``; deepseek-v3 its dense MLA
     layers in ``layers`` and its MoE layers in ``tail``; a hybrid holds
     ``groups``, ``tail`` (the Mamba2 layers past the last whole group) and
-    ``shared_block`` (``repro_torch.layout`` maps each to the JAX leaves:
-    ``layers`` to the first segment, ``tail`` to the second)."""
+    ``shared_block``; a vision model its ``groups`` alone
+    (``repro_torch.layout`` maps each to the JAX leaves: ``layers`` and
+    ``groups`` to the first segment, ``tail`` to the second)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -149,6 +178,10 @@ class LM(nn.Module):
                 blocks.Block(cfg, "mamba", device)
                 for seg in segs[1:] for _ in range(seg.n))
             self.shared_block = blocks.Block(cfg, "attn_mlp", device)
+        elif cfg.family == "vlm":
+            self.groups = nn.ModuleList(
+                VisionGroup(cfg, segs[0].inner, device)
+                for _ in range(segs[0].n))
         else:
             self.layers = nn.ModuleList(
                 blocks.Block(cfg, segs[0].kind, device)
@@ -219,10 +252,11 @@ def _shared_block_fwd(shared: blocks.Block, group: ZambaGroup, x, cfg,
     return x + h2, cache
 
 
-def _layer_fwd(lp, x, cfg, kind: str, remat: bool):
+def _layer_fwd(lp, x, cfg, kind: str, remat: bool, extras=None):
     """One layer; checkpointed under ``remat`` (the reference's per-layer
-    remat). Returns (x, metrics)."""
-    args = (lp, x, cfg, kind)
+    remat). ``extras``: what a cross layer reads of the batch. Returns
+    (x, metrics)."""
+    args = (lp, x, cfg, kind) + (() if extras is None else (extras,))
     return (layers.remat(blocks.block_fwd, *args) if remat
             else blocks.block_fwd(*args))
 
@@ -247,9 +281,23 @@ def forward_hidden(params: LM, cfg, batch):
         return _forward_hidden(params, cfg, batch)
 
 
+def _extras(cfg, batch):
+    """What the cross layers read of the batch: its image embeddings."""
+    return ({"image_embeds": batch.get("image_embeds")}
+            if cfg.family == "vlm" else None)
+
+
 def _forward_hidden(params: LM, cfg, batch):
     x = _embed_input(params, cfg, batch)
     remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.family == "vlm":
+        extras = _extras(cfg, batch)
+        for group in params.groups:
+            for lp in group.self:
+                x, _ = _layer_fwd(lp, x, cfg, "attn_mlp", remat)
+            x, _ = _layer_fwd(group.cross, x, cfg, "cross_mlp", remat,
+                              extras)
+        return x, {}
     if cfg.family == "hybrid":
         for group in params.groups:
             for lp in group.mamba:
@@ -286,7 +334,12 @@ def unembed_fn(params: LM, cfg):
 def _schedule(params: LM, cfg):
     """The model's layers in execution order: (block kind, layer params,
     group), where kind "shared" is the shared block applied with
-    ``group``'s LoRAs. One cache entry goes with each."""
+    ``group``'s LoRAs. One cache entry goes with each: a vision group's
+    self layers' K/V, then its cross layer's image K/V."""
+    if cfg.family == "vlm":
+        return [(kind, lp, None) for group in params.groups
+                for kind, lp in [*(("attn_mlp", lp) for lp in group.self),
+                                 ("cross_mlp", group.cross)]]
     if cfg.family != "hybrid":
         return [(kind, lp, None) for kind, lps in _plain_segments(params, cfg)
                 for lp in lps]
@@ -301,7 +354,8 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device=None,
                mesh=None):
     """One entry a layer in execution order; a zamba2 model has one K/V
     entry per application of its shared block (the reference broadcasts
-    the shared block's entry over the G groups). With ``mesh`` every
+    the shared block's entry over the G groups), a vision model one per
+    self layer and one per cross layer. With ``mesh`` every
     entry is a DTensor placed by ``sharding.cache_specs`` (batch over the
     dp dims, heads or sequence over "model"), for parameters on that
     mesh."""
@@ -310,6 +364,8 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device=None,
     for seg in segments(cfg):
         if seg.kind == "zamba_group":
             kinds += (["mamba"] * seg.inner + ["attn_mlp"]) * seg.n
+        elif seg.kind == "vlm_group":
+            kinds += (["attn_mlp"] * seg.inner + ["cross_mlp"]) * seg.n
         else:
             kinds += [seg.kind] * seg.n
     caches = [blocks.cache_init(cfg, kind, batch_size, max_len, dev)
@@ -340,12 +396,13 @@ def prefill(params: LM, cfg, batch, cache):
 
 def _prefill(params: LM, cfg, batch, cache):
     x = _embed_input(params, cfg, batch)
+    extras = _extras(cfg, batch)
     new_cache = []
     for (kind, lp, group), lc in zip(_schedule(params, cfg), cache):
         if kind == "shared":
             x, lc = _shared_block_fwd(lp, group, x, cfg, "prefill", lc)
         else:
-            x, lc = blocks.block_prefill(lp, x, cfg, kind, lc)
+            x, lc = blocks.block_prefill(lp, x, cfg, kind, lc, extras)
         new_cache.append(lc)
     return _logits(params, cfg, x[:, -1:])[:, 0], new_cache
 

@@ -1,11 +1,11 @@
 """Serving engine: batched prefill + decode with KV caches.
 
 Counterpart of ``src/repro/serve/engine.py`` (``make_serve_fns`` :29,
-``sample_token`` :79, ``generate`` :85). PyTorch runs eagerly, so the two
-step functions are plain callables (the JAX package jits them) and the
-policy scope is entered on every call. Caches are allocated once at
-``max_len = prompt + max_new`` (a sliding window's K/V at
-``min(max_len, window)`` slots, a ring once the prompt reaches the
+``sample_token`` :79, ``generate`` :85, its ``extras`` :103-104). PyTorch
+runs eagerly, so the two step functions are plain callables (the JAX
+package jits them) and the policy scope is entered on every call. Caches
+are allocated once at ``max_len = prompt + max_new`` (a sliding window's
+K/V at ``min(max_len, window)`` slots, a ring once the prompt reaches the
 window) and updated in place. An MoE layer's metrics are dropped on this
 path, as the reference drops them.
 
@@ -89,21 +89,24 @@ def sample_token(generator, logits, temperature: float = 0.0):
 
 
 def generate(params, cfg, prompts, max_new: int, *, generator=None,
-             temperature: float = 0.0, policy=None, device=None,
-             sharded_projections: bool = False):
+             temperature: float = 0.0, extras=None, policy=None,
+             device=None, sharded_projections: bool = False):
     """prompts: (B, S) int. Returns (B, max_new) generated tokens.
 
     Runs on ``device`` (the card unless the caller passes one), where
-    ``params`` and ``prompts`` must already lie. ``generator`` drives
+    ``params``, ``prompts`` and ``extras`` must already lie. ``extras``
+    joins the prefill's batch beside the tokens (a vision model's
+    ``image_embeds``, (B, vision_seq, vision_dim)). ``generator`` drives
     sampling (default: one seeded with 0 on that device).
     ``sharded_projections`` is forwarded to :func:`make_serve_fns`.
-    DTensor parameters serve on their mesh (the caches and the prompts'
-    batch placed there); the tokens come back whole, a plain tensor.
+    DTensor parameters serve on their mesh (the caches and the batch,
+    extras too, placed there); the tokens come back whole, a plain tensor.
     """
     dev = resolve_device(device)
     lm = params.model if isinstance(params, quant.QuantizedWeights) else params
+    extras = dict(extras or {})
     for name, t in (("params", next(lm.parameters())),
-                    ("prompts", prompts)):
+                    ("prompts", prompts), *extras.items()):
         if t.device != dev:
             raise ValueError(f"generate runs on {dev} but {name} lie on "
                              f"{t.device}")
@@ -116,7 +119,7 @@ def generate(params, cfg, prompts, max_new: int, *, generator=None,
     mesh = next(lm.parameters()).device_mesh if sharding.on_mesh(lm) \
         else None
     cache = model.init_cache(cfg, b, s0 + max_new, device=dev, mesh=mesh)
-    batch = {"tokens": prompts}
+    batch = {"tokens": prompts, **extras}
     if mesh is not None:
         batch = sharding.named(mesh, sharding.batch_specs(cfg, mesh, batch),
                                dict(batch))

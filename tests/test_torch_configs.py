@@ -11,9 +11,13 @@
   ``lm_head`` only; for zamba2 those and the shared block's seven
   matrices; for hubert those, ``frame_proj`` and the stacked ``b_up``).
   hubert's full-size layout holds ``frame_proj`` and the GELU MLP's
-  biases; ``llama-3.2-vision-11b`` is the one arch not ported yet. zamba2's leaves stacked twice (``(6, 6, ...)``) are held
-  with the rest, and its dtypes leaf by leaf (bf16 mixer norm, f32
-  ``A_log`` / ``D`` / ``dt_bias`` and block norms).
+  biases; ``llama-3.2-vision-11b``'s its self layers stacked twice
+  (``(8, 4, ...)``), its cross layers once with their ``(8,)`` f32
+  gates, and PowerSGD takes ``embed`` and ``lm_head`` alone. The port's
+  registry lists every JAX arch. zamba2's leaves stacked twice
+  (``(6, 6, ...)``) are held with the rest, and its dtypes leaf by leaf
+  (bf16 mixer norm, f32 ``A_log`` / ``D`` / ``dt_bias`` and block
+  norms).
 * Smoke size: llama3.2-3b (tied embeddings), mistral-nemo-12b (head_dim
   != d_model / n_heads) and qwen2-72b (QKV bias) forward and greedy
   generate against JAX from the JAX parameters (biases and norm scales
@@ -40,7 +44,7 @@ from repro_torch.serve import engine
 
 PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
           "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b",
-          "hubert-xlarge"]
+          "llama-3.2-vision-11b", "hubert-xlarge"]
 DENSE_NEW = ["llama3.2-3b", "mistral-nemo-12b", "qwen2-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -55,10 +59,9 @@ def _jax_leaves(tree):
 
 
 def test_registry_lists_the_ported_archs_in_reference_order():
-    assert registry.ARCH_NAMES == PORTED
-    assert [a for a in jregistry.ARCH_NAMES if a in PORTED] == PORTED
-    with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("llama-3.2-vision-11b")
+    assert registry.ARCH_NAMES == PORTED == jregistry.ARCH_NAMES
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -146,6 +149,29 @@ def test_zamba2_param_count_value_and_leaves():
     assert leaf("shared_block.ffn.w_down") == ((8192, 2048), bf16)
 
 
+def test_vision_leaves_stack_by_group():
+    """llama-3.2-vision-11b's self layers stack on (group, layer) axes,
+    its cross layers on the group axis: the 0-d f32 gates become (8,),
+    the image projections (8, 4096, 1024) in bf16."""
+    cfg = registry.get_config("llama-3.2-vision-11b")
+    lm = model.LM(cfg, device="meta")
+    named = dict(lm.named_parameters())
+    groups = layout.jax_leaves(named)
+
+    def leaf(path):
+        names = groups[path]
+        return layout.jax_shape(named, names), named[names[0]].dtype
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert leaf("segments.0.self.attn.wq") == ((8, 4, 4096, 4096), bf16)
+    assert leaf("segments.0.self.norm1.scale") == ((8, 4, 4096), f32)
+    assert leaf("segments.0.cross.attn.wk") == ((8, 4096, 1024), bf16)
+    assert leaf("segments.0.cross.kv_proj_v") == ((8, 4096, 1024), bf16)
+    for gate in ("gate_attn", "gate_ffn"):
+        assert leaf(f"segments.0.cross.{gate}") == ((8,), f32)
+    assert leaf("segments.0.cross.ffn.w_down") == ((8, 14336, 4096), bf16)
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_powersgd_default_compresses_the_references_leaves(arch):
     """At full width and the default ``min_size`` the port picks the JAX
@@ -169,6 +195,10 @@ def test_powersgd_default_compresses_the_references_leaves(arch):
         # the frame projection, both heads and the stacked (48, 5120) b_up
         assert want == ["embed.table", "frame_proj.w", "lm_head.table",
                         "segments.0.ffn.b_up"]
+    if arch == "llama-3.2-vision-11b":
+        # the stacked (8, 4096) cross norms stay under 65,536; the gates
+        # are (8,)
+        assert want == ["embed.table", "lm_head.table"]
     if arch == "zamba2-1.2b":
         assert want == ["embed.table", "lm_head.table", *(
             f"shared_block.{k}" for k in ("attn.wk", "attn.wo", "attn.wq",

@@ -12,7 +12,9 @@ must be replicated).
   "tp" (qwen2-72b, mixtral-8x7b and deepseek-v3-671b past
   ``FSDP_THRESHOLD``: FSDP over "data") and "dp";
 * optimizer state: ``make_opt_specs`` with and without ``zero1``;
-* ``batch_specs`` and ``cache_specs`` (the caches on the meta device);
+* ``batch_specs`` (tokens, hubert's frames, llama-3.2-vision's image
+  embeddings) and ``cache_specs`` (the caches on the meta device; the
+  vision model's cross caches beside its self-attention ones);
 * the reference's six ``tests/test_sharding_rules.py`` cases, as cases of
   one parametrised test, on the JAX configs' shapes (their leaves named
   as the port names a layer, ``layers.0.<leaf>`` and ``tail.0.<leaf>``),
@@ -36,7 +38,7 @@ from repro_torch.models import model
 
 PORTED = ["zamba2-1.2b", "chatglm3-6b", "llama3.2-3b", "mistral-nemo-12b",
           "qwen2-72b", "deepseek-v3-671b", "mixtral-8x7b", "rwkv6-1.6b",
-          "hubert-xlarge"]
+          "llama-3.2-vision-11b", "hubert-xlarge"]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -186,6 +188,27 @@ def test_frame_batch_specs_equal_jax(batch, mesh_name):
               "targets": torch.empty((batch, 128), device="meta")}
     jb = {"frames": jax.ShapeDtypeStruct((batch, 128, 512), jnp.float32),
           "targets": jax.ShapeDtypeStruct((batch, 128), jnp.int32)}
+    got = sharding.batch_specs(cfg, mesh, shapes)
+    want = jsharding.batch_specs(jcfg, jmesh, jb)
+    assert got == {k: _full(v, len(shapes[k].shape))
+                   for k, v in want.items()}
+
+
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("batch", [256, 32, 1])
+def test_image_batch_specs_equal_jax(batch, mesh_name):
+    """llama-3.2-vision's batch: (B, 1601, 4096) f32 image embeddings
+    beside int tokens and targets."""
+    mesh, jmesh = _meshes(mesh_name)
+    cfg = registry.get_config("llama-3.2-vision-11b")
+    jcfg = jregistry.get_config("llama-3.2-vision-11b")
+    img = (batch, cfg.vision_seq, cfg.vision_dim)
+    shapes = {"tokens": torch.empty((batch, 128), device="meta"),
+              "targets": torch.empty((batch, 128), device="meta"),
+              "image_embeds": torch.empty(img, device="meta")}
+    jb = {"tokens": jax.ShapeDtypeStruct((batch, 128), jnp.int32),
+          "targets": jax.ShapeDtypeStruct((batch, 128), jnp.int32),
+          "image_embeds": jax.ShapeDtypeStruct(img, jnp.float32)}
     got = sharding.batch_specs(cfg, mesh, shapes)
     want = jsharding.batch_specs(jcfg, jmesh, jb)
     assert got == {k: _full(v, len(shapes[k].shape))

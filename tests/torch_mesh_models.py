@@ -1,7 +1,8 @@
-"""The rwkv6, zamba2, mixtral, deepseek-v3 and hubert smoke models on
-DTensor parameters: the port's serve and train step on two-rank meshes
-against the JAX package's two-device run. The tests live in
-``tests/test_torch_mesh_{rwkv,zamba,mixtral,deepseek,hubert}.py``, which
+"""The rwkv6, zamba2, mixtral, deepseek-v3, llama-3.2-vision and hubert
+smoke models on DTensor parameters: the port's serve and train step on
+two-rank meshes against the JAX package's two-device run. The tests live
+in ``tests/test_torch_mesh_{rwkv,zamba,mixtral,deepseek,vision,hubert}.
+py``, which
 name the arch (``ARCH``) and import them from here (with
 ``pytest_generate_tests``, which gives each test the arch's cases); each
 file runs one world.
@@ -18,7 +19,11 @@ parallelism on (1, 2), one dispatch group spanning both dp ranks on
 their d_ff over "model"), and FSDP with two groups on (2, 1); deepseek
 also its
 non-absorbed MLA decode on (1, 2), where the latent cache's sequence is
-split over "model". hubert, an encoder (``ENCODERS``), takes the two
+split over "model". llama-3.2-vision takes the two meshes with seeded
+f32 image embeddings beside its prompts (``generate(extras=)``, the
+prefill's batch) and the pipeline's in training, each placed by
+``batch_specs`` like the tokens; its cross caches lie where
+``cache_specs`` puts them. hubert, an encoder (``ENCODERS``), takes the two
 meshes at 4 layers (its stacked ``ffn.b_up`` then has PowerSGD's rank of
 rows) and an encoder arm in place of ``generate``: ``forward`` and
 ``prefill`` of seeded f32 frames, and the pipeline's frame batches in
@@ -81,9 +86,12 @@ from test_torch_mesh import (B, DATA, N_MICRO, NEW, STEPS, THRESH, TOL, S,
                              _full, _places)
 
 MIXTRAL, DEEPSEEK, HUBERT = "mixtral-8x7b", "deepseek-v3-671b", "hubert-xlarge"
+VISION = "llama-3.2-vision-11b"
 # Encoders: served by forward and prefill of frames, trained on frames.
 ENCODERS = (HUBERT,)
 FRAME_DATA = {**DATA, "vocab_size": 64, "mode": "frames", "frame_dim": 32}
+# The vision smoke config's image embeddings: 24 tokens of width 48.
+IMAGE_DATA = {**DATA, "vision_seq": 24, "vision_dim": 48}
 # Each arch's cases: tag -> (mesh shape, changes to the smoke config,
 # changes to its MoEConfig, make_param_specs's fsdp).
 MESHES = {"1x2": ((1, 2), {}, {}, None), "2x1": ((2, 1), {}, {}, None)}
@@ -92,6 +100,7 @@ MOE_CASES = {**MESHES,
              "1x2-e3": ((1, 2), {}, {"n_experts": 3}, None),
              "2x1-fsdp": ((2, 1), {}, {"dispatch_groups": 2}, True)}
 CASES = {"rwkv6-1.6b": MESHES, "zamba2-1.2b": MESHES, MIXTRAL: MOE_CASES,
+         VISION: MESHES,
          DEEPSEEK: {**MOE_CASES, "1x2-plain": ((1, 2), {"mla_absorb": False},
                                                {}, None)},
          HUBERT: {tag: (shape, {"n_layers": 4}, {}, None)
@@ -101,7 +110,7 @@ CASES = {"rwkv6-1.6b": MESHES, "zamba2-1.2b": MESHES, MIXTRAL: MOE_CASES,
 # matrices too (zamba2), and frame_proj and the stacked b_up (hubert), as
 # at full width.
 MIN_SIZE = {"rwkv6-1.6b": 1024, "zamba2-1.2b": 4096, MIXTRAL: 4096,
-            DEEPSEEK: 4096, HUBERT: 512}
+            DEEPSEEK: 4096, HUBERT: 512, VISION: 1024}
 # The parameters whose placements the tests read, and the cache entries.
 WATCHED = {"rwkv6-1.6b": ("layers.0.time_mix.wr",),
            "zamba2-1.2b": ("groups.0.mamba.0.mixer.in_proj",
@@ -110,10 +119,12 @@ WATCHED = {"rwkv6-1.6b": ("layers.0.time_mix.wr",),
                      "layers.0.ffn.experts.w_down"),
            DEEPSEEK: ("tail.0.ffn.experts.w_gate",
                       "tail.0.ffn.experts.w_down", "layers.0.attn.wukv"),
-           HUBERT: ("frame_proj.w", "layers.0.ffn.w_up", "layers.0.ffn.b_up")}
+           HUBERT: ("frame_proj.w", "layers.0.ffn.w_up", "layers.0.ffn.b_up"),
+           VISION: ("groups.0.cross.kv_proj_k", "groups.0.cross.attn.wq",
+                    "groups.0.self.0.attn.wk")}
 STATES = ("wkv", "ssm", "conv")
 CACHES = {"rwkv6-1.6b": STATES, "zamba2-1.2b": STATES, MIXTRAL: ("k", "v"),
-          DEEPSEEK: ("c", "kpe"), HUBERT: ("k", "v")}
+          DEEPSEEK: ("c", "kpe"), HUBERT: ("k", "v"), VISION: ("k", "v")}
 MOE_METRICS = ("moe_balance_loss", "moe_dropped_frac", "moe_max_load")
 ABFT_MIN_LEAF = 1024
 NOISE = 1e-6
@@ -138,8 +149,10 @@ def case_config(cfg, case):
 
 
 def data(arch) -> dict:
-    """The arch's ``DataConfig`` fields: frames for an encoder."""
-    return FRAME_DATA if arch in ENCODERS else DATA
+    """The arch's ``DataConfig`` fields: frames for an encoder, image
+    embeddings for the vision model."""
+    return (FRAME_DATA if arch in ENCODERS else IMAGE_DATA if arch == VISION
+            else DATA)
 
 
 def batches(arch) -> list:
@@ -204,7 +217,8 @@ def _serve(arch, cfg, jstate, inputs, mesh, pol, fsdp):
                             mesh, pol)
     else:
         out, meta = _generate(arch, cfg, params, plain, specs,
-                              inputs["prompts"], mesh, pol)
+                              inputs["prompts"], mesh, pol,
+                              inputs.get("image_embeds"))
     named = dict(params.named_parameters())
     meta["watched"] = {n: (_places(named[n]), [repr(p) for p in
                                                sharding.placements(
@@ -229,7 +243,8 @@ def _serve(arch, cfg, jstate, inputs, mesh, pol, fsdp):
     return out, meta
 
 
-def _generate(arch, cfg, params, plain, specs, prompts, mesh, pol):
+def _generate(arch, cfg, params, plain, specs, prompts, mesh, pol,
+              images=None):
     from repro_torch.core import tsmm
     from repro_torch.distributed import sharding
     from repro_torch.models import model
@@ -237,13 +252,17 @@ def _generate(arch, cfg, params, plain, specs, prompts, mesh, pol):
 
     out, meta = {}, {}
     toks = torch.from_numpy(prompts).long()
+    extras = ({} if images is None
+              else {"image_embeds": torch.from_numpy(images)})
     out["tokens"] = engine.generate(params, cfg, toks, NEW, policy=pol,
-                                    device="cpu", sharded_projections=True)
+                                    extras=extras, device="cpu",
+                                    sharded_projections=True)
     prefill, decode = engine.make_serve_fns(cfg, policy=pol,
                                             sharded_projections=True)
     cache = model.init_cache(cfg, B, S + NEW, device="cpu", mesh=mesh)
-    batch = sharding.named(mesh, sharding.batch_specs(
-        cfg, mesh, {"tokens": toks}), {"tokens": toks})
+    host = {"tokens": toks, **extras}
+    batch = sharding.named(mesh, sharding.batch_specs(cfg, mesh, host),
+                           dict(host))
     with tsmm.record_dispatches() as log:
         logits, cache = prefill(params, batch, cache)
     meta["prefill_events"] = sorted(set(harness.port_events(log)))
@@ -259,12 +278,12 @@ def _generate(arch, cfg, params, plain, specs, prompts, mesh, pol):
 
     # -- the port alone: sampling, the bias update --------------------------
     out["sampled"] = engine.generate(
-        params, cfg, toks, NEW, policy=pol, device="cpu",
+        params, cfg, toks, NEW, policy=pol, extras=extras, device="cpu",
         sharded_projections=True, temperature=1.0,
         generator=torch.Generator().manual_seed(7))
     out["sampled_plain"] = engine.generate(
-        plain, cfg, toks, NEW, policy=pol, device="cpu", temperature=1.0,
-        generator=torch.Generator().manual_seed(7))
+        plain, cfg, toks, NEW, policy=pol, extras=extras, device="cpu",
+        temperature=1.0, generator=torch.Generator().manual_seed(7))
     if cfg.moe is not None:
         # DeepSeek's bias step from whole counts, on the DTensor layer and
         # on the plain one
@@ -418,14 +437,16 @@ def encode(tag, cfg, params):
 
 def generate(tag, cfg, params):
     prompts = INP["prompts"]
+    extras = ({"image_embeds": INP["image_embeds"]}
+              if "image_embeds" in INP else None)
     toks = engine.generate(params, cfg, prompts, NEW, policy=pol,
-                           sharded_projections=True)
+                           extras=extras, sharded_projections=True)
     OUT[tag + "/tokens"] = toks
     prefill, decode = engine.make_serve_fns(cfg, policy=pol,
                                             sharded_projections=True)
     with tsmm.record_dispatches() as log:
         logits, cache = jax.jit(prefill)(
-            params, {"tokens": prompts},
+            params, {"tokens": prompts, **(extras or {})},
             model.init_cache(cfg, B, S + NEW))
     REC[tag] = events(log)
     steps = [logits]
@@ -507,6 +528,7 @@ def runs(request, tmp_path_factory):
     import test_torch_serve_moe
     import test_torch_serve_rwkv
     import test_torch_serve_zamba
+    import test_torch_vision
     from repro.configs import registry as jregistry
     from repro.optim import adamw as jadamw
     from repro.optim import powersgd as jpowersgd
@@ -518,7 +540,8 @@ def runs(request, tmp_path_factory):
                "zamba2-1.2b": test_torch_serve_zamba.perturb,
                MIXTRAL: test_torch_serve_moe.perturb,
                DEEPSEEK: test_torch_serve_moe.perturb,
-               HUBERT: test_torch_hubert.perturb}[arch]
+               HUBERT: test_torch_hubert.perturb,
+               VISION: test_torch_vision.perturb}[arch]
     work = tmp_path_factory.mktemp("mesh_models")
     smoke = jregistry.get_config(arch, smoke=True)
     jopt = jadamw.AdamWConfig(
@@ -543,6 +566,8 @@ def runs(request, tmp_path_factory):
     else:
         inputs = {"prompts": rng.integers(0, smoke.vocab_size, (B, S)
                                           ).astype(np.int32)}
+        if arch == VISION:
+            inputs["image_embeds"] = test_torch_vision.images(smoke, rng, B)
     ranks, arrays, record = harness.run_both(
         functools.partial(port_rank, arch), jax_script(arch), inputs, work,
         timeout=500)
