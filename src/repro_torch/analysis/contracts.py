@@ -69,6 +69,8 @@ __all__ = [
     "check_grid",
     "launch_grid",
     "check_backward_policy",
+    "check_tuning_record",
+    "SPLIT_CANDIDATES",
     "scatter_divisible",
     "check_scatter",
     "executor_reduce_ok",
@@ -123,6 +125,11 @@ STREAM_MAX_K = 256
 # words, within the b <= 16 tiles.
 PACKED_WIDTHS = (4, 8, 12, 16)
 _STREAMED = (torch.float32, torch.bfloat16, torch.int8)
+# The split factors S the choosers score (``perf_model``): powers of two
+# up to 128, since a tsmt whose output is one tile needs about n_sms
+# slices to occupy a 132-SM card (the JAX package's 1..16 was sized for a
+# 2-core TPU). A tuning record's S must be one of them.
+SPLIT_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128)
 # The widest CUDA dims: the grid's x, its y and z, and a kernel's int dims.
 _INT_MAX = 2**31 - 1
 
@@ -591,6 +598,53 @@ def check_backward_policy(fwd, bwd) -> list[Violation]:
             f"backward abft={getattr(bwd, 'abft', 'none')!r}, expected "
             f"{want_abft!r}: abft is scope-wide integrity intent and must "
             "survive the backward's re-dispatch"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tuning-table contracts
+# ---------------------------------------------------------------------------
+
+_MALFORMED = ("unknown-kind", "missing-params", "bad-param")
+
+
+def check_tuning_record(kind: str, shape, params, dtype, limits=None, *,
+                        executor: str = "",
+                        known_executors=()) -> list[Violation]:
+    """Contract check of one ``TuningTable`` record (``core/autotune.py``).
+
+    ``params`` is the record's launch in this module's terms: the caller
+    expands the record's S with ``perf_model.kernel_params`` (this layer
+    imports no perf model; ``autotune.record_launch`` does it). The launch
+    must keep every rule of :func:`check_kernel_config` on a card with
+    ``limits`` and cut its reduction as :func:`check_grid` says; the
+    record's ``executor`` must be one of ``known_executors`` (when given:
+    ``unknown-executor``); and its S must be one of
+    :data:`SPLIT_CANDIDATES` within the recorded shape's whole blocks
+    (``tuning-splits``): ``ops.resolve_params`` would clamp any other S
+    quietly, so such a record is stale or corrupt."""
+    out = check_kernel_config(kind, shape, params, dtype, limits)
+    malformed = any(v.rule in _MALFORMED for v in out)
+    if not malformed:
+        out += check_grid(kind, shape, params)
+    if known_executors and executor not in known_executors:
+        out.append(Violation(
+            "unknown-executor",
+            f"{kind} {tuple(shape)} executor={executor!r}",
+            f"record's executor {executor!r} is not registered "
+            f"(known: {sorted(known_executors)})"))
+    if malformed or kind == "tsm2l":
+        return out
+    p = dict(params)
+    rname, depth = reduction_axis(kind, shape)
+    s, most = p["splits"], max(1, -(-depth // p[rname]))
+    if s not in SPLIT_CANDIDATES or s > most:
+        out.append(Violation(
+            "tuning-splits", f"{kind} {tuple(shape)} {_name(dtype)} "
+            f"splits={s}",
+            f"the record's S = {s} is not one of {SPLIT_CANDIDATES} up to "
+            f"the {most} slices of whole {rname}={p[rname]} blocks that "
+            f"depth {depth} admits: the resolution would clamp it"))
     return out
 
 

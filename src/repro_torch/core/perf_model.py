@@ -578,6 +578,25 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     return max(t_mem, t_comp) + launches * spec.launch_s
 
 
+def tsm2l_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
+                     dtype=torch.float32) -> float:
+    """Modelled seconds of TSM2L (its one launch; no split): A read once,
+    B (tiny) once, the output written once, over the bandwidth of the busy
+    SMs' share, the grid of the body that ``tsm2l_body`` picks (the stream
+    body's persistent blocks, at most ``STREAM_BLOCKS_PER_SM`` an SM; the
+    tile body's row and column tiles); FMAs on the same share at the f32
+    rate (``__dp4a``'s at int8, whose kernel writes f32); one launch."""
+    b = dtype.itemsize
+    out = 4 if dtype == torch.int8 else b
+    rate = spec.peak_ops_dp4a if dtype == torch.int8 else spec.peak_flops_f32
+    p = kernel_params("tsm2l", m, k, n, dtype, 1, spec)
+    gm, gn, _ = contracts.launch_grid("tsm2l", (m, k, n), p)
+    occ = occupancy(gm * gn, spec)
+    t_mem = (m * k * b + k * n * b + m * n * out) / (spec.hbm_bw * occ)
+    t_comp = 2.0 * m * k * n / (rate * occ)
+    return max(t_mem, t_comp) + spec.launch_s
+
+
 def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                     dtype=torch.float32, *, splits: int = 1) -> float:
     """Modelled seconds of TSMT (S = 1) or its split variant: X once per
@@ -619,10 +638,9 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
 # The split choosers
 # ---------------------------------------------------------------------------
 
-# Powers of two up to 128: a tsmt whose output is one tile needs about
-# n_sms slices to occupy a 132-SM card (the JAX package's 1..16 was sized
-# for a 2-core TPU).
-SPLIT_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128)
+# Powers of two up to 128 (``contracts.SPLIT_CANDIDATES``, which audits
+# a tuning record's S against them).
+SPLIT_CANDIDATES = contracts.SPLIT_CANDIDATES
 # Splitting is offered only for the narrow tiles (output width <= 16).
 # TSM2R: the split kernel's 64 x 64 tile ran no faster at S = 4 than the
 # sequential kernel, and both wgmma bodies (n > 16) run only at S = 1, so
@@ -661,12 +679,25 @@ def _candidates(kind, m, d1, d2, spec, dtype, cap) -> list[int]:
         dtype)] or cands
 
 
+def split_candidates(kind: str, m: int, d1: int, d2: int,
+                     spec: GPUSpec = H100, dtype=torch.float32) -> list[int]:
+    """The S the chooser of ``kind`` ("tsm2r" or "tsmt") scores at (m, d1,
+    d2): ``_candidates`` up to its cap, one block of the reduction a slice
+    for outputs at most ``SPLIT_MAX_WIDTH`` wide, else S = 1 alone (the
+    grid ``autotune`` measures)."""
+    if kind == "tsm2r":
+        depth, block = d1, TSM2R_BLOCK_K
+    else:
+        depth, block = m, tsmt_block_m(dtype)
+    cap = max_splits(depth, block) if d2 <= SPLIT_MAX_WIDTH else 1
+    return _candidates(kind, m, d1, d2, spec, dtype, cap)
+
+
 def choose_splits_tsm2r(m: int, k: int, n: int, spec: GPUSpec = H100,
                         dtype=torch.float32) -> int:
-    cap = max_splits(k, TSM2R_BLOCK_K) if n <= SPLIT_MAX_WIDTH else 1
     return _argmin([(tsm2r_model_time(m, k, n, spec, dtype, splits=s), s)
-                    for s in _candidates("tsm2r", m, k, n, spec, dtype,
-                                         cap)])
+                    for s in split_candidates("tsm2r", m, k, n, spec,
+                                              dtype)])
 
 
 def tsmt_block_m(dtype) -> int:
@@ -676,11 +707,9 @@ def tsmt_block_m(dtype) -> int:
 
 def choose_splits_tsmt(m: int, a: int, bdim: int, spec: GPUSpec = H100,
                        dtype=torch.float32) -> int:
-    cap = (max_splits(m, tsmt_block_m(dtype)) if bdim <= SPLIT_MAX_WIDTH
-           else 1)
     return _argmin([(tsmt_model_time(m, a, bdim, spec, dtype, splits=s), s)
-                    for s in _candidates("tsmt", m, a, bdim, spec, dtype,
-                                         cap)])
+                    for s in split_candidates("tsmt", m, a, bdim, spec,
+                                              dtype)])
 
 
 # ---------------------------------------------------------------------------

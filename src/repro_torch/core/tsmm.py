@@ -176,6 +176,18 @@ class GemmPolicy:
     kernel still spreads m over the card by itself, in one launch with no
     epilogue op (``perf_model.tsmt_slices``).
 
+    ``tuning_table``: a ``core.autotune.TuningTable`` of measured split
+    factors (None = the chooser alone). When set and ``split`` is "auto",
+    ``kernels/ops.resolve_params`` takes the S of the record for the
+    shape's bucket, dtype (int8 under ``quant="int8"``), card and executor
+    (``cuda`` on the card, ``torch-ref`` for CPU tensors); without one it
+    runs the chooser under the table's fitted constants for the bucket
+    (``TuningTable.fitted_spec``: bucket fit first, global fit second).
+    A pinned ``split`` beats the table. Must stay hashable, which
+    TuningTable is; typed loosely here to keep the dispatcher free of an
+    import cycle. ``backward_policy`` keeps it, so the backward's
+    cotangent GEMMs look their own shapes up.
+
     ``quant``: "none" (operands stream at their own dtype) or "int8"
     (the kernel kinds quantize their operands and run the int8 kernels,
     the chooser pricing int8 operands; the dense path ignores it). It is
@@ -245,6 +257,7 @@ class GemmPolicy:
     max_skinny_t: int = MAX_SKINNY_T
     skinny_ratio_t: int = SKINNY_RATIO_T
     executor: str | None = None
+    tuning_table: object | None = None
     split: str | int = "auto"
     quant: str = "none"
     verify_contracts: bool = False
@@ -360,8 +373,9 @@ def backward_policy(p: GemmPolicy) -> GemmPolicy:
     a cotangent another shape than its primal; "psum_scatter" stays, so
     the backward's weight-gradient ``tsmm_t``s land sharded too. An int
     ``split`` was chosen for the forward shape, so it goes back to
-    "auto"; "never", a "dense" mode, ``quant``, ``abft`` and
-    ``param_dtype_grads`` are scope-wide intent and stay."""
+    "auto"; "never", a "dense" mode, ``quant``, ``abft``,
+    ``tuning_table`` and ``param_dtype_grads`` are scope-wide intent and
+    stay."""
     mode = p.mode if p.mode in ("auto", "dense") else "auto"
     reduce_ = "psum" if p.reduce == "none" else p.reduce
     split = "auto" if isinstance(p.split, int) else p.split

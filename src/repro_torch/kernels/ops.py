@@ -4,10 +4,11 @@ Counterpart of ``src/repro/kernels/ops.py`` (split resolution :156-267,
 ``tsm2r`` :354-438, ``tsm2l`` :445-492, ``tsmt`` :499-595).
 
 Split resolution: ``GemmPolicy.split`` pins S (an int, or "never" for
-S = 1), else the occupancy-aware chooser of ``core/perf_model.py`` picks
-it ("auto"). S is then clamped so every slice owns at
-least one block of the reduction (``TSM2R_BLOCK_K`` k rows, ``TSMT_BLOCK_M``
-m rows). Past S = 1 the split kernel writes (S, ...) f32 partials and
+S = 1), else a record of ``GemmPolicy.tuning_table`` gives the measured
+S, else the occupancy-aware chooser of ``core/perf_model.py`` picks it
+("auto"; JAX ``_tuned_params`` / ``_analytic_spec``, ``ops.py:124-153``).
+S is then clamped so every slice owns at least one block of the
+reduction (``TSM2R_BLOCK_K`` k rows, ``TSMT_BLOCK_M`` m rows). Past S = 1 the split kernel writes (S, ...) f32 partials and
 ``reduce.reduce_partials`` sums them. The reduction is cut into S
 contiguous slices of whole blocks, as the JAX package pads it to; the
 kernels mask ragged edges themselves, so nothing is copied to pad
@@ -98,6 +99,14 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     ``policy.quant="int8"`` the chooser prices int8 operands and the tsmt
     slice quantum is the scale band.
 
+    S comes from, in order: a pinned ``policy.split``; the record of
+    ``policy.tuning_table`` at (kind, shape bucket, effective dtype, the
+    card's spec name, the executor of ``device``: "cuda" on a card and
+    for ``device=None``, "torch-ref" on the CPU); S = 1 for CPU tensors;
+    the chooser under the table's fitted constants for the bucket
+    (``TuningTable.fitted_spec``; the card's spec without a table). The
+    clamps below apply to a tuned S as to a chosen one.
+
     Under ``policy.verify_contracts`` the resolved launch (``ptrs``: the
     operands' base addresses) is checked against the contracts on the
     limits of ``device``'s card (the data sheet's without one), and a
@@ -121,12 +130,20 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
     else:
         depth, block, choose = (m, perf_model.tsmt_block_m(dtype),
                                 perf_model.choose_splits_tsmt)
+    spec = perf_model.H100
+    if device is not None:
+        spec = perf_model.device_spec(spec, device)
+    table = policy.tuning_table
+    if splits is None and table is not None:
+        rec = table.lookup(kind, m, d1, d2, dtype=dtype, spec=spec.name,
+                           executor=executor_name(device))
+        if rec is not None:
+            splits = rec.params_dict.get("splits", 1)
     if splits is None and device is not None and device.type == "cpu":
         splits = 1
     if splits is None:
-        spec = perf_model.H100
-        if device is not None:
-            spec = perf_model.device_spec(spec, device)
+        if table is not None:
+            spec = table.fitted_spec(kind, m, d1, d2, dtype=dtype, spec=spec)
         splits = choose(m, d1, d2, spec, dtype)
     # Each slice must own >= one block: past that, slices are pure padding.
     splits = max(1, min(int(splits), perf_model.max_splits(depth, block)))
@@ -138,6 +155,14 @@ def resolve_params(kind: str, m: int, d1: int, d2: int, dtype, policy, *,
                 policy)
     key = "block_k" if kind == "tsm2r" else "block_m"
     return {"splits": splits, key: block}
+
+
+def executor_name(device) -> str:
+    """The executor a call on ``device`` runs under (``core/tsmm.py``):
+    "torch-ref" for CPU tensors, else "cuda" (``device=None`` is the data
+    sheet's card)."""
+    return "torch-ref" if device is not None and device.type == "cpu" \
+        else "cuda"
 
 
 def _verify(kind, m, d1, d2, dtype, splits, device, ptrs, out_dtype, q8,

@@ -47,7 +47,8 @@ def test_new_fields_default_as_jax():
     jfields = {f.name: f.default
                for f in dataclasses.fields(jtsmm.GemmPolicy)}
     for name in ("param_dtype_grads", "abft", "mode", "split", "quant",
-                 "verify_contracts", "shard_map", "dp_axes", "reduce"):
+                 "verify_contracts", "shard_map", "dp_axes", "reduce",
+                 "tuning_table"):
         assert fields[name] == jfields[name]
     p = tsmm.GemmPolicy(param_dtype_grads=True, abft="verify", mode="tsm2r",
                         executor="torch-ref", split=4)
