@@ -331,6 +331,22 @@ printing no result, when no CUDA card is present or any phase fails.
    shapes (``ABFT_SHAPES``: lines with ``"abft": true``, device and
    library device ms, the bound, the S the dispatcher resolves there)
    and tsmt_q8 at PowerSGD's Q beside its dequantized library call.
+7c. Roofline (after phase 7; no card work, under ``ROOFLINE_MAX_S``):
+   phase 4's prefill (4 x 2048 tokens, full width and depth) and phase
+   7's step (4 layers, PowerSGD rank 4) counted again on meta tensors of
+   the same shapes in a world of one (``launch/dryrun.count``, each
+   distinct layer once and multiplied: FLOPs and unfused bytes a op, the
+   TSM2X calls priced from the dispatcher's record), beside the device
+   time by class their ``profile`` lines took (read, not traced again):
+   a ``roofline`` line a path with ``compute_s`` (bf16 peak),
+   ``compute_s_dtype_peaks``, ``memory_s``, ``dominant``, the counted
+   FLOPs beside ``model_flops``, measured and device busy ms,
+   ``roofline_share`` (the bound over the device busy time) and, per
+   class (library GEMM, TSM2X kernels, elementwise), the counted FLOPs
+   and bytes (a TSM2X call's: its operands and output once, and the
+   kernel model's bytes beside them), the bound at the class's dtype
+   peaks and the measured ms; the model's terms under the H100 data
+   sheet's constants.
 8. Train-int8 (a main path of its own): the same, inside
    ``GemmPolicy(quant="int8")`` with ``PowerSGDConfig(compress="int8")``.
    Every step launches tsm2r_q8 64 times for wk/wv, the two P projections
@@ -562,16 +578,22 @@ printing no result, when no CUDA card is present or any phase fails.
    ``generate`` and ``make_serve_fns(sharded_projections=True)``: the
    serve phase's prompts, its greedy tokens and every step's logits bit
    for bit, 56 tsm2r a prefill, and prefill and decode ms beside the
-   plain path's. Then, in the same world, mesh-ssm and mesh-moe
+   plain path's; one more prefill under ``torch.profiler``, its device
+   time by class (library GEMM, TSM2X kernels, elementwise) beside phase
+   4's plain prefill's (``profile.prefill`` on the mesh-serve line). Then,
+   in the same world, mesh-ssm and mesh-moe
    (``mesh_models_phase``, a path each model: ``mesh_rwkv``,
-   ``mesh_zamba``; ``mesh_mixtral``, ``mesh_deepseek``): rwkv6-1.6b (24
-   layers), zamba2-1.2b (38), mixtral-8x7b-8l and deepseek-v3-671b-4l on
-   DTensor parameters, the weights that their serve phases served (built
-   again on the card from the same seed and perturbation,
-   ``serve_weights``: none is kept on the host), on the (1, 1) mesh,
-   caches from ``cache_specs``: the serve phases' tokens, every step's
-   logits and their one request sampled at temperature 1 bit for bit,
-   24, 12, 8 (tsm2r_split at S = 4 on the skinny body) and 5 tsm2r a
+   ``mesh_zamba``; ``mesh_mixtral``, ``mesh_deepseek``): rwkv6-1.6b cut
+   to 8 layers, zamba2-1.2b cut to 14 (``SSM_MESH_CUTS``: two groups and
+   the tail), mixtral-8x7b-8l and deepseek-v3-671b-4l on DTensor
+   parameters, the weights that their serve phases served (built again
+   on the card from the same seed and perturbation, ``serve_weights``:
+   none is kept on the host; the SSM cuts' from the same seed and
+   perturbation at the cut, held against a plain serve of the cut made
+   here, ``plain_serve_ref``), on the (1, 1)
+   mesh, caches from ``cache_specs``: the plain runs' tokens, every
+   step's logits and their one request sampled at temperature 1 bit for
+   bit, 8, 4, 8 (tsm2r_split at S = 4 on the skinny body) and 5 tsm2r a
    prefill as the plain prefill launches, every cache entry (the SSM
    states, mixtral's ring K/V, deepseek's latent caches) in its spec's
    placements after the prefill and after the last decode step; rwkv6,
@@ -2694,6 +2716,7 @@ def train_phase(dev, gpu, counts, zero_counts, quant=False):
     emit({"phase": "profile", "window": f"{phase} step", **prof,
           "unprofiled_ms": mid_ms,
           "busy_share": prof["device_busy_ms"] / mid_ms, "gpu": gpu})
+    PROFILES.setdefault((phase, "step"), {**prof, "unprofiled_ms": mid_ms})
     del state
     torch.cuda.empty_cache()
     abft = None
@@ -3335,12 +3358,18 @@ def profile_serve(engine, model, params, cfg, prompts, out, dev, step_ms,
               **rec, "unprofiled_ms": step_ms[window],
               "busy_share": rec["device_busy_ms"] / step_ms[window],
               "gpu": gpu})
+        PROFILES.setdefault((cfg.name, window),
+                            {**rec, "unprofiled_ms": step_ms[window]})
         del cache
 
 
 # The dispatch events that each path's record scopes saw, kept for the
 # contracts line: path name -> DispatchEvents.
 RECORDED: dict = {}
+# The first profile of each (model or train phase, window), with the
+# window's unprofiled ms: what the roofline and mesh phases read of the
+# serve phase's prefill and the train phase's step (traced once).
+PROFILES: dict = {}
 PATH = {"name": "kernel"}
 # Each train path's median step ms, for the launch phase's line.
 MEDIAN_STEP_MS = {}
@@ -3382,6 +3411,142 @@ def _c_plan(kind, lm) -> tuple:
                                           p["ptrs"]["y"], s > 1)
         return body, (*tiles, p["slices"])
     return "simt", _build.grid("tsmt_split", m, d1, d2, p["slices"])
+
+
+# The roofline phase's limit: its first two runs on an NVIDIA H100 80GB
+# HBM3 at 700 W took 5.4 and 8.6 s (the host's speed: the script took 842
+# and 1,010 s); ~1.75x the slower (PERF.md section 6).
+ROOFLINE_MAX_S = 15.0
+
+
+def _class_ms(by_category: dict) -> dict:
+    """A profile's device ms in the roofline's classes: library GEMMs,
+    the TSM2X kernels (every category ``category`` names a kernel, the
+    quantize pass and sum_partials among them) and the rest."""
+    out = {"library GEMM": 0.0, "TSM2X kernels": 0.0, "elementwise": 0.0}
+    for cat, ms in by_category.items():
+        key = {"library GEMM": "library GEMM", "other": "elementwise"}.get(
+            cat, "TSM2X kernels")
+        out[key] += ms
+    return out
+
+
+def roofline_phase(gpu) -> None:
+    """The measured half of the roofline: the serve phase's chatglm3-6b
+    prefill (BATCH x PROMPT at full width and depth) and the train phase's
+    step (TRAIN_LAYERS layers, PowerSGD rank 4, TRAIN_BATCH x TRAIN_SEQ in
+    its microbatches), each counted again on meta tensors of the same
+    shapes in a world of one (``launch/dryrun.count``: FLOPs and bytes a
+    op on the card's shapes, the TSM2X calls from the dispatcher's record
+    and ``perf_model``; each distinct layer counted once and multiplied,
+    ``dryrun.depth_cuts``), beside the device time by class that those
+    phases' ``profile`` lines took (``PROFILES``; nothing is traced
+    again). A ``roofline`` line a path: ``compute_s`` (every FLOP at the
+    bf16 peak, the reference's term) and ``compute_s_dtype_peaks`` (each
+    product at its dtype's peak: f32 on the CUDA cores), ``memory_s``
+    (every op's bytes, unfused: an upper bound), ``dominant``, the counted
+    FLOPs beside ``model_flops``, the measured ms (unprofiled) and device
+    busy ms, ``roofline_share`` = max(compute, memory) / device busy ms
+    (and with the dtype peaks), and per class (library GEMM, TSM2X
+    kernels, elementwise) the counted FLOPs and bytes (a TSM2X call's: the
+    bytes its product needs, ``analyze.tsm2x_bytes``, with the kernel
+    model's ``model_bytes`` beside them), the class's bound at its dtype
+    peaks and the HBM rate, its measured device ms and the bound's share
+    of them. The terms are the model's under the H100 data
+    sheet's constants (``roofline/analyze.H100``). No card work; checked
+    under ``ROOFLINE_MAX_S``."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, powersgd, schedule
+    from repro_torch.roofline import analyze
+    from repro_torch.serve import engine
+    from repro_torch.train import train_step
+
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+
+    def tokens(*shape):
+        return torch.empty(shape, dtype=torch.int64, device=meta)
+
+    def prefill(cfg):
+        prefill_step, _ = engine.make_serve_fns(cfg)
+        prefill_step(model.LM(cfg, meta), {"tokens": tokens(BATCH, PROMPT)},
+                     model.init_cache(cfg, BATCH, PROMPT + NEW, device=meta))
+
+    def train(cfg):
+        opt = adamw.AdamWConfig(
+            lr=schedule.linear_warmup_cosine(3e-3, 20, TRAIN_STEPS),
+            weight_decay=0.1)
+        ps = powersgd.PowerSGDConfig(rank=4)
+        lm = model.LM(cfg, meta).requires_grad_(True)
+        state = {"params": lm, "opt": adamw.init(opt, lm),
+                 "extra": powersgd.init(ps, lm)}
+        step = train_step.make_train_step(
+            cfg, opt, n_micro=cfg.microbatch,
+            grad_transform=lambda g, st: powersgd.compress_tree(ps, g, st))
+        step(state, {k: tokens(TRAIN_BATCH, TRAIN_SEQ)
+                     for k in ("tokens", "targets")})
+
+    glm = registry.get_config("chatglm3-6b")
+    glm4 = dataclasses.replace(glm, n_layers=TRAIN_LAYERS)
+    paths = [("prefill", glm, prefill,
+              2.0 * glm.active_param_count() * BATCH * PROMPT,
+              PROFILES.get(("chatglm3-6b", "prefill"))),
+             ("train step", glm4, train,
+              6.0 * glm4.active_param_count() * TRAIN_BATCH * TRAIN_SEQ,
+              PROFILES.get(("train", "step")))]
+    for name, cfg, run, model_flops, prof in paths:
+        check(prof is not None and prof["device_busy_ms"] > 0,
+              f"roofline: no profile of the {name} to read")
+        t0 = time.perf_counter()
+        log = analyze.combine((coef, dryrun.count(run, cut)[1])
+                              for coef, cut in dryrun.depth_cuts(cfg))
+        count_s = time.perf_counter() - t0
+        cost = analyze.cost(log)
+        terms = analyze.roofline_terms(cost, analyze.collectives(log), 1)
+        classes = analyze.by_class(log)
+        measured = _class_ms(prof["by_category_ms"])
+        busy = prof["device_busy_ms"]
+        compute_dtype = sum(c["compute_s"] for c in classes.values())
+        bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+        bound_dtype_ms = max(compute_dtype, terms["memory_s"]) * 1e3
+        check(terms["collective_s"] == 0.0 and cost["flops"] > 0
+              and all(math.isfinite(v) for v in (bound_ms, bound_dtype_ms)),
+              f"roofline {name}: {terms}")
+        emit({"phase": "roofline", "path": name, "model": cfg.name,
+              "layers": cfg.n_layers,
+              "compute_s": terms["compute_s"],
+              "compute_s_dtype_peaks": compute_dtype,
+              "memory_s": terms["memory_s"], "dominant": terms["dominant"],
+              "counted_flops": cost["flops"], "model_flops": model_flops,
+              "counted_bytes": cost["bytes accessed"],
+              "measured_ms": prof["unprofiled_ms"], "device_busy_ms": busy,
+              "roofline_share": bound_ms / busy,
+              "roofline_share_dtype_peaks": bound_dtype_ms / busy,
+              "by_class": {
+                  k: {"flops": classes[k]["flops"],
+                      "bytes": classes[k]["bytes"],
+                      # the TSM2X kernels' modelled traffic, beside
+                      # the bytes their products need
+                      **({"model_bytes": classes[k]["model_bytes"]}
+                         if "model_bytes" in classes[k] else {}),
+                      "bound_ms": classes[k]["bound_s"] * 1e3,
+                      "measured_ms": measured[k],
+                      "bound_share": (classes[k]["bound_s"] * 1e3
+                                      / measured[k] if measured[k] else None)}
+                  for k in measured},
+              "tsm2x_calls": [[e["kernel"], e["shape"], e["S"], e["body"],
+                               e["n"]] for e in log.entries
+                              if e["cls"] == "tsm2x"],
+              "count_s": count_s,
+              "terms": "model terms under H100 data-sheet constants",
+              "gpu": gpu})
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "roofline", "line": "summary", "seconds": secs,
+          "limit_s": ROOFLINE_MAX_S, "gpu": gpu})
+    check(secs < ROOFLINE_MAX_S, f"the roofline phase took {secs} s, over "
+          f"{ROOFLINE_MAX_S}")
 
 
 def contracts_phase(dev, gpu) -> None:
@@ -5630,17 +5795,19 @@ def vision_decode_check(mp, params, cfg, prompts, out, step_logits, gen,
     return rec
 
 
-def plain_serve_ref(mp, dev) -> dict:
+def plain_serve_ref(mp, dev, counts) -> dict:
     """The plain serve run that ``model_serve_phase`` makes of ``mp``
     (the same weights, prompts and image embeddings from the same seeds,
-    a greedy and a sampled request, then step by step), as its
-    ``serve_ref`` entry: for a mesh path whose cut no serve phase serves.
-    Only for a path whose prefill launches no kernel (the vision cut)."""
+    a greedy and a sampled request, then step by step, its prefill
+    launching what the chooser resolves at ``mp.prefill_shapes``), as its
+    ``serve_ref`` entry: for a mesh path whose cut no serve phase serves
+    (the vision cut, mesh-ssm's cuts). Its launches are no path's: the
+    mesh path zeroes the counts after it."""
     from repro_torch.serve import engine
 
     params, cfg, gen = serve_weights(mp, dev)
-    check(not mp.prefill_shapes(cfg, BATCH * PROMPT),
-          f"{mp.tag}: plain_serve_ref counts no launches")
+    per_prefill, _ = router_launches(mp.prefill_shapes(cfg, BATCH * PROMPT),
+                                     torch.bfloat16, dev)
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
     extras = mp.images(cfg, gen, dev) if mp.images else {}
@@ -5651,7 +5818,8 @@ def plain_serve_ref(mp, dev) -> dict:
         generator=torch.Generator(device=dev).manual_seed(2),
         temperature=1.0)
     step_logits, prefill_ms, decode_ms = serve_step_by_step(
-        params, cfg, prompts, out, dev, 0, lambda: {}, extras)
+        params, cfg, prompts, out, dev, sum(per_prefill.values()), counts,
+        extras)
     ref = serve_ref(prompts, out, sampled, step_logits, prefill_ms,
                     decode_ms, extras)
     del params, step_logits
@@ -5673,6 +5841,15 @@ VISION_PATH = ModelPath(
 # vision-train and mesh-vision: the one-group cut.
 VISION_CUT_PATH = VISION_PATH._replace(arch=VISION_CUT,
                                        limit_s=VISION_TRAIN_MAX_S)
+# mesh-ssm's serve: rwkv6 and zamba2 at full width and cut depth (rwkv6 8
+# of its 24 layers; zamba2 14 of 38: two groups with their shared block
+# and LoRAs, and the two tail Mamba2 layers), each held against a plain
+# serve of the same cut (``plain_serve_ref``), to keep the script within
+# its call's limit; rwkv-serve and zamba-serve serve the full depth.
+SSM_MESH_CUTS = {"rwkv6-1.6b-8l": (RWKV_ARCH, 8),
+                 "zamba2-1.2b-14l": (ZAMBA_ARCH, 14)}
+RWKV_MESH_PATH = RWKV_PATH._replace(arch="rwkv6-1.6b-8l")
+ZAMBA_MESH_PATH = ZAMBA_PATH._replace(arch="zamba2-1.2b-14l")
 
 
 # ---------------------------------------------------------------------------
@@ -5795,11 +5972,12 @@ def dist_phase(dev, gpu, counts, zero_counts, expect) -> tuple:
         mesh_launches = mesh_serve(dev, gpu, make_host_mesh(), counts,
                                    zero_counts, expect)
         MESH_WALL["serve"] = time.perf_counter() - t0
-        # rwkv6 and zamba2, then mixtral and deepseek, on DTensor
-        # parameters, in the same world.
+        # rwkv6 and zamba2 (their cuts), then mixtral and deepseek, on
+        # DTensor parameters, in the same world.
+        register_cuts(SSM_MESH_CUTS)
         model_launches = mesh_models_phase(
-            "mesh-ssm", (RWKV_PATH, ZAMBA_PATH), MESH_SSM_MAX_S, dev, gpu,
-            make_host_mesh(), counts, zero_counts, expect)
+            "mesh-ssm", (RWKV_MESH_PATH, ZAMBA_MESH_PATH), MESH_SSM_MAX_S,
+            dev, gpu, make_host_mesh(), counts, zero_counts, expect)
         model_launches.update(mesh_models_phase(
             "mesh-moe", (MIXTRAL_PATH, DEEPSEEK_PATH), MESH_MOE_MAX_S, dev,
             gpu, make_host_mesh(), counts, zero_counts, expect))
@@ -6050,7 +6228,7 @@ def cache_misplaced(cfg, mesh, cache) -> list:
 
 def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
                      zero_counts, expect, shapes, body,
-                     decode_gemms) -> tuple:
+                     decode_gemms, plain_prefill=None) -> tuple:
     """A model's serve on DTensor parameters, held against its plain serve
     run ``ref`` (a ``SERVE_REF`` entry). ``params`` are placed in place by
     ``sharding.make_param_specs`` on ``mesh``; then, from zeroed counts,
@@ -6068,7 +6246,10 @@ def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
     ``cache_specs`` puts it after the prefill and after the last decode
     step, and the parameters still in their placements. Then two decode
     steps under ``torch.profiler`` (None where the trace came back
-    empty). Returns (the launches, the specs, the line's fields)."""
+    empty); with ``plain_prefill`` (the plain prefill's ``PROFILES``
+    entry) one prefill on a fresh cache under it too, its device time by
+    class beside the plain one's. Returns (the launches, the specs, the
+    line's fields)."""
     from repro_torch.distributed import sharding
     from repro_torch.models import model
     from repro_torch.serve import engine
@@ -6128,6 +6309,22 @@ def mesh_serve_check(name, cfg, params, ref, mesh, dev, counts,
         profile["decode"]["busy_share"] = rec["device_busy_ms"] / (
             2 * decode_ms)
     del cache
+    if plain_prefill is not None:
+        cache = model.init_cache(cfg, BATCH, PROMPT + NEW, device=dev,
+                                 mesh=mesh)
+        rec = device_profile(lambda: prefill_step(params, batch, cache))
+        del cache
+        check(rec["device_kernels"] > 0, f"{name}: an empty prefill trace")
+        profile["prefill"] = {
+            "device_busy_ms": rec["device_busy_ms"],
+            "device_kernels": rec["device_kernels"], "runs": rec["runs"],
+            "busy_share": rec["device_busy_ms"] / prefill_ms,
+            "by_class_ms": _class_ms(rec["by_category_ms"]),
+            "by_category_ms": rec["by_category_ms"],
+            "plain": {"device_busy_ms": plain_prefill["device_busy_ms"],
+                      "unprofiled_ms": plain_prefill["unprofiled_ms"],
+                      "by_class_ms": _class_ms(
+                          plain_prefill["by_category_ms"])}}
 
     bodies = prefill_route_check(name, log, shapes, splits, body,
                                  BATCH * PROMPT)
@@ -6228,7 +6425,8 @@ def mesh_serve(dev, gpu, mesh, counts, zero_counts, expect) -> dict:
     launches, specs, served = mesh_serve_check(
         "mesh-serve", cfg, params, SERVE_REF.pop("glm"), mesh, dev, counts,
         zero_counts, expect, [(BATCH * PROMPT, cfg.d_model, kv)] * per_prefill,
-        "wgmma", 7 * cfg.n_layers)
+        "wgmma", 7 * cfg.n_layers,
+        plain_prefill=PROFILES.get(("chatglm3-6b", "prefill")))
     emit({"phase": "mesh", "line": "mesh-serve", "model": cfg.name,
           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
           "placements": {n: [repr(p) for p in sharding.placements(mesh, sp)]
@@ -6351,8 +6549,8 @@ MESH_TRAIN = {"rwkv": (4, None), "zamba": (6, None),
 MESH_STEPS = 2
 MESH_WALLS: dict = {}
 # About 1.5x the phase's first run in the whole script with its serve
-# check as it stands: 56.3 s on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md section 6).
+# check at full depth: 56.3 s on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6); 46.5 s with the serve cut (``SSM_MESH_CUTS``).
 MESH_SSM_MAX_S = 85.0
 # About 1.5x the phase's first run in the whole script with every check:
 # 28.0 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
@@ -6552,12 +6750,13 @@ def mesh_tree_check(name, params, plain_checksums, want, splits, shapes,
 
 def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
                     expect) -> dict:
-    """One model of a mesh phase (``mp``: ``RWKV_PATH``, ``ZAMBA_PATH``,
-    ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``, ``HUBERT_PATH``,
-    ``VISION_CUT_PATH``), in the world of one. First, not counted: the
-    plain train arms (``mesh_train_arms``, where ``MESH_TRAIN`` names the
-    model), and where no serve phase left a ``SERVE_REF`` entry (the
-    vision cut) the plain serve run (``plain_serve_ref``). Then the path,
+    """One model of a mesh phase (``mp``: ``RWKV_MESH_PATH``,
+    ``ZAMBA_MESH_PATH``, ``MIXTRAL_PATH``, ``DEEPSEEK_PATH``,
+    ``HUBERT_PATH``, ``VISION_CUT_PATH``), in the world of one. First, not
+    counted: the plain train arms (``mesh_train_arms``, where
+    ``MESH_TRAIN`` names the model), and where no serve phase left a
+    ``SERVE_REF`` entry (the SSM and vision cuts) the plain serve run
+    (``plain_serve_ref``). Then the path,
     from zeroed counts to the read after its last step. Serve: the weights
     ``model_serve_phase`` (hubert: ``hubert_serve_phase``) served, built
     again on the card (``serve_weights``), on DTensors on the ``(1, 1)``
@@ -6591,7 +6790,7 @@ def mesh_model_path(phase, mp, dev, gpu, mesh, counts, zero_counts,
     torch.cuda.reset_peak_memory_stats()
     if ref is None:
         # no serve phase served this cut: its plain run, here, uncounted
-        ref = plain_serve_ref(mp, dev)
+        ref = plain_serve_ref(mp, dev, counts)
     params, cfg, _ = serve_weights(mp, dev)
     tree_check = mp.tag in ("rwkv", "hubert")
     if tree_check:
@@ -7575,6 +7774,9 @@ def main() -> int:
           f"tsm2r or a TSMT kernel was not launched on the training main "
           f"path: {train_launches}")
 
+    # -- 7c. the roofline of the serve prefill and the train step ----------
+    roofline_phase(gpu)
+
     # -- 8. train chatglm3-6b under int8 (the train-int8 path) -------------
     PATH["name"] = "train_int8"
     train8_launches, _ = train_phase(dev, gpu, counts, zero_counts,
@@ -7611,7 +7813,7 @@ def main() -> int:
     for mp in (RWKV_PATH, ZAMBA_PATH):
         PATH["name"] = f"{mp.tag}_serve"
         model_launches[PATH["name"]], params, _ = model_serve_phase(
-            mp, dev, gpu, counts, zero_counts, expect, keep=True)
+            mp, dev, gpu, counts, zero_counts, expect)
         del params
         torch.cuda.empty_cache()
         PATH["name"] = f"{mp.tag}_train"

@@ -550,6 +550,17 @@ def reduce_plan(s: int, rows: int, cols: int, out_dtype, ptr_p: int = 0,
     return grid, REDUCE_THREADS, vec, REDUCE_CHUNK
 
 
+def tsm2r_model_bytes(m: int, k: int, n: int, dtype=torch.float32, *,
+                      splits: int = 1) -> int:
+    """The device-memory bytes ``tsm2r_model_time`` prices: A once per
+    column tile, B once per row tile, the output once and the partials'
+    round trip (``split_partials_bytes``)."""
+    b = dtype.itemsize
+    gm, gn, _ = tsm2r_grid(m, k, n, splits, dtype)
+    return (m * k * b * gn + k * n * b * gm + m * n * b
+            + split_partials_bytes(splits, m, n))
+
+
 def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
                      dtype=torch.float32, *, splits: int = 1) -> float:
     """Modelled seconds of TSM2R (S = 1) or its split variant: A streamed
@@ -560,7 +571,6 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     "skinny" and "simt" the f32 rate, ``__dp4a``'s at int8, both bodies
     alike); one launch
     per kernel."""
-    b = torch.empty((), dtype=dtype).element_size()
     wide = tsm2r_body(k, n, dtype, splits=splits) == "wgmma"
     if dtype == torch.int8:
         rate = spec.peak_ops_int8 if wide else spec.peak_ops_dp4a
@@ -569,13 +579,20 @@ def tsm2r_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     else:
         rate = spec.peak_flops_f32
     gm, gn, _ = tsm2r_grid(m, k, n, splits, dtype)
-    nbytes = (m * k * b * gn + k * n * b * gm + m * n * b
-              + split_partials_bytes(splits, m, n))
+    nbytes = tsm2r_model_bytes(m, k, n, dtype, splits=splits)
     occ = occupancy(gm * gn * splits, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
     t_comp = 2.0 * m * k * n / (rate * occ)
     launches = 1 + reduce_kernel_runs(splits, m, n)
     return max(t_mem, t_comp) + launches * spec.launch_s
+
+
+def tsm2l_model_bytes(m: int, k: int, n: int, dtype=torch.float32) -> int:
+    """The bytes ``tsm2l_model_time`` prices: A and B read once, the output
+    (f32 from int8) written once."""
+    b = dtype.itemsize
+    out = 4 if dtype == torch.int8 else b
+    return m * k * b + k * n * b + m * n * out
 
 
 def tsm2l_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
@@ -586,15 +603,26 @@ def tsm2l_model_time(m: int, k: int, n: int, spec: GPUSpec = H100,
     body's persistent blocks, at most ``STREAM_BLOCKS_PER_SM`` an SM; the
     tile body's row and column tiles); FMAs on the same share at the f32
     rate (``__dp4a``'s at int8, whose kernel writes f32); one launch."""
-    b = dtype.itemsize
-    out = 4 if dtype == torch.int8 else b
     rate = spec.peak_ops_dp4a if dtype == torch.int8 else spec.peak_flops_f32
     p = kernel_params("tsm2l", m, k, n, dtype, 1, spec)
     gm, gn, _ = contracts.launch_grid("tsm2l", (m, k, n), p)
     occ = occupancy(gm * gn, spec)
-    t_mem = (m * k * b + k * n * b + m * n * out) / (spec.hbm_bw * occ)
+    t_mem = tsm2l_model_bytes(m, k, n, dtype) / (spec.hbm_bw * occ)
     t_comp = 2.0 * m * k * n / (rate * occ)
     return max(t_mem, t_comp) + spec.launch_s
+
+
+def tsmt_model_bytes(m: int, a: int, bdim: int, spec: GPUSpec = H100,
+                     dtype=torch.float32, *, splits: int = 1) -> int:
+    """The bytes ``tsmt_model_time`` prices: X once per column tile, Y once
+    per row tile, the output once and the partials' round trip, over the
+    one-launch kernel's plan of slices at S = 1."""
+    b = dtype.itemsize
+    slices = tsmt_slices(m, a, bdim, spec, dtype)[0] if splits == 1 \
+        else splits
+    ga, gb, _ = tsmt_grid(m, a, bdim, slices)
+    return (m * a * b * gb + m * bdim * b * ga + a * bdim * b
+            + split_partials_bytes(slices, a, bdim))
 
 
 def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
@@ -615,7 +643,6 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
     two move the same bytes, so S = 1 wins unless a split buys blocks
     the plan does not have (a short m, whose slices the plan keeps at
     ``TSMT_MIN_SLICE_ROWS`` or more)."""
-    b = dtype.itemsize
     if dtype != torch.int8:
         rate = spec.peak_flops_f32
     elif tsmt_q8_body(a, bdim) == "packed":
@@ -625,8 +652,7 @@ def tsmt_model_time(m: int, a: int, bdim: int, spec: GPUSpec = H100,
     slices = tsmt_slices(m, a, bdim, spec, dtype)[0] if splits == 1 \
         else splits
     ga, gb, _ = tsmt_grid(m, a, bdim, slices)
-    nbytes = (m * a * b * gb + m * bdim * b * ga + a * bdim * b
-              + split_partials_bytes(slices, a, bdim))
+    nbytes = tsmt_model_bytes(m, a, bdim, spec, dtype, splits=splits)
     occ = occupancy(ga * gb * slices, spec)
     t_mem = nbytes / (spec.hbm_bw * occ)
     t_comp = 2.0 * m * a * bdim / (rate * occ)

@@ -904,6 +904,9 @@ def _select_executor(entry: str, kind: str, m_tall: int, d1: int, d2: int,
         return "cuda"
     if device.type == "cpu":
         return "torch-ref"
+    if device.type == "meta" and "meta" in _EXECUTORS:
+        # Shapes only: the dry run's executor (``launch/dryrun.py``).
+        return "meta"
     raise ValueError(f"no TSM2X executor for tensors on {device}")
 
 
@@ -1055,8 +1058,12 @@ def tsmm(a: torch.Tensor, b: torch.Tensor, *, mode: str | None = None,
 
     def run():
         if a.dim() > 2 and name != "torch-dense":
-            return _run_executor(ex, "mm", kind, a.reshape(m_tall, k), b,
-                                 p).reshape(*a.shape[:-1], n)
+            # A per-shard product's rows are gathered where their shards
+            # cut across a's leading dim (32 sequences over 64 dp ranks).
+            from repro_torch.distributed import sharding
+            out = _run_executor(ex, "mm", kind, a.reshape(m_tall, k), b, p)
+            return sharding.whole_if_uneven(out, 0, a.shape[0]).reshape(
+                *a.shape[:-1], n)
         return _run_executor(ex, "mm", kind, a, b, p)
 
     out = _dispatch("mm", kind, name, (m_tall, k, n), p, run,

@@ -485,6 +485,23 @@ def replicate_dim(x, dim: int):
         x.device_mesh, want)
 
 
+def whole_if_uneven(x, dim: int, n: int):
+    """``x`` gathered on tensor dim ``dim`` (:func:`replicate_dim`) where
+    the mesh dims that shard it do not divide ``n``, the count it is to be
+    unflattened into (two kv heads over a "model" of 8; 32 sequences'
+    rows over 64 dp ranks; rows over 32 ranks into 4 microbatches); as it
+    is otherwise, and off a mesh. DTensor cannot unflatten an uneven
+    split, where GSPMD reshards it."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+    dim %= x.ndim
+    shards = math.prod(x.device_mesh.size(i)
+                       for i, p in enumerate(x.placements)
+                       if isinstance(p, Shard) and p.dim == dim)
+    return x if n % shards == 0 else replicate_dim(x, dim)
+
+
 def on_mesh(tree) -> bool:
     """Whether ``tree`` (a module or a tensor) holds DTensor parameters."""
     first = next(iter(tree.parameters()), None) if isinstance(

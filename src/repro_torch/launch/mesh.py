@@ -30,12 +30,16 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
     """The H100 cluster's mesh over the process group's world: ``model``
     is the 8 GPUs of an NVLink node, ``data`` the rest of the world;
     ``multi_pod`` adds an outer ``pod`` axis of 2 that extends DP across
     the pod boundary (gradient reductions then decompose hierarchically:
-    inside a pod, then across the two).
+    inside a pod, then across the two). ``device_type`` (default: the
+    process group's, "cuda" under NCCL) is what DTensor plans its
+    collectives for; the dry run lays a "cuda" mesh over a fake world, so
+    it issues the all-to-alls NCCL runs where a CPU mesh gathers.
 
     Axes: ('data', 'model'), or ('pod', 'data', 'model') under
     ``multi_pod``."""
@@ -49,7 +53,8 @@ def make_production_mesh(*, multi_pod: bool = False):
     data = world // (pods * NODE_GPUS)
     shape = (pods, data, NODE_GPUS) if multi_pod else (data, NODE_GPUS)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type or _device_type(), shape,
+                            mesh_dim_names=axes)
 
 
 def make_host_mesh(model: int = 1):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.ft import is_dtensor
 from repro_torch.models import heads, layers
 
@@ -201,6 +202,15 @@ def gqa_init(generator, d_model: int, n_heads: int, n_kv: int, head_dim: int,
             device=device), generator)
 
 
+def split_heads(t, n: int, head_dim: int):
+    """(B, S, n * head_dim) -> (B, S, n, head_dim), the feature dim gathered
+    first where its shards do not divide the ``n`` heads (chatglm3's two
+    kv heads over a "model" of 8, ``sharding.whole_if_uneven``). The
+    attention core then takes each rank's kv head (``heads.local_heads``)."""
+    t = sharding.whole_if_uneven(t, -1, n)
+    return t.reshape(*t.shape[:2], n, head_dim)
+
+
 def gqa_project_qkv(p: GQA, x, positions, *, n_heads, n_kv, head_dim,
                     rope_theta=10000.0, rope_fraction=1.0):
     b, s, _ = x.shape
@@ -210,8 +220,8 @@ def gqa_project_qkv(p: GQA, x, positions, *, n_heads, n_kv, head_dim,
     if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, n_kv, head_dim)
-    v = v.reshape(b, s, n_kv, head_dim)
+    k = split_heads(k, n_kv, head_dim)
+    v = split_heads(v, n_kv, head_dim)
     if rope_fraction > 0:
         q = layers.apply_rope(q, positions, theta=rope_theta,
                               fraction=rope_fraction)
@@ -329,7 +339,8 @@ def mla_init(generator, d_model: int, n_heads: int, *, q_lora: int,
 def _mla_q(p: MLA, x, positions, *, n_heads, nope_dim, rope_dim,
            rope_theta):
     b, s, _ = x.shape
-    cq = layers.rmsnorm(p.q_norm.scale, layers.dense(p.wdq, x))
+    cq = layers.sums_whole(layers.rmsnorm(p.q_norm.scale,
+                                          layers.dense(p.wdq, x)))
     q = layers.dense(p.wuq, cq).reshape(b, s, n_heads, nope_dim + rope_dim)
     q_nope, q_pe = q[..., :nope_dim], q[..., nope_dim:]
     q_pe = layers.apply_rope(q_pe, positions, theta=rope_theta)
@@ -337,7 +348,8 @@ def _mla_q(p: MLA, x, positions, *, n_heads, nope_dim, rope_dim,
 
 
 def _mla_latent(p: MLA, x, positions, *, rope_theta):
-    c = layers.rmsnorm(p.kv_norm.scale, layers.dense(p.wdkv, x))
+    c = layers.sums_whole(layers.rmsnorm(p.kv_norm.scale,
+                                         layers.dense(p.wdkv, x)))
     k_pe = layers.dense(p.wkr, x)[:, :, None, :]      # (b,s,1,rope)
     k_pe = layers.apply_rope(k_pe, positions, theta=rope_theta)
     return c, k_pe

@@ -84,8 +84,11 @@ def norm_init(cfg, device=None) -> nn.Module:
 
 
 def norm_apply(cfg, p, x):
-    return (layers.layernorm(p, x, cfg.norm_eps) if cfg.norm == "ln"
-            else layers.rmsnorm(p.scale, x, cfg.norm_eps))
+    # The normed x fans out to the block's projections: the pending sums
+    # their gradients bring are settled here, once (``layers.sums_whole``).
+    return layers.sums_whole(
+        layers.layernorm(p, x, cfg.norm_eps) if cfg.norm == "ln"
+        else layers.rmsnorm(p.scale, x, cfg.norm_eps))
 
 
 def _mlp_fwd(cfg, p, x):
@@ -190,8 +193,10 @@ def cross_kv(p: Block, cfg, image_embeds):
     embeddings' dtype (``layers.dense`` keeps x's)."""
     b, s_img, _ = image_embeds.shape
     hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = layers.dense(p.kv_proj_k, image_embeds).reshape(b, s_img, hk, hd)
-    v = layers.dense(p.kv_proj_v, image_embeds).reshape(b, s_img, hk, hd)
+    k = attention.split_heads(layers.dense(p.kv_proj_k, image_embeds), hk,
+                              hd)
+    v = attention.split_heads(layers.dense(p.kv_proj_v, image_embeds), hk,
+                              hd)
     return k, v
 
 

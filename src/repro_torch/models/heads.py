@@ -104,12 +104,26 @@ def wrap(hd: Heads, t, batch_dim=0, head_dim=None):
 
 def local_heads(fn, q, *kv, n_kv: int, **kw):
     """``fn(q, *kv, **kw)`` per rank over its heads, for attention cores
-    (heads on dim 2, the batch on dim 0; the heads split where the
-    ``n_kv`` kv heads divide "model"): DTensor operands are taken local
+    (heads on dim 2, the batch on dim 0): DTensor operands are taken local
     and the output comes back a DTensor there. Plain tensors pass
-    straight through."""
+    straight through.
+
+    The heads split where the ``n_kv`` kv heads divide "model". Where they
+    do not but "model" is a multiple of ``n_kv`` (chatglm3's two kv heads
+    over 8 ranks), the query heads split and each rank's lie in one kv
+    head's group: the kv operands are taken whole over "model" and the
+    rank reads its kv head (its gradient a pending sum there, as for any
+    operand a rank reads whole where the work splits). Otherwise every
+    rank attends over every head."""
     if not is_dtensor(q):
         return fn(q, *kv, **kw)
     hd = layout(q, n_kv)
+    if "heads" not in hd.roles:
+        hq = layout(q, q.shape[2])
+        group = q.shape[2] // n_kv
+        if "heads" in hq.roles and group % hq.n == 0:
+            lo = hq.lo // group
+            kv = [local(hq, t, 0, None)[:, :, lo:lo + 1] for t in kv]
+            return wrap(hq, fn(local(hq, q, 0, 2), *kv, **kw), 0, 2)
     out = fn(*(local(hd, t, 0, 2) for t in (q, *kv)), **kw)
     return wrap(hd, out, 0, 2)

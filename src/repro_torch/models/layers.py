@@ -134,13 +134,86 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     the forward, the dense one included) and where the rounding happens
     (each gradient rounded once, as it leaves its GEMM). No path of the
     port sets the knob; it is kept for the JAX package's API.
+
+    On DTensors over more than one rank the pending sum a projection's
+    output holds, and one in its gradient, is reduced here
+    (:func:`_settled`); the pending sum in the gradient of its input, once
+    autograd has added up the projections that read it, where the input
+    fans out to them (:func:`sums_whole`): the tensor-parallel layer's
+    reductions, which GSPMD places in the reference.
     """
     if x.dim() < 2:
         return _dense_raw(w, x)
     p = tsmm.current_policy()
     if p.param_dtype_grads:
         return _DensePG.apply(w, x, p)
-    return tsmm.tsmm(x, w)
+    return _settled(tsmm.tsmm(x, w), x)
+
+
+def sums_whole(t):
+    """``t`` with a pending sum (``Partial``) in it or in its gradient
+    all-reduced, where it feeds projections that shard their output dim
+    (``wq``, ``wk`` and ``wv``; ``w_gate`` and ``w_up`` over "model"):
+    each gives its gradient a pending sum, which autograd adds up first,
+    so one all-reduce at the fan-out settles them all: a block's normed
+    input (``blocks.norm_apply``) and MLA's two latent norms. Left
+    pending, DTensor carries a sum on through the residual stream into
+    the next projection, whose weight it then gathers whole on every
+    rank."""
+    return _SumsWhole.apply(t, None) if _shared(t) else t
+
+
+def _shared(t) -> bool:
+    """Whether ``t`` is a DTensor over more than one rank (on one rank a
+    pending sum is already whole, and the reductions are skipped)."""
+    return is_dtensor(t) and t.device_mesh.size() > 1
+
+
+def _settled(y, x):
+    """A projection's output ``y`` of the input ``x``, settled: a pending sum
+    (``wo``, ``w_down`` over "model") all-reduced, or reduce-scattered
+    back to the batch's layout on a mesh dim where ``x`` shards its
+    batch, and a pending sum in its gradient (the vocab head's, through
+    the residual stream) all-reduced. A product whose weight is sharded
+    over the batch's dims (FSDP) may be run by DTensor on the whole batch
+    (at decode, cheaper than gathering the weight); its output goes back
+    to the batch's layout, so attention does not gather the caches of
+    every sequence."""
+    if not _shared(y):
+        return y
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    want = []
+    for px, py in zip(x.placements, y.placements):
+        if (isinstance(px, Shard) and px.dim == 0
+                and isinstance(py, (Partial, Replicate))):
+            want.append(Shard(0))
+        else:
+            want.append(Replicate() if isinstance(py, Partial) else py)
+    return _SumsWhole.apply(y, want)
+
+
+def _reduce_partial(t, want=None):
+    from torch.distributed.tensor import Partial, Replicate
+    if want is None:
+        want = [Replicate() if isinstance(p, Partial) else p
+                for p in t.placements]
+    return (t.view_as(t) if list(want) == list(t.placements)
+            else t.redistribute(t.device_mesh, want))
+
+
+class _SumsWhole(torch.autograd.Function):
+    """:func:`sums_whole` / :func:`_settled`: the forward redistributes to
+    ``want`` (default: each pending sum all-reduced); the backward
+    all-reduces a pending sum in the cotangent and passes it on otherwise
+    (its global value is the gradient of every term of the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, want):
+        return _reduce_partial(t, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_partial(g), None
 
 
 # ---------------------------------------------------------------------------

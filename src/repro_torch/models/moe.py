@@ -386,7 +386,10 @@ def moe_fwd(p: MoE, x, cfg: MoEConfig):
     w, idx, probs = route(p, xt, cfg)
     if is_dtensor(xt):
         out, metrics = _moe_mesh(p, xt, w, idx, probs, tl, cap, cfg)
-        out = sharding.maybe_wsc(out, ("pod", "data"), None)
+        # The rows over the dp dims, as the reference pins them, and whole
+        # where they cut across the b sequences (32 over 64 dp ranks).
+        out = sharding.whole_if_uneven(
+            sharding.maybe_wsc(out, ("pod", "data"), None), 0, b)
     else:
         ew = p.experts
         out, w_buf, keep = _experts_fwd(xt, w, idx, ew.w_gate, ew.w_up,

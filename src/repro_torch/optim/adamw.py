@@ -6,7 +6,9 @@ clipping, decoupled weight decay, bias correction, parameters cast back to
 their dtype. The JAX package returns new arrays; this port updates the
 parameters and moments in place, which saves a copy of the whole state
 (10.8 GB of moments alone at chatglm3-6b's width and 4 layers).
-``bfloat16`` moments (``state_dtype``) wait for the slice that needs them.
+``state_dtype`` keeps the moments in another dtype (the dry run's
+``"bfloat16"`` past 1e11 parameters, as the reference's): the update
+reads them into f32 and stores them back, as the reference does.
 
 DTensor parameters (``distributed.sharding``) get DTensor moments in the
 same placements (``torch.zeros_like``), as the reference's moments take
@@ -32,18 +34,19 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    state_dtype: str | None = None   # None = f32 moments
 
 
 def init(cfg: AdamWConfig, params) -> dict:
-    """``{"step": 0-d int32, "moments": {name: {"m", "v"}}}`` with f32
-    zeros, on the parameters' device (and, for DTensor parameters, in
-    their placements)."""
-    del cfg
+    """``{"step": 0-d int32, "moments": {name: {"m", "v"}}}`` with zeros
+    of ``cfg.state_dtype`` (f32 by default), on the parameters' device
+    (and, for DTensor parameters, in their placements)."""
+    sd = getattr(torch, cfg.state_dtype or "float32")
     named = dict(params.named_parameters())
     dev = next(iter(named.values())).device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-            "moments": {n: {"m": torch.zeros_like(p, dtype=torch.float32),
-                            "v": torch.zeros_like(p, dtype=torch.float32)}
+            "moments": {n: {"m": torch.zeros_like(p, dtype=sd),
+                            "v": torch.zeros_like(p, dtype=sd)}
                         for n, p in named.items()}}
 
 
@@ -83,8 +86,15 @@ def update(cfg: AdamWConfig, params, grads: dict, state: dict,
         g = pin(grads[name].float() * clip)
         mom = state["moments"][name]
         m, v = mom["m"], mom["v"]
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_(torch.square(g) * (1 - cfg.b2))
+        if m.dtype == torch.float32:
+            m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+            v.mul_(cfg.b2).add_(torch.square(g) * (1 - cfg.b2))
+        else:
+            m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
+            v32 = v.float() * cfg.b2 + torch.square(g) * (1 - cfg.b2)
+            m.copy_(m32)
+            v.copy_(v32)
+            m, v = m32, v32
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * pin(p.float())

@@ -111,11 +111,20 @@ def init(cfg: PowerSGDConfig, params, seed: int = 0) -> dict:
     state = {}
     for path, (shape, names) in compressible(cfg, params).items():
         dev = named[names[0]].device
-        gen = torch.Generator(device=dev).manual_seed(
-            zlib.crc32(path.encode()) ^ seed)
-        q = torch.randn((shape[1], cfg.rank), generator=gen, device=dev)
+        q = _draw((shape[1], cfg.rank), zlib.crc32(path.encode()) ^ seed,
+                  dev)
         state[path] = {"err": torch.zeros(shape, device=dev), "q": q}
     return state
+
+
+def _draw(shape, seed: int, device, dtype=torch.float32):
+    """``torch.randn`` of ``shape`` from a generator seeded with ``seed`` on
+    ``device``; on the meta device (the roofline's count of a step), which
+    has no generator, its shape alone."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype)
 
 
 def _orthonormalize(m: torch.Tensor) -> torch.Tensor:
@@ -132,9 +141,7 @@ def _orthonormalize(m: torch.Tensor) -> torch.Tensor:
     for i in range(m.shape[1]):
         c = m[:, i]
         norm0 = torch.linalg.vector_norm(c)
-        gen = torch.Generator(device=m.device).manual_seed(i)
-        fresh = torch.randn((d,), generator=gen, device=m.device,
-                            dtype=m.dtype)
+        fresh = _draw((d,), i, m.device, m.dtype)
         for prev in cols:
             c = c - torch.dot(prev, c) * prev
             fresh = fresh - torch.dot(prev, fresh) * prev

@@ -101,7 +101,8 @@ def _microbatches(batch, n_micro: int, mesh):
                 for i in range(n_micro)]
     dp = sharding.dp_axes(mesh)
     split = {k: sharding.maybe_wsc(
-        v.reshape(n_micro, size, *v.shape[1:]), None, dp)
+        sharding.whole_if_uneven(v, 0, n_micro).reshape(
+            n_micro, size, *v.shape[1:]), None, dp)
         for k, v in batch.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n_micro)]
 
