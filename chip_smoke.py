@@ -9,8 +9,9 @@ printing no result, when no CUDA card is present or any phase fails.
 
 1. Build: every kernel from ``src/repro_torch/kernels/csrc/`` (one nvcc per
    source, all started together: twelve libraries, the eleven TPU
-   kernels' and the quantize pass's; ptxas's report below compiles
-   beside them); prints the build time,
+   kernels' and the quantize pass's, and the same twelve sources again
+   with ``-DTSM2X_BLOCK_MAP``, the block-map builds of phase 11b; ptxas's
+   report below compiles beside them); prints the build time,
    ptxas's registers, static shared memory and spills of every kernel of
    tsmt_q8 and tsmt_q8_split (``resources``: none may spill, or their two
    blocks an SM would not hold) and of tsm2l and tsm2l_q8 (reported), the card's name and power limit, and
@@ -634,12 +635,40 @@ printing no result, when no CUDA card is present or any phase fails.
    resumed through ``elastic.restore_state`` to step 3 on its A loss,
    each launching tsm2r 66 and tsmt 2 times a step. The mesh phase must
    take under ``MESH_MAX_S``.
+10k. examples (a path of its own, after the mesh phase): each of
+   ``examples/torch/``'s six ``main``s on the card (``EXAMPLE_ARGV``:
+   the reference's sizes, except that train_lm takes 3 steps of 8 x 256
+   tokens and serve_lm prefills 4 x 512 tokens, so that the smoke
+   models' projections are tall enough for the TSM2X kernels), each
+   inside a record scope: every GEMM the classifier routes to a kernel
+   must run on the ``cuda`` executor, each example must launch a TSM2X
+   kernel (its launch counts, zeroed before it, read after) and print
+   its own check line (quickstart's ``assert_allclose`` against ``ref``
+   and its "OK", powersgd_abft's detection, train_lm's done line,
+   serve_lm's "KV-cache decode == teacher-forced forward", rsvd's and
+   kmeans' recovery asserts); an ``examples`` line gives each one's
+   seconds and launches, the phase under ``EXAMPLES_MAX_S``.
 11. Contracts: every launch that a record scope of a path recorded
    (``RECORDED``; the dispatch path's under ``verify_contracts``) must
    keep ``contracts.check_kernel_config`` and ``check_grid`` on this
    card's limits, and its grid must equal ``contracts.launch_grid`` of
    its params and its library's plan query (body too); a ``contracts``
    line reports the launches checked a path and any violation.
+11b. Dataflow: every launch of ``analysis/audit.py``'s resolved sweep
+   (``resolved_launches``: its shapes, f32, bf16 and int8, every split
+   arm and the chooser under both specs, base addresses on and off the
+   16-byte grid, the reduce epilogues and the quantize passes), the int8
+   layout copy, and one launch of each distinct (kernel, body, dtype,
+   S > 1) that the paths recorded, each run once on the block-map
+   builds (``dataflow_launch``, operands never read). Thread 0 of every
+   block records the tile it writes, the reduction range it sums, its
+   accumulator type and, for the one-launch tsmt, whether it drew the
+   tile's last ticket; the card's records must equal
+   ``kernel_verify.block_map``'s statement from the plans set for set
+   and keep every rule of ``kernel_verify.check_blocks`` (write races,
+   coverage, reduction slices, bounds, accumulators, finalize once,
+   grid drift). A ``dataflow`` line gives the launches, the records and
+   the seconds, under ``DATAFLOW_MAX_S``.
 12. A ``{"kernels": [...]}`` line: all eleven kernels with their launches
    on each of the thirty-one paths (dispatch, autotune, serve, train,
    serve-int8,
@@ -3607,6 +3636,268 @@ def contracts_phase(dev, gpu) -> None:
         "zamba_serve", "zamba_train", "mixtral_serve", "mixtral_long",
         "mixtral_train", "deepseek_serve")),
         f"paths without recorded launches: {per_path}")
+
+
+# The examples phase's limit, set before its first run in the whole script
+# (PERF.md section 6 reads that run against it).
+EXAMPLES_MAX_S = 60.0
+# Each example's argv on the card: the reference's sizes, but train_lm
+# takes 3 steps of 8 x 256 tokens and serve_lm prefills 4 x 512 tokens,
+# where the smoke models' projections reach the TSM2X kernels.
+EXAMPLE_ARGV = {"quickstart": [], "powersgd_abft": [],
+                "train_lm": ["--steps", "3", "--seq-len", "256"],
+                "serve_lm": ["--prompt-len", "512"], "rsvd": [],
+                "kmeans": []}
+# The line each example prints when its own check passed.
+EXAMPLE_CHECK = {"quickstart": "OK", "powersgd_abft": "OK",
+                 "train_lm": "[train] done: 3 steps",
+                 "serve_lm": "KV-cache decode == teacher-forced forward: OK",
+                 "rsvd": "OK", "kmeans": "OK"}
+
+
+def examples_phase(dev, gpu, counts, zero_counts) -> dict:
+    """Each example's ``main`` on the card inside a record scope: the
+    GEMMs routed to a kernel ran on the ``cuda`` executor, TSM2X kernels
+    launched, and the example's own check line was printed."""
+    import importlib.util
+    import io
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, argv in EXAMPLE_ARGV.items():
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}",
+            ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        zero_counts()
+        text = io.StringIO()
+        t1 = time.perf_counter()
+        with recorded() as log, contextlib.redirect_stdout(text):
+            rc = mod.main(argv)
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t1
+        launched = {k: v for k, v in counts().items() if v}
+        routed = [e for e in log if e.kind != "dense"]
+        executors = sorted({e.executor for e in routed})
+        lines = text.getvalue().splitlines()
+        out[name] = {"seconds": secs, "argv": argv, "launches": launched,
+                     "kernel_gemms": len(routed), "executors": executors,
+                     "check": next((ln.strip() for ln in lines
+                                    if EXAMPLE_CHECK[name] in ln), None)}
+        check(rc == 0, f"example {name} returned {rc}")
+        check(out[name]["check"] is not None,
+              f"example {name} printed no check line: {lines[-3:]}")
+        check(routed and executors == ["cuda"],
+              f"example {name}: kernel GEMMs {len(routed)} on {executors}")
+        check(launched, f"example {name} launched no TSM2X kernel")
+    secs = time.perf_counter() - t0
+    emit({"phase": "examples", "examples": out, "seconds": secs,
+          "limit_s": EXAMPLES_MAX_S, "gpu": gpu})
+    check(secs < EXAMPLES_MAX_S,
+          f"the examples phase took {secs:.1f} s, over {EXAMPLES_MAX_S}")
+    return out
+
+
+# The dataflow phase's limit: its first run, the sweep's 307 launches
+# alone, took 8.4 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 6); a slow host runs the script's phases up to 2.1x slower (PERF.md
+# section 7), and the paths add their launches.
+DATAFLOW_MAX_S = 30.0
+# Records the block-map buffer holds (80 bytes each).
+DATAFLOW_CAP = 1 << 21
+# The block-map builds, started in phase 1 (a thread, its future).
+BLOCK_MAP_BUILD: dict = {}
+
+
+def _at(numel, dtype, off_bytes, dev):
+    """A contiguous 1-D view of ``numel`` elements whose base lies
+    ``off_bytes`` past a 16-byte boundary (values never read)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    off = off_bytes // size
+    return torch.empty(numel + 16 // size + off, dtype=dtype,
+                       device=dev)[off:off + numel]
+
+
+def dataflow_launch(kind, shape, params, dtype, quant, dev):
+    """Launch one configuration on the kernels' block-map builds, on
+    operands at the params' base addresses mod 16; returns its buffers'
+    bases for ``kernel_verify.from_records``. The values are never read:
+    only where each block writes and what it sums."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _launch
+
+    def launch(*args, **kwargs):
+        _launch.launch(*args, block_map=True, **kwargs)
+
+    p, f32, i8 = dict(params), torch.float32, torch.int8
+    ptrs = p.get("ptrs") or {}
+    q8 = quant == "int8"
+    band = perf_model.Q8_BAND
+    if kind == "reduce":
+        s, rows, cols = shape
+        out = p.get("out_dtype", dtype)
+        part = _at(s * rows * cols, f32, ptrs.get("p", 0) % 16, dev)
+        c = _at(rows * cols, out, ptrs.get("c", 0) % 16, dev)
+        launch("reduce", out, part.view(s, rows, cols),
+               c.view(rows, cols), s, rows, cols)
+        return {"C": (c.data_ptr(), 0, 1)}
+    if kind == "quantize":
+        rows, cols, qband = shape
+        bands = -(-rows // qband)
+        x = torch.empty(rows * cols, dtype=dtype, device=dev)
+        amax = torch.empty(bands, dtype=torch.int32, device=dev)
+        scale = torch.empty(bands, dtype=f32, device=dev)
+        q = torch.empty(rows * cols, dtype=i8, device=dev)
+        launch("quantize", dtype, x, amax, scale, q, rows, cols,
+               qband, int(p["kmajor"]))
+        return {"amax": (amax.data_ptr(), 0, 1),
+                "scale": (scale.data_ptr(), 0, 1), "q": (q.data_ptr(), 0, 1)}
+    if kind == "transpose":
+        rows, cols = shape
+        src = torch.empty((rows, cols), dtype=i8, device=dev)
+        dst = torch.empty((cols, rows), dtype=i8, device=dev)
+        launch("tsm2r_q8", None, src, dst, rows, cols,
+               symbol="tsm2r_q8_transpose")
+        return {"q": (dst.data_ptr(), 0, 1)}
+    m, d1, d2 = shape
+    opd = i8 if q8 else dtype
+    pa, pb = (ptrs.get("a", ptrs.get("x", 0)) % 16,
+              ptrs.get("b", ptrs.get("y", 0)) % 16)
+    rows_b = d1 if kind != "tsmt" else m
+    x = _at(m * d1, opd, pa, dev).view(m, d1)
+    y = _at(rows_b * d2, opd, pb, dev)
+    y = (y.view(d2, rows_b).t() if p.get("b_kmajor") else
+         y.view(rows_b, d2))
+    sx = torch.empty(-(-m // band), dtype=f32, device=dev)
+    sy = torch.empty(-(-m // band) if kind == "tsmt" else 1, dtype=f32,
+                     device=dev)
+    scales = (sx, sy) if q8 else ()
+    name = kind + ("_q8" if q8 else "")
+    s = p.get("splits", 1)
+    out = p.get("out_dtype", dtype) if q8 else dtype
+    rows_c = m if kind != "tsmt" else d1
+    if kind == "tsm2l":
+        c = torch.empty((m, d2), dtype=out, device=dev)
+        launch(name, out, x, y, *scales, c, m, d1, d2,
+               *((band,) if q8 else ()))
+        return {"C": (c.data_ptr(), 0, 1)}
+    if kind == "tsmt" and s == 1:
+        slices, sl = p["slices"], p["slice"]
+        c = torch.empty((d1, d2), dtype=out, device=dev)
+        ws = None
+        if slices > 1:
+            ga, gb, _ = perf_model.tsmt_grid(0, d1, d2)
+            ws = torch.empty(slices * d1 * d2 + ga * gb, dtype=f32,
+                             device=dev)
+        launch(name, out, x, y, *scales, c, m, d1, d2,
+               *((band,) if q8 else ()), slices, sl, ws)
+        return {"C": (c.data_ptr(), 0, 1),
+                **({"P": (ws.data_ptr(), d1 * d2 * 4, slices)}
+                   if ws is not None else {})}
+    if s == 1:                                   # tsm2r, tsm2r_q8
+        c = torch.empty((m, d2), dtype=out, device=dev)
+        launch(name, out, x, y, *scales, c, m, d1, d2,
+               *((band, int(p.get("b_kmajor", False))) if q8 else ()))
+        return {"C": (c.data_ptr(), 0, 1)}
+    part = torch.empty((s, rows_c, d2), dtype=f32, device=dev)
+    launch(name + "_split", f32 if q8 else dtype, x, y, *scales,
+           part, m, d1, d2, *((band,) if q8 else ()), s, p["slice"])
+    return {"P": (part.data_ptr(), rows_c * d2 * 4, s)}
+
+
+def dataflow_phase(dev, gpu) -> dict:
+    """Every launch of the audit's resolved sweep
+    (``audit.resolved_launches``: its shapes, f32, bf16 and int8, each
+    split arm, base addresses on and off the 16-byte grid, the reduce
+    epilogues and the quantize passes), and one of each distinct (kernel,
+    body, dtype, S > 1) that the paths recorded, on the kernels'
+    block-map builds: the card's block records against
+    ``kernel_verify.block_map``, set for set, and ``check_blocks`` on the
+    records themselves."""
+    from repro_torch.analysis import audit, kernel_verify
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    built = BLOCK_MAP_BUILD["future"].result()   # raises if nvcc failed
+    BLOCK_MAP_BUILD["pool"].shutdown()
+    waited = time.perf_counter() - t0
+    build_s = max(built.values()) if built else 0.0
+    buf = torch.zeros(4 + DATAFLOW_CAP * kernel_verify.RECORD_INTS,
+                      dtype=torch.int32, device=dev)
+    head = buf[:4].view(torch.int64)
+    head[1] = DATAFLOW_CAP
+    for name in _build.KERNELS:
+        _build.set_block_map(name, buf.data_ptr())
+    card_spec = perf_model.device_spec(perf_model.H100, dev)
+    cases = [(*c, "sweep", None)
+             for c in audit.resolved_launches(card=card_spec)]
+    # tsm2r_q8's int8 layout copy (B row-major -> K-major), ragged and at
+    # the wk/wv shape
+    cases += [("transpose", shape, {}, torch.int8, "none", "sweep", None)
+              for shape in ((4100, 130), (4096, 256))]
+    seen = set()
+    for path, events in RECORDED.items():
+        for e in events:
+            for lm in e.launches:
+                kind = lm.kind.removesuffix("_q8")
+                key = (lm.kind, lm.params.get("body", "-"), str(lm.dtype),
+                       lm.splits > 1)
+                if key in seen:
+                    continue
+                seen.add(key)
+                q8 = lm.kind.endswith("_q8")
+                cases.append((kind, lm.shape, lm.params,
+                              torch.float32 if q8 else lm.dtype,
+                              "int8" if q8 else "none", path, lm.grid))
+    bad, launches, records, by_kind = [], 0, 0, {}
+    try:
+        for kind, shape, params, dtype, quant, path, grid in cases:
+            head[0] = 0
+            bases = dataflow_launch(kind, shape, params, dtype, quant,
+                                    dev)
+            torch.cuda.synchronize(dev)
+            n = int(head[0])
+            check(n <= DATAFLOW_CAP, f"{n} block records overflow "
+                  f"the {DATAFLOW_CAP}-record buffer")
+            card = kernel_verify.from_records(
+                buf[4:4 + n * kernel_verify.RECORD_INTS].cpu(), bases)
+            p = dict(params)
+            if kind == "tsm2l" and p["body"] == "tile" and card:
+                p["resident"] = card[0].grid[0]
+            subject = (f"{kind} {tuple(shape)} {dtype} quant={quant} "
+                       f"body={p.get('body', '-')} "
+                       f"S={p.get('splits', 1)} from {path}")
+            stated = kernel_verify.block_map(kind, shape, p, dtype,
+                                             quant=quant)
+            vios = (kernel_verify.compare(card, stated, subject)
+                    + kernel_verify.check_blocks(
+                        kind, shape, p, dtype, card, quant=quant,
+                        recorded_grid=grid, subject=subject))
+            bad.extend(v.to_json() for v in vios)
+            launches += 1
+            records += n
+            k = f"{kind}{'_q8' if quant == 'int8' else ''}:" \
+                f"{p.get('body', '-')}"
+            by_kind[k] = by_kind.get(k, 0) + 1
+    finally:
+        for name in _build.KERNELS:
+            _build.set_block_map(name, 0)
+    secs = time.perf_counter() - t0
+    rec = {"phase": "dataflow", "launches": launches, "records": records,
+           "block_map_build_s": build_s,
+           "build_waited_s": waited,
+           "from_sweep": sum(c[5] == "sweep" for c in cases),
+           "from_paths": sum(c[5] != "sweep" for c in cases),
+           "by_kind_body": by_kind, "violations": bad[:20],
+           "n_violations": len(bad), "seconds": secs,
+           "limit_s": DATAFLOW_MAX_S, "gpu": gpu}
+    emit(rec)
+    check(not bad, f"dataflow: {len(bad)} block-map violations: {bad[:3]}")
+    check(secs < DATAFLOW_MAX_S,
+          f"the dataflow phase took {secs:.1f} s, over {DATAFLOW_MAX_S}")
+    return rec
 
 
 def _bounds_ms(nbytes, flops, rate) -> dict:
@@ -7144,7 +7435,9 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     # ptxas's report compiles four sources again: beside the build, on a
-    # thread of its own (both wait on nvcc processes).
+    # thread of its own (both wait on nvcc processes). The block-map
+    # builds start when the libraries are in place and compile while the
+    # kernel phase runs; the dataflow phase waits for them.
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         report = pool.submit(_build.resource_usage, (
@@ -7153,6 +7446,10 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "per_kernel_s": secs, "nvcc": _build.nvcc()})
         resources = report.result()
+    BLOCK_MAP_BUILD["pool"] = concurrent.futures.ThreadPoolExecutor(1)
+    BLOCK_MAP_BUILD["t0"] = time.perf_counter()
+    BLOCK_MAP_BUILD["future"] = BLOCK_MAP_BUILD["pool"].submit(
+        _build.build, (), block_maps=_build.KERNELS)
     # The int8 TSMT bodies fit two blocks of 256 threads an SM (launch
     # bounds cap a thread at 128 registers) only if nothing spills.
     emit({"phase": "resources", "kernels": resources})
@@ -7891,8 +8188,15 @@ def main() -> int:
     check(sum(MESH_WALL.values()) < MESH_MAX_S,
           f"the mesh phase took {MESH_WALL} s, over {MESH_MAX_S}")
 
+    # -- 10k. the examples (a path of its own) ----------------------------
+    PATH["name"] = "examples"
+    examples_phase(dev, gpu, counts, zero_counts)
+
     # -- 11. every recorded launch against the contracts -------------------
     contracts_phase(dev, gpu)
+
+    # -- 11b. the kernels' block records against their statement ----------
+    dataflow_phase(dev, gpu)
 
     # -- 12. kernels line --------------------------------------------------
     replaces = {"tsm2r": "src/repro/kernels/tsm2r.py:62",

@@ -550,6 +550,38 @@ def reduce_plan(s: int, rows: int, cols: int, out_dtype, ptr_p: int = 0,
     return grid, REDUCE_THREADS, vec, REDUCE_CHUNK
 
 
+# The int8 quantize pass's launches (``csrc/quantize.cu``): elements a
+# block of the absmax and codes launches (a chunk never straddles a band),
+# and the side of the K-major codes' tiles; tsm2r_q8's int8 layout copy
+# (``csrc/tsm2r_q8.cu``) tiles by the same side.
+QUANT_CHUNK = 8192
+QUANT_TILE = 64
+
+
+def quantize_plan(rows: int, cols: int, band: int,
+                  kmajor: bool = False) -> dict:
+    """The quantize pass's launches over a [rows, cols] operand in
+    ``band``-row bands: the mirror of ``quantize.cu``'s ``run_v``.
+    ``bands``, ``chunks`` (blocks a band), ``band_elems`` and ``total``
+    (elements), the grid of the absmax launch and of the codes launch
+    (the same (band, chunk) blocks, or with ``kmajor`` the [cols, rows]
+    tiles of ``QUANT_TILE``)."""
+    band_elems, total = band * cols, rows * cols
+    chunks = -(-band_elems // QUANT_CHUNK)
+    bands = -(-rows // band)
+    flat = (bands * chunks, 1, 1)
+    tiled = (-(-cols // QUANT_TILE), -(-rows // QUANT_TILE), 1)
+    return {"bands": bands, "chunks": chunks, "band_elems": band_elems,
+            "total": total, "chunk": QUANT_CHUNK, "tile": QUANT_TILE,
+            "absmax_grid": flat, "codes_grid": tiled if kmajor else flat}
+
+
+def transpose_q8_grid(rows: int, cols: int) -> tuple:
+    """The grid of tsm2r_q8's int8 [rows, cols] -> [cols, rows] copy: one
+    block a ``QUANT_TILE`` x ``QUANT_TILE`` tile, x over cols."""
+    return (-(-cols // QUANT_TILE), -(-rows // QUANT_TILE), 1)
+
+
 def tsm2r_model_bytes(m: int, k: int, n: int, dtype=torch.float32, *,
                       splits: int = 1) -> int:
     """The device-memory bytes ``tsm2r_model_time`` prices: A once per
@@ -697,12 +729,18 @@ def _argmin(scored) -> int:
 
 def _candidates(kind, m, d1, d2, spec, dtype, cap) -> list[int]:
     """The S candidates up to ``cap`` whose launch the contracts accept
-    (aligned operands, the data sheet's limits). Where none is, all are
-    scored, and ``GemmPolicy.verify_contracts`` reports the launch."""
+    (aligned operands, the data sheet's limits) and whose whole-block
+    slices cover the reduction with none empty (``contracts.check_grid``:
+    past that ``ops.resolve_params`` launches fewer slices than the model
+    would have scored). Where none is, all are scored, and
+    ``GemmPolicy.verify_contracts`` reports the launch."""
     cands = [s for s in SPLIT_CANDIDATES if s <= cap]
-    return [s for s in cands if contracts.feasible(
-        kind, (m, d1, d2), kernel_params(kind, m, d1, d2, dtype, s, spec),
-        dtype)] or cands
+
+    def runs_as_scored(s):
+        p = kernel_params(kind, m, d1, d2, dtype, s, spec)
+        return (contracts.feasible(kind, (m, d1, d2), p, dtype)
+                and not contracts.check_grid(kind, (m, d1, d2), p))
+    return [s for s in cands if runs_as_scored(s)] or cands
 
 
 def split_candidates(kind: str, m: int, d1: int, d2: int,

@@ -17,6 +17,13 @@ takes seconds):
   else the one on ``PATH``.
 * A failed build raises ``RuntimeError`` with nvcc's output. Nothing falls
   back to the plain PyTorch versions: those run only for CPU tensors.
+* Block-map builds: the same source with ``-DTSM2X_BLOCK_MAP``
+  (``csrc/block_map.cuh``), loaded as its own library,
+  ``<name>-block-map-<hash>.so`` in the same directory. Thread 0 of each
+  block of such a build appends a record of the tile it writes and the
+  reduction it sums to the buffer ``set_block_map`` points the library
+  at; ``_launch.launch(..., block_map=True)`` launches these builds.
+  Without the flag the records compile to nothing.
 
 Every launcher ``<kernel>_<tag>`` returns the ``cudaError_t`` of its
 launch (or of the memset before it); its C signature is
@@ -49,7 +56,8 @@ the f32 split launcher's arguments after i (``sweep_variants``,
 ``sweep_launch``); the tsm2r_q8 library ``tsm2r_q8_plan(m, k, n, A, B,
 int* out)`` likewise (``plan`` with dtype tag "int8") and
 ``tsm2r_q8_transpose(src, dst, rows, cols, stream)``, an int8 [rows,
-cols] to [cols, rows] copy (``transpose_q8``); the tsm2r_q8_split library
+cols] to [cols, rows] copy (``launcher(name, None, symbol)``); the
+tsm2r_q8_split library
 ``tsm2r_q8_split_plan(m, k, n, splits, slice, A, int* out)``
 (``split_plan`` with dtype tag "int8") and
 ``tsm2r_q8_split_sweep_f32(i, ...)``, the int8 split launcher's arguments
@@ -117,8 +125,9 @@ TAGS = {name: ("f32",) if name.endswith("q8_split") else ("f32", "bf16")
         for name in KERNELS}
 _GRID_QUERIES = ("tsm2r_split", "tsmt_split", "tsm2r_q8_split",
                  "tsmt_q8_split")
+BLOCK_MAP_FLAGS = ("-DTSM2X_BLOCK_MAP",)
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, bool], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -135,27 +144,34 @@ def nvcc() -> str:
                        "to build the repro_torch CUDA kernels")
 
 
-def source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(block_map: bool) -> tuple:
+    return NVCC_FLAGS + BLOCK_MAP_FLAGS if block_map else NVCC_FLAGS
+
+
+def source_hash(name: str, block_map: bool = False) -> str:
+    h = hashlib.sha256(" ".join(_flags(block_map)).encode())
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return build_dir() / f"{name}-{source_hash(name)}.so"
+def library_path(name: str, block_map: bool = False) -> Path:
+    tag = "-block-map" if block_map else ""
+    return build_dir() / f"{name}{tag}-{source_hash(name, block_map)}.so"
 
 
-def _start(name: str):
-    """Start nvcc for one kernel unless its library exists; returns
-    (output path, temp path, process or None)."""
-    out = library_path(name)
+def _start(name: str, block_map: bool = False):
+    """Start nvcc for one kernel (its block-map build with ``block_map``)
+    unless its library exists; returns (output path, temp path, process
+    or None)."""
+    out = library_path(name, block_map)
     if out.exists():
         return out, None, None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *_flags(block_map), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
@@ -172,12 +188,14 @@ def _finish(name: str, out: Path, tmp: Path | None, proc) -> None:
     os.replace(tmp, out)   # atomic: a reader never sees a partial library
 
 
-def build(names=KERNELS) -> dict[str, float]:
-    """Build the named kernels, one nvcc process each, all started together.
-    Returns, per kernel, the seconds from the start until its library was
-    in place (0.0 for one already built)."""
+def build(names=KERNELS, *, block_maps=()) -> dict[str, float]:
+    """Build the named kernels and the block-map builds of ``block_maps``,
+    one nvcc process each, all started together. Returns, per library
+    (``<name>`` and ``<name>+block_map``), the seconds from the start until
+    it was in place (0.0 for one already built)."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
+    started.update({f"{n}+block_map": _start(n, True) for n in block_maps})
     secs, errors = {}, []
     for n, (out, tmp, proc) in started.items():
         try:   # wait for every nvcc before raising, so none outlives us
@@ -252,13 +270,20 @@ def _kernel_label(mangled: str) -> str:
     return f"{name}<{dtype}{','.join(args)}>"
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built at first use."""
+def library(name: str, block_map: bool = False) -> ctypes.CDLL:
+    """The loaded library of one kernel (its block-map build with
+    ``block_map``), built at first use."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, block_map))
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            if block_map:
+                build((), block_maps=(name,))
+            else:
+                build((name,))
+            lib = ctypes.CDLL(str(library_path(name, block_map)))
+            if block_map:
+                lib.tsm2x_block_map.argtypes = [_P]
+                lib.tsm2x_block_map.restype = ctypes.c_int
             for dt in TAGS[name]:
                 fn = getattr(lib, f"{name}_{dt}")
                 fn.argtypes = SIGNATURES[name]
@@ -327,13 +352,25 @@ def library(name: str) -> ctypes.CDLL:
                     fn = getattr(lib, f"reduce_rows_{tag}")
                     fn.argtypes = SIGNATURES["reduce"]
                     fn.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[(name, block_map)] = lib
         return lib
 
 
-def launcher(name: str, dtype_tag: str):
-    """The C launcher ``<name>_<dtype_tag>`` ("f32" or "bf16")."""
-    return getattr(library(name), f"{name}_{dtype_tag}")
+def launcher(name: str, dtype_tag: str | None, symbol: str | None = None,
+             block_map: bool = False):
+    """The C launcher ``<name>_<dtype_tag>`` ("f32" or "bf16"), or the
+    library's launcher ``symbol`` (tsm2r_q8's ``tsm2r_q8_transpose``), of
+    the kernel's library or (``block_map``) of its block-map build."""
+    return getattr(library(name, block_map), symbol or f"{name}_{dtype_tag}")
+
+
+def set_block_map(name: str, ptr: int) -> None:
+    """Point the block-map build of ``name`` at the record buffer at
+    device address ``ptr`` (two u64 words, the count and the capacity,
+    then the records; 0 records nothing)."""
+    err = library(name, True).tsm2x_block_map(ptr)
+    if err != 0:
+        raise RuntimeError(f"{name} block map: cudaError_t {err}")
 
 
 PLAN_TAGS = {"f32": 0, "bf16": 1}
@@ -514,14 +551,6 @@ def reduce_rows_launch(out_tag: str, *args) -> int:
     block) writing ``out_tag`` with the launcher's arguments; returns its
     cudaError_t."""
     return getattr(library("reduce"), f"reduce_rows_{out_tag}")(*args)
-
-
-def transpose_q8(src: int, dst: int, rows: int, cols: int,
-                 stream: int) -> int:
-    """Launch tsm2r_q8's int8 [rows, cols] -> [cols, rows] copy; returns
-    its cudaError_t."""
-    return library("tsm2r_q8").tsm2r_q8_transpose(src, dst, rows, cols,
-                                                  stream)
 
 
 def grid(name: str, m: int, d1: int, d2: int, splits: int) -> tuple:

@@ -46,22 +46,28 @@ def require_cuda(name: str, dev: torch.device) -> None:
         raise ValueError(f"{name} kernel needs CUDA tensors; got {dev}")
 
 
-def launch(name: str, dtype: torch.dtype, *args) -> None:
+def launch(name: str, dtype: torch.dtype | None, *args,
+           symbol: str | None = None, block_map: bool = False) -> None:
     """Launch ``<name>_<dtype tag>`` (the input dtype of an f32/bf16 kernel,
-    the output dtype of an int8 one) with ``args`` (tensors, passed as their
-    data pointers, None as a null pointer, and ints) on the current stream
-    of the first tensor's device, and raise on a non-zero cudaError_t.
-    Every tensor lies on that one CUDA device."""
+    the output dtype of an int8 one), or the launcher ``symbol`` of
+    ``name``'s library (``dtype`` then unused), with ``args`` (tensors,
+    passed as their data pointers, None as a null pointer, and ints) on
+    the current stream of the first tensor's device, and raise on a
+    non-zero cudaError_t. Every tensor lies on that one CUDA device.
+    ``block_map``: launch the library's block-map build
+    (``_build.set_block_map``)."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    require_cuda(name, dev)
-    fn = _build.launcher(name, _DTYPE_TAG[dtype])
+    require_cuda(symbol or name, dev)
+    fn = _build.launcher(name, None if symbol else _DTYPE_TAG[dtype], symbol,
+                         block_map)
     stream = torch.cuda.current_stream(dev).cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
               else 0 if a is None else int(a) for a in args]
     with torch.cuda.device(dev):
         err = fn(*c_args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{symbol or name} kernel launch failed: "
+                           f"cudaError_t {err}")
 
 
 def check_q8(name: str, x, y, x_scale, y_scale, x_bands: int,

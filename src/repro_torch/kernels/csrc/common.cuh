@@ -10,6 +10,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "block_map.cuh"
+
 namespace tsm2x {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -235,6 +237,11 @@ __device__ __forceinline__ void tsm2r_block(const T* __restrict__ A,
   const long row0 = (long)blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
   if (k_hi > k) k_hi = k;
+  TSM2X_BLOCK_RECORD(C, tsm2x::block_map::TSM2R_SIMT, row0,
+                     row0 + BM < m ? row0 + BM : m, col0,
+                     col0 + BN < n ? col0 + BN : n, k_lo, k_hi,
+                     block_map::acc_bytes<typename St::Acc>(),
+                     block_map::acc_int<typename St::Acc>());
 
   // The prefetch registers hold the raw input type and are converted only
   // when stored to shared memory: a conversion right after the load would
@@ -328,6 +335,10 @@ __device__ __forceinline__ void tsmt_block(const T* __restrict__ X,
   const int g = tid / TPG, t = tid % TPG;
   const int tx = t % CT, ty = t / CT;
   const int a0 = blockIdx.x * BA, b0 = blockIdx.y * BB;
+  TSM2X_BLOCK_RECORD(C, tsm2x::block_map::TSMT_SIMT, a0,
+                     a0 + BA < a_dim ? a0 + BA : a_dim, b0,
+                     b0 + BB < b_dim ? b0 + BB : b_dim, lo, hi,
+                     block_map::acc_bytes<V>(), block_map::acc_int<V>());
 
   bool a_ok[TA], b_ok[TB];
 #pragma unroll
@@ -431,9 +442,18 @@ __device__ __forceinline__ void tsmt_slices_run(
   body(P + s * ab, lo, hi);
   __threadfence();  // this block's partials, before its ticket
   __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(&count[blockIdx.y * gridDim.x + blockIdx.x], 1u) ==
-           (unsigned)(splits - 1);
+  if (threadIdx.x == 0) {
+    const unsigned ticket =
+        atomicAdd(&count[blockIdx.y * gridDim.x + blockIdx.x], 1u);
+    last = ticket == (unsigned)(splits - 1);
+    if (last)
+      TSM2X_BLOCK_RECORD(
+          C, tsm2x::block_map::TSMT_FINAL, blockIdx.x * BA,
+          blockIdx.x * BA + BA < a_dim ? blockIdx.x * BA + BA : a_dim,
+          blockIdx.y * BB,
+          blockIdx.y * BB + BB < b_dim ? blockIdx.y * BB + BB : b_dim, 0, m,
+          4, 0, 1, (int)ticket);
+  }
   __syncthreads();
   if (!last) return;
   __threadfence();  // the other slices' partials, before they are read
@@ -547,6 +567,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 
   for (long row0 = (long)blockIdx.x * BM; row0 < m;
        row0 += (long)gridDim.x * BM) {
+    TSM2X_BLOCK_RECORD(C, tsm2x::block_map::TSM2L_TILE, row0,
+                       row0 + BM < m ? row0 + BM : m, col0,
+                       col0 + BN < n ? col0 + BN : n, 0, k,
+                       block_map::acc_bytes<typename St::Acc>(),
+                       block_map::acc_int<typename St::Acc>(), 0, 0,
+                       row0 / BM);
     float acc[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)

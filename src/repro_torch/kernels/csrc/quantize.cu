@@ -85,6 +85,8 @@ __global__ void __launch_bounds__(THREADS)
   long begin, end;
   chunk_of(l, blockIdx.x, band, begin, end);
   if (begin >= end) return;
+  TSM2X_BLOCK_RECORD(amax, tsm2x::block_map::QUANT_ABSMAX, band, band + 1, 0,
+                     1, begin, end, 4, 0);
   float mx = 0.f;
   for (long i = begin + (long)threadIdx.x * V; i < end;
        i += (long)THREADS * V) {
@@ -116,13 +118,18 @@ __global__ void __launch_bounds__(THREADS)
                           const unsigned* __restrict__ amax,
                           float* __restrict__ scale, int8_t* __restrict__ q,
                           Layout l) {
-  if (blockIdx.x == 0)
+  if (blockIdx.x == 0) {
+    TSM2X_BLOCK_RECORD(scale, tsm2x::block_map::QUANT_SCALES, 0, l.bands, 0,
+                       1, 0, 0, 0, 0);
     for (int j = threadIdx.x; j < l.bands; j += THREADS)
       scale[j] = scale_of(amax[j]);
+  }
   int band;
   long begin, end;
   chunk_of(l, blockIdx.x, band, begin, end);
   if (begin >= end) return;
+  TSM2X_BLOCK_RECORD(q, tsm2x::block_map::QUANT_CODES, begin, end, 0, 1, 0,
+                     0, 0, 0);
   const float s = scale_of(amax[band]);
   for (long i = begin + (long)threadIdx.x * V; i < end;
        i += (long)THREADS * V) {
@@ -147,6 +154,12 @@ __global__ void __launch_bounds__(THREADS)
   const float s = scale_of(amax[0]);
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) scale[0] = s;
   const long r0 = (long)blockIdx.y * T_TILE, c0 = (long)blockIdx.x * T_TILE;
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    TSM2X_BLOCK_RECORD(scale, tsm2x::block_map::QUANT_SCALES, 0, 1, 0, 1, 0,
+                       0, 0, 0);
+  TSM2X_BLOCK_RECORD(q, tsm2x::block_map::QUANT_KMAJOR, c0,
+                     c0 + T_TILE < cols ? c0 + T_TILE : cols, r0,
+                     r0 + T_TILE < rows ? r0 + T_TILE : rows, 0, 0, 0, 0);
   const int tx = threadIdx.x % T_TILE, ty = threadIdx.x / T_TILE;
   for (int i = ty; i < T_TILE; i += THREADS / T_TILE) {
     const long r = r0 + i, c = c0 + tx;

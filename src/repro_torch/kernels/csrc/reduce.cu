@@ -117,6 +117,9 @@ __global__ void __launch_bounds__(NT)
   const long n_vec = n_elems / VEC;
   const long stride = (long)gridDim.x * NT;
   for (long v = (long)blockIdx.x * NT + threadIdx.x; v < n_vec; v += stride) {
+    TSM2X_BLOCK_RECORD(C, tsm2x::block_map::REDUCE, v * VEC,
+                       (v + NT < n_vec ? v + NT : n_vec) * VEC, 0, 1, 0,
+                       splits, 4, 0, 0, 0, v / NT);
     const float* p = P + v * VEC;
     float acc[VEC];
 #pragma unroll

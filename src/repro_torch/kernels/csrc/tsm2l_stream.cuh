@@ -381,6 +381,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long row0 = tile * p.bm;
     const int rows = m - row0 < p.bm ? (int)(m - row0) : p.bm;
+    TSM2X_BLOCK_RECORD(C, tsm2x::block_map::TSM2L_STREAM, row0, row0 + rows,
+                       0, n, 0, k, 4, Q8 ? 1 : 0, 0, 0, tile);
     tma::mbar_wait(&full[s], lap & 1);
     const uint8_t* st = ring + s * p.stage;
     Acc acc[R][NW];

@@ -119,6 +119,9 @@ __global__ void __launch_bounds__(256)
                               int8_t* __restrict__ dst, int rows, int cols) {
   __shared__ int8_t tile[T_TILE][T_TILE + 4];
   const long r0 = (long)blockIdx.y * T_TILE, c0 = (long)blockIdx.x * T_TILE;
+  TSM2X_BLOCK_RECORD(dst, tsm2x::block_map::TRANSPOSE, c0,
+                     c0 + T_TILE < cols ? c0 + T_TILE : cols, r0,
+                     r0 + T_TILE < rows ? r0 + T_TILE : rows, 0, 0, 0, 0);
   const int tx = threadIdx.x % T_TILE, ty = threadIdx.x / T_TILE;
   for (int i = ty; i < T_TILE; i += 256 / T_TILE) {
     const long r = r0 + i, c = c0 + tx;

@@ -154,6 +154,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x;
   const int steps = (k + BK - 1) / BK;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  TSM2X_BLOCK_RECORD(C, tsm2x::block_map::TSM2R_Q8_WGMMA, row0,
+                     row0 + BM < m ? row0 + BM : m, col0,
+                     col0 + BN < n ? col0 + BN : n, 0, k, 4, 1);
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {

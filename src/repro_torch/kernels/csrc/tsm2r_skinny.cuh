@@ -266,6 +266,9 @@ __device__ __forceinline__ void body(const CUtensorMap* map_a,
   const int steps = k_hi > k_lo ? (k_hi - kb + BK - 1) / BK : 0;
   const int row0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
+  TSM2X_BLOCK_RECORD(C + z * m * n, tsm2x::block_map::SKINNY, row0,
+                     row0 + BM < m ? row0 + BM : m, 0, n, k_lo, k_hi, 4,
+                     Q8 ? 1 : 0);
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {

@@ -139,6 +139,12 @@ __device__ __forceinline__ void block(const int8_t* __restrict__ X,
   const int ca = blockIdx.x * BA + tx * AW;   // this thread's first a column
   const int cb = blockIdx.y * BB + ty * BW;   // and first b column
   const bool a_ok = ca < a_dim, b_ok = cb < b_dim;
+  TSM2X_BLOCK_RECORD(
+      C, tsm2x::block_map::TSMT_PACKED, blockIdx.x * BA,
+      blockIdx.x * BA + BA < a_dim ? blockIdx.x * BA + BA : a_dim,
+      blockIdx.y * BB,
+      blockIdx.y * BB + BB < b_dim ? blockIdx.y * BB + BB : b_dim, lo, hi, 4,
+      1);
   const int8_t* xp = X + ca;
   const int8_t* yp = Y + cb;
 

@@ -171,13 +171,8 @@ def q8_transpose(b: torch.Tensor) -> torch.Tensor:
     rows, cols = src.shape
     dst = torch.empty((cols, rows), dtype=torch.int8, device=b.device)
     if dst.numel():
-        with torch.cuda.device(b.device):
-            err = _build.transpose_q8(
-                src.data_ptr(), dst.data_ptr(), rows, cols,
-                torch.cuda.current_stream(b.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"tsm2r_q8_transpose launch failed: "
-                               f"cudaError_t {err}")
+        _launch.launch("tsm2r_q8", None, src, dst, rows, cols,
+                       symbol="tsm2r_q8_transpose")
         q8_transpose_launches += 1
     return dst if is_kmajor(b) else dst.t()
 

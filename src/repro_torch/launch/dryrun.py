@@ -180,7 +180,11 @@ def _exec_shape_only(entry, kind, a, b, p):
     return _ShapeOnly.apply(a, b, entry, kind, p)
 
 
-tsmm.register_executor(SHAPE_ONLY, _exec_shape_only, overwrite=True)
+# It stands in for the per-shard executor on the card ("cuda") and keeps
+# its reduce contract.
+tsmm.register_executor(SHAPE_ONLY, _exec_shape_only,
+                       reduce=tsmm.executor_reduce_contract("cuda"),
+                       overwrite=True)
 
 
 def count(fn, *args, **kwargs):
@@ -267,6 +271,8 @@ def _fake_world(world: int) -> None:
     """A fake process group of ``world`` ranks (this process is rank 0);
     one a process."""
     import torch.distributed as dist
+    # repro: allow-torch-private-import (the fake process group of a
+    # 256- or 512-rank world in one process; torch ships no public one)
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         if dist.get_world_size() != world:

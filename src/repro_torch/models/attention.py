@@ -393,6 +393,9 @@ def _mla_decode_ctx(q_nope, q_pe, cache_c, cache_kpe, wukv, pos: int, *,
 
     if absorb:
         # q_c[b,h,l] = sum_d q_nope[b,h,d] * wuk[l,h,d]
+        # repro: allow-raw-param-matmul (absorbed decode: the 3-D per-head
+        # W_uk slice folds into a batch-1 f32 einsum -- no 2-D tsmm form,
+        # and per-step shapes never classify tall-skinny)
         q_c = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(), wuk.float())
         cc = cache_c.float()
         s_nope = torch.einsum("bhl,bsl->bhs", q_c, cc)
@@ -403,7 +406,11 @@ def _mla_decode_ctx(q_nope, q_pe, cache_c, cache_kpe, wukv, pos: int, *,
         scores = torch.where(mask, scores, _NEG)
         prob = torch.softmax(scores, dim=-1)
         ctx_c = torch.einsum("bhs,bsl->bhl", prob, cc)
+        # repro: allow-raw-param-matmul (absorbed decode W_uv fold; see wuk)
         return torch.einsum("bhl,lhd->bhd", ctx_c, wuv.float())
+    # repro: allow-raw-param-matmul (non-absorbed decode re-expands the
+    # latent cache through the 3-D per-head W_ukv -- same exemption as
+    # the absorbed path's folds above)
     kv = torch.einsum("bsl,lhd->bshd", cache_c.float(), wukv.float())
     k_nope, v = kv[..., :nope_dim], kv[..., nope_dim:]
     kpe = cache_kpe[:, :, None, :].float()

@@ -91,6 +91,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 def _dense_raw(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` summed in f32 and cast to ``x``'s dtype: the dense
     primitive a 1-D ``x`` takes (the JAX package's ``_dense_raw``)."""
+    # repro: allow-raw-param-matmul (this IS the dense primitive dense()
+    # routes non-tsmm shapes to -- 1-D inputs and the mode="dense" arm;
+    # wrapping it in tsmm would recurse)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
@@ -366,6 +369,9 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits in f32. A plain product outside any kernel: vocab-sized
     outputs never classify tall-and-skinny, and the JAX package leaves this
     dot to XLA as well."""
+    # repro: allow-raw-param-matmul (logits must stay f32 -- tsmm returns
+    # the operand dtype -- and vocab-sized outputs never classify
+    # tall-skinny)
     return torch.matmul(x.float(), table.float().transpose(0, 1))
 
 

@@ -225,6 +225,8 @@ def rwkv6_time_mix_ref(p: TimeMix, x, cfg: RWKV6Config):
     for t in range(s):
         kv = torch.einsum("bhd,bhe->bhde", kh[:, t], vh[:, t])
         wkv = st + p.u[None, :, :, None] * kv
+        # repro: allow-raw-param-matmul (wkv is the recurrent attention
+        # STATE, not a parameter -- the name trips the weight heuristic)
         ys.append(torch.einsum("bhd,bhde->bhe", rh[:, t], wkv))
         st = st * wh[:, t, ..., None] + kv
     y = torch.stack(ys, dim=1)                              # (B,S,H,D)
@@ -242,6 +244,8 @@ def _wkv_step(r, k, v, logw, u, state, h: int, dh: int, chunk: int):
     wt = torch.exp(_headed(logw, h, dh)[:, 0])
     kv = torch.einsum("bhd,bhe->bhde", kt, vt)
     wkv = state + u[None, :, :, None] * kv
+    # repro: allow-raw-param-matmul (wkv is recurrent state; see the
+    # chunked time mix)
     yt = torch.einsum("bhd,bhde->bhe", rt, wkv)[:, None]   # (B,1,H,D)
     return yt, state * wt[..., None] + kv
 

@@ -51,7 +51,11 @@ import dataclasses
 import functools
 
 import torch
+# repro: allow-torch-private-import (pytree's flatten of an op's
+# arguments has no public path in torch 2.11-2.13)
 from torch.utils import _pytree as pytree
+# repro: allow-torch-private-import (TorchDispatchMode, the hook that
+# sees every op with its shapes, has no public path in torch 2.11-2.13)
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 
@@ -158,6 +162,8 @@ def _collective(op: str, args, ins, outs) -> tuple[str, float, int]:
 def _fake_active(types) -> bool:
     """Whether the op runs for DTensor's sharding propagation (global
     shapes under a fake mode), which is not the rank's work."""
+    # repro: allow-torch-private-import (FakeTensorMode marks DTensor's
+    # sharding propagation; torch has no public path to it)
     from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
     return (any(issubclass(t, FakeTensor) for t in types)
             or any(isinstance(m, FakeTensorMode)

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no silent CPU.
 
-Every module of ``src/repro_torch``, ``chip_smoke.py`` and the port's
-scripts (``scripts/torch_*.py``) imports neither ``jax`` nor ``repro``
-(an AST scan, plus a subprocess that imports each module of the package
-with both blocked); the test modules that the two-rank worlds' ranks
+Every module of ``src/repro_torch``, ``chip_smoke.py``, the port's
+scripts (``scripts/torch_*.py``) and its examples (``examples/torch/``)
+imports neither ``jax`` nor ``repro`` (an AST scan, plus subprocesses that
+import each module of the package, each example and each script with both
+blocked); the test modules that the two-rank worlds' ranks
 import (the harness, the mesh runner and the files that name its arch)
 import neither at their top level. Entry points called without ``device=`` on a
 machine with no card raise instead of running on the CPU, and
@@ -23,8 +24,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "scripts").glob("torch_*.py")))
+SCRIPTS = sorted((ROOT / "scripts").glob("torch_*.py"))
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
+FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + SCRIPTS
+         + EXAMPLES)
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
         ".__init__") for p in PKG.rglob("*.py"))
@@ -74,6 +77,20 @@ def test_modules_import_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 15
+
+
+def test_examples_and_scripts_import_with_jax_and_repro_blocked():
+    code = ("import importlib.util, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"for i, path in enumerate({[str(p) for p in EXAMPLES + SCRIPTS]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'm{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert len(EXAMPLES) == 6 and SCRIPTS
 
 
 def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
@@ -149,8 +166,14 @@ def test_new_modules_are_scanned():
                 "repro_torch.launch.mesh", "repro_torch.models.moe",
                 "repro_torch.configs.mixtral_8x7b",
                 "repro_torch.configs.deepseek_v3_671b",
-                "repro_torch.models.heads"):
+                "repro_torch.models.heads", "repro_torch.analysis.lint",
+                "repro_torch.analysis.audit",
+                "repro_torch.analysis.kernel_verify"):
         assert mod in MODULES
+    for path in (*(EXAMPLES[0].parent / f"{n}.py" for n in (
+            "quickstart", "powersgd_abft", "train_lm", "serve_lm", "rsvd",
+            "kmeans")), ROOT / "scripts" / "torch_check_contracts.py"):
+        assert path in FILES
 
 
 def _smoke(cwd, claim_a_card=False):
